@@ -1,0 +1,73 @@
+"""duckdb_faiss_ext_tpu_torch — the PyTorch / CUDA port of duckdb_faiss_ext_tpu.
+
+The same ``faiss_*`` surface as the JAX package (the reference extension's
+SQL functions: named index create / add / search / filtered search / save /
+load / destroy), with the same error messages, result schema and checkpoint
+format, running on an NVIDIA H100.  This slice covers the ``Flat`` and
+``IDMap,Flat`` families over all nine metrics; L2 and inner-product search
+run through a hand-written CUDA kernel (``csrc/flat_topk.cu``).
+
+Every index keeps its corpus on ``config.device`` (``"cuda"`` by default;
+``set_device("cpu")`` runs the plain torch paths on the CPU).
+"""
+
+from .api import (
+    RESULT_DTYPE,
+    create_mask,
+    faiss_add,
+    faiss_create,
+    faiss_create_params,
+    faiss_destroy,
+    faiss_load,
+    faiss_manual_train,
+    faiss_save,
+    faiss_search,
+    faiss_search_batched,
+    faiss_search_filter,
+    faiss_search_filter_set,
+    faiss_stats,
+    register_create_parameter,
+)
+from .catalog import GLOBAL_CATALOG, Catalog, IndexEntry
+from .errors import InvalidInputError
+from .factory import build_index
+from .metrics import metric_names, resolve_metric
+from .ops.selectors import BitmapSelector, SetSelector
+from .params import ParamMap
+from .sql import Database, register_table
+from .utils.config import config, set_device, set_precision
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "RESULT_DTYPE",
+    "create_mask",
+    "faiss_add",
+    "faiss_create",
+    "faiss_create_params",
+    "faiss_destroy",
+    "faiss_load",
+    "faiss_manual_train",
+    "faiss_save",
+    "faiss_search",
+    "faiss_search_batched",
+    "faiss_search_filter",
+    "faiss_search_filter_set",
+    "faiss_stats",
+    "GLOBAL_CATALOG",
+    "Catalog",
+    "IndexEntry",
+    "InvalidInputError",
+    "build_index",
+    "metric_names",
+    "resolve_metric",
+    "BitmapSelector",
+    "SetSelector",
+    "ParamMap",
+    "Database",
+    "config",
+    "register_create_parameter",
+    "register_table",
+    "set_device",
+    "set_precision",
+]

@@ -1,0 +1,97 @@
+"""Global runtime configuration.
+
+``precision_mode`` selects the float32 matmul mode of the plain torch paths:
+
+* ``"parity"`` — full fp32: TF32 is switched off for both cuBLAS matmuls
+  and cuDNN (the counterpart of ``lax.Precision.HIGHEST``), required to
+  match the reference's fp32 BLAS distances (the golden-value tests,
+  test/sql/faiss.test:16-38).
+* ``"fast"``   — TF32 allowed.  The hand-written Flat kernel
+  (ops/flat_topk.py) computes in fp32 FMA in both modes.
+
+``device`` names where every index keeps its corpus and runs its search.
+It defaults to ``"cuda"``; asking for ``"cuda"`` on a machine without a
+card raises (``resolve_device``) instead of carrying on on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+_PRECISIONS = ("parity", "fast")
+
+
+@dataclasses.dataclass
+class Config:
+    precision_mode: str = "parity"
+    #: device holding corpora and running searches: "cuda" or "cpu"
+    device: str = "cuda"
+    #: minimum padded corpus capacity (power of two)
+    min_capacity: int = 128
+    #: minimum padded query-batch bucket
+    min_query_bucket: int = 8
+
+
+config = Config()
+
+
+def _apply_precision(mode: str) -> None:
+    tf32 = mode == "fast"
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+
+
+_apply_precision(config.precision_mode)
+
+
+def set_precision(mode: str) -> None:
+    if mode not in _PRECISIONS:
+        raise ValueError(f"precision mode must be one of {sorted(_PRECISIONS)}")
+    config.precision_mode = mode
+    _apply_precision(mode)
+
+
+def set_device(device: str) -> None:
+    """Select where new searches run ("cuda" or "cpu"); raises when CUDA is
+    asked for and no card is present."""
+    resolve_device(device)
+    config.device = device
+
+
+def resolve_device(device: str | None = None) -> torch.device:
+    dev = torch.device(config.device if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "duckdb_faiss_ext_tpu_torch: device 'cuda' was requested but "
+            "torch.cuda.is_available() is False; set config.device = 'cpu' "
+            "to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
+
+
+def next_capacity(n: int) -> int:
+    """Device-buffer capacity schedule: powers of two up to 1M rows
+    (amortised growth), then 1M-row increments — pow2 padding would waste
+    up to 2x device memory at 10M+ rows."""
+    n = int(n)
+    if n <= (1 << 20):
+        return next_pow2(max(n, 1))
+    step = 1 << 20
+    return step * -(-n // step)
+
+
+def pad_rows(arr, target: int, fill=0.0):
+    """Pad (n, ...) numpy array with fill rows up to target rows."""
+    n = arr.shape[0]
+    if n == target:
+        return arr
+    pad = [(0, target - n)] + [(0, 0)] * (arr.ndim - 1)
+    return np.pad(arr, pad, constant_values=fill)

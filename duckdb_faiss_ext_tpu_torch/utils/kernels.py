@@ -1,0 +1,104 @@
+"""Build and load the package's CUDA kernels (``csrc/*.cu``).
+
+At first use, ``nvcc`` compiles every source in ``csrc/`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, which is
+loaded with ctypes.  The library is named by a hash of the sources and the
+flags, so an edited source is rebuilt and a stale library is never loaded;
+a file lock keeps concurrent processes from building the same library
+twice.  ``nvcc`` is found through ``CUDA_HOME`` or ``/usr/local/cuda/bin``;
+without it, loading raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+#: seconds the last build took in this process (0.0 when the library was
+#: already built)
+build_seconds = 0.0
+
+
+def find_nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(home) / "bin" / "nvcc"] if home else []
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin and /usr/local/cuda/bin): "
+        "the CUDA kernels of duckdb_faiss_ext_tpu_torch cannot be built")
+
+
+def _library_path(sources: list[Path]) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libdfx_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _build(so: Path, sources: list[Path]) -> None:
+    global build_seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if so.exists():
+                return
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 *map(str, sources)],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, so)
+            build_seconds = time.perf_counter() - t0
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dfx_flat_topk.restype = ctypes.c_int
+    lib.dfx_flat_topk.argtypes = [
+        p, p, p,            # xb, xq, mask
+        i, i, ll, i, i,     # nq, d, n_scan, k, l2
+        i, i, i, ll,        # rq, vec4, splits, rows_per_split
+        i, i,               # slots, merge_warps
+        p, p, p, p,         # part_s, part_p, out_s, out_p
+        p,                  # stream
+    ]
+
+
+def load_library() -> ctypes.CDLL:
+    """The compiled kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            sources = sorted(CSRC.glob("*.cu"))
+            so = _library_path(sources)
+            if not so.exists():
+                _build(so, sources)
+            lib = ctypes.CDLL(str(so))
+            _bind(lib)
+            _lib = lib
+        return _lib

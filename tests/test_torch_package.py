@@ -1,0 +1,117 @@
+"""Package-level properties of duckdb_faiss_ext_tpu_torch.
+
+* it imports and searches without JAX;
+* asking for the CUDA device where torch sees no card raises, instead of
+  running on the CPU;
+* the kernel build finds nvcc or raises, and names the library by a hash
+  of the sources;
+* on the card (``-m gpu``), the CUDA kernel matches its plain version.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import duckdb_faiss_ext_tpu_torch as dt
+from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+from duckdb_faiss_ext_tpu_torch.utils import kernels
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_imports_and_searches_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import duckdb_faiss_ext_tpu_torch as dt
+        dt.set_device("cpu")
+        xb = np.random.default_rng(0).standard_normal((50, 4)).astype("f4")
+        dt.faiss_create("i", 4, "IDMap,Flat", metric_type="L2")
+        dt.faiss_add((np.arange(50) + 7, xb), "i")
+        res = dt.faiss_search("i", 3, xb[:2])
+        assert res["label"][:, 0].tolist() == [7, 8], res
+        assert not [m for m in sys.modules if m.split(".")[0] in
+                    ("jax", "jaxlib", "duckdb_faiss_ext_tpu")]
+        print("ok")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    prev = dt.config.device
+    try:
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            dt.set_device("cuda")
+        dt.config.device = "cuda"
+        cat = dt.Catalog()
+        with pytest.raises(RuntimeError, match="device 'cuda'"):
+            dt.faiss_create("c", 4, "Flat", catalog=cat)
+        assert cat.names() == []
+    finally:
+        dt.config.device = prev
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    if os.path.isfile("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is installed in /usr/local/cuda")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.find_nvcc()
+
+
+def test_library_named_by_source_hash(tmp_path):
+    a = tmp_path / "a.cu"
+    a.write_text("// one")
+    first = kernels._library_path([a])
+    assert first.parent == kernels.BUILD_DIR
+    assert first == kernels._library_path([a])
+    a.write_text("// two")
+    assert kernels._library_path([a]) != first
+
+
+def test_build_dir_is_ignored_by_git():
+    """The kernel library is built at run time, never committed."""
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        lines = {line.strip() for line in f}
+    assert kernels.BUILD_DIR.name == "build" and "build/" in lines
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("nq,d,k", [(1, 8, 1), (48, 128, 10), (64, 1536, 1024)])
+def test_kernel_matches_plain_on_card(metric, nq, d, k):
+    """The CUDA kernel against its plain torch version on the same card
+    tensors; distances within 1e-5 relative to the largest score,
+    positions equal wherever neighbouring scores are further apart."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the H100)")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cap, nvalid = 8192, 8000
+    xb = torch.randn(cap, d, device="cuda", generator=g)
+    xq = torch.randn(nq, d, device="cuda", generator=g)
+    mask = torch.rand(cap, device="cuda", generator=g) < 0.5
+    before = ft.LAUNCHES
+    s, p = ft.flat_topk(xb, nvalid, xq, k, metric, mask)
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES == before + 1
+    rs, rp = ft.flat_topk_reference(xb, nvalid, xq, k, metric, mask)
+    s, p, rs, rp = (t.cpu().numpy() for t in (s, p, rs, rp))
+    tol = 1e-5 * np.abs(rs[np.isfinite(rs)]).max()
+    np.testing.assert_allclose(s, rs, rtol=0, atol=tol)
+    gap = np.diff(rs, axis=1)
+    separated = np.ones_like(rs, bool)
+    separated[:, 1:] &= np.abs(gap) > 2 * tol
+    separated[:, :-1] &= np.abs(gap) > 2 * tol
+    np.testing.assert_array_equal(p[separated], rp[separated])

@@ -21,7 +21,27 @@ Phases (any failure raises and the script exits non-zero):
    faiss_search_batched 16 x b48 → faiss_search_filter('id%2==0') over a
    registered 1M-row table.  Every result is checked against the plain
    version (recall@10 = 1.0, distances within tolerance) and the path must
-   have launched the kernel; then kernel and plain version are timed.
+   have launched the kernel; then kernel and plain version are timed;
+6. IVF sweep: the per-query list scan (K6, ops/ivf_list_scan.py) and the
+   pair-tile scan (K7, ops/ivf_pairs.py) against their plain versions on
+   the card, raw scores element by element: L2 and inner product, with and
+   without a mask, nprobe 1 / 3 / 64, d 8 / 128 / 1536, lmax 256 and 1024
+   (counts on both sides of 256, 512 and 768), lists of count 0 and
+   count == lmax, pair tiles with dead slots and n_tiles < t_max;
+7. IVF main path: IDMap,IVF4096,Flat L2 over the same corpus
+   (BASELINE.json configs[2]): faiss_manual_train on its first 262,144
+   rows → faiss_add of all 1M with ids → faiss_search at nprobe 64 at b48
+   and b1024, faiss_search_batched 16 x b48, faiss_search_filter.  Every
+   result is held against the plain list scan on the same layout (labels
+   equal where distances are separated), the kernel launch counts must
+   match the calls, and recall@10 against exact Flat is printed; K6's and
+   K7's raw scores at b1024 are held against their plain versions; then
+   K6 is timed against its plain version, K7 against K6 and the top-k of
+   the score block alone at b1024, and faiss_search wall time is taken;
+8. pair-tile path: IVF1024,Flat inner product over 262,144 x 1536
+   (seed 7) at nprobe 16: b1024 goes through K7 by the static gate and
+   b48 through K6, both held against the plain path; K7's raw tiles at
+   b1024 are held against its plain version, then timed against it.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the JSON result line {"ok": true, "device": {...}}.
@@ -56,6 +76,24 @@ KERNEL = {
     "source": "duckdb_faiss_ext_tpu_torch/csrc/flat_topk.cu",
     "replaces": "duckdb_faiss_ext_tpu/ops/pallas_topk.py:40",
 }
+IVF_LIST_KERNEL = {
+    "name": "ivf_list_scan",
+    "route": "cuda",
+    "source": "duckdb_faiss_ext_tpu_torch/csrc/ivf_list_scan.cu",
+    "replaces": "duckdb_faiss_ext_tpu/ops/pallas_ivf.py:63",
+}
+IVF_PAIRS_KERNEL = {
+    "name": "ivf_pairs",
+    "route": "cuda",
+    "source": "duckdb_faiss_ext_tpu_torch/csrc/ivf_pairs.cu",
+    "replaces": "duckdb_faiss_ext_tpu/ops/pallas_ivf_pairs.py:748",
+}
+#: IVF main path (bench.py:231-271, BASELINE.json configs[2]): IVF4096
+#: trained on the first 262,144 rows, searched at nprobe 64
+IVF_TRAIN, IVF_NPROBE = 262_144, 64
+#: pair-tile path at the ada-002 width of the reference's MS MARCO corpus,
+#: rows cut from 8.8M
+PAIRS_N, PAIRS_D, PAIRS_NLIST, PAIRS_NPROBE = 262_144, 1536, 1024, 16
 
 # test/sql/faiss.test:16-38 of the reference: k=2 IP distances per query.
 GOLDEN_FLAT_DISTANCES = [
@@ -266,23 +304,31 @@ def catalog_device(cat, name):
     return getattr(index, "inner", index).device.type
 
 
-def phase_main_path(smi):
+def main_path_data():
+    """The 1M x 128 clustered corpus (seed 42) and its query batches, shared
+    by the Flat and IVF main paths."""
+    t0 = time.perf_counter()
+    xb, xq_all = synthetic_dataset(N, D, nq=BATCH + BIG_BATCH, seed=42)
+    data = {"xb": xb, "ids": np.arange(N, dtype=np.int64),
+            "b48": xq_all[:BATCH], "b1024": xq_all[BATCH:],
+            "batched": xq_all[:BATCH * N_BATCHES]}
+    log(f"main path: corpus {N}x{D} generated "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return data
+
+
+def phase_main_path(smi, data):
     import duckdb_faiss_ext_tpu_torch as dt
     from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
     from duckdb_faiss_ext_tpu_torch.ops.flat_search import finalize_scores
     from duckdb_faiss_ext_tpu_torch.utils.config import (config, next_pow2,
                                                           pad_rows)
 
-    t0 = time.perf_counter()
-    xb, xq_all = synthetic_dataset(N, D, nq=BATCH + BIG_BATCH, seed=42)
-    ids = np.arange(N, dtype=np.int64)
-    xq48, xq1024 = xq_all[:BATCH], xq_all[BATCH:]
-    xq_batched = xq_all[:BATCH * N_BATCHES]
+    xb, ids = data["xb"], data["ids"]
+    xq48, xq1024, xq_batched = data["b48"], data["b1024"], data["batched"]
     db = dt.Database()
     db.register("base", {"id": ids})
     cat = dt.Catalog()
-    log(f"main path: corpus {N}x{D} generated "
-        f"({time.perf_counter() - t0:.1f} s)")
 
     ft.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -351,7 +397,8 @@ def phase_main_path(smi):
             f"kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms (median CUDA events); faiss_search wall "
             f"{statistics.median(walls):.3f} ms (median) [{smi}]")
-    return max_err, launches, timings
+    exact = {name: out[name]["label"] for name in ("b48", "b1024")}
+    return max_err, launches, timings, exact
 
 
 def phase_time_1536(smi):
@@ -371,19 +418,405 @@ def phase_time_1536(smi):
             f"{plain_ms:.3f} ms (median CUDA events) [{smi}]")
 
 
+def compare_raw(got, want, qn):
+    """Raw score blocks (rows, slots) of a kernel and its plain version, on
+    the card: -inf slots agree exactly, every other score to REL_TOL of its
+    row's scale (the larger of its largest |score| and |q|^2).  Returns
+    the max abs error."""
+    finite = torch.isfinite(want)
+    check(torch.equal(torch.isneginf(got), torch.isneginf(want)),
+          "-inf slots differ")
+    check(bool(torch.isfinite(got[finite]).all()), "non-finite score")
+    if not bool(finite.any()):
+        return 0.0
+    tol = REL_TOL * torch.maximum(
+        torch.where(finite, want.abs(), 0.0).amax(1), qn)
+    diff = torch.where(finite, (got - want).abs(), 0.0)
+    err = float(diff.max())
+    check(bool((diff <= tol[:, None]).all()), f"score error {err} above "
+          f"tolerance")
+    return err
+
+
+def k6_raw_error(lists, counts, probe, xq, mask, metric):
+    """K6's raw (nq, nprobe, lmax) scores against its plain version on the
+    same card tensors."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+
+    raw = k6.ivf_list_scan(lists, counts, probe, xq, mask, metric)
+    ref = k6.ivf_list_scan_reference(lists, counts, probe, xq, mask, metric)
+    nq, nprobe, lmax = raw.shape
+    qn = (xq * xq).sum(1)[:, None].expand(nq, nprobe)
+    return compare_raw(raw.reshape(-1, lmax), ref.reshape(-1, lmax),
+                       qn.reshape(-1))
+
+
+def k7_raw_error(lists, counts, xq_t, qs_t, meta, mask, metric):
+    """K7's raw (t_max, qg, lmax) tiles against its plain version on the
+    same card tensors, over the n_tiles real tiles (the kernel leaves the
+    rest unwritten)."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+
+    raw = k7.ivf_pairs_scan(lists, counts, xq_t, qs_t, meta, mask, metric)
+    ref = k7.ivf_pairs_scan_reference(lists, counts, xq_t, qs_t, meta, mask,
+                                      metric)
+    n_tiles, lmax = int(meta[0]), raw.shape[2]
+    return compare_raw(raw[:n_tiles].reshape(-1, lmax),
+                       ref[:n_tiles].reshape(-1, lmax),
+                       qs_t[:n_tiles, :, 1].reshape(-1))
+
+
+def probe_table(g, nq, nlist, nprobe):
+    """Distinct random lists per query; query 0 probes list 0 (empty) and
+    query 1 list 1 (full) first."""
+    keys = torch.rand(nq, nlist, device=DEVICE, generator=g)
+    keys[0, 0] = keys[1, 1] = -1.0
+    return keys.argsort(1)[:, :nprobe].to(torch.int32).contiguous()
+
+
+def phase_ivf_sweep():
+    """K6 and K7 against their plain versions: L2 / IP, mask off / on,
+    nprobe 1 / 3 / 64, d 8 / 128 / 1536, lmax 256 and 1024 (counts on both
+    sides of each 256-row chunk edge of K7), lists of count 0 and count ==
+    lmax, K7 with dead slots and n_tiles < t_max."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+
+    g = torch.Generator(device=DEVICE).manual_seed(4321)
+    nlist, nq6, nq7 = 64, BATCH, 256
+    before = (k6.LAUNCHES, k7.LAUNCHES)
+    err6 = err7 = 0.0
+    n_cases = 0
+    for d, lmax in itertools.product(SWEEP_D, (256, 1024)):
+        t0 = time.perf_counter()
+        counts = torch.randint(1, lmax, (nlist,), device=DEVICE, generator=g,
+                               dtype=torch.int32)
+        counts[0], counts[1] = 0, lmax
+        if lmax > 256:
+            counts[2:8] = torch.tensor([255, 257, 511, 513, 767, 769])
+        lane = torch.arange(lmax, device=DEVICE)
+        lists = torch.randn(nlist, lmax, d, device=DEVICE, generator=g)
+        lists *= (lane[None, :] < counts[:, None])[:, :, None]
+        mask = (torch.rand(nlist, lmax, device=DEVICE, generator=g)
+                < 0.6).to(torch.int8)
+        xq = torch.randn(nq7, d, device=DEVICE, generator=g)
+        for metric, m, nprobe in itertools.product(
+                ("L2", "INNER_PRODUCT"), (None, mask), (1, 3, 64)):
+            probe = probe_table(g, nq7, nlist, nprobe)
+            err6 = max(err6, k6_raw_error(lists, counts,
+                                          probe[:nq6].contiguous(),
+                                          xq[:nq6].contiguous(), m, metric))
+            xq_t, qs_t, meta, _ = k7.pair_tile_inputs(probe, xq, nlist)
+            check(int(meta[0]) < xq_t.shape[0], "no padding tiles")
+            check(bool(torch.isneginf(qs_t[:int(meta[0]), :, 0]).any())
+                  or nprobe * nq7 % k7.QG == 0, "no dead slots")
+            err7 = max(err7, k7_raw_error(lists, counts, xq_t, qs_t, meta, m,
+                                          metric))
+            n_cases += 1
+        log(f"ivf sweep d={d} lmax={lmax}: 12 cases x (K6, K7) agree "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del lists, mask, xq
+        torch.cuda.empty_cache()
+    check((k6.LAUNCHES - before[0], k7.LAUNCHES - before[1])
+          == (n_cases, n_cases), "an ivf sweep case did not launch")
+    log(f"ivf sweep: {n_cases} cases each, max abs score error K6 "
+        f"{err6:.3g}, K7 {err7:.3g}")
+    return err6, err7
+
+
+def plain_ivf_search(index, xq, k, nprobe, mask=None):
+    """The IVF,Flat search of ``index`` (no IDMap) through the plain list
+    scan on the same device layout: the coarse top-nprobe on the batch
+    padded as the index pads it, K6's plain version, top-k, positions.
+    Returns (distances, storage ids) as numpy."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import (exact_topk,
+                                                            finalize_scores)
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
+    from duckdb_faiss_ext_tpu_torch.utils.config import (config, next_pow2,
+                                                          pad_rows)
+
+    lay = index._build_device_layout()
+    nq = xq.shape[0]
+    nq_pad = max(config.min_query_bucket, next_pow2(nq))
+    xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(DEVICE)
+    metric = index.metric.name
+    probe = coarse_topk(xq_pad, lay.centroids, nprobe, metric)[:nq]
+    raw = k6.ivf_list_scan_reference(lay.payload, lay.counts,
+                                     probe.contiguous(), xq_pad[:nq], mask,
+                                     metric)
+    lmax = lay.payload.shape[1]
+    best, sel = exact_topk(raw.reshape(nq, -1), k)
+    pos = lay.row_pos[probe.long().gather(1, sel // lmax), sel % lmax]
+    dist, pos = finalize_scores(best, pos, metric)
+    pos = pos.cpu().numpy()
+    return dist.cpu().numpy(), np.where(pos >= 0, index._ids[pos], -1)
+
+
+def compare_results(name, res, ref_dist, ref_labels, similarity):
+    """A public-API result against the plain path, computed one wider so
+    the k-th label is checked only where the (k+1)-th distance is apart
+    from it: distances within REL_TOL of the batch's largest, labels equal
+    wherever the neighbouring distances are further apart than that.
+    Returns the max abs error."""
+    k = res["label"].shape[1]
+    check(ref_labels.shape[1] == k + 1, f"{name}: plain path not one wider")
+    finite = np.isfinite(ref_dist[:, :k])
+    check(np.array_equal(np.isfinite(res["distance"]), finite),
+          f"{name}: missing slots differ")
+    tol = REL_TOL * float(np.abs(ref_dist[np.isfinite(ref_dist)]).max())
+    err = float(np.abs(np.where(finite, res["distance"], 0)
+                       - np.where(finite, ref_dist[:, :k], 0)).max())
+    check(err <= tol, f"{name}: distance error {err} > {tol}")
+    key = np.where(np.isfinite(ref_dist),
+                   -ref_dist if similarity else ref_dist, np.inf)
+    gap = np.abs(np.diff(key, axis=1)) > 2 * tol
+    sep = finite & gap[:, :k]
+    sep[:, 1:] &= gap[:, :k - 1]
+    bad = np.argwhere(sep & (res["label"] != ref_labels[:, :k]))
+    check(not bad.size, f"{name}: labels differ at {bad[:5].tolist()}")
+    return err
+
+
+def phase_ivf_main(smi, data, exact):
+    """IDMap,IVF4096,Flat L2 over the 1M x 128 corpus at nprobe 64, through
+    the public API; every result held against the plain path."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import exact_topk
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
+    from duckdb_faiss_ext_tpu_torch.utils.config import pad_rows
+
+    xb, ids = data["xb"], data["ids"]
+    db = dt.Database()
+    db.register("base", {"id": ids})
+    cat = dt.Catalog()
+    params = {"nprobe": str(IVF_NPROBE)}
+    t0 = time.perf_counter()
+    dt.faiss_create("ivf", D, "IDMap,IVF4096,Flat", metric_type="L2",
+                    catalog=cat)
+    dt.faiss_manual_train(xb[:IVF_TRAIN], "ivf", catalog=cat)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dt.faiss_add((ids, xb), "ivf", catalog=cat)
+    t_add = time.perf_counter() - t0
+    index = cat.get("ivf").index.inner
+    t0 = time.perf_counter()
+    lay = index._build_device_layout()
+    t_layout = time.perf_counter() - t0
+    check(index._layout_plan() == ("full", None), "no full layout plan")
+    lmax = lay.payload.shape[1]
+    log(f"ivf main path: train {t_train:.2f} s, add {t_add:.2f} s, layout "
+        f"build+upload {t_layout:.2f} s; lmax {lmax}, longest list "
+        f"{int(lay.counts.max())}")
+
+    k6.LAUNCHES = k7.LAUNCHES = 0
+    out = {
+        "b48": dt.faiss_search("ivf", K, data["b48"], params, catalog=cat),
+        "b1024": dt.faiss_search("ivf", K, data["b1024"], params,
+                                 catalog=cat),
+        "batched": dt.faiss_search_batched("ivf", K, data["batched"], params,
+                                           batch_size=BATCH, catalog=cat),
+        "filter": dt.faiss_search_filter("ivf", K, data["b48"], "id%2==0",
+                                         "id", "base", params, catalog=cat,
+                                         database=db),
+    }
+    launches = (k6.LAUNCHES, k7.LAUNCHES)
+    calls = [(64, 1), (BIG_BATCH, 1), (64, N_BATCHES), (64, 1)]
+    expected = (sum(n for nq, n in calls if not index.pairs_wanted(nq, lmax)),
+                sum(n for nq, n in calls if index.pairs_wanted(nq, lmax)))
+    check(launches == expected, f"ivf main path launched (K6, K7) "
+          f"{launches} times, not {expected}")
+    check(index.device.type == DEVICE, "index not on the card")
+    log(f"ivf main path: (K6, K7) launches {launches}")
+
+    even = ((lay.row_pos >= 0) & (lay.row_pos % 2 == 0)).to(torch.int8)
+    max_err = 0.0
+    for name, xq, m in (("b48", data["b48"], None),
+                        ("b1024", data["b1024"], None),
+                        ("batched", data["batched"], None),
+                        ("filter", data["b48"], even)):
+        # The plain path runs each batch as the index ran it (batched:
+        # 48 queries at a time), so the coarse top-k sees the same shapes.
+        step = BATCH if name == "batched" else xq.shape[0]
+        parts = [plain_ivf_search(index, xq[s:s + step], K + 1, IVF_NPROBE,
+                                  m)
+                 for s in range(0, xq.shape[0], step)]
+        ref_d = np.concatenate([p[0] for p in parts])
+        ref_l = np.concatenate([p[1] for p in parts])
+        res = out[name]
+        check(np.isfinite(res["distance"]).all(), f"{name}: non-finite")
+        max_err = max(max_err, compare_results(f"ivf {name}", res, ref_d,
+                                               ref_l, False))
+        if m is not None:
+            check((res["label"] % 2 == 0).all(), "filter: odd label")
+        recall = (np.mean([len(set(a) & set(b)) / K for a, b in
+                           zip(res["label"], exact[name])])
+                  if name in exact else float("nan"))
+        log(f"ivf main path {name}: {xq.shape[0]} queries agree with the "
+            f"plain path (max distance error {max_err:.3g}); recall@10 vs "
+            f"exact Flat {recall:.4f}")
+
+    timings = {}
+    for name in ("b48", "b1024"):
+        xq = data[name]
+        nq_pad = 64 if name == "b48" else BIG_BATCH
+        xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(DEVICE)
+        probe = coarse_topk(xq_pad, lay.centroids, IVF_NPROBE, "L2")
+        args = (lay.payload, lay.counts, probe, xq_pad, None, "L2")
+        ms, plain_ms = time_pair(lambda: k6.ivf_list_scan(*args),
+                                 lambda: k6.ivf_list_scan_reference(*args))
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            dt.faiss_search("ivf", K, xq, params, catalog=cat)
+            walls.append(1e3 * (time.perf_counter() - t0))
+        timings[name] = (ms, plain_ms)
+        log(f"time IVF4096 {N}x{D} L2 nprobe {IVF_NPROBE} {name} ({nq_pad} "
+            f"rows launched): K6 {ms:.3f} ms, plain {plain_ms:.3f} ms "
+            f"(median CUDA events); faiss_search wall "
+            f"{statistics.median(walls):.3f} ms (median) [{smi}]")
+        if name == "b1024":
+            search = dict(k=K, metric="L2")
+            lists = (lay.payload, lay.counts, lay.row_pos, probe, xq_pad, None)
+            k7_ms, k6_ms = time_pair(
+                lambda: k7.ivf_pairs_search(*lists, k_scan=max(4 * K, K + 32),
+                                            **search),
+                lambda: k6.ivf_list_search(*lists, **search), reps=6)
+            xq_t, qs_t, meta, _ = k7.pair_tile_inputs(probe, xq_pad,
+                                                      lay.payload.shape[0])
+            raw_err6 = k6_raw_error(*args)
+            raw_err7 = k7_raw_error(lay.payload, lay.counts, xq_t, qs_t,
+                                    meta, None, "L2")
+            log(f"ivf main path b1024 raw scores (lmax {lmax}): K6 and K7 "
+                f"agree with their plain versions (max abs error K6 "
+                f"{raw_err6:.3g}, K7 {raw_err7:.3g})")
+            raw = k6.ivf_list_scan(*args).reshape(BIG_BATCH, -1)
+            exact_topk(raw, K)
+            topk_ms = statistics.median(
+                cuda_ms(lambda: exact_topk(raw, K)) for _ in range(6))
+            del raw
+            log(f"time IVF4096 {N}x{D} L2 nprobe {IVF_NPROBE} b1024: top-k "
+                f"of the raw score block alone {topk_ms:.3f} ms (median "
+                f"CUDA events) [{smi}]")
+            raw7_ms, raw6_ms = time_pair(
+                lambda: k7.ivf_pairs_scan(lay.payload, lay.counts, xq_t,
+                                          qs_t, meta, None, "L2"),
+                lambda: k6.ivf_list_scan(*args), reps=6)
+            log(f"time IVF4096 {N}x{D} L2 nprobe {IVF_NPROBE} b1024, K7 "
+                f"pair tiles against K6 per query: scan + top-k "
+                f"{k7_ms:.3f} vs {k6_ms:.3f} ms, raw scores only "
+                f"{raw7_ms:.3f} vs {raw6_ms:.3f} ms (median CUDA events) "
+                f"[{smi}]")
+    return max(max_err, raw_err6), raw_err7, launches[0], timings
+
+
+def clustered_f32(n, d, nq, ncl, seed):
+    """Clustered corpus + queries near its clusters, drawn in float32."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((ncl, d), dtype=np.float32) * 4.0
+    xb = centers[rng.integers(0, ncl, n)]
+    xb += rng.standard_normal((n, d), dtype=np.float32)
+    xq = centers[rng.integers(0, ncl, nq)]
+    xq += rng.standard_normal((nq, d), dtype=np.float32)
+    return xb, xq
+
+
+def phase_ivf_pairs(smi):
+    """IVF1024,Flat IP over 262,144 x 1536 at nprobe 16: b1024 takes the
+    pair tiles (K7) by the static gate, b48 the per-query scan (K6)."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
+
+    t0 = time.perf_counter()
+    xb, xq = clustered_f32(PAIRS_N, PAIRS_D, BATCH + BIG_BATCH, PAIRS_NLIST,
+                           seed=7)
+    cat = dt.Catalog()
+    params = {"nprobe": str(PAIRS_NPROBE)}
+    dt.faiss_create("marco", PAIRS_D, f"IVF{PAIRS_NLIST},Flat",
+                    metric_type="INNER_PRODUCT", catalog=cat)
+    dt.faiss_manual_train(xb, "marco", catalog=cat)
+    dt.faiss_add(xb, "marco", catalog=cat)
+    index = cat.get("marco").index
+    lay = index._build_device_layout()
+    lmax = lay.payload.shape[1]
+    log(f"ivf pairs path: {PAIRS_N}x{PAIRS_D} built in "
+        f"{time.perf_counter() - t0:.1f} s; lmax {lmax}")
+    check(index.pairs_wanted(BIG_BATCH, lmax), "the gate does not take the "
+          "pair tiles at b1024")
+    k6.LAUNCHES = k7.LAUNCHES = 0
+    out = {"b1024": dt.faiss_search("marco", K, xq[BATCH:], params,
+                                    catalog=cat),
+           "b48": dt.faiss_search("marco", K, xq[:BATCH], params,
+                                  catalog=cat)}
+    launches = (k6.LAUNCHES, k7.LAUNCHES)
+    check(launches == (1, 1), f"pairs path launched (K6, K7) {launches}")
+    max_err = 0.0
+    for name, q in (("b1024", xq[BATCH:]), ("b48", xq[:BATCH])):
+        ref_d, ref_l = plain_ivf_search(index, q, K + 1, PAIRS_NPROBE)
+        max_err = max(max_err, compare_results(
+            f"pairs {name}", out[name], ref_d, ref_l, True))
+    log(f"ivf pairs path: b1024 through K7 and b48 through K6 agree with "
+        f"the plain path (max distance error {max_err:.3g})")
+
+    xq_dev = torch.from_numpy(xq[BATCH:]).to(DEVICE)
+    probe = coarse_topk(xq_dev, lay.centroids, PAIRS_NPROBE, "INNER_PRODUCT")
+    xq_t, qs_t, meta, _ = k7.pair_tile_inputs(probe, xq_dev, PAIRS_NLIST)
+    args = (lay.payload, lay.counts, xq_t, qs_t, meta, None, "INNER_PRODUCT")
+    raw_err = k7_raw_error(*args)
+    log(f"ivf pairs path b1024 raw tiles ({int(meta[0])} of {xq_t.shape[0]} "
+        f"tiles, lmax {lmax}): K7 agrees with its plain version (max abs "
+        f"error {raw_err:.3g})")
+    ms, plain_ms = time_pair(lambda: k7.ivf_pairs_scan(*args),
+                             lambda: k7.ivf_pairs_scan_reference(*args),
+                             reps=6)
+    log(f"time IVF{PAIRS_NLIST} {PAIRS_N}x{PAIRS_D} IP nprobe {PAIRS_NPROBE} "
+        f"b1024 ({int(meta[0])} of {xq_t.shape[0]} tiles): K7 {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms (median CUDA events) [{smi}]")
+    lists = (lay.payload, lay.counts, lay.row_pos, probe, xq_dev, None)
+    search = dict(k=K, metric="INNER_PRODUCT")
+    k7_ms, k6_ms = time_pair(
+        lambda: k7.ivf_pairs_search(*lists, k_scan=max(4 * K, K + 32),
+                                    **search),
+        lambda: k6.ivf_list_search(*lists, **search), reps=6)
+    log(f"time IVF{PAIRS_NLIST} {PAIRS_N}x{PAIRS_D} IP nprobe {PAIRS_NPROBE} "
+        f"b1024 scan + top-k: K7 pair tiles {k7_ms:.3f} ms, K6 per query "
+        f"{k6_ms:.3f} ms (median CUDA events) [{smi}]")
+    return max(max_err, raw_err), launches[1], (ms, plain_ms)
+
+
 def main():
     smi = phase_environment()
     phase_build()
     sweep_err = phase_sweep()
     golden_err = phase_golden()
-    main_err, launches, timings = phase_main_path(smi)
+    data = main_path_data()
+    main_err, launches, timings, exact = phase_main_path(smi, data)
     phase_time_1536(smi)
-    ms, plain_ms = timings["b48"]
+    err6, err7 = phase_ivf_sweep()
+    ivf_err, ivf_err7, ivf_launches, ivf_timings = phase_ivf_main(smi, data,
+                                                                  exact)
+    del data
+    torch.cuda.empty_cache()
+    pairs_err, pairs_launches, pairs_timing = phase_ivf_pairs(smi)
     log(smi)
-    print(json.dumps({"kernels": [dict(
-        KERNEL, launches=launches,
-        max_abs_err=max(sweep_err, golden_err, main_err),
-        ms=ms, plain_ms=plain_ms)]}))
+    ms, plain_ms = timings["b48"]
+    ivf_ms, ivf_plain_ms = ivf_timings["b48"]
+    print(json.dumps({"kernels": [
+        dict(KERNEL, launches=launches,
+             max_abs_err=max(sweep_err, golden_err, main_err),
+             ms=ms, plain_ms=plain_ms),
+        dict(IVF_LIST_KERNEL, launches=ivf_launches,
+             max_abs_err=max(err6, ivf_err), ms=ivf_ms,
+             plain_ms=ivf_plain_ms),
+        dict(IVF_PAIRS_KERNEL, launches=pairs_launches,
+             max_abs_err=max(err7, ivf_err7, pairs_err),
+             ms=pairs_timing[0],
+             plain_ms=pairs_timing[1]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

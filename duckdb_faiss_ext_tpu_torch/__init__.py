@@ -3,9 +3,11 @@
 The same ``faiss_*`` surface as the JAX package (the reference extension's
 SQL functions: named index create / add / search / filtered search / save /
 load / destroy), with the same error messages, result schema and checkpoint
-format, running on an NVIDIA H100.  This slice covers the ``Flat`` and
-``IDMap,Flat`` families over all nine metrics; L2 and inner-product search
-run through a hand-written CUDA kernel (``csrc/flat_topk.cu``).
+format, running on an NVIDIA H100.  The port covers the ``Flat`` and
+``IDMap,Flat`` families and the ``IVFn,Flat`` / ``IDMap[2],IVFn,Flat``
+families over all nine metrics.  L2 and inner-product search run through
+hand-written CUDA kernels: ``csrc/flat_topk.cu`` (Flat),
+``csrc/ivf_list_scan.cu`` and ``csrc/ivf_pairs.cu`` (IVF list scans).
 
 Every index keeps its corpus on ``config.device`` (``"cuda"`` by default;
 ``set_device("cpu")`` runs the plain torch paths on the CPU).

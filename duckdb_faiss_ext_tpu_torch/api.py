@@ -373,6 +373,7 @@ def faiss_stats(name: str | None = None,
     for n in names:
         entry = cat.get(n)
         idx = entry.index
+        inner = getattr(idx, "inner", idx)
         indexes[n] = {
             "factory": idx.factory_desc,
             "d": idx.d,
@@ -382,7 +383,12 @@ def faiss_stats(name: str | None = None,
             "needs_training": entry.needs_training,
             "is_mutable": entry.is_mutable,
             "custom_labels": entry.custom_labels,
+            # IVF: the list scan of the last search (per-query, pairs-flat
+            # or gather) and the list count.
+            "last_scan_path": getattr(inner, "_last_scan_path", None),
         }
+        if hasattr(inner, "nlist"):
+            indexes[n]["nlist"] = inner.nlist
     from .utils.config import config
 
     runtime = {
@@ -414,14 +420,26 @@ def faiss_search_batched(name: str, k: int, queries,
     if nq == 0 or k <= 0:
         return _format_results(entry.index.search(queries, k, params,
                                                   selector), k)
-    disps = [entry.index.search_dispatch(queries[s:s + batch_size], k,
-                                         params, selector)
+    index = entry.index
+    disps = [index.search_dispatch(queries[s:s + batch_size], k, params,
+                                   selector)
              for s in range(0, nq, batch_size)]
+    if any(d is None for d in disps):
+        # No device work (an empty IVF index): the sequential path pads.
+        return _format_results(index.search(queries, k, params, selector),
+                               k)
     big_d, big_p = fetch_results(torch.cat([d[0][:d[2]] for d in disps]),
                                  torch.cat([d[1][:d[2]] for d in disps]))
-    k_eff = disps[0][3]
-    sim = entry.index.metric.name in SIMILARITY_METRICS
-    res = entry.index._pad_result(
-        big_d, entry.index._positions_to_labels(big_p.astype(np.int64)),
-        nq, k, k_eff, float("-inf") if sim else float("inf"))
-    return _format_results(res, k)
+    sim = index.metric.name in SIMILARITY_METRICS
+    sentinel = float("-inf") if sim else float("inf")
+    parts, row = [], 0
+    for disp in disps:
+        nqb = disp[2]
+        dist, labels, k_eff = index._map_dispatch(
+            disp, big_d[row:row + nqb], big_p[row:row + nqb].astype(np.int64))
+        parts.append(index._pad_result(dist, labels, nqb, k, k_eff,
+                                       sentinel))
+        row += nqb
+    return _format_results(SearchResult(
+        np.concatenate([p.distances for p in parts]),
+        np.concatenate([p.labels for p in parts])), k)

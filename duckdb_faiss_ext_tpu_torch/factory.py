@@ -20,10 +20,10 @@ so the observable surface is the factory grammar itself:
     suffix      := "RFlat"  (exact re-rank wrapper, IndexRefineFlat)
 
 The whole grammar is parsed, with the same parse errors as the JAX
-package.  ``Flat`` under any number of IDMap prefixes builds; every other
-family, transform or suffix raises ``InvalidInputError`` naming it as not
-yet available in this package, so a description never builds something
-other than what it says.
+package.  ``Flat`` and ``IVFn[_Flat][,Flat]`` under any number of IDMap
+prefixes build; every other family, quantizer, encoding, transform or
+suffix raises ``InvalidInputError`` naming it as not yet available in this
+package, so a description never builds something other than what it says.
 """
 
 from __future__ import annotations
@@ -172,6 +172,23 @@ def _check_component(parts, desc) -> str:
     raise _parse_error(desc, f"unknown component {head}")
 
 
+def _build_ivf(d, parts, metric, metric_arg, desc) -> Index:
+    """``IVFn[_Flat][,Flat]``: inverted lists over a Flat coarse quantizer
+    (the reference's graph shape)."""
+    from .models.ivf import IVFIndex
+
+    if _IVF_PAREN_RE.match(parts[0]):
+        raise _not_available(desc, "the parenthesized IVF quantizer")
+    m = _IVF_RE.match(parts[0])
+    if m.group(2) not in (None, "Flat"):
+        raise _not_available(desc, f"IVF quantizer {m.group(2)}")
+    encoding = parts[1] if len(parts) > 1 else "Flat"
+    if encoding != "Flat":
+        raise _not_available(desc, f"IVF encoding {encoding}")
+    return IVFIndex(d, metric, metric_arg, nlist=int(m.group(1)),
+                    quantizer=FlatIndex(d, metric, metric_arg))
+
+
 def build_index(d: int, desc: str, metric: Metric,
                 metric_arg: float = 0.0) -> Index:
     """Build the index graph for a factory description."""
@@ -181,9 +198,12 @@ def build_index(d: int, desc: str, metric: Metric,
     if refine:
         raise _not_available(desc, "RFlat")
     family = _check_component(parts, desc)
-    if family != "Flat":
+    if family == "Flat":
+        index: Index = FlatIndex(d, metric, metric_arg)
+    elif family == "IVF":
+        index = _build_ivf(d, parts, metric, metric_arg, desc)
+    else:
         raise _not_available(desc, family)
-    index: Index = FlatIndex(d, metric, metric_arg)
     if idmap:
         index = IDMapIndex(index)
     index.factory_desc = desc

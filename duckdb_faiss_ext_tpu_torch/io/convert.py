@@ -2,11 +2,13 @@
 
 ``from_reference`` reads only plain attributes and the ``state_dict()``
 numpy arrays of a ``duckdb_faiss_ext_tpu`` index (its factory description,
-dimension, metric name and argument, and for IDMap the labels and the inner
-corpus) and rebuilds the index through this package's factory and
-``load_state`` — the in-memory form of the checkpoint format
-(io/serialize.py) the two packages share.  Nothing of the JAX package is
-imported.
+dimension, metric name and argument, and its state: the corpus, IDMap's
+labels, IVF's ids, list assignments and trained centroids) and rebuilds
+the index through this package's factory and ``load_state`` — the
+in-memory form of the checkpoint format (io/serialize.py) the two packages
+share.  An IVF index so carried has the JAX package's centroids, which the
+port's own k-means cannot reproduce (ops/kmeans.py).  Nothing of the JAX
+package is imported.
 """
 
 from __future__ import annotations

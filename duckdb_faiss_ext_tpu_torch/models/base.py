@@ -113,8 +113,8 @@ class Index(abc.ABC):
     def _finish_dispatch(self, disp, xq, k: int) -> "SearchResult":
         """Shared search epilogue over a ``search_dispatch`` tuple: one
         device→host fetch, position→label mapping, sentinel padding to k.
-        ``disp`` is (dist_dev, pos_dev, nq, k_eff) or None for no device
-        work (empty queries, k≤0)."""
+        ``disp`` is (dist_dev, pos_dev, nq, k_eff[, to_labels[, post]]) or
+        None for no device work (empty queries, k≤0, empty IVF index)."""
         from ..ops.flat_search import SIMILARITY_METRICS
 
         k = int(k)
@@ -126,10 +126,26 @@ class Index(abc.ABC):
             return SearchResult(
                 np.full((nq, max(k, 0)), sentinel, np.float32),
                 np.full((nq, max(k, 0)), -1, np.int64))
-        dist_dev, pos_dev, nq, k_eff = disp
-        dist, pos = fetch_results(dist_dev[:nq], pos_dev[:nq])
-        labels = self._positions_to_labels(pos.astype(np.int64))
+        nq = disp[2]
+        dist, pos = fetch_results(disp[0][:nq], disp[1][:nq])
+        dist, labels, k_eff = self._map_dispatch(disp, dist,
+                                                 pos.astype(np.int64))
         return self._pad_result(dist, labels, nq, k, k_eff, sentinel)
+
+    def _map_dispatch(self, disp, dist: np.ndarray, pos: np.ndarray):
+        """Host side of one dispatch after the fetch: positions → labels
+        through the dispatch's own mapper (5th element; IVF maps layout
+        positions through its ids) or ``_positions_to_labels``, then the
+        optional host post-process (6th element, ``post(dist, labels,
+        pos) -> (dist, labels)``, which may change the width).  Returns
+        (dist, labels, k_eff)."""
+        to_labels = disp[4] if len(disp) > 4 else self._positions_to_labels
+        labels = to_labels(pos)
+        k_eff = disp[3]
+        if len(disp) > 5:
+            dist, labels = disp[5](dist, labels, pos)
+            k_eff = dist.shape[1]
+        return dist, labels, k_eff
 
     # --- create-time parameters (setIndexParameters recursion,
     #     src/faiss_extension.cpp:123-144) --------------------------------

@@ -1,6 +1,6 @@
 """IDMap wrapper: custom int64 labels over an inner index.
 
-Equivalent of faiss::IndexIDMap as the reference uses it
+Equivalent of faiss::IndexIDMap (over Flat or IVF) as the reference uses it
 (src/faiss_extension.cpp:127-131,671-674): add_with_ids records a label per
 stored row; search results are translated position→label after top-k; create
 and search parameters recurse to the inner index unchanged.
@@ -77,7 +77,16 @@ class IDMapIndex(Index):
         ``_positions_to_labels`` after the fetch."""
         if selector is not None:
             selector = self._position_selector(selector)
-        return self.inner.search_dispatch(xq, k, params, selector)
+        disp = self.inner.search_dispatch(xq, k, params, selector)
+        if disp is None or len(disp) <= 4:
+            return disp
+        # The inner dispatch carries its own positions → ids mapper (IVF);
+        # its ids are our storage positions, so compose with the label
+        # table and keep any host post-process.
+        inner_labels = disp[4]
+        return disp[:4] + (
+            lambda pos: self._positions_to_labels(inner_labels(pos)),
+        ) + tuple(disp[5:])
 
     def _positions_to_labels(self, pos: np.ndarray) -> np.ndarray:
         return np.where(pos >= 0, self._labels[np.clip(pos, 0, None)]

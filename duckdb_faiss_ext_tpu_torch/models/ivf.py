@@ -1,0 +1,214 @@
+"""IVF index with Flat storage: k-means-trained inverted lists.
+
+The counterpart of ``duckdb_faiss_ext_tpu/models/ivf.py`` for the ``Flat``
+encoding, faiss::IndexIVFFlat as the reference exercises it: ``IVFn[,Flat]``
+factory strings, deferred training through faiss_add, nprobe +
+``quantiser.``-scoped search params (src/faiss_extension.cpp:675-689), and
+native add_with_ids (ids stored beside the lists).
+
+State (the checkpoint both packages share): vectors, ids and list
+assignments in insertion order on the host, plus the centroid table.  The
+device layouts are rebuilt lazily after each mutation
+(models/ivf_layout.py) and searched by models/ivf_serve.py.
+
+The coarse quantizer (``quantizer``, a Flat index) mirrors FAISS's graph
+shape: it holds the centroids and answers ``quantiser.``-scoped params;
+assignment itself is one fused fp32 distance tile.
+
+Not yet ported (each raises "… is not yet available in
+duckdb_faiss_ext_tpu_torch"): PQ / RQ / SQ storage, and the create
+parameters ``soar_lambda``, ``anisotropic_eta``, ``beam`` and
+``assign_topk`` (device-resident ingest).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import errors
+from ..metrics import Metric
+from ..ops.distance import pairwise_tile
+from ..ops.flat_search import SIMILARITY_METRICS
+from ..ops.kmeans import (DEFAULT_NITER, DEFAULT_SEED, kmeans_fit,
+                          subsample_for_training)
+from ..utils.config import full_fp32, resolve_device
+from .base import Index, as_matrix
+from .ivf_layout import IVFLayout
+from .ivf_serve import IVFServe
+
+#: create parameters of the JAX package this slice does not build yet
+_UNPORTED_PARAMS = ("soar_lambda", "anisotropic_eta", "beam", "assign_topk")
+
+
+def not_available(what: str) -> errors.InvalidInputError:
+    return errors.InvalidInputError(
+        f"{what} is not yet available in duckdb_faiss_ext_tpu_torch")
+
+
+class IVFIndex(IVFLayout, IVFServe, Index):
+    def __init__(self, d: int, metric: Metric, metric_arg: float,
+                 nlist: int, quantizer: Index, encoding: str = "Flat"):
+        super().__init__(d, metric, metric_arg)
+        if encoding != "Flat":
+            raise not_available(f"IVF encoding {encoding}")
+        #: where the lists live and searches run
+        self.device = resolve_device()
+        self.nlist = int(nlist)
+        self.quantizer = quantizer
+        self.encoding = encoding
+        self.nprobe_default = 1  # faiss::IndexIVF::nprobe default
+        self.train_seed = DEFAULT_SEED
+        self.train_niter = DEFAULT_NITER
+        self.train_balance = 0.0
+        self._centroids: np.ndarray | None = None
+        self._xb = np.empty((0, d), dtype=np.float32)
+        self._ids = np.empty((0,), dtype=np.int64)
+        self._assign = np.empty((0,), dtype=np.int32)
+        self._version = 0
+        self._invalidate()
+
+    # --- lifecycle -------------------------------------------------------
+    @property
+    def ntotal(self) -> int:
+        return self._ids.shape[0]
+
+    @property
+    def is_trained(self) -> bool:
+        return self._centroids is not None
+
+    @property
+    def requires_training(self) -> bool:
+        return True
+
+    def train(self, x) -> None:
+        if self.is_trained:
+            return  # FAISS skips retraining a trained quantizer
+        x = as_matrix(x, self.d)
+        self._centroids = self._train_coarse(x)
+        self._populate_quantizer()
+        self._invalidate()
+
+    def _populate_quantizer(self) -> None:
+        """Mirror the centroid table into the quantizer index (faiss graph
+        shape; again after load_state rebuilds the quantizer empty)."""
+        if self.quantizer.ntotal == 0:
+            self.quantizer.add(self._centroids)
+
+    def _subsample_train(self, x, k: int):
+        """Too-few-points check + FAISS's seeded per-centroid subsample
+        (numpy's generator, as in the JAX package: the same rows)."""
+        n = x.shape[0]
+        if n < k:
+            raise errors.TrainingTooSmallError(n, k)
+        nsub = subsample_for_training(n, k)
+        if nsub < n:
+            rng = np.random.default_rng(self.train_seed)
+            sel = rng.choice(n, size=nsub, replace=False)
+            x = x[np.sort(sel)]
+        return x
+
+    def _train_coarse(self, x) -> np.ndarray:
+        """Fit the coarse quantizer on the index's device; returns the
+        (nlist, d) centroid table.  Spherical for inner product (faiss
+        Level1Quantizer::train_q1)."""
+        x = self._subsample_train(x, self.nlist)
+        centroids, _ = kmeans_fit(
+            torch.from_numpy(x).to(self.device), self.nlist,
+            niter=self.train_niter, seed=self.train_seed,
+            balance=self.train_balance,
+            spherical=self.metric.name == "INNER_PRODUCT")
+        return centroids.cpu().numpy().astype(np.float32)
+
+    def _require_trained(self):
+        if not self.is_trained:
+            raise errors.InvalidInputError(
+                "Index is not trained; call train (or faiss_manual_train) "
+                "before adding or searching")
+
+    # --- ingest ----------------------------------------------------------
+    def add(self, x) -> None:
+        x = as_matrix(x, self.d)
+        start = self.ntotal
+        self.add_with_ids(
+            x, np.arange(start, start + x.shape[0], dtype=np.int64))
+
+    def add_with_ids(self, x, ids) -> None:
+        self._require_trained()
+        x = as_matrix(x, self.d)
+        ids = np.asarray(ids, dtype=np.int64).reshape(-1)
+        if ids.shape[0] != x.shape[0]:
+            raise errors.add_error(
+                f"number of ids ({ids.shape[0]}) does not match number of "
+                f"vectors ({x.shape[0]})")
+        if x.shape[0] == 0:
+            return
+        assign = self._assign_lists(x)
+        self._xb = np.concatenate([self._xb, x], axis=0)
+        self._ids = np.concatenate([self._ids, ids])
+        self._assign = np.concatenate([self._assign, assign])
+        self._invalidate()
+
+    def reconstruct(self, key: int) -> np.ndarray:
+        """Stored vector by position."""
+        key = int(key)
+        if key < 0 or key >= self.ntotal:
+            raise errors.InvalidInputError(
+                f"Position {key} is out of range (ntotal={self.ntotal})")
+        return self._xb[key]
+
+    def _assign_lists(self, x: np.ndarray) -> np.ndarray:
+        """Best list of each new vector by the index metric, in fp32 chunks
+        on the index's device (first list on ties), fetched once."""
+        sim = self.metric.name in SIMILARITY_METRICS
+        cents = torch.from_numpy(self._centroids).to(self.device)
+        # Bound the transient (chunk × nlist) score tile to ~512 MB, and an
+        # elementwise metric's (chunk × nlist × d) broadcast to 2^24.
+        if self.metric.uses_mxu:
+            chunk = max(1024, min(65536, (1 << 27) // max(self.nlist, 1)))
+        else:
+            chunk = max(1, (1 << 24) // max(self.nlist * self.d, 1))
+        out = torch.empty(x.shape[0], dtype=torch.int32, device=self.device)
+        with full_fp32():
+            for i in range(0, x.shape[0], chunk):
+                tile = pairwise_tile(
+                    torch.from_numpy(x[i:i + chunk]).to(self.device), cents,
+                    self.metric.name, self.metric_arg)
+                best = tile.argmax(1) if sim else tile.argmin(1)
+                out[i:i + chunk] = best.to(torch.int32)
+        return out.cpu().numpy()
+
+    # --- create params ----------------------------------------------------
+    def apply_create_params(self, params) -> None:
+        # Training knobs beyond the reference's surface: seed/niter for
+        # reproducibility, kmeans_balance for skew-aware list sizing.
+        for key in _UNPORTED_PARAMS:
+            if params.get_str(key) is not None:
+                raise not_available(f"create parameter {key}")
+        self.train_seed = params.get_int("train_seed", self.train_seed)
+        self.train_niter = params.get_int("train_niter", self.train_niter)
+        self.train_balance = params.get_float("kmeans_balance", 0.0)
+        self.quantizer.apply_create_params(params.scoped("ivf."))
+
+    # --- serialization ----------------------------------------------------
+    def state_dict(self) -> dict:
+        state = {"xb": self._xb, "ids": self._ids, "assign": self._assign}
+        if self._centroids is not None:
+            state["centroids"] = self._centroids
+        return state
+
+    def load_state(self, state: dict) -> None:
+        unported = sorted(set(state) - {"xb", "ids", "assign", "centroids"})
+        if unported:
+            raise not_available(f"IVF state {unported[0]}")
+        self._xb = np.asarray(state["xb"], np.float32).reshape(-1, self.d)
+        self._ids = np.asarray(state["ids"], np.int64).reshape(-1)
+        self._assign = np.asarray(state["assign"], np.int32).reshape(-1)
+        cents = state.get("centroids")
+        # A copy: arrays carried from the JAX package are read-only, and
+        # torch.from_numpy wants writable memory.
+        self._centroids = (np.array(cents, np.float32).reshape(-1, self.d)
+                           if cents is not None else None)
+        if self._centroids is not None:
+            self._populate_quantizer()
+        self._invalidate()

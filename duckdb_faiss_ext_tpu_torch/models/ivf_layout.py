@@ -1,0 +1,277 @@
+"""IVF storage layouts and device builds.
+
+The counterpart of ``duckdb_faiss_ext_tpu/models/ivf_layout.py`` for Flat
+storage: everything that turns the host state (vectors, ids, assignments)
+into the layouts the scans read, and the selector masks aligned with each.
+
+* The padded list layout: (nlist, lmax, d) fp32 with lmax from
+  ``choose_lmax`` (the JAX package's rule, so both packages build the same
+  layout from the same data), read by the list-scan kernels (K6, K7).  When
+  it would exceed ``LAYOUT_BUDGET_BYTES`` the lists are capped and the
+  overflow rows go to a dense spill region (at most ``SPILL_FRACTION_MAX``
+  of the rows), else there is no layout plan.
+* The sorted+gather layout: rows sorted by list in one buffer, for the
+  elementwise metrics and for searches without a layout plan.
+
+Layouts are built on the host in numpy, as in the JAX package, uploaded
+to the index's device once per mutation, and cached until the next one.
+Selector masks are built on the host from ``selector.contains(ids)``
+through each layout's row positions.  The TPU-only limits of the JAX
+package (the SMEM probe-table blocking, the VMEM gate of the pair tiles)
+have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..utils.config import config, next_capacity, next_pow2, pad_rows
+
+def choose_lmax(counts_max: int) -> int:
+    """Pad list length: ≥ 128 slots, powers of two up to 512, then the
+    next multiple of 512 (``duckdb_faiss_ext_tpu/ops/pallas_ivf.py::
+    choose_lmax``, kept as it is)."""
+    if counts_max <= 512:
+        lmax = 128
+        while lmax < counts_max:
+            lmax *= 2
+        return lmax
+    return 512 * -(-counts_max // 512)
+
+
+class ListLayout(NamedTuple):
+    """The padded list layout on the device."""
+    payload: torch.Tensor      # (nlist, lmax, d) fp32
+    counts: torch.Tensor       # (nlist,) int32 rows kept per list
+    row_pos: torch.Tensor      # (nlist, lmax) int32 storage row, -1 padding
+    centroids: torch.Tensor    # (nlist, d) fp32
+    row_pos_host: np.ndarray   # host copy of row_pos (selector masks)
+
+
+class Spill(NamedTuple):
+    """Overflow rows of capped lists, padded to s_pad rows."""
+    payload: torch.Tensor      # (s_pad, d) fp32
+    assign: torch.Tensor       # (s_pad,) int32 list of each row
+    pos: torch.Tensor          # (s_pad,) int32 storage row, -1 padding
+    pos_host: np.ndarray
+    n: int                     # real rows
+
+
+class SortedLayout(NamedTuple):
+    """Rows sorted by list: each list a contiguous block."""
+    xb: torch.Tensor           # (cap, d) fp32
+    lmax: int                  # scan window: pow2 ≥ the longest list
+    centroids: torch.Tensor
+    order: np.ndarray          # sorted row → storage row
+
+
+class IVFLayout:
+    """Layout methods of ``models.ivf.IVFIndex``."""
+
+    #: Device-memory budget of the padded (nlist, lmax, d) layout on the
+    #: 80 GB H100: half the card, leaving the other half for the search
+    #: temporaries (query blocks of IVFServe.SCAN_BLOCK_BYTES and their
+    #: top-k keys) and for other indexes.  A class attribute, so a test can
+    #: set it small.
+    LAYOUT_BUDGET_BYTES = 40 << 30
+    #: spill-region cap: beyond this fraction of rows overflowing the
+    #: capped layout, the dense spill scan would dominate and the
+    #: sorted+gather layout is used instead.
+    SPILL_FRACTION_MAX = 0.2
+
+    def _invalidate(self) -> None:
+        self._version += 1
+        self._counts_cache = None
+        self._plan_cache = None
+        self._layout: ListLayout | None = None
+        self._spill: Spill | None = None
+        self._sorted: SortedLayout | None = None
+        self._list_meta_cache = None
+        self._ids_sorted = None
+        self._mask_cache: dict = {}
+
+    def _counts(self) -> np.ndarray:
+        if self._counts_cache is None:
+            self._counts_cache = np.bincount(self._assign,
+                                             minlength=self.nlist)
+        return self._counts_cache
+
+    def _layout_plan(self):
+        """Layout plan for the list-scan kernels (``_pallas_plan`` in the
+        JAX package):
+        None           — no padded layout (elementwise metric, or the
+                         spill would exceed SPILL_FRACTION_MAX);
+        ("full", None) — the padded (nlist, lmax, d) layout fits the budget;
+        ("spill", L)   — lists capped at L, overflow rows in a spill
+                         region scanned densely and merged."""
+        if self.metric.name not in ("L2", "INNER_PRODUCT"):
+            return None
+        if self._plan_cache is not None:
+            return self._plan_cache[0]
+        width = self.d * 4
+        counts = self._counts()
+        full = choose_lmax(int(counts.max()) if self.ntotal else 1)
+        budget = self.LAYOUT_BUDGET_BYTES
+        if self.nlist * full * width <= budget:
+            plan = ("full", None)
+        else:
+            budget_lmax = budget // max(self.nlist * width, 1)
+            lmax = 128
+            while lmax * 2 <= budget_lmax:
+                lmax *= 2
+            nspill = int(np.maximum(counts - lmax, 0).sum())
+            plan = (("spill", lmax)
+                    if budget_lmax >= 128
+                    and nspill <= self.SPILL_FRACTION_MAX * self.ntotal
+                    else None)
+        self._plan_cache = (plan,)
+        return plan
+
+    def _build_list_layout(self, lmax_cap: int | None = None):
+        """Host-side padded list layout: (payload (nlist, lmax, d), counts
+        (nlist,), row_pos (nlist, lmax), spill).  With ``lmax_cap``, lists
+        longer than the cap keep their first cap members; the overflow rows
+        come back in ``spill`` = (payload (s, d), assign (s,), pos (s,)
+        storage rows), else spill is None."""
+        n = self.ntotal
+        counts = self._counts()
+        if lmax_cap is None and n and \
+                counts.max() > max(32 * n / self.nlist, 4096):
+            print(f"duckdb_faiss_ext_tpu_torch: IVF list skew is extreme "
+                  f"(max {counts.max()} vs avg {n / self.nlist:.0f}); the "
+                  f"padded layout will be memory-heavy — consider retraining "
+                  f"(kmeans_balance) or fewer lists", file=sys.stderr)
+        lmax = choose_lmax(max(1, int(counts.max()) if n else 1))
+        if lmax_cap is not None:
+            lmax = min(lmax, lmax_cap)
+        kept = np.minimum(counts, lmax)
+        row_pos = np.full((self.nlist, lmax), -1, np.int32)
+        payload = np.zeros((self.nlist, lmax, self.d), np.float32)
+        spill = None
+        if n:
+            # Rank of each row within its list decides slot vs spill.
+            order = np.argsort(self._assign, kind="stable")
+            offsets = np.concatenate([[0], np.cumsum(counts)])
+            sorted_assign = self._assign[order]
+            ranks = np.arange(n, dtype=np.int64) - offsets[sorted_assign]
+            keep = ranks < lmax
+            flat = sorted_assign[keep].astype(np.int64) * lmax + ranks[keep]
+            payload.reshape(-1, self.d)[flat] = self._xb[order[keep]]
+            row_pos.reshape(-1)[flat] = order[keep]
+            if not keep.all():
+                sp = order[~keep]
+                spill = (self._xb[sp], self._assign[sp], sp.astype(np.int32))
+        return payload, kept.astype(np.int32), row_pos, spill
+
+    def _build_device_layout(self) -> ListLayout:
+        """The padded layout (and spill region) on the device, built once
+        per mutation."""
+        if self._layout is not None:
+            return self._layout
+        plan = self._layout_plan()
+        lmax_cap = plan[1] if plan is not None else None
+        payload, counts, row_pos, spill = self._build_list_layout(lmax_cap)
+        dev = self.device
+        self._layout = ListLayout(
+            torch.from_numpy(payload).to(dev),
+            torch.from_numpy(counts).to(dev),
+            torch.from_numpy(row_pos).to(dev),
+            torch.from_numpy(self._centroids).to(dev),
+            row_pos)
+        if spill is not None:
+            sp_payload, sp_assign, sp_pos = spill
+            s_pad = max(128, next_pow2(sp_pos.shape[0]))
+            pos_host = pad_rows(sp_pos, s_pad, fill=-1).astype(np.int32)
+            self._spill = Spill(
+                torch.from_numpy(pad_rows(sp_payload, s_pad)).to(dev),
+                torch.from_numpy(pad_rows(sp_assign, s_pad)
+                                 .astype(np.int32)).to(dev),
+                torch.from_numpy(pos_host).to(dev),
+                pos_host, int(sp_pos.shape[0]))
+        return self._layout
+
+    def _build_device(self) -> SortedLayout:
+        """The sorted+gather layout on the device."""
+        if self._sorted is not None:
+            return self._sorted
+        n = self.ntotal
+        order = np.argsort(self._assign, kind="stable").astype(np.int64)
+        counts = self._counts()
+        # Scan window: the longest list, pow2-bucketed.  Padding rows past
+        # n are never inside a probed window's valid part.
+        lmax = max(128, next_pow2(max(1, int(counts.max()) if n else 1)))
+        cap = max(config.min_capacity, next_capacity(n + 1))
+        xb_sorted = pad_rows(self._xb[order] if n else self._xb, cap)
+        self._sorted = SortedLayout(
+            torch.from_numpy(xb_sorted).to(self.device), lmax,
+            torch.from_numpy(self._centroids).to(self.device), order)
+        return self._sorted
+
+    def _sorted_list_meta(self):
+        """(offsets, counts) int32 device tensors of the sorted layout's
+        list blocks, cached per version."""
+        if self._list_meta_cache is None:
+            c = self._counts().astype(np.int64)
+            off = np.concatenate([[0], np.cumsum(c[:-1])])
+            self._list_meta_cache = (
+                torch.from_numpy(off.astype(np.int32)).to(self.device),
+                torch.from_numpy(c.astype(np.int32)).to(self.device))
+        return self._list_meta_cache
+
+    def _sorted_ids(self, order) -> np.ndarray:
+        """ids in sorted-layout order, cached per layout build (a batched
+        search holds one dispatch tuple per batch)."""
+        if self._ids_sorted is None or self._ids_sorted[0] is not order:
+            self._ids_sorted = (order, self._ids[order])
+        return self._ids_sorted[1]
+
+    def row_labels(self) -> np.ndarray:
+        return self._ids
+
+    # --- selector masks ---------------------------------------------------
+    def _cached_mask(self, key, build):
+        hit = self._mask_cache.get(key)
+        if hit is None:
+            if len(self._mask_cache) >= 4:
+                self._mask_cache.clear()
+            hit = self._mask_cache[key] = build()
+        return hit
+
+    def _layout_mask(self, selector) -> torch.Tensor:
+        """(nlist, lmax) int8 mask over the padded layout (``_pallas_mask``
+        in the JAX package), from the host row positions."""
+        def build():
+            rp = self._build_device_layout().row_pos_host
+            passing = selector.contains(self._ids)
+            mask = np.zeros(rp.shape, np.int8)
+            valid = rp >= 0
+            mask[valid] = passing[rp[valid]]
+            return torch.from_numpy(mask).to(self.device)
+
+        return self._cached_mask(("layout", selector.cache_key()), build)
+
+    def _spill_mask(self, selector) -> torch.Tensor:
+        """(s_pad,) bool mask over the spill rows."""
+        def build():
+            sp_pos = self._spill.pos_host
+            passing = selector.contains(self._ids)
+            mask = np.zeros(sp_pos.shape, bool)
+            valid = sp_pos >= 0
+            mask[valid] = passing[sp_pos[valid]]
+            return torch.from_numpy(mask).to(self.device)
+
+        return self._cached_mask(("spill", selector.cache_key()), build)
+
+    def _selector_mask(self, selector, order) -> torch.Tensor:
+        """(cap,) bool mask over the sorted layout's rows."""
+        def build():
+            rows = selector.contains(self._ids[order])
+            cap = self._sorted.xb.shape[0]
+            return torch.from_numpy(pad_rows(rows, cap, fill=False)).to(
+                self.device)
+
+        return self._cached_mask(("sorted", selector.cache_key()), build)

@@ -1,0 +1,160 @@
+"""IVF scans in plain torch: the sorted+gather scan, the spill scan and the
+top-k merge.
+
+Counterparts of ``duckdb_faiss_ext_tpu/ops/ivf_scan.py`` (``ivf_search``,
+``slice_probed_lists``, ``choose_q_chunk``, the Flat branch of
+``ivf_spill_scan``, ``merge_topk``): XLA code the JAX package ran outside
+any ``pallas_call``, so plain torch here too.
+
+* ``ivf_search`` serves IVF searches that have no padded list layout: the
+  seven elementwise metrics, and L2 / inner product when the layout plan
+  (models/ivf_layout.py) is None.  The inverted lists are one row-sorted
+  corpus buffer plus (offsets, counts) list metadata; each probed list is a
+  contiguous (lmax, d) window of it, gathered per query chunk.
+* ``ivf_spill_scan`` scores the overflow rows of capped lists densely and
+  masks them to each query's probe set; ``merge_topk`` merges its top-k
+  with the padded-layout scan's.
+
+Every score is fp32 whatever the precision mode: L2 / inner product over
+the gathered candidates are elementwise products summed (no TF32 matmul),
+and the spill tile runs with TF32 off.  So the JAX package's fast-mode
+in-chunk rerank has nothing to repair here and is not ported.
+
+Exactness: the candidates are exactly the members of the probed lists, so
+results match FAISS given the same centroids and assignments.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.config import full_fp32
+from .distance import elementwise_scores, pairwise_tile
+from .flat_search import SIMILARITY_METRICS, exact_topk, topk_ordered
+
+_NEG_INF = float("-inf")
+
+
+def coarse_topk(xq: torch.Tensor, centroids: torch.Tensor, nprobe: int,
+                metric: str, metric_arg: float = 0.0) -> torch.Tensor:
+    """Top-``nprobe`` list ids per query, (nq, nprobe) int32, best first;
+    equal scores resolve to the lower list id (as ``lax.top_k`` does)."""
+    cdist = pairwise_tile(xq, centroids, metric, metric_arg)
+    cscore = cdist if metric in SIMILARITY_METRICS else -cdist
+    _, ids = exact_topk(cscore, nprobe)
+    return ids.to(torch.int32)
+
+
+def slice_probed_lists(sorted_buf, offsets, counts, probes_c, *, lmax):
+    """The probed lists of a query chunk as contiguous windows of the
+    row-sorted buffer.
+
+    Returns (xc (qc, nprobe, L, w), pos (qc, nprobe, L) int64 sorted
+    positions, valid (qc, nprobe, L) bool).  Lists shorter than L read
+    into the next list's rows; those rows are masked invalid."""
+    cap = sorted_buf.shape[0]
+    L = min(lmax, cap)
+    starts_true = offsets.long()[probes_c.long()]          # (qc, nprobe)
+    starts = starts_true.clamp(max=cap - L)
+    lane = torch.arange(L, device=sorted_buf.device)
+    pos = starts[:, :, None] + lane                        # (qc, np, L)
+    end = starts_true + counts.long()[probes_c.long()]
+    valid = (pos >= starts_true[:, :, None]) & (pos < end[:, :, None])
+    return sorted_buf[pos], pos, valid
+
+
+def choose_q_chunk(nq: int, ncand: int, d: int) -> int:
+    """Queries per scan step: bound the gathered (q, ncand, d) fp32 tile."""
+    budget = max(1, (1 << 24) // max(ncand * d, 1))
+    q = 1
+    while q * 2 <= min(budget, nq):
+        q *= 2
+    return q
+
+
+def _candidate_distances(xq_c, xc, metric, metric_arg):
+    """(qc, ncand) distances of each query against its own candidates."""
+    if metric == "INNER_PRODUCT":
+        return (xc * xq_c[:, None, :]).sum(-1)
+    if metric == "L2":
+        qn = (xq_c * xq_c).sum(1, keepdim=True)
+        bn = (xc * xc).sum(-1)
+        xy = (xc * xq_c[:, None, :]).sum(-1)
+        return (qn - 2.0 * xy + bn).clamp(min=0.0)
+    return elementwise_scores(xq_c[:, None, :], xc, metric, metric_arg)
+
+
+def ivf_search(xb_sorted, offsets, counts, centroids, xq, mask, metric_arg,
+               *, k, nprobe, metric, q_chunk, lmax):
+    """Sorted+gather IVF scan.  Returns (scores (nq, k) max-oriented with
+    -inf missing, sorted-row positions (nq, k) int32 with -1 missing)."""
+    nq, d = xq.shape
+    nprobe = min(nprobe, centroids.shape[0])
+    sim = metric in SIMILARITY_METRICS
+    probe_ids = coarse_topk(xq, centroids, nprobe, metric, metric_arg)
+    dev = xq.device
+    best_s = torch.full((nq, k), _NEG_INF, dtype=torch.float32, device=dev)
+    best_p = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
+    for q0 in range(0, nq, q_chunk):
+        xq_c = xq[q0:q0 + q_chunk]
+        qc = xq_c.shape[0]
+        xc, pos, valid = slice_probed_lists(xb_sorted, offsets, counts,
+                                            probe_ids[q0:q0 + q_chunk],
+                                            lmax=lmax)
+        ncand = xc.shape[1] * xc.shape[2]
+        xc = xc.reshape(qc, ncand, d)
+        pos = pos.reshape(qc, ncand)
+        valid = valid.reshape(qc, ncand)
+        if mask is not None:
+            valid = valid & mask[pos]
+        dist = _candidate_distances(xq_c, xc, metric, metric_arg)
+        score = torch.where(valid, dist if sim else -dist, _NEG_INF)
+        s, sel = exact_topk(score, k)
+        p = pos.gather(1, sel).to(torch.int32)
+        best_s[q0:q0 + qc, :s.shape[1]] = s
+        best_p[q0:q0 + qc, :s.shape[1]] = torch.where(torch.isneginf(s), -1, p)
+    return best_s, best_p
+
+
+def ivf_spill_scan(spill_payload, spill_assign, spill_pos, probe_ids, xq,
+                   mask, metric_arg, *, k, metric, nlist):
+    """Scan the spill region: rows whose list overflowed the capped padded
+    layout, (s_pad, d) fp32 with ``spill_pos`` their original row (-1 for
+    padding).  Every spill row is scored against every query and kept
+    only where its list is among that query's probes (a (nlist, nq)
+    membership table, gathered per chunk).  Returns (scores (nq, k)
+    max-oriented, original positions (nq, k) int32)."""
+    nq = xq.shape[0]
+    s_pad, d = spill_payload.shape
+    sim = metric in SIMILARITY_METRICS
+    k = min(k, s_pad)
+    member = torch.zeros((nlist, nq), dtype=torch.bool, device=xq.device)
+    qidx = torch.arange(nq, device=xq.device)[:, None].expand_as(probe_ids)
+    member[probe_ids.long(), qidx] = True
+    sc = 1 << max(12, min(25 - max(d, 1).bit_length(), 20))
+    best_s = torch.full((nq, k), _NEG_INF, dtype=torch.float32,
+                        device=xq.device)
+    best_i = torch.full((nq, k), -1, dtype=torch.int64, device=xq.device)
+    for start in range(0, s_pad, sc):
+        with full_fp32():
+            dist = pairwise_tile(xq, spill_payload[start:start + sc], metric,
+                                 metric_arg)
+        valid = (member[spill_assign[start:start + sc].long()].T
+                 & (spill_pos[start:start + sc] >= 0)[None, :])
+        if mask is not None:
+            valid = valid & mask[start:start + sc][None, :]
+        score = torch.where(valid, dist if sim else -dist, _NEG_INF)
+        ch_s, ch_i = exact_topk(score, min(k, score.shape[1]))
+        best_s, best_i = topk_ordered(torch.cat([best_s, ch_s], 1),
+                                      torch.cat([best_i, start + ch_i], 1), k)
+    pos = spill_pos.long()[best_i.clamp(min=0)].to(torch.int32)
+    return best_s, torch.where(torch.isneginf(best_s), -1, pos)
+
+
+def merge_topk(scores_a, pos_a, scores_b, pos_b, k: int):
+    """Best k of two max-oriented candidate sets; on equal scores the first
+    set's entries come first (``lax.top_k`` over the concatenation)."""
+    cat_s = torch.cat([scores_a, scores_b], 1)
+    cat_p = torch.cat([pos_a, pos_b], 1)
+    best, sel = exact_topk(cat_s, k)
+    return best, cat_p.gather(1, sel)

@@ -16,6 +16,7 @@ card raises (``resolve_device``) instead of carrying on on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -52,6 +53,19 @@ def set_precision(mode: str) -> None:
         raise ValueError(f"precision mode must be one of {sorted(_PRECISIONS)}")
     config.precision_mode = mode
     _apply_precision(mode)
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Run the enclosed float32 matmuls without TF32 whatever the precision
+    mode (the JAX package's ``lax.Precision.HIGHEST`` for one call): k-means
+    training and list assignment need full fp32 in both modes."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def set_device(device: str) -> None:

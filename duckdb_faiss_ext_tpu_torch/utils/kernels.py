@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
 At first use, ``nvcc`` compiles every source in ``csrc/`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with ctypes.  The library is named by a hash of the sources and the
+(``sm_90a``), one compiler process per source, all started together, and
+links the objects into one shared library with a plain C interface, which
+is loaded with ctypes.  The library is named by a hash of the sources and the
 flags, so an edited source is rebuilt and a stale library is never loaded;
 a file lock keeps concurrent processes from building the same library
 twice.  ``nvcc`` is found through ``CUDA_HOME`` or ``/usr/local/cuda/bin``;
@@ -24,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -53,6 +54,29 @@ def _library_path(sources: list[Path]) -> Path:
     return BUILD_DIR / f"libdfx_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _compile_all(nvcc: str, sources: list[Path], tag: str) -> list[Path]:
+    """One ``nvcc -c`` per source, all started together; returns the
+    object files or raises with every failing compiler's output."""
+    jobs = []
+    for src in sources:
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        log = open(BUILD_DIR / f"{src.stem}.{tag}.log", "w+")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=log, stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, obj, log, proc))
+    failed = []
+    for src, obj, log, proc in jobs:
+        with log:
+            if proc.wait() != 0:
+                log.seek(0)
+                failed.append(f"{src.name} ({proc.returncode}):\n{log.read()}")
+        os.unlink(log.name)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return [obj for _, obj, _, _ in jobs]
+
+
 def _build(so: Path, sources: list[Path]) -> None:
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -61,15 +85,22 @@ def _build(so: Path, sources: list[Path]) -> None:
         try:
             if so.exists():
                 return
+            tag = f"{so.stem}.{os.getpid()}"
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                 *map(str, sources)],
-                capture_output=True, text=True)
+            nvcc = find_nvcc()
+            objs = _compile_all(nvcc, sources, tag)
+            try:
+                proc = subprocess.run(
+                    [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                     *map(str, objs)],
+                    capture_output=True, text=True)
+            finally:
+                for obj in objs:
+                    obj.unlink(missing_ok=True)
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+                    f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
             os.replace(tmp, so)
             build_seconds = time.perf_counter() - t0
         finally:
@@ -86,6 +117,20 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i,               # slots, merge_warps
         p, p, p, p,         # part_s, part_p, out_s, out_p
         p,                  # stream
+    ]
+    lib.dfx_ivf_list_scan.restype = ctypes.c_int
+    lib.dfx_ivf_list_scan.argtypes = [
+        p, p, p, p, p,      # lists, counts, probe_ids, xq, mask
+        i, i, i, i, i,      # nq, nprobe, nlist, lmax, d
+        i, i,               # l2, vec4
+        p, p,               # out, stream
+    ]
+    lib.dfx_ivf_pairs.restype = ctypes.c_int
+    lib.dfx_ivf_pairs.argtypes = [
+        p, p, p, p, p, p,   # lists, counts, xq_t, qs, meta, mask
+        i, i, i, i,         # t_max, nlist, lmax, d
+        i, i,               # l2, vec4
+        p, p,               # out, stream
     ]
 
 

@@ -263,9 +263,9 @@ def test_lifecycle_error_messages(catalog, pcat, tmp_path, case, training_data):
 
 def test_unported_family_is_refused(pcat):
     with pytest.raises(dt.InvalidInputError,
-                       match="IVF is not yet available in "
+                       match="HNSW is not yet available in "
                              "duckdb_faiss_ext_tpu_torch"):
-        dt.faiss_create("e", 8, "IDMap,IVF4,Flat", catalog=pcat)
+        dt.faiss_create("e", 8, "IDMap,HNSW32", catalog=pcat)
     assert pcat.names() == []
 
 

@@ -5,7 +5,8 @@
   running on the CPU;
 * the kernel build finds nvcc or raises, and names the library by a hash
   of the sources;
-* on the card (``-m gpu``), the CUDA kernel matches its plain version.
+* on the card (``-m gpu``), the CUDA kernels (flat top-k, IVF list scan,
+  IVF pair tiles) match their plain versions.
 """
 
 import os
@@ -34,6 +35,10 @@ def test_imports_and_searches_without_jax():
         dt.faiss_create("i", 4, "IDMap,Flat", metric_type="L2")
         dt.faiss_add((np.arange(50) + 7, xb), "i")
         res = dt.faiss_search("i", 3, xb[:2])
+        assert res["label"][:, 0].tolist() == [7, 8], res
+        dt.faiss_create("v", 4, "IDMap,IVF2,Flat", metric_type="L2")
+        dt.faiss_add((np.arange(50) + 7, xb), "v")
+        res = dt.faiss_search("v", 3, xb[:2], {"nprobe": "2"})
         assert res["label"][:, 0].tolist() == [7, 8], res
         assert not [m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "duckdb_faiss_ext_tpu")]
@@ -115,3 +120,56 @@ def test_kernel_matches_plain_on_card(metric, nq, d, k):
     separated[:, 1:] &= np.abs(gap) > 2 * tol
     separated[:, :-1] &= np.abs(gap) > 2 * tol
     np.testing.assert_array_equal(p[separated], rp[separated])
+
+
+def _rows_agree(got, want, qn):
+    """-inf slots equal; other scores within 1e-5 of each row's scale (the
+    larger of its largest |score| and |q|^2)."""
+    g, w, qn = got.cpu().numpy(), want.cpu().numpy(), qn.cpu().numpy()
+    finite = np.isfinite(w)
+    np.testing.assert_array_equal(np.isneginf(g), np.isneginf(w))
+    tol = 1e-5 * np.maximum(np.abs(np.where(finite, w, 0)).max(1), qn)
+    diff = np.abs(np.where(finite, g, 0) - np.where(finite, w, 0))
+    assert (diff <= tol[:, None]).all(), diff.max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("d,nprobe", [(8, 1), (128, 3), (1536, 16)])
+def test_ivf_kernels_match_plain_on_card(metric, d, nprobe):
+    """K6 (per-query list scan) and K7 (pair tiles) against their plain
+    torch versions on the same card tensors, raw scores element by element,
+    with a mask, an empty list and a full one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the H100)")
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    nlist, lmax, nq = 16, 256, 64
+    counts = torch.randint(1, lmax, (nlist,), device="cuda", generator=g,
+                           dtype=torch.int32)
+    counts[0], counts[1] = 0, lmax
+    lists = torch.randn(nlist, lmax, d, device="cuda", generator=g)
+    lists *= (torch.arange(lmax, device="cuda")[None, :]
+              < counts[:, None])[:, :, None]
+    mask = (torch.rand(nlist, lmax, device="cuda", generator=g)
+            < 0.6).to(torch.int8)
+    xq = torch.randn(nq, d, device="cuda", generator=g)
+    probe = torch.rand(nq, nlist, device="cuda", generator=g).argsort(1)[
+        :, :nprobe].to(torch.int32).contiguous()
+    before = (k6.LAUNCHES, k7.LAUNCHES)
+    raw = k6.ivf_list_scan(lists, counts, probe, xq, mask, metric)
+    torch.cuda.synchronize()
+    ref = k6.ivf_list_scan_reference(lists, counts, probe, xq, mask, metric)
+    _rows_agree(raw.reshape(-1, lmax), ref.reshape(-1, lmax),
+                (xq * xq).sum(1).repeat_interleave(nprobe))
+    xq_t, qs_t, meta, _ = k7.pair_tile_inputs(probe, xq, nlist)
+    raw = k7.ivf_pairs_scan(lists, counts, xq_t, qs_t, meta, mask, metric)
+    torch.cuda.synchronize()
+    ref = k7.ivf_pairs_scan_reference(lists, counts, xq_t, qs_t, meta, mask,
+                                      metric)
+    n = int(meta[0])
+    _rows_agree(raw[:n].reshape(-1, lmax), ref[:n].reshape(-1, lmax),
+                qs_t[:n, :, 1].reshape(-1))
+    assert (k6.LAUNCHES, k7.LAUNCHES) == (before[0] + 1, before[1] + 1)

@@ -41,12 +41,35 @@ Phases (any failure raises and the script exits non-zero):
 8. pair-tile path: IVF1024,Flat inner product over 262,144 x 1536
    (seed 7) at nprobe 16: b1024 goes through K7 by the static gate and
    b48 through K6, both held against the plain path; K7's raw tiles at
-   b1024 are held against its plain version, then timed against it.
+   b1024 are held against its plain version, then timed against it;
+9. SQ sweep: the int8 IVF,SQ kernels against their plain versions on the
+   card, raw scores element by element: the per-query list scan (K2,
+   ops/ivf_sq_scan.py) and the pair tiles (K3, ops/ivf_sq_pairs.py) at
+   sq8 / sq4 / sq6, L2 and inner product, with and without a mask, d 16 /
+   33 / 128 / 1536, lmax 256 and 1024 (counts on both sides of 256, 512
+   and 768), lists of count 0 and count == lmax, tiles with dead slots and
+   n_tiles < t_max; the spill windows (K5, ops/sq_spill.py) at sq8 / sq4,
+   nprobe 1 / 16 / 64, a ragged last window and a partial query group;
+10. SQ main path: IVF4096,SQ8 inner product at d = 1536 (the reference's
+   MS MARCO ada-002 deployment, tools/marco_scale.py:3-8, README:331), the
+   rows cut from 8,841,823 to 2,097,152: a clustered, skewed corpus made on
+   the card in 262,144-row chunks, faiss_manual_train on the first chunk,
+   faiss_add of every chunk, the padded layout capped at lmax 1024 so the
+   longest lists spill; in fast mode at nprobe 16, k=10: faiss_search at
+   b48 (K2 + K5) and b1024 (K3 by the static rule + K5),
+   faiss_search_batched 16 x b48 and faiss_search_filter('id%2==0').  The
+   launch counts must match the calls; every result is held against the
+   same path with the plain versions of K2, K3 and K5 on the same layout;
+   recall@10 against the parity decode path and against exact fp32 search
+   is printed; K2's, K3's and K5's raw scores at the b1024 shapes are held
+   against their plain versions, then each kernel is timed against its
+   plain version and faiss_search wall time is taken.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the JSON result line {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import itertools
 import json
 import os
@@ -65,6 +88,10 @@ BATCH, BIG_BATCH, N_BATCHES = 48, 1024, 16
 SWEEP_D = (8, 128, 1536)
 SWEEP_NQ = (1, 48, 64, 1024)   # 64: b48 as the Flat model launches it
 SWEEP_K = (1, 10, 100, 1024)
+#: the SQ sweep: widths and list lengths of K2 / K3, widths and spill rows
+#: of K5 (its last window ragged)
+SQ_SWEEP_D, SQ_SWEEP_LMAX = (16, 33, 128, 1536), (256, 1024)
+SPILL_SWEEP_D, SPILL_SWEEP_ROWS = (33, 1536), 12_800
 #: kernel sweep: scores agree to 1e-5 of the query's scale (fp32 sums taken
 #: in another order, see compare); main path: distances to 1e-5 of the
 #: batch's largest distance.  Positions agree wherever the neighbouring
@@ -94,6 +121,36 @@ IVF_TRAIN, IVF_NPROBE = 262_144, 64
 #: pair-tile path at the ada-002 width of the reference's MS MARCO corpus,
 #: rows cut from 8.8M
 PAIRS_N, PAIRS_D, PAIRS_NLIST, PAIRS_NPROBE = 262_144, 1536, 1024, 16
+SQ_LIST_KERNEL = {
+    "name": "ivf_sq_scan",
+    "route": "cuda",
+    "source": "duckdb_faiss_ext_tpu_torch/csrc/ivf_sq_scan.cu",
+    "replaces": "duckdb_faiss_ext_tpu/ops/pallas_ivf.py:371",
+}
+SQ_PAIRS_KERNEL = {
+    "name": "ivf_sq_pairs",
+    "route": "cuda",
+    "source": "duckdb_faiss_ext_tpu_torch/csrc/ivf_sq_pairs.cu",
+    "replaces": "duckdb_faiss_ext_tpu/ops/pallas_ivf_pairs.py:137",
+}
+SQ_SPILL_KERNEL = {
+    "name": "sq_spill",
+    "route": "cuda",
+    "source": "duckdb_faiss_ext_tpu_torch/csrc/sq_spill.cu",
+    "replaces": "duckdb_faiss_ext_tpu/ops/pallas_spill.py:48",
+}
+#: IVF,SQ main path: the reference's MS MARCO ada-002 deployment
+#: (IVF4096,SQ8 inner product, d = 1536; tools/marco_scale.py:3-8), the rows
+#: cut from 8,841,823 to fit the time limit; the padded layout capped at
+#: lmax 1024 (4096 x 1024 x 1536 B), so the longest lists spill
+SQ_N, SQ_D, SQ_NLIST, SQ_NPROBE = 2_097_152, 1536, 4096, 16
+SQ_CHUNK, SQ_LMAX_CAP = 262_144, 1024
+#: the corpus: unit vectors around 4096 unit centres (noise of norm 0.8),
+#: lognormal cluster weights (sigma 0.7) in the training chunk, drifted by a
+#: lognormal factor (sigma 0.5) in the later chunks, so that lists differ in
+#: length and the longest outgrow the cap (11.5% of the rows spill; the
+#: JAX deployment spilled 12% at SQ8, ops/pallas_spill.py:6)
+SQ_SIGMA, SQ_DRIFT, SQ_NOISE = 0.7, 0.5, 0.8
 
 # test/sql/faiss.test:16-38 of the reference: k=2 IP distances per query.
 GOLDEN_FLAT_DISTANCES = [
@@ -578,6 +635,29 @@ def compare_results(name, res, ref_dist, ref_labels, similarity):
     return err
 
 
+def compare_same_k(name, res, ref, similarity):
+    """A public-API result against the same path at the same k with the
+    plain versions: distances within REL_TOL of the batch's largest, labels
+    equal wherever the neighbouring distances are further apart than that
+    (the last rank against its left neighbour).  Returns the max abs
+    error."""
+    rd, rl = ref["distance"], ref["label"]
+    finite = np.isfinite(rd)
+    check(np.array_equal(np.isfinite(res["distance"]), finite),
+          f"{name}: missing slots differ")
+    tol = REL_TOL * float(np.abs(rd[finite]).max())
+    err = float(np.abs(np.where(finite, res["distance"] - rd, 0)).max())
+    check(err <= tol, f"{name}: distance error {err} > {tol}")
+    key = np.where(finite, -rd if similarity else rd, np.inf)
+    gap = np.abs(np.diff(key, axis=1)) > 2 * tol
+    sep = finite.copy()
+    sep[:, 1:] &= gap
+    sep[:, :-1] &= gap
+    bad = np.argwhere(sep & (res["label"] != rl))
+    check(not bad.size, f"{name}: labels differ at {bad[:5].tolist()}")
+    return err
+
+
 def phase_ivf_main(smi, data, exact):
     """IDMap,IVF4096,Flat L2 over the 1M x 128 corpus at nprobe 64, through
     the public API; every result held against the plain path."""
@@ -788,6 +868,443 @@ def phase_ivf_pairs(smi):
     return max(max_err, raw_err), launches[1], (ms, plain_ms)
 
 
+def sq_rows(g, n, d, codec):
+    """n random packed SQ rows, their rn / rs, ranges and a row mask."""
+    from duckdb_faiss_ext_tpu_torch.ops.sq import sq_code_width, sq_unpack
+
+    codes = torch.randint(0, 256, (n, sq_code_width(d, codec)),
+                          device=DEVICE, generator=g, dtype=torch.uint8)
+    scale = torch.rand(d, device=DEVICE, generator=g) / 40 + 1e-3
+    vmin = torch.randn(d, device=DEVICE, generator=g)
+    c = sq_unpack(codes, codec)[:, :d].to(torch.float32)
+    mask = (torch.rand(n, device=DEVICE, generator=g) < 0.6).to(torch.int8)
+    return codes, ((c * scale) ** 2).sum(1), c.sum(1), vmin, scale, mask
+
+
+def sq_sweep_layout(g, nlist, lmax, d, codec):
+    """Random SQ codes padded per list (one list empty, one full, counts on
+    both sides of 256 / 512 / 768 at lmax 1024), their rn / rs, ranges
+    and a mask."""
+    codes, rn, rs, vmin, scale, mask = sq_rows(g, nlist * lmax, d, codec)
+    counts = torch.randint(1, lmax, (nlist,), device=DEVICE, generator=g,
+                           dtype=torch.int32)
+    counts[0], counts[1] = 0, lmax
+    if lmax > 256:
+        counts[2:8] = torch.tensor([255, 257, 511, 513, 767, 769])
+    live = (torch.arange(lmax, device=DEVICE)[None, :] < counts[:, None])
+    codes = codes.reshape(nlist, lmax, -1) * live[:, :, None].to(torch.uint8)
+    return (codes, counts, rn.reshape(nlist, lmax) * live,
+            rs.reshape(nlist, lmax) * live, vmin, scale,
+            mask.reshape(nlist, lmax))
+
+
+def k2_raw_error(codes, rn, rs, counts, probe, q, mask, metric, codec):
+    """K2's raw (nq, nprobe, lmax) scores against its plain version on the
+    same card tensors; the row scale counts the query's |base|."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
+
+    args = (codes, rn, rs, counts, probe, q.digits, q.scalars, mask, metric,
+            codec)
+    raw = k2.ivf_sq_scan(*args)
+    ref = k2.ivf_sq_scan_reference(*args)
+    lmax, nprobe = raw.shape[2], raw.shape[1]
+    return compare_raw(raw.reshape(-1, lmax), ref.reshape(-1, lmax),
+                       q.scalars[:, 2].abs().repeat_interleave(nprobe))
+
+
+def k3_raw_error(codes, rn, rs, counts, tiles, mask, metric, codec):
+    """K3's raw tiles against its plain version over the real tiles."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
+
+    digits_t, scalars_t, meta, _ = tiles
+    args = (codes, rn, rs, counts, digits_t, scalars_t, meta, mask, metric,
+            codec)
+    raw = k3.ivf_sq_pairs_scan(*args)
+    ref = k3.ivf_sq_pairs_scan_reference(*args)
+    n, lmax = int(meta[0]), raw.shape[2]
+    base = scalars_t[:n, :, 2].abs()
+    return compare_raw(raw[:n].reshape(-1, lmax), ref[:n].reshape(-1, lmax),
+                       torch.where(torch.isinf(base), 0.0, base).reshape(-1))
+
+
+def k5_raw_error(args):
+    """K5's (window max, first argmax) against its plain version: maxima
+    as raw scores, argmaxes equal."""
+    from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
+
+    wmax, warg = k5.sq_spill_windows(*args)
+    rmax, rarg = k5.sq_spill_windows_reference(*args)
+    err = compare_raw(wmax, rmax, args[8][:, 2].abs())
+    check(torch.equal(warg, rarg), "window argmax differs")
+    return err
+
+
+def phase_sq_sweep():
+    """K2 and K3 against their plain versions: sq8 / sq4 / sq6, L2 / IP,
+    mask off / on, d 16 / 33 / 128 / 1536, lmax 256 and 1024, nprobe in
+    turn 1 / 3 / 16 / 64; K5 at sq8 / sq4, nprobe 1 / 16 / 64, d 33 /
+    1536, a ragged last window and a partial query group."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
+    from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_pairs import QG
+    from duckdb_faiss_ext_tpu_torch.ops.sq_digits import (KERNEL_SHIFT,
+                                                          query_digits)
+
+    g = torch.Generator(device=DEVICE).manual_seed(2468)
+    nlist, nq2, nq3 = 64, BATCH, 256
+    before = (k2.LAUNCHES, k3.LAUNCHES, k5.LAUNCHES)
+    err2 = err3 = err5 = 0.0
+    n23 = n5 = 0
+    nprobes = itertools.cycle((1, 3, 16, 64))
+    for d, lmax in itertools.product(SQ_SWEEP_D, SQ_SWEEP_LMAX):
+        t0 = time.perf_counter()
+        xq = torch.randn(nq3, d, device=DEVICE, generator=g)
+        for codec in ("sq8", "sq4", "sq6"):
+            codes, counts, rn, rs, vmin, scale, mask = sq_sweep_layout(
+                g, nlist, lmax, d, codec)
+            w = codes.shape[2]
+            for metric, m in itertools.product(("L2", "INNER_PRODUCT"),
+                                               (None, mask)):
+                probe = probe_table(g, nq3, nlist, next(nprobes))
+                q = query_digits(xq, vmin, scale, metric, codec, w,
+                                 KERNEL_SHIFT[codec])
+                q2 = type(q)(q.digits[:nq2].contiguous(),
+                             q.scalars[:nq2].contiguous())
+                err2 = max(err2, k2_raw_error(
+                    codes, rn, rs, counts, probe[:nq2].contiguous(), q2, m,
+                    metric, codec))
+                tiles = k3.sq_pair_tile_inputs(probe, q, nlist, metric)
+                n_tiles = int(tiles[2][0])
+                check(n_tiles < tiles[1].shape[0], "no padding tiles")
+                check(bool(torch.isinf(tiles[1][:n_tiles, :, 2]).any())
+                      or probe.numel() % QG == 0, "no dead slots")
+                err3 = max(err3, k3_raw_error(codes, rn, rs, counts, tiles,
+                                              m, metric, codec))
+                n23 += 1
+            del codes, rn, rs, mask
+        log(f"sq sweep d={d} lmax={lmax}: 12 cases x (K2, K3) agree "
+            f"({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+    nq5, s_pad, n_rows = 250, SPILL_SWEEP_ROWS, SPILL_SWEEP_ROWS - 53
+    for d, codec in itertools.product(SPILL_SWEEP_D, ("sq8", "sq4")):
+        t0 = time.perf_counter()
+        codes, rn, rs, vmin, scale, mask = sq_rows(g, s_pad, d, codec)
+        w = codes.shape[1]
+        assign = torch.randint(0, nlist, (s_pad,), device=DEVICE,
+                               generator=g, dtype=torch.int32)
+        pos = torch.where(torch.rand(s_pad, device=DEVICE, generator=g)
+                          < 0.95, torch.arange(s_pad, device=DEVICE),
+                          -1).to(torch.int32)
+        xq = torch.randn(nq5, d, device=DEVICE, generator=g)
+        for metric, m, nprobe in itertools.product(
+                ("L2", "INNER_PRODUCT"), (None, mask), (1, 16, 64)):
+            q = query_digits(xq, vmin, scale, metric, codec, w,
+                             KERNEL_SHIFT[codec])
+            probe = probe_table(g, nq5, nlist, nprobe)
+            err5 = max(err5, k5_raw_error((
+                codes, assign, pos, rs, rn, m, probe, q.digits, q.scalars,
+                n_rows, metric, codec)))
+            n5 += 1
+        log(f"sq sweep K5 d={d} {codec}: 12 cases agree "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del codes
+        torch.cuda.empty_cache()
+    check((k2.LAUNCHES - before[0], k3.LAUNCHES - before[1],
+           k5.LAUNCHES - before[2]) == (n23, n23, n5),
+          "an sq sweep case did not launch")
+    log(f"sq sweep: {n23} cases each for K2 and K3, {n5} for K5; max abs "
+        f"score error K2 {err2:.3g}, K3 {err3:.3g}, K5 {err5:.3g}")
+    return err2, err3, err5
+
+
+class MarcoCorpus:
+    """The SQ main path's corpus, made on the card chunk by chunk from
+    seeded generators, so any chunk can be made again for exact search."""
+
+    def __init__(self, seed=11):
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        self.seed = seed
+        self.centers = torch.nn.functional.normalize(
+            torch.randn(SQ_NLIST, SQ_D, device=DEVICE, generator=g), dim=1)
+        logw = torch.randn(SQ_NLIST, device=DEVICE, generator=g) * SQ_SIGMA
+        drift = torch.randn(SQ_NLIST, device=DEVICE, generator=g) * SQ_DRIFT
+        self.w_train = torch.softmax(logw, 0)
+        self.w_rest = torch.softmax(logw + drift, 0)
+
+    def _draw(self, n, weights, stream):
+        g = torch.Generator(device=DEVICE).manual_seed(
+            self.seed * 1000 + stream)
+        c = torch.multinomial(weights, n, replacement=True, generator=g)
+        x = self.centers[c] + torch.randn(
+            n, SQ_D, device=DEVICE, generator=g) * (SQ_NOISE / SQ_D ** 0.5)
+        return torch.nn.functional.normalize(x, dim=1)
+
+    def chunk(self, i):
+        """Rows [i·SQ_CHUNK, (i+1)·SQ_CHUNK) on the card."""
+        return self._draw(SQ_CHUNK, self.w_train if i == 0 else self.w_rest,
+                          i + 1)
+
+    def queries(self, n):
+        return self._draw(n, self.w_rest, 999).cpu().numpy()
+
+
+@contextlib.contextmanager
+def plain_sq_kernels():
+    """Run the IVF,SQ path with the plain versions of K2, K3 and K5 in place
+    of their wrappers (same signatures, same inputs)."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
+    from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
+
+    saved = (k2.ivf_sq_scan, k3.ivf_sq_pairs_scan, k5.sq_spill_windows)
+    k2.ivf_sq_scan = k2.ivf_sq_scan_reference
+    k3.ivf_sq_pairs_scan = k3.ivf_sq_pairs_scan_reference
+    k5.sq_spill_windows = k5.sq_spill_windows_reference
+    try:
+        yield
+    finally:
+        k2.ivf_sq_scan, k3.ivf_sq_pairs_scan, k5.sq_spill_windows = saved
+
+
+def exact_ip_labels(corpus, xq, k):
+    """Exact fp32 inner-product top-k over the corpus, made again on the
+    card chunk by chunk."""
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import (exact_topk,
+                                                            topk_ordered)
+    from duckdb_faiss_ext_tpu_torch.utils.config import full_fp32
+
+    q = torch.from_numpy(xq).to(DEVICE)
+    best_s = torch.full((q.shape[0], k), float("-inf"), device=DEVICE)
+    best_p = torch.full((q.shape[0], k), -1, dtype=torch.int64,
+                        device=DEVICE)
+    for i in range(SQ_N // SQ_CHUNK):
+        with full_fp32():
+            s, p = exact_topk(q @ corpus.chunk(i).T, k)
+        best_s, best_p = topk_ordered(torch.cat([best_s, s], 1),
+                                      torch.cat([best_p, i * SQ_CHUNK + p],
+                                                1), k)
+    return best_p.cpu().numpy()
+
+
+def recall(labels, ref):
+    return float(np.mean([len(set(a) & set(b)) / len(a)
+                          for a, b in zip(labels, ref)]))
+
+
+def phase_sq_main(smi):
+    """IVF4096,SQ8 IP over 2,097,152 x 1536 at nprobe 16 through the public
+    API, in fast mode (the int8 path)."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
+    from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import exact_topk
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_sq_pairs import (
+        ivf_sq_pairs_search)
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_sq_scan import ivf_sq_list_search
+    from duckdb_faiss_ext_tpu_torch.ops.sq_digits import (KERNEL_SHIFT,
+                                                          query_digits)
+    from duckdb_faiss_ext_tpu_torch.ops.sq_spill import sq_spill_search
+    from duckdb_faiss_ext_tpu_torch.utils.config import pad_rows
+
+    metric, codec = "INNER_PRODUCT", "sq8"
+    corpus = MarcoCorpus()
+    xq_all = corpus.queries(BATCH * N_BATCHES + BIG_BATCH)
+    data = {"b48": xq_all[:BATCH], "b1024": xq_all[-BIG_BATCH:],
+            "batched": xq_all[:BATCH * N_BATCHES]}
+    ids = np.arange(SQ_N, dtype=np.int64)
+    db = dt.Database()
+    db.register("passages", {"id": ids})
+    cat = dt.Catalog()
+    params = {"nprobe": str(SQ_NPROBE)}
+    t0 = time.perf_counter()
+    dt.faiss_create("marco", SQ_D, f"IVF{SQ_NLIST},SQ8", metric_type=metric,
+                    catalog=cat)
+    index = cat.get("marco").index
+    index.LAYOUT_BUDGET_BYTES = SQ_NLIST * SQ_LMAX_CAP * SQ_D
+    dt.faiss_manual_train(corpus.chunk(0).cpu().numpy(), "marco",
+                          catalog=cat)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(SQ_N // SQ_CHUNK):
+        dt.faiss_add(corpus.chunk(i).cpu().numpy(), "marco", catalog=cat)
+    t_add = time.perf_counter() - t0
+    dt.set_precision("fast")
+    counts = index._counts()
+    n_spill = int(np.maximum(counts - SQ_LMAX_CAP, 0).sum())
+    log(f"sq main path: train {t_train:.2f} s, add {t_add:.2f} s; codes "
+        f"{index._codes.nbytes / 1e9:.2f} GB; lists: mean "
+        f"{SQ_N / SQ_NLIST:.0f}, median {int(np.median(counts))}, longest "
+        f"{int(counts.max())}, {int((counts > SQ_LMAX_CAP).sum())} over "
+        f"{SQ_LMAX_CAP}; spill {n_spill} rows ({100 * n_spill / SQ_N:.2f}% "
+        f"of {SQ_N})")
+    check(0.01 * SQ_N <= n_spill <= index.SPILL_FRACTION_MAX * SQ_N,
+          "spill outside 1-20% of the rows")
+    check(index._layout_plan() == ("spill", SQ_LMAX_CAP), "no capped plan")
+    t0 = time.perf_counter()
+    lay = index._build_device_layout()
+    log(f"sq main path: layout build+upload {time.perf_counter() - t0:.2f} s")
+    spill = index._spill
+    lmax = lay.payload.shape[1]
+    check(spill.n == n_spill and lmax == SQ_LMAX_CAP, "layout differs")
+
+    def run_all():
+        return {
+            "b48": dt.faiss_search("marco", K, data["b48"], params,
+                                   catalog=cat),
+            "b1024": dt.faiss_search("marco", K, data["b1024"], params,
+                                     catalog=cat),
+            "batched": dt.faiss_search_batched("marco", K, data["batched"],
+                                               params, batch_size=BATCH,
+                                               catalog=cat),
+            "filter": dt.faiss_search_filter("marco", K, data["b48"],
+                                             "id%2==0", "id", "passages",
+                                             params, catalog=cat,
+                                             database=db),
+        }
+
+    k2.LAUNCHES = k3.LAUNCHES = k5.LAUNCHES = 0
+    out = run_all()
+    launches = (k2.LAUNCHES, k3.LAUNCHES, k5.LAUNCHES)
+    calls = [(64, 1), (BIG_BATCH, 1), (64, N_BATCHES), (64, 1)]
+    expected = (sum(n for nq, n in calls if not index.pairs_wanted(nq, lmax)),
+                sum(n for nq, n in calls if index.pairs_wanted(nq, lmax)),
+                sum(n for _, n in calls))
+    check(launches == expected, f"sq main path launched (K2, K3, K5) "
+          f"{launches} times, not {expected}")
+    check(expected[1] == 1, "b1024 does not take the pair tiles")
+    check(index.device.type == DEVICE, "index not on the card")
+    log(f"sq main path: (K2, K3, K5) launches {launches}")
+
+    t0 = time.perf_counter()
+    with plain_sq_kernels():
+        ref = run_all()
+    check((k2.LAUNCHES, k3.LAUNCHES, k5.LAUNCHES) == launches,
+          "the plain path launched a kernel")
+    log(f"sq main path: plain path ({time.perf_counter() - t0:.1f} s)")
+    max_err = 0.0
+    for name, res in out.items():
+        check(res["label"].shape == (data["b48" if name == "filter"
+                                          else name].shape[0], K),
+              f"{name}: shape")
+        check(np.isfinite(res["distance"]).all(), f"{name}: non-finite")
+        max_err = max(max_err, compare_same_k(f"sq {name}", res, ref[name],
+                                              True))
+        if name == "filter":
+            check((res["label"] % 2 == 0).all(), "filter: odd label")
+    log(f"sq main path: b48, b1024, batched and filter agree with the plain "
+        f"path (max distance error {max_err:.3g})")
+
+    dt.set_precision("parity")
+    t0 = time.perf_counter()
+    decode = dt.faiss_search("marco", K, data["b48"], params, catalog=cat)
+    t_decode = time.perf_counter() - t0
+    check(index._last_scan_path == "gather", "parity did not decode")
+    dt.set_precision("fast")
+    exact = {name: exact_ip_labels(corpus, data[name], K)
+             for name in ("b48", "b1024")}
+    r_dec = recall(out["b48"]["label"], decode["label"])
+    r48 = recall(out["b48"]["label"], exact["b48"])
+    r1024 = recall(out["b1024"]["label"], exact["b1024"])
+    log(f"sq main path: recall@10 vs the parity decode path (b48, "
+        f"{1e3 * t_decode:.0f} ms with its layout build) {r_dec:.4f}; vs "
+        f"exact fp32 search: b48 {r48:.4f}, b1024 {r1024:.4f}")
+
+    vmin, scale = index._sq_ranges()
+    shapes = {}
+    for name, nq_pad in (("b48", 64), ("b1024", BIG_BATCH)):
+        xq = torch.from_numpy(pad_rows(data[name], nq_pad)).to(DEVICE)
+        probe = coarse_topk(xq, lay.centroids, SQ_NPROBE, metric)
+        q = query_digits(xq, vmin, scale, metric, codec, lay.payload.shape[2],
+                         KERNEL_SHIFT[codec])
+        shapes[name] = (xq, probe, q)
+    xq, probe, q = shapes["b1024"]
+    tiles = k3.sq_pair_tile_inputs(probe, q, SQ_NLIST, metric)
+    lists = (lay.payload, lay.rn, lay.rs, lay.counts)
+    spill_args = (spill.payload, spill.assign, spill.pos, spill.rs, spill.rn,
+                  None, probe, q.digits, q.scalars, spill.n, metric, codec)
+    raw2 = k2_raw_error(*lists, probe, q, None, metric, codec)
+    raw3 = k3_raw_error(*lists, tiles, None, metric, codec)
+    raw5 = k5_raw_error(spill_args)
+    log(f"sq main path b1024 raw scores (lmax {lmax}, {int(tiles[2][0])} of "
+        f"{tiles[1].shape[0]} tiles, {spill.n} spill rows): K2, K3 and K5 "
+        f"agree with their plain versions (max abs error K2 {raw2:.3g}, K3 "
+        f"{raw3:.3g}, K5 {raw5:.3g})")
+
+    timings = {}
+    xq48, probe48, q48 = shapes["b48"]
+    a2 = (*lists, probe48, q48.digits, q48.scalars, None, metric, codec)
+    timings["k2"] = time_pair(lambda: k2.ivf_sq_scan(*a2),
+                              lambda: k2.ivf_sq_scan_reference(*a2), reps=6)
+    a3 = (*lists, *tiles[:3], None, metric, codec)
+    timings["k3"] = time_pair(lambda: k3.ivf_sq_pairs_scan(*a3),
+                              lambda: k3.ivf_sq_pairs_scan_reference(*a3),
+                              reps=4)
+    timings["k5"] = time_pair(
+        lambda: k5.sq_spill_windows(*spill_args),
+        lambda: k5.sq_spill_windows_reference(*spill_args), reps=6)
+    a248 = (*spill_args[:6], probe48, q48.digits, q48.scalars,
+            *spill_args[9:])
+    k5_48 = time_pair(lambda: k5.sq_spill_windows(*a248),
+                      lambda: k5.sq_spill_windows_reference(*a248), reps=6)
+    a21024 = (*lists, probe, q.digits, q.scalars, None, metric, codec)
+    k2_1024 = statistics.median(
+        cuda_ms(lambda: k2.ivf_sq_scan(*a21024)) for _ in range(6))
+    pv = k3.ivf_sq_pairs_scan(*a3).reshape(-1, lmax)[
+        tiles[3].reshape(-1).long()].reshape(BIG_BATCH, -1)
+    k_scan = index._sq_kscan(K, SQ_NPROBE * lmax)
+    exact_topk(pv, k_scan)
+    topk_ms = statistics.median(
+        cuda_ms(lambda: exact_topk(pv, k_scan)) for _ in range(6))
+    del pv
+    log(f"time IVF{SQ_NLIST},SQ8 {SQ_N}x{SQ_D} IP nprobe {SQ_NPROBE} raw "
+        f"scores (median CUDA events): K2 b48 (64 rows) {timings['k2'][0]:.3f}"
+        f" ms, plain {timings['k2'][1]:.3f} ms; K2 b1024 {k2_1024:.3f} ms; "
+        f"K3 b1024 {timings['k3'][0]:.3f} ms, plain {timings['k3'][1]:.3f} "
+        f"ms; K5 b1024 {timings['k5'][0]:.3f} ms, plain "
+        f"{timings['k5'][1]:.3f} ms; K5 b48 {k5_48[0]:.3f} ms, plain "
+        f"{k5_48[1]:.3f} ms; top-{k_scan} of the b1024 pair-gathered block "
+        f"{topk_ms:.3f} ms [{smi}]")
+    for name in ("b48", "b1024"):
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            dt.faiss_search("marco", K, data[name], params, catalog=cat)
+            walls.append(1e3 * (time.perf_counter() - t0))
+        # The stages of that search on the device, as the index runs them:
+        # coarse top-k; list scan (K2 or K3) with its top-k and rerank; the
+        # spill search (K5 and both rerank legs).
+        xq_s, probe_s, _ = shapes[name]
+        pairs = index.pairs_wanted(xq_s.shape[0], lmax)
+        scan = ivf_sq_pairs_search if pairs else ivf_sq_list_search
+        stages = {
+            "coarse top-k": lambda: coarse_topk(xq_s, lay.centroids,
+                                                SQ_NPROBE, metric),
+            ("K3" if pairs else "K2") + " scan + top-k + rerank": lambda: scan(
+                lay.payload, lay.rn, lay.rs, lay.counts, lay.row_pos,
+                probe_s, xq_s, None, vmin, scale, k=K, k_scan=k_scan,
+                metric=metric, codec=codec),
+            "K5 spill search (windows + rerank legs)": lambda: sq_spill_search(
+                spill.payload, spill.assign, spill.pos, spill.rs, spill.rn,
+                spill.n, probe_s, xq_s, None, vmin, scale, k=K,
+                metric=metric, codec=codec),
+        }
+        parts = []
+        for label, fn in stages.items():
+            fn()
+            ms = statistics.median(cuda_ms(fn) for _ in range(5))
+            parts.append(f"{label} {ms:.3f} ms")
+        log(f"time IVF{SQ_NLIST},SQ8 {SQ_N}x{SQ_D} IP nprobe {SQ_NPROBE} "
+            f"k={K} {name}: faiss_search wall {statistics.median(walls):.3f}"
+            f" ms (median of 10); device stages (median CUDA events): "
+            f"{'; '.join(parts)} [{smi}]")
+    dt.set_precision("parity")
+    return {"launches": launches, "err": (max(max_err, raw2), raw3, raw5),
+            "timings": timings}
+
+
 def main():
     smi = phase_environment()
     phase_build()
@@ -802,6 +1319,9 @@ def main():
     del data
     torch.cuda.empty_cache()
     pairs_err, pairs_launches, pairs_timing = phase_ivf_pairs(smi)
+    torch.cuda.empty_cache()
+    sq_errs = phase_sq_sweep()
+    sq = phase_sq_main(smi)
     log(smi)
     ms, plain_ms = timings["b48"]
     ivf_ms, ivf_plain_ms = ivf_timings["b48"]
@@ -816,6 +1336,13 @@ def main():
              max_abs_err=max(err7, ivf_err7, pairs_err),
              ms=pairs_timing[0],
              plain_ms=pairs_timing[1]),
+    ] + [
+        dict(kernel, launches=sq["launches"][i],
+             max_abs_err=max(sq_errs[i], sq["err"][i]),
+             ms=sq["timings"][key][0], plain_ms=sq["timings"][key][1])
+        for i, (kernel, key) in enumerate(((SQ_LIST_KERNEL, "k2"),
+                                           (SQ_PAIRS_KERNEL, "k3"),
+                                           (SQ_SPILL_KERNEL, "k5")))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,13 @@ The same ``faiss_*`` surface as the JAX package (the reference extension's
 SQL functions: named index create / add / search / filtered search / save /
 load / destroy), with the same error messages, result schema and checkpoint
 format, running on an NVIDIA H100.  The port covers the ``Flat`` and
-``IDMap,Flat`` families and the ``IVFn,Flat`` / ``IDMap[2],IVFn,Flat``
-families over all nine metrics.  L2 and inner-product search run through
-hand-written CUDA kernels: ``csrc/flat_topk.cu`` (Flat),
-``csrc/ivf_list_scan.cu`` and ``csrc/ivf_pairs.cu`` (IVF list scans).
+``IDMap,Flat`` families, the ``IVFn,Flat`` / ``IDMap[2],IVFn,Flat``
+families over all nine metrics, and ``IVFn,SQ8`` / ``SQ4`` / ``SQ6`` (with
+IDMap) under L2 and inner product.  L2 and inner-product search run
+through hand-written CUDA kernels: ``csrc/flat_topk.cu`` (Flat),
+``csrc/ivf_list_scan.cu`` and ``csrc/ivf_pairs.cu`` (IVF list scans),
+``csrc/ivf_sq_scan.cu``, ``csrc/ivf_sq_pairs.cu`` and ``csrc/sq_spill.cu``
+(the int8 IVF,SQ scans, with ``set_sq_dot``).
 
 Every index keeps its corpus on ``config.device`` (``"cuda"`` by default;
 ``set_device("cpu")`` runs the plain torch paths on the CPU).
@@ -37,7 +40,7 @@ from .metrics import metric_names, resolve_metric
 from .ops.selectors import BitmapSelector, SetSelector
 from .params import ParamMap
 from .sql import Database, register_table
-from .utils.config import config, set_device, set_precision
+from .utils.config import config, set_device, set_precision, set_sq_dot
 
 __version__ = "0.1.0"
 
@@ -72,4 +75,5 @@ __all__ = [
     "register_table",
     "set_device",
     "set_precision",
+    "set_sq_dot",
 ]

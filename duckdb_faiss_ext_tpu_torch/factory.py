@@ -20,8 +20,10 @@ so the observable surface is the factory grammar itself:
     suffix      := "RFlat"  (exact re-rank wrapper, IndexRefineFlat)
 
 The whole grammar is parsed, with the same parse errors as the JAX
-package.  ``Flat`` and ``IVFn[_Flat][,Flat]`` under any number of IDMap
-prefixes build; every other family, quantizer, encoding, transform or
+package.  ``Flat``, ``IVFn[_Flat][,Flat]`` and ``IVFn[_Flat],SQ8`` /
+``SQ4`` / ``SQ6`` under any number of IDMap prefixes build; every other
+family (standalone ``SQ*`` included), quantizer, encoding (``SQfp16``,
+``SQbf16``, PQ, RQ), transform or
 suffix raises ``InvalidInputError`` naming it as not yet available in this
 package, so a description never builds something other than what it says.
 """
@@ -173,9 +175,9 @@ def _check_component(parts, desc) -> str:
 
 
 def _build_ivf(d, parts, metric, metric_arg, desc) -> Index:
-    """``IVFn[_Flat][,Flat]``: inverted lists over a Flat coarse quantizer
-    (the reference's graph shape)."""
-    from .models.ivf import IVFIndex
+    """``IVFn[_Flat][,Flat]`` and ``IVFn[_Flat],SQ{8,4,6}``: inverted lists
+    over a Flat coarse quantizer (the reference's graph shape)."""
+    from .models.ivf import SQ_ENCODINGS, IVFIndex
 
     if _IVF_PAREN_RE.match(parts[0]):
         raise _not_available(desc, "the parenthesized IVF quantizer")
@@ -183,10 +185,11 @@ def _build_ivf(d, parts, metric, metric_arg, desc) -> Index:
     if m.group(2) not in (None, "Flat"):
         raise _not_available(desc, f"IVF quantizer {m.group(2)}")
     encoding = parts[1] if len(parts) > 1 else "Flat"
-    if encoding != "Flat":
+    if encoding != "Flat" and encoding not in SQ_ENCODINGS:
         raise _not_available(desc, f"IVF encoding {encoding}")
     return IVFIndex(d, metric, metric_arg, nlist=int(m.group(1)),
-                    quantizer=FlatIndex(d, metric, metric_arg))
+                    quantizer=FlatIndex(d, metric, metric_arg),
+                    encoding=encoding)
 
 
 def build_index(d: int, desc: str, metric: Metric,

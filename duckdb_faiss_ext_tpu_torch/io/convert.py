@@ -2,8 +2,9 @@
 
 ``from_reference`` reads only plain attributes and the ``state_dict()``
 numpy arrays of a ``duckdb_faiss_ext_tpu`` index (its factory description,
-dimension, metric name and argument, and its state: the corpus, IDMap's
-labels, IVF's ids, list assignments and trained centroids) and rebuilds
+dimension, metric name and argument, and its state: the corpus or, for
+IVF,SQ, the packed codes and their trained ranges, IDMap's labels, IVF's
+ids, list assignments and trained centroids) and rebuilds
 the index through this package's factory and ``load_state`` — the
 in-memory form of the checkpoint format (io/serialize.py) the two packages
 share.  An IVF index so carried has the JAX package's centroids, which the

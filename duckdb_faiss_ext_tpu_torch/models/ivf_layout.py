@@ -1,17 +1,27 @@
 """IVF storage layouts and device builds.
 
 The counterpart of ``duckdb_faiss_ext_tpu/models/ivf_layout.py`` for Flat
-storage: everything that turns the host state (vectors, ids, assignments)
-into the layouts the scans read, and the selector masks aligned with each.
+and SQ8 / SQ4 / SQ6 storage: everything that turns the host state
+(vectors or packed codes, ids, assignments) into the layouts the scans
+read, and the selector masks aligned with each.
 
-* The padded list layout: (nlist, lmax, d) fp32 with lmax from
-  ``choose_lmax`` (the JAX package's rule, so both packages build the same
-  layout from the same data), read by the list-scan kernels (K6, K7).  When
-  it would exceed ``LAYOUT_BUDGET_BYTES`` the lists are capped and the
+* The padded list layout: (nlist, lmax, d) fp32 rows, or (nlist, lmax, w)
+  uint8 packed SQ codes with each slot's Σ(scale·c)² (``rn``) and Σc
+  (``rs``) in (nlist, lmax) fp32, with lmax from ``choose_lmax`` (the JAX
+  package's rule, so both packages build the same layout from the same
+  data), read by the list-scan kernels (K6 / K7, and K2 / K3 for SQ).  The
+  plan counts the bytes a row takes (d·4, or the code width).  When the
+  layout would exceed ``LAYOUT_BUDGET_BYTES`` the lists are capped and the
   overflow rows go to a dense spill region (at most ``SPILL_FRACTION_MAX``
-  of the rows), else there is no layout plan.
-* The sorted+gather layout: rows sorted by list in one buffer, for the
-  elementwise metrics and for searches without a layout plan.
+  of the rows; for SQ with its rows' rn / rs, scanned by K5), else there
+  is no layout plan.  SQ indexes have a plan only while the int8 path is
+  active (``utils.config.sq_int8_active``), as in the JAX package.  sq6
+  stays in packed rows: the JAX package's plane-major (nlist, 3·lmax,
+  ceil(d/4)) fold was a Mosaic tiling workaround.
+* The sorted+gather layout: rows (or codes) sorted by list in one buffer,
+  for the elementwise metrics, the SQ decode path and searches without a
+  layout plan; for the int8 SQ gather scan, the sorted rows' rn / rs
+  beside it.
 
 Layouts are built on the host in numpy, as in the JAX package, uploaded
 to the index's device once per mutation, and cached until the next one.
@@ -29,7 +39,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils.config import config, next_capacity, next_pow2, pad_rows
+from ..ops.sq import sq_row_norms, sq_row_sums
+from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
+                            sq_int8_active)
 
 def choose_lmax(counts_max: int) -> int:
     """Pad list length: ≥ 128 slots, powers of two up to 512, then the
@@ -45,25 +57,29 @@ def choose_lmax(counts_max: int) -> int:
 
 class ListLayout(NamedTuple):
     """The padded list layout on the device."""
-    payload: torch.Tensor      # (nlist, lmax, d) fp32
+    payload: torch.Tensor      # (nlist, lmax, d) fp32 / (nlist, lmax, w) u8
     counts: torch.Tensor       # (nlist,) int32 rows kept per list
     row_pos: torch.Tensor      # (nlist, lmax) int32 storage row, -1 padding
     centroids: torch.Tensor    # (nlist, d) fp32
     row_pos_host: np.ndarray   # host copy of row_pos (selector masks)
+    rn: torch.Tensor | None = None   # SQ: (nlist, lmax) fp32 Σ(scale·c)²
+    rs: torch.Tensor | None = None   # SQ: (nlist, lmax) fp32 Σc
 
 
 class Spill(NamedTuple):
     """Overflow rows of capped lists, padded to s_pad rows."""
-    payload: torch.Tensor      # (s_pad, d) fp32
+    payload: torch.Tensor      # (s_pad, d) fp32 / (s_pad, w) uint8 codes
     assign: torch.Tensor       # (s_pad,) int32 list of each row
     pos: torch.Tensor          # (s_pad,) int32 storage row, -1 padding
     pos_host: np.ndarray
     n: int                     # real rows
+    rn: torch.Tensor | None = None   # SQ: (s_pad,) fp32 Σ(scale·c)²
+    rs: torch.Tensor | None = None   # SQ: (s_pad,) fp32 Σc
 
 
 class SortedLayout(NamedTuple):
     """Rows sorted by list: each list a contiguous block."""
-    xb: torch.Tensor           # (cap, d) fp32
+    xb: torch.Tensor           # (cap, d) fp32 / (cap, w) uint8 SQ codes
     lmax: int                  # scan window: pow2 ≥ the longest list
     centroids: torch.Tensor
     order: np.ndarray          # sorted row → storage row
@@ -90,6 +106,8 @@ class IVFLayout:
         self._layout: ListLayout | None = None
         self._spill: Spill | None = None
         self._sorted: SortedLayout | None = None
+        self._sorted_extras = None
+        self._sq_extras = None
         self._list_meta_cache = None
         self._ids_sorted = None
         self._mask_cache: dict = {}
@@ -103,16 +121,20 @@ class IVFLayout:
     def _layout_plan(self):
         """Layout plan for the list-scan kernels (``_pallas_plan`` in the
         JAX package):
-        None           — no padded layout (elementwise metric, or the
-                         spill would exceed SPILL_FRACTION_MAX);
+        None           — no padded layout (elementwise metric, SQ without
+                         the int8 path, or the spill would exceed
+                         SPILL_FRACTION_MAX);
         ("full", None) — the padded (nlist, lmax, d) layout fits the budget;
         ("spill", L)   — lists capped at L, overflow rows in a spill
                          region scanned densely and merged."""
         if self.metric.name not in ("L2", "INNER_PRODUCT"):
             return None
+        if self.sq_type is not None and not sq_int8_active():
+            return None
         if self._plan_cache is not None:
             return self._plan_cache[0]
-        width = self.d * 4
+        width = (self._codes.shape[1] if self.sq_type is not None
+                 else self.d * 4)
         counts = self._counts()
         full = choose_lmax(int(counts.max()) if self.ntotal else 1)
         budget = self.LAYOUT_BUDGET_BYTES
@@ -132,11 +154,12 @@ class IVFLayout:
         return plan
 
     def _build_list_layout(self, lmax_cap: int | None = None):
-        """Host-side padded list layout: (payload (nlist, lmax, d), counts
-        (nlist,), row_pos (nlist, lmax), spill).  With ``lmax_cap``, lists
-        longer than the cap keep their first cap members; the overflow rows
-        come back in ``spill`` = (payload (s, d), assign (s,), pos (s,)
-        storage rows), else spill is None."""
+        """Host-side padded list layout: (payload (nlist, lmax, w) of the
+        stored rows (fp32 vectors or SQ codes), counts (nlist,), row_pos
+        (nlist, lmax), spill).  With ``lmax_cap``, lists longer than the cap
+        keep their first cap members; the overflow rows come back in
+        ``spill`` = (payload (s, w), assign (s,), pos (s,) storage rows),
+        else spill is None."""
         n = self.ntotal
         counts = self._counts()
         if lmax_cap is None and n and \
@@ -150,7 +173,9 @@ class IVFLayout:
             lmax = min(lmax, lmax_cap)
         kept = np.minimum(counts, lmax)
         row_pos = np.full((self.nlist, lmax), -1, np.int32)
-        payload = np.zeros((self.nlist, lmax, self.d), np.float32)
+        raw = self._codes if self.sq_type is not None else self._xb
+        w = raw.shape[1]
+        payload = np.zeros((self.nlist, lmax, w), raw.dtype)
         spill = None
         if n:
             # Rank of each row within its list decides slot vs spill.
@@ -160,11 +185,11 @@ class IVFLayout:
             ranks = np.arange(n, dtype=np.int64) - offsets[sorted_assign]
             keep = ranks < lmax
             flat = sorted_assign[keep].astype(np.int64) * lmax + ranks[keep]
-            payload.reshape(-1, self.d)[flat] = self._xb[order[keep]]
+            payload.reshape(-1, w)[flat] = raw[order[keep]]
             row_pos.reshape(-1)[flat] = order[keep]
             if not keep.all():
                 sp = order[~keep]
-                spill = (self._xb[sp], self._assign[sp], sp.astype(np.int32))
+                spill = (raw[sp], self._assign[sp], sp.astype(np.int32))
         return payload, kept.astype(np.int32), row_pos, spill
 
     def _build_device_layout(self) -> ListLayout:
@@ -176,23 +201,45 @@ class IVFLayout:
         lmax_cap = plan[1] if plan is not None else None
         payload, counts, row_pos, spill = self._build_list_layout(lmax_cap)
         dev = self.device
+
+        def up(a):
+            return torch.from_numpy(a).to(dev)
+
+        rn = rs = None
+        if self.sq_type is not None:
+            # Σ(scale·c)² and Σc of every row, scattered through row_pos.
+            rn, rs = self._sq_row_extras()
+            valid = row_pos >= 0
+            lay_rn = np.zeros(row_pos.shape, np.float32)
+            lay_rs = np.zeros(row_pos.shape, np.float32)
+            lay_rn[valid] = rn[row_pos[valid]]
+            lay_rs[valid] = rs[row_pos[valid]]
         self._layout = ListLayout(
-            torch.from_numpy(payload).to(dev),
-            torch.from_numpy(counts).to(dev),
-            torch.from_numpy(row_pos).to(dev),
-            torch.from_numpy(self._centroids).to(dev),
-            row_pos)
+            up(payload), up(counts), up(row_pos), up(self._centroids),
+            row_pos, *((up(lay_rn), up(lay_rs)) if rn is not None else ()))
         if spill is not None:
             sp_payload, sp_assign, sp_pos = spill
             s_pad = max(128, next_pow2(sp_pos.shape[0]))
             pos_host = pad_rows(sp_pos, s_pad, fill=-1).astype(np.int32)
+            extras = ((up(pad_rows(rn[sp_pos], s_pad)),
+                       up(pad_rows(rs[sp_pos], s_pad)))
+                      if rn is not None else ())
             self._spill = Spill(
-                torch.from_numpy(pad_rows(sp_payload, s_pad)).to(dev),
-                torch.from_numpy(pad_rows(sp_assign, s_pad)
-                                 .astype(np.int32)).to(dev),
-                torch.from_numpy(pos_host).to(dev),
-                pos_host, int(sp_pos.shape[0]))
+                up(pad_rows(sp_payload, s_pad)),
+                up(pad_rows(sp_assign, s_pad).astype(np.int32)),
+                up(pos_host), pos_host, int(sp_pos.shape[0]), *extras)
         return self._layout
+
+    def _sq_row_extras(self):
+        """Per-row (Σ(scale·c)², Σc) fp32 of the stored codes, on the host
+        in storage order (the JAX package's ``sq_row_norms`` /
+        ``sq_row_sums``), cached per version."""
+        if self._sq_extras is None:
+            self._sq_extras = (
+                sq_row_norms(self._codes, self._sq_scale, self.d,
+                             self.sq_type),
+                sq_row_sums(self._codes, self.d, self.sq_type))
+        return self._sq_extras
 
     def _build_device(self) -> SortedLayout:
         """The sorted+gather layout on the device."""
@@ -205,11 +252,24 @@ class IVFLayout:
         # n are never inside a probed window's valid part.
         lmax = max(128, next_pow2(max(1, int(counts.max()) if n else 1)))
         cap = max(config.min_capacity, next_capacity(n + 1))
-        xb_sorted = pad_rows(self._xb[order] if n else self._xb, cap)
+        raw = self._codes if self.sq_type is not None else self._xb
+        xb_sorted = pad_rows(raw[order] if n else raw, cap)
         self._sorted = SortedLayout(
             torch.from_numpy(xb_sorted).to(self.device), lmax,
             torch.from_numpy(self._centroids).to(self.device), order)
         return self._sorted
+
+    def _sorted_sq_extras(self):
+        """(rn, rs) (cap,) fp32 device tensors of the sorted SQ rows, for
+        the int8 gather scan; cached per version."""
+        if self._sorted_extras is None:
+            sl = self._build_device()
+            cap = sl.xb.shape[0]
+            rn, rs = self._sq_row_extras()
+            self._sorted_extras = tuple(
+                torch.from_numpy(pad_rows(a[sl.order], cap)).to(self.device)
+                for a in (rn, rs))
+        return self._sorted_extras
 
     def _sorted_list_meta(self):
         """(offsets, counts) int32 device tensors of the sorted layout's

@@ -200,16 +200,24 @@ def pairs_flat_epilogue(raw, lists, pair_slot, probe_ids, row_pos, xq, *,
     return best, torch.where(torch.isneginf(best), -1, pos)
 
 
-def pair_tile_inputs(probe_ids, xq, nlist: int):
-    """The kernel's inputs for a batch: (xq_t (t_max, QG, d), qs_t (t_max,
-    QG, 4), meta (1 + t_max,), pair_slot (nq, nprobe)), with t_max the
-    static worst case rounded up to a multiple of TILE_ROUND."""
+def pair_tiles(probe_ids, nlist: int):
+    """The tile table of a batch for the pair-tile kernels (K7, K3):
+    (tile_q (t_max, QG), meta (1 + t_max,) = n_tiles and the tiles' list
+    ids, pair_slot (nq, nprobe)), with t_max the static worst case rounded
+    up to a multiple of TILE_ROUND."""
     nq, nprobe = probe_ids.shape
     t_max = pairs_t_max(nq, nprobe, nlist)
     t_max = -(-t_max // TILE_ROUND) * TILE_ROUND
     tile_list, tile_q, pair_slot, n_tiles = build_pair_tiles(
         probe_ids, nlist=nlist, t_max=t_max)
-    meta = torch.cat([n_tiles.reshape(1), tile_list])
+    return tile_q, torch.cat([n_tiles.reshape(1), tile_list]), pair_slot
+
+
+def pair_tile_inputs(probe_ids, xq, nlist: int):
+    """The kernel's inputs for a batch: (xq_t (t_max, QG, d), qs_t (t_max,
+    QG, 4), meta (1 + t_max,), pair_slot (nq, nprobe)) over the
+    ``pair_tiles`` table."""
+    tile_q, meta, pair_slot = pair_tiles(probe_ids, nlist)
     safe_q = tile_q.clamp(min=0).long()
     xq_t = xq[safe_q]                                       # (t_max, qg, d)
     qn = (xq * xq).sum(1)

@@ -12,6 +12,15 @@
 ``device`` names where every index keeps its corpus and runs its search.
 It defaults to ``"cuda"``; asking for ``"cuda"`` on a machine without a
 card raises (``resolve_device``) instead of carrying on on the CPU.
+
+``sq_dot`` selects how IVF,SQ8/SQ4/SQ6 searches score their codes:
+``"auto"`` takes the int8 digit-dot path (the padded code layout and its
+kernels, then an exact fp32 rerank) in fast mode and the fp32 decode path
+in parity mode; ``"int8"`` / ``"decode"`` force one path
+(``sq_int8_active``).  The JAX package's TPU lowering knobs beside it
+(``sq_digit_dtype``, ``pairs_impl``, ``spill_impl``, ``spill_pallas_min``,
+``fused_dispatch``, ``spill_int8_via``, ``query_wire``) have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -34,6 +43,9 @@ class Config:
     min_capacity: int = 128
     #: minimum padded query-batch bucket
     min_query_bucket: int = 8
+    #: IVF,SQ scoring: "auto" = int8 digit dots in fast mode, fp32 decode
+    #: in parity mode; "int8" / "decode" force one path
+    sq_dot: str = "auto"
 
 
 config = Config()
@@ -53,6 +65,21 @@ def set_precision(mode: str) -> None:
         raise ValueError(f"precision mode must be one of {sorted(_PRECISIONS)}")
     config.precision_mode = mode
     _apply_precision(mode)
+
+
+def set_sq_dot(mode: str) -> None:
+    if mode not in ("auto", "int8", "decode"):
+        raise ValueError("sq dot mode must be auto, int8, or decode")
+    config.sq_dot = mode
+
+
+def sq_int8_active() -> bool:
+    """Whether IVF,SQ searches take the int8 digit-dot path right now."""
+    if config.sq_dot == "int8":
+        return True
+    if config.sq_dot == "decode":
+        return False
+    return config.precision_mode != "parity"
 
 
 @contextlib.contextmanager

@@ -3,8 +3,9 @@
 At first use, ``nvcc`` compiles every source in ``csrc/`` for Hopper
 (``sm_90a``), one compiler process per source, all started together, and
 links the objects into one shared library with a plain C interface, which
-is loaded with ctypes.  The library is named by a hash of the sources and the
-flags, so an edited source is rebuilt and a stale library is never loaded;
+is loaded with ctypes.  The library is named by a hash of the sources, the
+headers they include (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded;
 a file lock keeps concurrent processes from building the same library
 twice.  ``nvcc`` is found through ``CUDA_HOME`` or ``/usr/local/cuda/bin``;
 without it, loading raises.
@@ -46,9 +47,16 @@ def find_nvcc() -> str:
         "the CUDA kernels of duckdb_faiss_ext_tpu_torch cannot be built")
 
 
-def _library_path(sources: list[Path]) -> Path:
+def _kernel_files() -> tuple[list[Path], list[Path]]:
+    """(sources, each compiled on its own; headers they include)."""
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _library_path(files: list[Path]) -> Path:
+    """The library built from ``files`` (sources and headers): named by a
+    hash of their names and bytes and of the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdfx_kernels_{h.hexdigest()[:16]}.so"
@@ -132,6 +140,30 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i,               # l2, vec4
         p, p,               # out, stream
     ]
+    lib.dfx_ivf_sq_scan.restype = ctypes.c_int
+    lib.dfx_ivf_sq_scan.argtypes = [
+        p, p, p, p, p,      # codes, rn, rs, counts, probe_ids
+        p, p, p,            # digits, qs, mask
+        i, i, i, i, i,      # nq, nprobe, nlist, lmax, w
+        i, i, i,            # codec, l2, vec
+        p, p,               # out, stream
+    ]
+    lib.dfx_ivf_sq_pairs.restype = ctypes.c_int
+    lib.dfx_ivf_sq_pairs.argtypes = [
+        p, p, p, p,         # codes, rn, rs, counts
+        p, p, p, p,         # digits, qs, meta, mask
+        i, i, i, i,         # t_max, nlist, lmax, w
+        i, i, i,            # codec, l2, vec
+        p, p,               # out, stream
+    ]
+    lib.dfx_sq_spill.restype = ctypes.c_int
+    lib.dfx_sq_spill.argtypes = [
+        p, p, p, p, p, p,   # codes, assign, pos, rs, rn, mask
+        p, p, p,            # probe_ids, digits, qs
+        i, i, i, i,         # nq, nprobe, n_rows, w
+        i, i, i,            # codec, l2, vec
+        p, p, p,            # wmax, warg, stream
+    ]
 
 
 def load_library() -> ctypes.CDLL:
@@ -139,8 +171,8 @@ def load_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            sources = sorted(CSRC.glob("*.cu"))
-            so = _library_path(sources)
+            sources, headers = _kernel_files()
+            so = _library_path(sources + headers)
             if not so.exists():
                 _build(so, sources)
             lib = ctypes.CDLL(str(so))

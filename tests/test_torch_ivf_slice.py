@@ -420,7 +420,7 @@ def test_quantiser_params_accepted(pcat):
 @pytest.mark.parametrize("factory,what", [
     ("IVF4_HNSW8,Flat", "IVF quantizer HNSW8"),
     ("IVF4(IVF2,Flat),Flat", "parenthesized IVF quantizer"),
-    ("IVF4,SQ8", "IVF encoding SQ8"),
+    ("IVF4,SQfp16", "IVF encoding SQfp16"),
     ("IDMap,IVF4,PQ2", "IVF encoding PQ2"),
     ("IMI2x2,Flat", "IMI")])
 def test_unported_ivf_forms_refused(pcat, factory, what):

@@ -4,9 +4,10 @@
 * asking for the CUDA device where torch sees no card raises, instead of
   running on the CPU;
 * the kernel build finds nvcc or raises, and names the library by a hash
-  of the sources;
+  of the sources and the headers they include;
 * on the card (``-m gpu``), the CUDA kernels (flat top-k, IVF list scan,
-  IVF pair tiles) match their plain versions.
+  IVF pair tiles, and the int8 IVF,SQ list scan, pair tiles and spill
+  windows) match their plain versions.
 """
 
 import os
@@ -84,6 +85,21 @@ def test_library_named_by_source_hash(tmp_path):
     assert first == kernels._library_path([a])
     a.write_text("// two")
     assert kernels._library_path([a]) != first
+
+
+def test_library_hash_covers_headers(tmp_path):
+    """Editing a header's bytes renames the library, so a stale build is
+    never loaded; the package's own headers are among the hashed files."""
+    src, hdr = tmp_path / "k.cu", tmp_path / "k.cuh"
+    src.write_text('#include "k.cuh"')
+    hdr.write_text("// one")
+    first = kernels._library_path([src, hdr])
+    hdr.write_text("// two")
+    assert kernels._library_path([src, hdr]) != first
+    sources, headers = kernels._kernel_files()
+    assert {p.name for p in headers} >= {"sq_digits.cuh"}
+    assert {p.name for p in sources} >= {"ivf_sq_scan.cu", "ivf_sq_pairs.cu",
+                                         "sq_spill.cu"}
 
 
 def test_build_dir_is_ignored_by_git():
@@ -173,3 +189,77 @@ def test_ivf_kernels_match_plain_on_card(metric, d, nprobe):
     _rows_agree(raw[:n].reshape(-1, lmax), ref[:n].reshape(-1, lmax),
                 qs_t[:n, :, 1].reshape(-1))
     assert (k6.LAUNCHES, k7.LAUNCHES) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("codec,d", [("sq8", 33), ("sq8", 1536), ("sq4", 33),
+                                     ("sq4", 128), ("sq6", 33),
+                                     ("sq6", 1536)])
+def test_sq_kernels_match_plain_on_card(codec, d, metric):
+    """K2 (int8 list scan), K3 (pair tiles) and, for sq8 / sq4, K5 (spill
+    windows) against their plain torch versions on the same card tensors,
+    raw scores element by element (both apply the same fp32 epilogue to
+    exact integer dots), with a mask, an empty list and a full one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the H100)")
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
+    from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
+    from duckdb_faiss_ext_tpu_torch.ops.sq import sq_code_width
+    from duckdb_faiss_ext_tpu_torch.ops.sq_digits import (KERNEL_SHIFT,
+                                                          query_digits)
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    nlist, lmax, nq, nprobe = 16, 256, 64, 3
+    w = sq_code_width(d, codec)
+    codes = torch.randint(0, 256, (nlist, lmax, w), device="cuda",
+                          generator=g, dtype=torch.uint8)
+    counts = torch.randint(1, lmax, (nlist,), device="cuda", generator=g,
+                           dtype=torch.int32)
+    counts[0], counts[1] = 0, lmax
+    rn = torch.rand(nlist, lmax, device="cuda", generator=g) * 100
+    rs = torch.rand(nlist, lmax, device="cuda", generator=g) * 100
+    mask = (torch.rand(nlist, lmax, device="cuda", generator=g)
+            < 0.6).to(torch.int8)
+    vmin = torch.randn(d, device="cuda", generator=g)
+    scale = torch.rand(d, device="cuda", generator=g) / 50 + 1e-3
+    xq = torch.randn(nq, d, device="cuda", generator=g)
+    probe = torch.rand(nq, nlist, device="cuda", generator=g).argsort(1)[
+        :, :nprobe].to(torch.int32).contiguous()
+    q = query_digits(xq, vmin, scale, metric, codec, w, KERNEL_SHIFT[codec])
+    before = (k2.LAUNCHES, k3.LAUNCHES, k5.LAUNCHES)
+    raw = k2.ivf_sq_scan(codes, rn, rs, counts, probe, q.digits, q.scalars,
+                         mask, metric, codec)
+    torch.cuda.synchronize()
+    ref = k2.ivf_sq_scan_reference(codes, rn, rs, counts, probe, q.digits,
+                                   q.scalars, mask, metric, codec)
+    _rows_agree(raw.reshape(-1, lmax), ref.reshape(-1, lmax),
+                q.scalars[:, 2].abs().repeat_interleave(nprobe))
+    dig_t, sc_t, meta, _ = k3.sq_pair_tile_inputs(probe, q, nlist, metric)
+    raw = k3.ivf_sq_pairs_scan(codes, rn, rs, counts, dig_t, sc_t, meta,
+                               mask, metric, codec)
+    torch.cuda.synchronize()
+    ref = k3.ivf_sq_pairs_scan_reference(codes, rn, rs, counts, dig_t, sc_t,
+                                         meta, mask, metric, codec)
+    n = int(meta[0])
+    _rows_agree(raw[:n].reshape(-1, lmax), ref[:n].reshape(-1, lmax),
+                sc_t[:n, :, 2].abs().nan_to_num(posinf=0).reshape(-1))
+    launched = (1, 1, 0)
+    if codec in k5.CODECS:
+        flat = codes.reshape(-1, w)
+        s_pad = flat.shape[0]
+        assign = torch.randint(0, nlist, (s_pad,), device="cuda", generator=g,
+                               dtype=torch.int32)
+        pos = torch.arange(s_pad, device="cuda", dtype=torch.int32)
+        args = (flat, assign, pos, rs.reshape(-1), rn.reshape(-1),
+                mask.reshape(-1), probe, q.digits, q.scalars, s_pad - 77,
+                metric, codec)
+        wmax, warg = k5.sq_spill_windows(*args)
+        torch.cuda.synchronize()
+        rmax, rarg = k5.sq_spill_windows_reference(*args)
+        assert torch.equal(warg, rarg)
+        _rows_agree(wmax, rmax, q.scalars[:, 2].abs())
+        launched = (1, 1, 1)
+    assert (k2.LAUNCHES - before[0], k3.LAUNCHES - before[1],
+            k5.LAUNCHES - before[2]) == launched

@@ -63,10 +63,41 @@ Phases (any failure raises and the script exits non-zero):
    recall@10 against the parity decode path and against exact fp32 search
    is printed; K2's, K3's and K5's raw scores at the b1024 shapes are held
    against their plain versions, then each kernel is timed against its
-   plain version and faiss_search wall time is taken.
+   plain version and faiss_search wall time is taken;
+11. PQ sweep (after phase 7, while the 1M x 128 corpus is loaded): the
+   IVF-PQ / IVF-RQ gather-decode-score scan (K8, ops/ivf_pq_scan.py)
+   against its plain version, raw scores element by element: PQ with dsub
+   8 (8 bits) and dsub 4 (4 bits), RQ with 2 stages of 4 bits and 8 of 8,
+   L2 and inner product, with and without a mask, d 16 / 128 / 1536 (the
+   1536-d PQ codebook is larger than shared memory), lmax 256 and 1024
+   (counts on both sides of 256, 512 and 768), lists of count 0 and count
+   == lmax, nprobe 1 / 16 / 64;
+12. IVF-PQ main path: IDMap,IVF4096,PQ16 L2 over the same corpus, 16 bytes
+   a vector (examples/compression_pipeline.py:8): faiss_manual_train on its
+   first 262,144 rows → faiss_add of all 1M with ids → at nprobe 64
+   faiss_search at b48 and b1024, faiss_search_batched 16 x b48,
+   faiss_search_filter('id%2==0').  K8's launch count must match the
+   calls; every result is held against the same path with K8's plain
+   version on the same layout; recall@10 against exact Flat is printed;
+   K8's raw scores at b1024 are held against its plain version; then K8,
+   its plain version and the library call lists[probe_ids] are timed at
+   b48 and b1024, with faiss_search's wall time and its device stages;
+13. PQ spill: the same index with its layout capped below its longest
+   list, so that the longest lists spill, searched at b48 and held against
+   the uncapped index and the gather path (no layout plan);
+14. IVF-RQ leg: IVF4096,RQ8x8 L2 over the same corpus (BASELINE.md:80),
+   beam-4 encode on the card, b48 and b1024 through K8 held against the
+   plain K8 path, K8's raw scores at b1024 held and timed;
+15. standalone PQ16 over the same corpus at b48 (ops/pq.py::pq_search on
+   card tensors): labels equal to a Flat search (K1) over the decoded
+   corpus wherever the distances are separated.
 
-The last two lines of standard output are a JSON object describing each
-kernel and the JSON result line {"ok": true, "device": {...}}.
+Each kernel's bound is the larger of the bytes it must move (each input
+read once, each output written once) over 3.35 TB/s and its operations
+over the card's peak rate for their type, computed from the inputs of the
+timed call.  The last two lines of standard output are a JSON object
+describing each kernel and the JSON result line {"ok": true, "device":
+{...}}.
 """
 
 import contextlib
@@ -151,6 +182,25 @@ SQ_CHUNK, SQ_LMAX_CAP = 262_144, 1024
 #: length and the longest outgrow the cap (11.5% of the rows spill; the
 #: JAX deployment spilled 12% at SQ8, ops/pallas_spill.py:6)
 SQ_SIGMA, SQ_DRIFT, SQ_NOISE = 0.7, 0.5, 0.8
+PQ_KERNEL = {
+    "name": "ivf_pq_scan",
+    "route": "cuda",
+    "source": "duckdb_faiss_ext_tpu_torch/csrc/ivf_pq_scan.cu",
+    "replaces": "duckdb_faiss_ext_tpu/ops/pallas_ivf.py:183",
+}
+#: IVF-PQ main path: the compressed form of the IVF main path's index,
+#: IDMap,IVF4096,PQ16, 16 bytes a vector (examples/compression_pipeline.py:8);
+#: the IVF-RQ leg: RQ8x8 (BASELINE.md:80)
+PQ_FACTORY, RQ_FACTORY = "IDMap,IVF4096,PQ16", "IVF4096,RQ8x8"
+#: the K8 sweep: widths, list lengths, and per width the codecs (codec,
+#: bytes a row as a function of d, bits a code): PQ with dsub 8 and 4, RQ
+#: with 2 and 8 stages
+PQ_SWEEP_D, PQ_SWEEP_LMAX = (16, 128, 1536), (256, 1024)
+PQ_SWEEP_CODECS = (("pq", lambda d: d // 8, 8), ("pq", lambda d: d // 4, 4),
+                   ("rq", lambda d: 2, 4), ("rq", lambda d: 8, 8))
+#: the H100's published peaks (SXM data sheet, dense): device memory,
+#: float32 outside the tensor cores, int8
+HBM_BYTES_S, FP32_OPS_S, INT8_OPS_S = 3.35e12, 67e12, 1979e12
 
 # test/sql/faiss.test:16-38 of the reference: k=2 IP distances per query.
 GOLDEN_FLAT_DISTANCES = [
@@ -174,8 +224,13 @@ GOLDEN_FILTERED = [
 ]
 
 
+#: the card's name and power limit as nvidia-smi reads them, set by
+#: phase_environment and named on every log line from then on
+CARD = ""
+
+
 def log(msg):
-    print(msg, flush=True)
+    print(f"{msg} [{CARD}]" if CARD and CARD not in msg else msg, flush=True)
 
 
 def check(cond, msg):
@@ -234,6 +289,32 @@ def compare(scores, pos, ref_scores, ref_pos, xq):
     return float(diff.max())
 
 
+def bound(nbytes, ops, ops_rate=FP32_OPS_S):
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move ``nbytes`` through device memory and do ``ops`` at the peak rate
+    of their type, whichever is larger."""
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_S, 1e3 * ops / ops_rate
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def probed_rows(counts, probe):
+    """(lists, rows) of the distinct lists in ``probe``, and the rows summed
+    over every (query, probe slot): what a list scan must read once and
+    what it must score."""
+    c = counts.long()
+    distinct = torch.unique(probe.long())
+    return (int(distinct.numel()), int(c[distinct].sum()),
+            int(c[probe.long()].sum()))
+
+
+def kernel_entry(spec, launches, err, ms, plain_ms, bound_ms_by,
+                 library_ms=None):
+    return dict(spec, launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms_by[0],
+                bound_by=bound_ms_by[1], library_ms=library_ms)
+
+
 def cuda_ms(fn):
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -258,11 +339,13 @@ def time_pair(kernel_fn, plain_fn, reps=10):
 
 
 def phase_environment():
+    global CARD
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    CARD = smi
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -449,10 +532,15 @@ def phase_main_path(smi, data):
             t0 = time.perf_counter()
             dt.faiss_search("sift", K, xq, catalog=cat)
             walls.append(1e3 * (time.perf_counter() - t0))
-        timings[name] = (ms, plain_ms)
+        # The corpus and the queries read once, (score, position) written
+        # once; 2·d operations a (query, row) pair.
+        b = bound(4 * N * D + 4 * nq_pad * D + 8 * nq_pad * K,
+                  2 * nq_pad * N * D)
+        timings[name] = (ms, plain_ms, b)
         log(f"time {N}x{D} L2 k={K} {name} ({nq_pad} rows launched): "
             f"kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms (median CUDA events); faiss_search wall "
+            f"{plain_ms:.3f} ms (median CUDA events), bound {b[0]:.3f} ms "
+            f"({b[1]}); faiss_search wall "
             f"{statistics.median(walls):.3f} ms (median) [{smi}]")
     exact = {name: out[name]["label"] for name in ("b48", "b1024")}
     return max_err, launches, timings, exact
@@ -752,11 +840,17 @@ def phase_ivf_main(smi, data, exact):
             t0 = time.perf_counter()
             dt.faiss_search("ivf", K, xq, params, catalog=cat)
             walls.append(1e3 * (time.perf_counter() - t0))
-        timings[name] = (ms, plain_ms)
+        # The distinct probed lists' rows and the queries read once, the
+        # score block written once; 2·d operations a probed row.
+        _, rows_once, rows_all = probed_rows(lay.counts, probe)
+        b = bound(4 * rows_once * D + 4 * nq_pad * D + 4 * probe.numel()
+                  + 4 * probe.numel() * lmax, 2 * D * rows_all)
+        timings[name] = (ms, plain_ms, b)
         log(f"time IVF4096 {N}x{D} L2 nprobe {IVF_NPROBE} {name} ({nq_pad} "
             f"rows launched): K6 {ms:.3f} ms, plain {plain_ms:.3f} ms "
-            f"(median CUDA events); faiss_search wall "
-            f"{statistics.median(walls):.3f} ms (median) [{smi}]")
+            f"(median CUDA events), bound {b[0]:.3f} ms ({b[1]}); "
+            f"faiss_search wall {statistics.median(walls):.3f} ms (median) "
+            f"[{smi}]")
         if name == "b1024":
             search = dict(k=K, metric="L2")
             lists = (lay.payload, lay.counts, lay.row_pos, probe, xq_pad, None)
@@ -853,9 +947,16 @@ def phase_ivf_pairs(smi):
     ms, plain_ms = time_pair(lambda: k7.ivf_pairs_scan(*args),
                              lambda: k7.ivf_pairs_scan_reference(*args),
                              reps=6)
+    # The distinct probed lists' rows and the queries read once, the real
+    # tiles written once; 2·d operations a probed row.
+    _, rows_once, rows_all = probed_rows(lay.counts, probe)
+    b = bound(4 * rows_once * PAIRS_D + 4 * BIG_BATCH * PAIRS_D
+              + 4 * int(meta[0]) * qs_t.shape[1] * lmax,
+              2 * PAIRS_D * rows_all)
     log(f"time IVF{PAIRS_NLIST} {PAIRS_N}x{PAIRS_D} IP nprobe {PAIRS_NPROBE} "
         f"b1024 ({int(meta[0])} of {xq_t.shape[0]} tiles): K7 {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms (median CUDA events) [{smi}]")
+        f"plain {plain_ms:.3f} ms (median CUDA events), bound {b[0]:.3f} ms "
+        f"({b[1]}) [{smi}]")
     lists = (lay.payload, lay.counts, lay.row_pos, probe, xq_dev, None)
     search = dict(k=K, metric="INNER_PRODUCT")
     k7_ms, k6_ms = time_pair(
@@ -865,7 +966,7 @@ def phase_ivf_pairs(smi):
     log(f"time IVF{PAIRS_NLIST} {PAIRS_N}x{PAIRS_D} IP nprobe {PAIRS_NPROBE} "
         f"b1024 scan + top-k: K7 pair tiles {k7_ms:.3f} ms, K6 per query "
         f"{k6_ms:.3f} ms (median CUDA events) [{smi}]")
-    return max(max_err, raw_err), launches[1], (ms, plain_ms)
+    return max(max_err, raw_err), launches[1], (ms, plain_ms, b)
 
 
 def sq_rows(g, n, d, codec):
@@ -1245,6 +1346,30 @@ def phase_sq_main(smi):
     timings["k5"] = time_pair(
         lambda: k5.sq_spill_windows(*spill_args),
         lambda: k5.sq_spill_windows_reference(*spill_args), reps=6)
+    # Bounds: the distinct probed lists' codes with their rn / rs, the
+    # queries' digits and scalars read once, the raw scores (K2: every
+    # slot; K3: the real tiles; K5: a (max, argmax) per real window) written
+    # once; 2 int8 operations a digit of every scored (query, row) pair.
+    w = lay.payload.shape[2]
+
+    def sq_bound(q_, probe_, out_bytes, rows_bytes, pairs):
+        dig = q_.digits[0].numel()
+        return bound(rows_bytes + q_.digits.numel() + 4 * q_.scalars.numel()
+                     + 4 * probe_.numel() + out_bytes, 2 * dig * pairs,
+                     INT8_OPS_S)
+
+    _, once48, all48 = probed_rows(lay.counts, probe48)
+    timings["k2"] += (sq_bound(q48, probe48, 4 * probe48.numel() * lmax,
+                               once48 * (w + 8), all48),)
+    _, once, rows_all = probed_rows(lay.counts, probe)
+    n_tiles = int(tiles[2][0])
+    timings["k3"] += (sq_bound(q, probe, 4 * n_tiles * tiles[1].shape[1]
+                               * lmax, once * (w + 8), rows_all),)
+    sp_counts = torch.bincount(spill.assign[:spill.n].long(),
+                               minlength=SQ_NLIST)
+    timings["k5"] += (sq_bound(
+        q, probe, 8 * BIG_BATCH * -(-spill.n // k5.WIN), spill.n * (w + 16),
+        int(sp_counts[probe.long()].sum())),)
     a248 = (*spill_args[:6], probe48, q48.digits, q48.scalars,
             *spill_args[9:])
     k5_48 = time_pair(lambda: k5.sq_spill_windows(*a248),
@@ -1266,7 +1391,10 @@ def phase_sq_main(smi):
         f"ms; K5 b1024 {timings['k5'][0]:.3f} ms, plain "
         f"{timings['k5'][1]:.3f} ms; K5 b48 {k5_48[0]:.3f} ms, plain "
         f"{k5_48[1]:.3f} ms; top-{k_scan} of the b1024 pair-gathered block "
-        f"{topk_ms:.3f} ms [{smi}]")
+        f"{topk_ms:.3f} ms; bounds K2 b48 {timings['k2'][2][0]:.3f} ms "
+        f"({timings['k2'][2][1]}), K3 b1024 {timings['k3'][2][0]:.3f} ms "
+        f"({timings['k3'][2][1]}), K5 b1024 {timings['k5'][2][0]:.3f} ms "
+        f"({timings['k5'][2][1]}) [{smi}]")
     for name in ("b48", "b1024"):
         walls = []
         for _ in range(10):
@@ -1305,6 +1433,354 @@ def phase_sq_main(smi):
             "timings": timings}
 
 
+def k8_raw_error(lists, counts, probe, xq, centroids, codebooks, mask,
+                 metric, codec):
+    """K8's raw (nq, nprobe, lmax) scores against its plain version on the
+    same card tensors, each query's tolerance REL_TOL of its largest
+    |score| over all its probed slots."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+
+    args = (lists, counts, probe, xq, centroids, codebooks, mask, metric,
+            codec)
+    raw = k8.ivf_pq_scan(*args)
+    ref = k8.ivf_pq_scan_reference(*args)
+    nq = raw.shape[0]
+    return compare_raw(raw.reshape(nq, -1), ref.reshape(nq, -1),
+                       torch.zeros(nq, device=DEVICE))
+
+
+def phase_pq_sweep():
+    """K8 against its plain version: PQ (dsub 8 with 8 bits, dsub 4 with 4
+    bits) and RQ (2 stages of 4 bits, 8 of 8), L2 / IP, mask off / on, d
+    16 / 128 / 1536 (the 1536-d PQ codebook, 1.5 MB, is larger than shared
+    memory), lmax 256 and 1024 (counts on both sides of 256, 512 and 768),
+    lists of count 0 and count == lmax, nprobe in turn 1 / 16 / 64."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+
+    g = torch.Generator(device=DEVICE).manual_seed(8642)
+    nlist, nq = 64, BATCH
+    before = k8.LAUNCHES
+    err, n_cases = 0.0, 0
+    nprobes = itertools.cycle((1, 16, 64))
+    for d, lmax in itertools.product(PQ_SWEEP_D, PQ_SWEEP_LMAX):
+        t0 = time.perf_counter()
+        counts = torch.randint(1, lmax, (nlist,), device=DEVICE, generator=g,
+                               dtype=torch.int32)
+        counts[0], counts[1] = 0, lmax
+        if lmax > 256:
+            counts[2:8] = torch.tensor([255, 257, 511, 513, 767, 769])
+        live = (torch.arange(lmax, device=DEVICE)[None, :]
+                < counts[:, None]).to(torch.uint8)
+        mask = (torch.rand(nlist, lmax, device=DEVICE, generator=g)
+                < 0.6).to(torch.int8)
+        cents = torch.randn(nlist, d, device=DEVICE, generator=g)
+        xq = torch.randn(nq, d, device=DEVICE, generator=g)
+        for codec, m_of, nbits in PQ_SWEEP_CODECS:
+            m = m_of(d)
+            lists = torch.randint(0, 1 << nbits, (nlist, lmax, m),
+                                  device=DEVICE, generator=g,
+                                  dtype=torch.uint8) * live[:, :, None]
+            cb = torch.randn(m, 1 << nbits, d // m if codec == "pq" else d,
+                             device=DEVICE, generator=g)
+            for metric, msk in itertools.product(("L2", "INNER_PRODUCT"),
+                                                 (None, mask)):
+                probe = probe_table(g, nq, nlist, next(nprobes))
+                err = max(err, k8_raw_error(lists, counts, probe, xq, cents,
+                                            cb, msk, metric, codec))
+                n_cases += 1
+            del lists, cb
+        log(f"pq sweep d={d} lmax={lmax}: 16 cases agree "
+            f"({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+    check(k8.LAUNCHES - before == n_cases, "a pq sweep case did not launch")
+    log(f"pq sweep: {n_cases} cases, max abs score error K8 {err:.3g}")
+    return err
+
+
+@contextlib.contextmanager
+def plain_k8():
+    """Run the IVF-PQ / IVF-RQ path with K8's plain version in place of its
+    wrapper (same signature, same inputs)."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+
+    saved = k8.ivf_pq_scan
+    k8.ivf_pq_scan = k8.ivf_pq_scan_reference
+    try:
+        yield
+    finally:
+        k8.ivf_pq_scan = saved
+
+
+def build_coded_ivf(dt, cat, name, factory, data, ids=None):
+    """Create ``factory`` (L2), train it on the corpus's first IVF_TRAIN
+    rows and add all of it; returns the IVF index and the setup seconds."""
+    xb = data["xb"]
+    t0 = time.perf_counter()
+    dt.faiss_create(name, D, factory, metric_type="L2", catalog=cat)
+    dt.faiss_manual_train(xb[:IVF_TRAIN], name, catalog=cat)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dt.faiss_add((ids, xb) if ids is not None else xb, name, catalog=cat)
+    t_add = time.perf_counter() - t0
+    index = cat.get(name).index
+    index = getattr(index, "inner", index)
+    t0 = time.perf_counter()
+    lay = index._build_device_layout()
+    t_layout = time.perf_counter() - t0
+    check(index._layout_plan() == ("full", None), f"{factory}: no full "
+          f"layout plan")
+    check(index.device.type == DEVICE, f"{factory}: index not on the card")
+    log(f"{factory}: train {t_train:.2f} s, add {t_add:.2f} s (codes "
+        f"{index._codes.nbytes / 1e6:.0f} MB), layout build+upload "
+        f"{t_layout:.2f} s; lmax {lay.payload.shape[1]}, longest list "
+        f"{int(lay.counts.max())}")
+    return index, lay
+
+
+def k8_shapes(index, lay, xq, nq_pad):
+    """The b48 / b1024 batch as the index launches K8: padded queries, the
+    coarse probe table, K8's arguments, and K8's bound for them (the
+    distinct probed lists' codes and centroids, the codebooks and queries
+    read once, the score block written once; a probed row takes 2·d
+    operations, and an RQ row d more a stage for its decode sum)."""
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
+    from duckdb_faiss_ext_tpu_torch.utils.config import pad_rows
+
+    xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(DEVICE)
+    probe = coarse_topk(xq_pad, lay.centroids, IVF_NPROBE, "L2")
+    args = (lay.payload, lay.counts, probe, xq_pad, lay.centroids,
+            lay.codebooks, None, "L2", index.pq_codec)
+    m, lmax = lay.payload.shape[2], lay.payload.shape[1]
+    lists_once, rows_once, rows_all = probed_rows(lay.counts, probe)
+    per_row = D * (2 + (m if index.pq_codec == "rq" else 0))
+    b = bound(rows_once * m + 4 * lists_once * D + 4 * lay.codebooks.numel()
+              + 4 * nq_pad * D + 4 * probe.numel()
+              + 4 * probe.numel() * lmax, per_row * rows_all)
+    return xq_pad, probe, args, b
+
+
+def coded_path(dt, cat, name, data, params, db=None, k=K):
+    """The main path's calls: b48, b1024 and (with a table) batched 16 x
+    b48 and the filtered b48."""
+    out = {"b48": dt.faiss_search(name, k, data["b48"], params, catalog=cat),
+           "b1024": dt.faiss_search(name, k, data["b1024"], params,
+                                    catalog=cat)}
+    if db is not None:
+        out["batched"] = dt.faiss_search_batched(
+            name, k, data["batched"], params, batch_size=BATCH, catalog=cat)
+        out["filter"] = dt.faiss_search_filter(
+            name, k, data["b48"], "id%2==0", "id", "base", params,
+            catalog=cat, database=db)
+    return out
+
+
+def check_coded_path(tag, dt, cat, name, data, params, out, exact, db=None):
+    """Every result of ``out`` held against the same path with K8's plain
+    version on the same layout, one wider; recall@10 against exact Flat
+    printed.  Returns the max distance error."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+
+    launches = k8.LAUNCHES
+    t0 = time.perf_counter()
+    with plain_k8():
+        ref = coded_path(dt, cat, name, data, params, db, k=K + 1)
+    check(k8.LAUNCHES == launches, f"{tag}: the plain path launched K8")
+    max_err = 0.0
+    for key, res in out.items():
+        nq = data["b48" if key == "filter" else key].shape[0]
+        check(res["label"].shape == (nq, K), f"{tag} {key}: shape")
+        check(np.isfinite(res["distance"]).all(), f"{tag} {key}: non-finite")
+        max_err = max(max_err, compare_results(
+            f"{tag} {key}", res, ref[key]["distance"], ref[key]["label"],
+            False))
+        if key == "filter":
+            check((res["label"] % 2 == 0).all(), f"{tag} filter: odd label")
+    rec = {key: recall(out[key]["label"], exact[key]) for key in exact}
+    log(f"{tag}: {', '.join(out)} agree with the plain path "
+        f"({time.perf_counter() - t0:.1f} s; max distance error "
+        f"{max_err:.3g}); recall@10 vs exact Flat: b48 {rec['b48']:.4f}, "
+        f"b1024 {rec['b1024']:.4f}")
+    return max_err
+
+
+def phase_pq_main(smi, data, exact):
+    """IDMap,IVF4096,PQ16 L2 over the 1M x 128 corpus at nprobe 64 through
+    the public API; every result held against the plain K8 path."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.models.base import fetch_results
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import exact_topk
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
+
+    ids = data["ids"]
+    db = dt.Database()
+    db.register("base", {"id": ids})
+    cat = dt.Catalog()
+    params = {"nprobe": str(IVF_NPROBE)}
+    index, lay = build_coded_ivf(dt, cat, "pq", PQ_FACTORY, data, ids)
+    lmax = lay.payload.shape[1]
+
+    k8.LAUNCHES = 0
+    out = coded_path(dt, cat, "pq", data, params, db)
+    launches = k8.LAUNCHES
+    expected = 1 + 1 + N_BATCHES + 1
+    check(launches == expected, f"pq main path launched K8 {launches} "
+          f"times, not {expected}")
+    check(index._last_scan_path == "per-query", "pq: not the K8 path")
+    log(f"pq main path: K8 launches {launches}")
+    max_err = check_coded_path("pq main path", dt, cat, "pq", data, params,
+                               out, exact, db)
+
+    timings = {}
+    for name, nq_pad in (("b48", 64), ("b1024", BIG_BATCH)):
+        xq_pad, probe, args, b = k8_shapes(index, lay, data[name], nq_pad)
+        if name == "b1024":
+            raw_err = k8_raw_error(*args)
+            log(f"pq main path b1024 raw scores (lmax {lmax}): K8 agrees "
+                f"with its plain version (max abs error {raw_err:.3g})")
+        ms, plain_ms = time_pair(lambda: k8.ivf_pq_scan(*args),
+                                 lambda: k8.ivf_pq_scan_reference(*args),
+                                 reps=6 if name == "b48" else 4)
+        # The library call: the gather the TPU kernel did, as one indexing.
+        probe_l = probe.long()
+        lay.payload[probe_l]
+        lib_ms = statistics.median(cuda_ms(lambda: lay.payload[probe_l])
+                                   for _ in range(6))
+        timings[name] = (ms, plain_ms, b, lib_ms)
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            dt.faiss_search("pq", K, data[name], params, catalog=cat)
+            walls.append(1e3 * (time.perf_counter() - t0))
+        raw = k8.ivf_pq_scan(*args).reshape(nq_pad, -1)
+        best = exact_topk(raw, K)
+        stages = {"coarse top-k": lambda: coarse_topk(
+                      xq_pad, lay.centroids, IVF_NPROBE, "L2"),
+                  "K8": lambda: k8.ivf_pq_scan(*args),
+                  "top-k of the score block": lambda: exact_topk(raw, K)}
+        parts = []
+        for label, fn in stages.items():
+            fn()
+            parts.append(f"{label} "
+                         f"{statistics.median(cuda_ms(fn) for _ in range(5)):.3f}"
+                         f" ms")
+        fetch = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fetch_results(*best)
+            fetch.append(1e3 * (time.perf_counter() - t0))
+        del raw, best
+        log(f"time IVF4096,PQ16 {N}x{D} L2 nprobe {IVF_NPROBE} k={K} {name} "
+            f"({nq_pad} rows launched): K8 {ms:.3f} ms, plain {plain_ms:.3f} "
+            f"ms, library lists[probe_ids] {lib_ms:.3f} ms (median CUDA "
+            f"events), bound {b[0]:.3f} ms ({b[1]}); faiss_search wall "
+            f"{statistics.median(walls):.3f} ms (median of 10); device "
+            f"stages (median CUDA events): {'; '.join(parts)}; fetch "
+            f"{statistics.median(fetch):.3f} ms (host clock) [{smi}]")
+    return {"launches": launches, "err": max(max_err, raw_err),
+            "timings": timings, "cat": cat, "index": index,
+            "params": params}
+
+
+def phase_pq_spill(pq, data):
+    """The IVF-PQ index with its layout capped below its longest list, so
+    that those lists spill, searched at b48: held against the same index
+    with no cap (K8 alone) and with no layout plan (the gather path)."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+
+    cat, index, params = pq["cat"], pq["index"], pq["params"]
+    # The references are one wider, so the k-th label is checked only
+    # where the (k+1)-th distance is apart from it.
+    whole = dt.faiss_search("pq", K + 1, data["b48"], params, catalog=cat)
+    longest = int(index._counts().max())
+    cap = 128
+    while cap * 2 < longest:
+        cap *= 2
+    index.LAYOUT_BUDGET_BYTES = index.nlist * cap * index.pq_m
+    index._invalidate()
+    check(index._layout_plan() == ("spill", cap), "pq spill: no capped plan")
+    k8.LAUNCHES = 0
+    capped = dt.faiss_search("pq", K, data["b48"], params, catalog=cat)
+    check(k8.LAUNCHES == 1, "pq spill: K8 not launched once")
+    n_spill = index._spill.n
+    check(n_spill > 0, "pq spill: nothing spilled")
+    err = compare_results("pq spill vs uncapped", capped, whole["distance"],
+                          whole["label"], False)
+    index.SPILL_FRACTION_MAX = 0.0
+    index._invalidate()
+    check(index._layout_plan() is None, "pq spill: a plan without spill")
+    gather = dt.faiss_search("pq", K + 1, data["b48"], params, catalog=cat)
+    check(index._last_scan_path == "gather" and k8.LAUNCHES == 1,
+          "pq spill: the gather path launched K8")
+    err = max(err, compare_results("pq spill vs gather", capped,
+                                   gather["distance"], gather["label"],
+                                   False))
+    log(f"pq spill: lists capped at {cap} (longest {longest}), {n_spill} "
+        f"spill rows; b48 agrees with the uncapped K8 path and the gather "
+        f"path (max distance error {err:.3g})")
+    return err
+
+
+def phase_rq_leg(smi, data, exact):
+    """IVF4096,RQ8x8 L2 over the same corpus (beam-4 encode on the card),
+    b48 and b1024 through K8, held against the plain K8 path."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+
+    cat = dt.Catalog()
+    params = {"nprobe": str(IVF_NPROBE)}
+    index, lay = build_coded_ivf(dt, cat, "rq", RQ_FACTORY, data)
+    k8.LAUNCHES = 0
+    out = coded_path(dt, cat, "rq", data, params)
+    check(k8.LAUNCHES == 2, f"rq leg launched K8 {k8.LAUNCHES} times, not 2")
+    max_err = check_coded_path("rq leg", dt, cat, "rq", data, params, out,
+                               exact)
+    xq_pad, probe, args, b = k8_shapes(index, lay, data["b1024"], BIG_BATCH)
+    raw_err = k8_raw_error(*args)
+    k8.ivf_pq_scan(*args)
+    ms = statistics.median(cuda_ms(lambda: k8.ivf_pq_scan(*args))
+                           for _ in range(4))
+    log(f"time IVF4096,RQ8x8 {N}x{D} L2 nprobe {IVF_NPROBE} b1024: K8 raw "
+        f"scores agree with the plain version (max abs error {raw_err:.3g});"
+        f" K8 {ms:.3f} ms (median CUDA events), bound {b[0]:.3f} ms "
+        f"({b[1]}) [{smi}]")
+    return max(max_err, raw_err)
+
+
+def phase_pq_standalone(data):
+    """Standalone PQ16 (pq_search on card tensors) at b48: labels equal to
+    a Flat search (K1) over its decoded corpus where distances are
+    separated."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+    from duckdb_faiss_ext_tpu_torch.ops.pq import codec_decode
+
+    xb = data["xb"]
+    cat = dt.Catalog()
+    t0 = time.perf_counter()
+    dt.faiss_create("pq16", D, "PQ16", metric_type="L2", catalog=cat)
+    dt.faiss_manual_train(xb[:IVF_TRAIN], "pq16", catalog=cat)
+    dt.faiss_add(xb, "pq16", catalog=cat)
+    index = cat.get("pq16").index
+    check(index.device.type == DEVICE, "pq16: index not on the card")
+    res = dt.faiss_search("pq16", K, data["b48"], catalog=cat)
+    codes, books = index._device_state()
+    decoded = codec_decode(codes[:N], books, "pq").cpu().numpy()
+    dt.faiss_create("decoded", D, "Flat", metric_type="L2", catalog=cat)
+    dt.faiss_add(decoded, "decoded", catalog=cat)
+    before = ft.LAUNCHES
+    ref = dt.faiss_search("decoded", K + 1, data["b48"], catalog=cat)
+    check(ft.LAUNCHES == before + 1, "pq16: the Flat search missed K1")
+    check(np.isfinite(res["distance"]).all(), "pq16: non-finite")
+    err = compare_results("pq16 vs Flat over decoded", res, ref["distance"],
+                          ref["label"], False)
+    log(f"pq16 standalone: b48 agrees with K1 over the decoded corpus (max "
+        f"distance error {err:.3g}; {time.perf_counter() - t0:.1f} s with "
+        f"train and add)")
+    return err
+
+
 def main():
     smi = phase_environment()
     phase_build()
@@ -1316,6 +1792,15 @@ def main():
     err6, err7 = phase_ivf_sweep()
     ivf_err, ivf_err7, ivf_launches, ivf_timings = phase_ivf_main(smi, data,
                                                                   exact)
+    torch.cuda.empty_cache()
+    pq_sweep_err = phase_pq_sweep()
+    pq = phase_pq_main(smi, data, exact)
+    pq_spill_err = phase_pq_spill(pq, data)
+    del pq["cat"], pq["index"]
+    torch.cuda.empty_cache()
+    rq_err = phase_rq_leg(smi, data, exact)
+    torch.cuda.empty_cache()
+    phase_pq_standalone(data)
     del data
     torch.cuda.empty_cache()
     pairs_err, pairs_launches, pairs_timing = phase_ivf_pairs(smi)
@@ -1323,26 +1808,27 @@ def main():
     sq_errs = phase_sq_sweep()
     sq = phase_sq_main(smi)
     log(smi)
-    ms, plain_ms = timings["b48"]
-    ivf_ms, ivf_plain_ms = ivf_timings["b48"]
+    # Flat, K6 and the SQ kernels at the shapes timed above; no single
+    # PyTorch call computes what K1-K7 compute (a distance, a selection and
+    # a layout walk), so their library_ms is null.
+    pq_ms, pq_plain_ms, pq_bound, pq_lib_ms = pq["timings"]["b1024"]
     print(json.dumps({"kernels": [
-        dict(KERNEL, launches=launches,
-             max_abs_err=max(sweep_err, golden_err, main_err),
-             ms=ms, plain_ms=plain_ms),
-        dict(IVF_LIST_KERNEL, launches=ivf_launches,
-             max_abs_err=max(err6, ivf_err), ms=ivf_ms,
-             plain_ms=ivf_plain_ms),
-        dict(IVF_PAIRS_KERNEL, launches=pairs_launches,
-             max_abs_err=max(err7, ivf_err7, pairs_err),
-             ms=pairs_timing[0],
-             plain_ms=pairs_timing[1]),
+        kernel_entry(KERNEL, launches, max(sweep_err, golden_err, main_err),
+                     *timings["b48"]),
+        kernel_entry(IVF_LIST_KERNEL, ivf_launches, max(err6, ivf_err),
+                     *ivf_timings["b48"]),
+        kernel_entry(IVF_PAIRS_KERNEL, pairs_launches,
+                     max(err7, ivf_err7, pairs_err), *pairs_timing),
     ] + [
-        dict(kernel, launches=sq["launches"][i],
-             max_abs_err=max(sq_errs[i], sq["err"][i]),
-             ms=sq["timings"][key][0], plain_ms=sq["timings"][key][1])
+        kernel_entry(kernel, sq["launches"][i],
+                     max(sq_errs[i], sq["err"][i]), *sq["timings"][key])
         for i, (kernel, key) in enumerate(((SQ_LIST_KERNEL, "k2"),
                                            (SQ_PAIRS_KERNEL, "k3"),
                                            (SQ_SPILL_KERNEL, "k5")))
+    ] + [
+        kernel_entry(PQ_KERNEL, pq["launches"],
+                     max(pq_sweep_err, pq["err"], pq_spill_err, rq_err),
+                     pq_ms, pq_plain_ms, pq_bound, pq_lib_ms),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,12 +5,15 @@ SQL functions: named index create / add / search / filtered search / save /
 load / destroy), with the same error messages, result schema and checkpoint
 format, running on an NVIDIA H100.  The port covers the ``Flat`` and
 ``IDMap,Flat`` families, the ``IVFn,Flat`` / ``IDMap[2],IVFn,Flat``
-families over all nine metrics, and ``IVFn,SQ8`` / ``SQ4`` / ``SQ6`` (with
-IDMap) under L2 and inner product.  L2 and inner-product search run
-through hand-written CUDA kernels: ``csrc/flat_topk.cu`` (Flat),
-``csrc/ivf_list_scan.cu`` and ``csrc/ivf_pairs.cu`` (IVF list scans),
-``csrc/ivf_sq_scan.cu``, ``csrc/ivf_sq_pairs.cu`` and ``csrc/sq_spill.cu``
-(the int8 IVF,SQ scans, with ``set_sq_dot``).
+families over all nine metrics, and, under L2 and inner product (with
+IDMap), ``IVFn,SQ8`` / ``SQ4`` / ``SQ6``, the PQ / RQ codecs ``PQm[xb]`` /
+``RQMxb`` and their residual IVF forms ``IVFn,PQm[xb]`` / ``IVFn,RQMxb``.
+L2 and inner-product search run through hand-written CUDA kernels:
+``csrc/flat_topk.cu`` (Flat), ``csrc/ivf_list_scan.cu`` and
+``csrc/ivf_pairs.cu`` (IVF list scans), ``csrc/ivf_sq_scan.cu``,
+``csrc/ivf_sq_pairs.cu`` and ``csrc/sq_spill.cu`` (the int8 IVF,SQ scans,
+with ``set_sq_dot``) and ``csrc/ivf_pq_scan.cu`` (the IVF-PQ / IVF-RQ
+gather-decode-score scan).
 
 Every index keeps its corpus on ``config.device`` (``"cuda"`` by default;
 ``set_device("cpu")`` runs the plain torch paths on the CPU).

@@ -20,12 +20,14 @@ so the observable surface is the factory grammar itself:
     suffix      := "RFlat"  (exact re-rank wrapper, IndexRefineFlat)
 
 The whole grammar is parsed, with the same parse errors as the JAX
-package.  ``Flat``, ``IVFn[_Flat][,Flat]`` and ``IVFn[_Flat],SQ8`` /
-``SQ4`` / ``SQ6`` under any number of IDMap prefixes build; every other
-family (standalone ``SQ*`` included), quantizer, encoding (``SQfp16``,
-``SQbf16``, PQ, RQ), transform or
-suffix raises ``InvalidInputError`` naming it as not yet available in this
-package, so a description never builds something other than what it says.
+package.  ``Flat``, ``PQm[xb]``, ``RQMxb``, ``IVFn[_Flat][,Flat]``,
+``IVFn[_Flat],SQ8`` / ``SQ4`` / ``SQ6`` and ``IVFn[_Flat],PQm[xb]`` /
+``RQMxb`` under any number of IDMap prefixes build; every other family
+(standalone ``SQ*``, HNSW, NSG, IMI, LSH), quantizer (HNSW, the
+parenthesized form), encoding (``SQfp16``, ``SQbf16``), transform or suffix
+(``RFlat``) raises ``InvalidInputError`` naming it as not yet available in
+this package, so a description never builds something other than what it
+says.
 """
 
 from __future__ import annotations
@@ -175,8 +177,9 @@ def _check_component(parts, desc) -> str:
 
 
 def _build_ivf(d, parts, metric, metric_arg, desc) -> Index:
-    """``IVFn[_Flat][,Flat]`` and ``IVFn[_Flat],SQ{8,4,6}``: inverted lists
-    over a Flat coarse quantizer (the reference's graph shape)."""
+    """``IVFn[_Flat][,Flat]``, ``IVFn[_Flat],SQ{8,4,6}`` and
+    ``IVFn[_Flat],PQm[xb]`` / ``RQMxb``: inverted lists over a Flat coarse
+    quantizer (the reference's graph shape)."""
     from .models.ivf import SQ_ENCODINGS, IVFIndex
 
     if _IVF_PAREN_RE.match(parts[0]):
@@ -185,7 +188,8 @@ def _build_ivf(d, parts, metric, metric_arg, desc) -> Index:
     if m.group(2) not in (None, "Flat"):
         raise _not_available(desc, f"IVF quantizer {m.group(2)}")
     encoding = parts[1] if len(parts) > 1 else "Flat"
-    if encoding != "Flat" and encoding not in SQ_ENCODINGS:
+    if (encoding != "Flat" and encoding not in SQ_ENCODINGS
+            and not _PQ_RE.match(encoding) and not _RQ_RE.match(encoding)):
         raise _not_available(desc, f"IVF encoding {encoding}")
     return IVFIndex(d, metric, metric_arg, nlist=int(m.group(1)),
                     quantizer=FlatIndex(d, metric, metric_arg),
@@ -205,6 +209,18 @@ def build_index(d: int, desc: str, metric: Metric,
         index: Index = FlatIndex(d, metric, metric_arg)
     elif family == "IVF":
         index = _build_ivf(d, parts, metric, metric_arg, desc)
+    elif family == "PQ":
+        from .models.pq import PQIndex
+
+        m = _PQ_RE.match(parts[0])
+        index = PQIndex(d, metric, metric_arg, M=int(m.group(1)),
+                        nbits=int(m.group(2)) if m.group(2) else 8)
+    elif family == "RQ":
+        from .models.rq import RQIndex
+
+        m = _RQ_RE.match(parts[0])
+        index = RQIndex(d, metric, metric_arg, M=int(m.group(1)),
+                        nbits=int(m.group(2)))
     else:
         raise _not_available(desc, family)
     if idmap:

@@ -3,12 +3,13 @@
 ``from_reference`` reads only plain attributes and the ``state_dict()``
 numpy arrays of a ``duckdb_faiss_ext_tpu`` index (its factory description,
 dimension, metric name and argument, and its state: the corpus or, for
-IVF,SQ, the packed codes and their trained ranges, IDMap's labels, IVF's
-ids, list assignments and trained centroids) and rebuilds
+IVF,SQ, the packed codes and their trained ranges, for PQ / RQ and IVF-PQ /
+IVF-RQ the byte codes as they are and the trained codebooks, IDMap's
+labels, IVF's ids, list assignments and trained centroids) and rebuilds
 the index through this package's factory and ``load_state`` — the
 in-memory form of the checkpoint format (io/serialize.py) the two packages
-share.  An IVF index so carried has the JAX package's centroids, which the
-port's own k-means cannot reproduce (ops/kmeans.py).  Nothing of the JAX
+share.  An index so carried has the JAX package's centroids and codebooks,
+which the port's own k-means cannot reproduce (ops/kmeans.py).  Nothing of the JAX
 package is imported.
 """
 

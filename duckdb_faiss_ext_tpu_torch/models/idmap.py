@@ -7,7 +7,7 @@ and search parameters recurse to the inner index unchanged.
 
 Selectors filter on *labels* (FAISS translates its IDSelector through the id
 map): a selector is resolved against the label table and handed to the
-inner index as a position mask.
+inner index as a position mask.  ``reconstruct`` takes a label (IDMap2).
 """
 
 from __future__ import annotations
@@ -91,6 +91,19 @@ class IDMapIndex(Index):
     def _positions_to_labels(self, pos: np.ndarray) -> np.ndarray:
         return np.where(pos >= 0, self._labels[np.clip(pos, 0, None)]
                         if self._labels.size else pos, -1)
+
+    def reconstruct(self, label: int) -> np.ndarray:
+        """The stored vector of a custom label (faiss IndexIDMap2; plain
+        IDMap answers too, as in the JAX package), decoded by the inner
+        index for coded storage."""
+        matches = np.nonzero(self._labels == int(label))[0]
+        if matches.size == 0:
+            raise errors.InvalidInputError(f"Label {label} not found in index")
+        inner_rec = getattr(self.inner, "reconstruct", None)
+        if inner_rec is None:
+            raise errors.InvalidInputError(
+                f"reconstruct is not supported by {type(self.inner).__name__}")
+        return inner_rec(int(matches[0]))
 
     def apply_create_params(self, params) -> None:
         # setIndexParameters unwraps IDMap and recurses

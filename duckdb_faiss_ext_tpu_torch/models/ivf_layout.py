@@ -1,27 +1,32 @@
 """IVF storage layouts and device builds.
 
-The counterpart of ``duckdb_faiss_ext_tpu/models/ivf_layout.py`` for Flat
-and SQ8 / SQ4 / SQ6 storage: everything that turns the host state
-(vectors or packed codes, ids, assignments) into the layouts the scans
-read, and the selector masks aligned with each.
+The counterpart of ``duckdb_faiss_ext_tpu/models/ivf_layout.py`` for Flat,
+SQ8 / SQ4 / SQ6 and PQ / RQ storage: everything that turns the host state
+(vectors or codes, ids, assignments) into the layouts the scans read, and
+the selector masks aligned with each.
 
-* The padded list layout: (nlist, lmax, d) fp32 rows, or (nlist, lmax, w)
+* The padded list layout: (nlist, lmax, d) fp32 rows, (nlist, lmax, w)
   uint8 packed SQ codes with each slot's Σ(scale·c)² (``rn``) and Σc
-  (``rs``) in (nlist, lmax) fp32, with lmax from ``choose_lmax`` (the JAX
-  package's rule, so both packages build the same layout from the same
-  data), read by the list-scan kernels (K6 / K7, and K2 / K3 for SQ).  The
-  plan counts the bytes a row takes (d·4, or the code width).  When the
-  layout would exceed ``LAYOUT_BUDGET_BYTES`` the lists are capped and the
-  overflow rows go to a dense spill region (at most ``SPILL_FRACTION_MAX``
-  of the rows; for SQ with its rows' rn / rs, scanned by K5), else there
-  is no layout plan.  SQ indexes have a plan only while the int8 path is
-  active (``utils.config.sq_int8_active``), as in the JAX package.  sq6
-  stays in packed rows: the JAX package's plane-major (nlist, 3·lmax,
-  ceil(d/4)) fold was a Mosaic tiling workaround.
+  (``rs``) in (nlist, lmax) fp32, or (nlist, lmax, m) uint8 PQ / RQ codes
+  with the trained codebooks beside them, with lmax from ``choose_lmax``
+  (the JAX package's rule, so both packages build the same layout from the
+  same data), read by the list-scan kernels (K6 / K7; K2 / K3 for SQ; K8
+  for PQ / RQ).  The plan counts the bytes a row takes (d·4, the SQ code
+  width, or m).  When the layout would exceed ``LAYOUT_BUDGET_BYTES`` the
+  lists are capped and the overflow rows go to a dense spill region (at
+  most ``SPILL_FRACTION_MAX`` of the rows; for SQ with its rows' rn / rs,
+  scanned by K5; PQ / RQ codes decoded with their list's centroid), else
+  there is no layout plan.  SQ indexes have a plan only while the int8
+  path is active (``utils.config.sq_int8_active``), as in the JAX package;
+  PQ / RQ in both precision modes.  sq6 stays in packed rows: the JAX
+  package's plane-major (nlist, 3·lmax, ceil(d/4)) fold was a Mosaic tiling
+  workaround.
 * The sorted+gather layout: rows (or codes) sorted by list in one buffer,
   for the elementwise metrics, the SQ decode path and searches without a
   layout plan; for the int8 SQ gather scan, the sorted rows' rn / rs
-  beside it.
+  beside it; for PQ / RQ the codebooks.  The JAX package also kept the
+  sorted rows' list assignments for PQ; its gather scan adds the probed
+  list's centroid instead, so they are not kept here.
 
 Layouts are built on the host in numpy, as in the JAX package, uploaded
 to the index's device once per mutation, and cached until the next one.
@@ -58,12 +63,14 @@ def choose_lmax(counts_max: int) -> int:
 class ListLayout(NamedTuple):
     """The padded list layout on the device."""
     payload: torch.Tensor      # (nlist, lmax, d) fp32 / (nlist, lmax, w) u8
+    #                            SQ or PQ / RQ codes
     counts: torch.Tensor       # (nlist,) int32 rows kept per list
     row_pos: torch.Tensor      # (nlist, lmax) int32 storage row, -1 padding
     centroids: torch.Tensor    # (nlist, d) fp32
     row_pos_host: np.ndarray   # host copy of row_pos (selector masks)
     rn: torch.Tensor | None = None   # SQ: (nlist, lmax) fp32 Σ(scale·c)²
     rs: torch.Tensor | None = None   # SQ: (nlist, lmax) fp32 Σc
+    codebooks: torch.Tensor | None = None   # PQ / RQ codebooks
 
 
 class Spill(NamedTuple):
@@ -79,10 +86,11 @@ class Spill(NamedTuple):
 
 class SortedLayout(NamedTuple):
     """Rows sorted by list: each list a contiguous block."""
-    xb: torch.Tensor           # (cap, d) fp32 / (cap, w) uint8 SQ codes
+    xb: torch.Tensor           # (cap, d) fp32 / (cap, w) uint8 codes
     lmax: int                  # scan window: pow2 ≥ the longest list
     centroids: torch.Tensor
     order: np.ndarray          # sorted row → storage row
+    codebooks: torch.Tensor | None = None   # PQ / RQ codebooks
 
 
 class IVFLayout:
@@ -124,7 +132,7 @@ class IVFLayout:
         None           — no padded layout (elementwise metric, SQ without
                          the int8 path, or the spill would exceed
                          SPILL_FRACTION_MAX);
-        ("full", None) — the padded (nlist, lmax, d) layout fits the budget;
+        ("full", None) — the padded (nlist, lmax, w) layout fits the budget;
         ("spill", L)   — lists capped at L, overflow rows in a spill
                          region scanned densely and merged."""
         if self.metric.name not in ("L2", "INNER_PRODUCT"):
@@ -133,7 +141,7 @@ class IVFLayout:
             return None
         if self._plan_cache is not None:
             return self._plan_cache[0]
-        width = (self._codes.shape[1] if self.sq_type is not None
+        width = (self._codes.shape[1] if self._codes is not None
                  else self.d * 4)
         counts = self._counts()
         full = choose_lmax(int(counts.max()) if self.ntotal else 1)
@@ -155,7 +163,7 @@ class IVFLayout:
 
     def _build_list_layout(self, lmax_cap: int | None = None):
         """Host-side padded list layout: (payload (nlist, lmax, w) of the
-        stored rows (fp32 vectors or SQ codes), counts (nlist,), row_pos
+        stored rows (fp32 vectors, SQ or PQ / RQ codes), counts (nlist,), row_pos
         (nlist, lmax), spill).  With ``lmax_cap``, lists longer than the cap
         keep their first cap members; the overflow rows come back in
         ``spill`` = (payload (s, w), assign (s,), pos (s,) storage rows),
@@ -173,7 +181,7 @@ class IVFLayout:
             lmax = min(lmax, lmax_cap)
         kept = np.minimum(counts, lmax)
         row_pos = np.full((self.nlist, lmax), -1, np.int32)
-        raw = self._codes if self.sq_type is not None else self._xb
+        raw = self._codes if self._codes is not None else self._xb
         w = raw.shape[1]
         payload = np.zeros((self.nlist, lmax, w), raw.dtype)
         spill = None
@@ -216,7 +224,9 @@ class IVFLayout:
             lay_rs[valid] = rs[row_pos[valid]]
         self._layout = ListLayout(
             up(payload), up(counts), up(row_pos), up(self._centroids),
-            row_pos, *((up(lay_rn), up(lay_rs)) if rn is not None else ()))
+            row_pos, *((up(lay_rn), up(lay_rs)) if rn is not None
+                       else (None, None)),
+            up(self._pq_codebooks) if self.pq_m is not None else None)
         if spill is not None:
             sp_payload, sp_assign, sp_pos = spill
             s_pad = max(128, next_pow2(sp_pos.shape[0]))
@@ -252,11 +262,13 @@ class IVFLayout:
         # n are never inside a probed window's valid part.
         lmax = max(128, next_pow2(max(1, int(counts.max()) if n else 1)))
         cap = max(config.min_capacity, next_capacity(n + 1))
-        raw = self._codes if self.sq_type is not None else self._xb
+        raw = self._codes if self._codes is not None else self._xb
         xb_sorted = pad_rows(raw[order] if n else raw, cap)
         self._sorted = SortedLayout(
             torch.from_numpy(xb_sorted).to(self.device), lmax,
-            torch.from_numpy(self._centroids).to(self.device), order)
+            torch.from_numpy(self._centroids).to(self.device), order,
+            torch.from_numpy(self._pq_codebooks).to(self.device)
+            if self.pq_m is not None else None)
         return self._sorted
 
     def _sorted_sq_extras(self):

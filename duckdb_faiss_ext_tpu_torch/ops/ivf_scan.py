@@ -2,10 +2,10 @@
 the top-k merge.
 
 Counterparts of ``duckdb_faiss_ext_tpu/ops/ivf_scan.py`` (``ivf_search``,
-``ivf_sq_search``, ``ivf_sq_int8_search``, ``slice_probed_lists``,
-``choose_q_chunk``, ``ivf_spill_scan`` with its SQ branches,
-``merge_topk``): XLA code the JAX package ran outside any ``pallas_call``,
-so plain torch here too.
+``ivf_sq_search``, ``ivf_sq_int8_search``, ``ivf_pq_search``,
+``slice_probed_lists``, ``choose_q_chunk``, ``ivf_spill_scan`` with its SQ
+and PQ / RQ branches, ``merge_topk``): XLA code the JAX package ran outside
+any ``pallas_call``, so plain torch here too.
 
 * ``ivf_search`` serves IVF searches that have no padded list layout: the
   seven elementwise metrics, and L2 / inner product when the layout plan
@@ -13,14 +13,17 @@ so plain torch here too.
   corpus buffer plus (offsets, counts) list metadata; each probed list is a
   contiguous (lmax, w) window of it, gathered per query chunk.
   ``ivf_sq_search`` runs it over SQ codes decoded per chunk (the parity
-  path of IVF,SQ).
+  path of IVF,SQ), ``ivf_pq_search`` over PQ / RQ residual codes decoded
+  and added to the probed list's centroid (IVF-PQ / IVF-RQ without a
+  layout plan).
 * ``ivf_sq_int8_search``: the int8 digit-dot scan over the same sorted
   codes (IVF,SQ with the int8 path active and no layout plan), then the
   exact fp32 rerank.
 * ``ivf_spill_scan`` scores the overflow rows of capped lists densely and
   masks them to each query's probe set (SQ rows decoded, or int8-scored
-  with a widened pool and an exact rerank); ``merge_topk`` merges its
-  top-k with the padded-layout scan's.
+  with a widened pool and an exact rerank; PQ / RQ codes decoded and added
+  to their list's centroid); ``merge_topk`` merges its top-k with the
+  padded-layout scan's.
 
 Every fp32 score is exact fp32 whatever the precision mode: L2 / inner
 product over the gathered candidates are elementwise products summed (no
@@ -39,6 +42,7 @@ from ..utils.config import full_fp32
 from .distance import elementwise_scores, pairwise_tile
 from .flat_search import SIMILARITY_METRICS, exact_topk, topk_ordered
 from .ivf_sq_scan import exact_rows_scores
+from .pq import codec_decode
 from .sq import SQ_INT8_SHIFT, sq_decode
 from .sq_digits import digit_dots, int8_scores, query_digits
 from .sq_spill import spill_rerank_scores
@@ -96,10 +100,14 @@ def _candidate_distances(xq_c, xc, metric, metric_arg):
 
 
 def ivf_search(xb_sorted, offsets, counts, centroids, xq, mask, metric_arg,
-               *, k, nprobe, metric, q_chunk, lmax, decode=None):
+               *, k, nprobe, metric, q_chunk, lmax, decode=None,
+               by_residual=False):
     """Sorted+gather IVF scan.  Returns (scores (nq, k) max-oriented with
     -inf missing, sorted-row positions (nq, k) int32 with -1 missing).
-    ``decode`` maps (r, w) stored rows to (r, d) fp32 (None: fp32 rows)."""
+    ``decode`` maps (r, w) stored rows to (r, d) fp32 (None: fp32 rows);
+    with ``by_residual`` each probed window's decoded rows are residuals of
+    its list and get the list's centroid added (every valid row of the
+    window belongs to that list)."""
     nq, d = xq.shape
     nprobe = min(nprobe, centroids.shape[0])
     sim = metric in SIMILARITY_METRICS
@@ -116,6 +124,10 @@ def ivf_search(xb_sorted, offsets, counts, centroids, xq, mask, metric_arg,
         ncand = xc.shape[1] * xc.shape[2]
         if decode is not None:
             xc = decode(xc.reshape(qc * ncand, -1))
+        if by_residual:
+            probes_c = probe_ids[q0:q0 + q_chunk].long()
+            xc = (xc.reshape(qc, probes_c.shape[1], -1, d)
+                  + centroids[probes_c][:, :, None, :])
         xc = xc.reshape(qc, ncand, d)
         pos = pos.reshape(qc, ncand)
         valid = valid.reshape(qc, ncand)
@@ -133,10 +145,13 @@ def ivf_search(xb_sorted, offsets, counts, centroids, xq, mask, metric_arg,
 def ivf_spill_scan(spill_payload, spill_assign, spill_pos, probe_ids, xq,
                    mask, metric_arg, *, k, metric, nlist, sq=None,
                    sq_vmin=None, sq_scale=None, spill_rn=None, spill_rs=None,
-                   int8_dot=False):
+                   int8_dot=False, codec=None, codebooks=None,
+                   centroids=None):
     """Scan the spill region: rows whose list overflowed the capped padded
     layout, (s_pad, d) fp32 — or (s_pad, w) SQ codes when ``sq`` names the
-    codec — with ``spill_pos`` their original row (-1 for padding).  Every
+    codec, or (s_pad, m) PQ / RQ residual codes when ``codec`` does, decoded
+    with ``codebooks`` and added to ``centroids[spill_assign]`` — with
+    ``spill_pos`` their original row (-1 for padding).  Every
     spill row is scored against every query and kept only where its list
     is among that query's probes (a (nlist, nq) membership table, gathered
     per chunk).  SQ rows are decoded per chunk, or, with ``int8_dot`` and
@@ -177,6 +192,9 @@ def ivf_spill_scan(spill_payload, spill_assign, spill_pos, probe_ids, xq,
         else:
             if sq is not None:
                 chunk = sq_decode(chunk, sq_vmin, sq_scale, sq)
+            elif codec is not None:
+                chunk = (codec_decode(chunk, codebooks, codec)
+                         + centroids[spill_assign[start:start + sc].long()])
             with full_fp32():
                 dist = pairwise_tile(xq, chunk, metric, metric_arg)
             score = dist if sim else -dist
@@ -207,6 +225,20 @@ def ivf_sq_search(codes_sorted, vmin, scale, offsets, counts, centroids, xq,
         codes_sorted, offsets, counts, centroids, xq, mask, metric_arg, k=k,
         nprobe=nprobe, metric=metric, q_chunk=q_chunk, lmax=lmax,
         decode=lambda c: sq_decode(c, vmin, scale, codec))
+
+
+def ivf_pq_search(codes_sorted, codebooks, offsets, counts, centroids, xq,
+                  mask, metric_arg, *, k, nprobe, metric, q_chunk, codec,
+                  lmax):
+    """IVF-PQ / IVF-RQ gather scan (``duckdb_faiss_ext_tpu/ops/ivf_scan.py::
+    ivf_pq_search``, faiss IndexIVFPQ / IndexIVFResidualQuantizer,
+    by_residual): the probed code windows of the sorted buffer decoded per
+    query chunk, each row x = dec(code) + centroid of its probed list, and
+    scored as ``ivf_search`` scores fp32 rows."""
+    return ivf_search(
+        codes_sorted, offsets, counts, centroids, xq, mask, metric_arg, k=k,
+        nprobe=nprobe, metric=metric, q_chunk=q_chunk, lmax=lmax,
+        decode=lambda c: codec_decode(c, codebooks, codec), by_residual=True)
 
 
 def _spill_rerank(spill_payload, best_s, best_i, xq, vmin, scale, codec, k,

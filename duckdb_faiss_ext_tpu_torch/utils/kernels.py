@@ -140,6 +140,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i,               # l2, vec4
         p, p,               # out, stream
     ]
+    lib.dfx_ivf_pq_scan.restype = ctypes.c_int
+    lib.dfx_ivf_pq_scan.argtypes = [
+        p, p, p, p,         # lists, counts, probe_ids, xq
+        p, p, p,            # centroids, codebooks, mask
+        i, i, i, i, i, i,   # nq, nprobe, nlist, lmax, m, d
+        i, i, i, i,         # ksub, dsub, rq, l2
+        p, p,               # out, stream
+    ]
     lib.dfx_ivf_sq_scan.restype = ctypes.c_int
     lib.dfx_ivf_sq_scan.argtypes = [
         p, p, p, p, p,      # codes, rn, rs, counts, probe_ids

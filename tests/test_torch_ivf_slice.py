@@ -16,6 +16,8 @@ gather path in expansion form); labels equal wherever the neighbouring
 distances are further apart than that.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -421,7 +423,7 @@ def test_quantiser_params_accepted(pcat):
     ("IVF4_HNSW8,Flat", "IVF quantizer HNSW8"),
     ("IVF4(IVF2,Flat),Flat", "parenthesized IVF quantizer"),
     ("IVF4,SQfp16", "IVF encoding SQfp16"),
-    ("IDMap,IVF4,PQ2", "IVF encoding PQ2"),
+    ("IVF4,PQ4,RFlat", "RFlat"),
     ("IMI2x2,Flat", "IMI")])
 def test_unported_ivf_forms_refused(pcat, factory, what):
     with pytest.raises(dt.InvalidInputError,
@@ -433,9 +435,21 @@ def test_unported_ivf_forms_refused(pcat, factory, what):
 
 @pytest.mark.parametrize("key", ["soar_lambda", "anisotropic_eta", "beam",
                                  "assign_topk"])
-def test_unported_create_params_refused(pcat, key):
-    with pytest.raises(dt.InvalidInputError, match="not yet available"):
+def test_unported_create_params_refused(catalog, pcat, key):
+    """soar_lambda and assign_topk are not yet available; anisotropic_eta
+    and beam are ported and refused on Flat storage with the JAX package's
+    own messages."""
+    if key in ("anisotropic_eta", "beam"):
+        with pytest.raises(dfx.InvalidInputError) as want:
+            dfx.faiss_create_params("e", 8, "IVF4,Flat", {key: "1"},
+                                    catalog=catalog)
+        assert "applies to" in str(want.value)
+        match = f"^{re.escape(str(want.value))}$"
+    else:
+        match = "not yet available"
+    with pytest.raises(dt.InvalidInputError, match=match):
         dt.faiss_create_params("e", 8, "IVF4,Flat", {key: "1"}, catalog=pcat)
+    assert pcat.names() == []
 
 
 # --- the port's own k-means --------------------------------------------------

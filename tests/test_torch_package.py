@@ -6,8 +6,9 @@
 * the kernel build finds nvcc or raises, and names the library by a hash
   of the sources and the headers they include;
 * on the card (``-m gpu``), the CUDA kernels (flat top-k, IVF list scan,
-  IVF pair tiles, and the int8 IVF,SQ list scan, pair tiles and spill
-  windows) match their plain versions.
+  IVF pair tiles, the int8 IVF,SQ list scan, pair tiles and spill windows,
+  and the IVF-PQ / IVF-RQ scan) match their plain versions, and the IVF-PQ
+  scan raises on inputs it does not take.
 """
 
 import os
@@ -99,7 +100,7 @@ def test_library_hash_covers_headers(tmp_path):
     sources, headers = kernels._kernel_files()
     assert {p.name for p in headers} >= {"sq_digits.cuh"}
     assert {p.name for p in sources} >= {"ivf_sq_scan.cu", "ivf_sq_pairs.cu",
-                                         "sq_spill.cu"}
+                                         "sq_spill.cu", "ivf_pq_scan.cu"}
 
 
 def test_build_dir_is_ignored_by_git():
@@ -263,3 +264,78 @@ def test_sq_kernels_match_plain_on_card(codec, d, metric):
         launched = (1, 1, 1)
     assert (k2.LAUNCHES - before[0], k3.LAUNCHES - before[1],
             k5.LAUNCHES - before[2]) == launched
+
+
+@pytest.fixture
+def card():
+    """A CUDA device, decided here and not at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the H100)")
+    return torch.device("cuda")
+
+
+def _pq_inputs(codec, m, nbits, d, nlist=16, lmax=256, nq=64, nprobe=3):
+    """K8's arguments on the card: a padded code layout with an empty list
+    and a full one, codebooks, centroids, a probe table, queries and a
+    mask."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    counts = torch.randint(1, lmax, (nlist,), device="cuda", generator=g,
+                           dtype=torch.int32)
+    counts[0], counts[1] = 0, lmax
+    live = (torch.arange(lmax, device="cuda")[None, :]
+            < counts[:, None]).to(torch.uint8)
+    lists = torch.randint(0, 1 << nbits, (nlist, lmax, m), device="cuda",
+                          generator=g, dtype=torch.uint8) * live[:, :, None]
+    cb = torch.randn(m, 1 << nbits, d // m if codec == "pq" else d,
+                     device="cuda", generator=g)
+    cents = torch.randn(nlist, d, device="cuda", generator=g)
+    probe = torch.rand(nq, nlist, device="cuda", generator=g).argsort(1)[
+        :, :nprobe].to(torch.int32).contiguous()
+    xq = torch.randn(nq, d, device="cuda", generator=g)
+    mask = (torch.rand(nlist, lmax, device="cuda", generator=g)
+            < 0.6).to(torch.int8)
+    return [lists, counts, probe, xq, cents, cb, mask]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("codec,m,nbits,d", [("pq", 16, 8, 128),
+                                             ("pq", 4, 4, 16),
+                                             ("rq", 2, 4, 16),
+                                             ("rq", 8, 8, 128)])
+def test_pq_kernel_matches_plain_on_card(card, codec, m, nbits, d, metric):
+    """K8 (IVF-PQ / IVF-RQ scan) against its plain torch version on the
+    same card tensors, raw scores element by element, each query within
+    1e-5 of its largest |score| (fp32 sums in another order)."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+
+    args = _pq_inputs(codec, m, nbits, d) + [metric, codec]
+    before = k8.LAUNCHES
+    raw = k8.ivf_pq_scan(*args)
+    torch.cuda.synchronize()
+    assert k8.LAUNCHES == before + 1
+    ref = k8.ivf_pq_scan_reference(*args)
+    nq = raw.shape[0]
+    _rows_agree(raw.reshape(nq, -1), ref.reshape(nq, -1),
+                torch.zeros(nq))
+
+
+@pytest.mark.gpu
+def test_pq_kernel_raises_on_bad_inputs(card):
+    """On CUDA tensors K8 launches or raises; it never falls back to the
+    plain version."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+
+    args = _pq_inputs("pq", 4, 8, 16) + ["L2", "pq"]
+    before = k8.LAUNCHES
+    k8.ivf_pq_scan(*args)
+    torch.cuda.synchronize()
+    assert k8.LAUNCHES == before + 1
+    lists, counts, probe, xq, cents, cb, mask = args[:7]
+    bad = {0: lists.to(torch.int32), 1: counts.to(torch.int64),
+           2: probe[:, :1].t(), 3: xq.cpu(), 4: cents[:, :8].contiguous(),
+           5: cb[:, :, :3].contiguous(), 6: mask[:4], 7: "L1", 8: "opq"}
+    for i, value in bad.items():
+        with pytest.raises(ValueError):
+            k8.ivf_pq_scan(*(args[:i] + [value] + args[i + 1:]))
+    assert k8.LAUNCHES == before + 1

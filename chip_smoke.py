@@ -27,7 +27,10 @@ Phases (any failure raises and the script exits non-zero):
    the card, raw scores element by element: L2 and inner product, with and
    without a mask, nprobe 1 / 3 / 64, d 8 / 128 / 1536, lmax 256 and 1024
    (counts on both sides of 256, 512 and 768), lists of count 0 and
-   count == lmax, pair tiles with dead slots and n_tiles < t_max;
+   count == lmax, pair tiles with dead slots and n_tiles < t_max; then the
+   pipelined pair tiles (K10, ops/ivf_pairs_mega.py) at the same shapes,
+   bit-equal to K7 and held against the plain version, also with n_tiles
+   cut to 0 and to n_tiles - 3;
 7. IVF main path: IDMap,IVF4096,Flat L2 over the same corpus
    (BASELINE.json configs[2]): faiss_manual_train on its first 262,144
    rows → faiss_add of all 1M with ids → faiss_search at nprobe 64 at b48
@@ -39,9 +42,12 @@ Phases (any failure raises and the script exits non-zero):
    K6 is timed against its plain version, K7 against K6 and the top-k of
    the score block alone at b1024, and faiss_search wall time is taken;
 8. pair-tile path: IVF1024,Flat inner product over 262,144 x 1536
-   (seed 7) at nprobe 16: b1024 goes through K7 by the static gate and
-   b48 through K6, both held against the plain path; K7's raw tiles at
-   b1024 are held against its plain version, then timed against it;
+   (seed 7) at nprobe 16: b1024 goes through K7 by the static gate, and
+   through K10 under pairs_impl "mega" with equal results, b48 through
+   K6, all held against the plain path; K7's and K10's raw tiles at b1024
+   are held against the plain version and each other, then timed; the
+   same trained index filled again by faiss_add_device of the corpus as a
+   card tensor builds a byte-equal layout and equal results;
 9. SQ sweep: the int8 IVF,SQ kernels against their plain versions on the
    card, raw scores element by element: the per-query list scan (K2,
    ops/ivf_sq_scan.py) and the pair tiles (K3, ops/ivf_sq_pairs.py) at
@@ -50,6 +56,10 @@ Phases (any failure raises and the script exits non-zero):
    and 768), lists of count 0 and count == lmax, tiles with dead slots and
    n_tiles < t_max; the spill windows (K5, ops/sq_spill.py) at sq8 / sq4,
    nprobe 1 / 16 / 64, a ragged last window and a partial query group;
+   then the pipelined pair tiles (K9, ops/ivf_sq_pairs_mega.py) bit-equal
+   to their plain version and to K3 at the same codecs, metrics, masks and
+   widths, lmax 256 / 1024 / 2560, with n_tiles cut to 0 and to n_tiles -
+   3;
 10. SQ main path: IVF4096,SQ8 inner product at d = 1536 (the reference's
    MS MARCO ada-002 deployment, tools/marco_scale.py:3-8, README:331), the
    rows cut from 8,841,823 to 2,097,152: a clustered, skewed corpus made on
@@ -90,7 +100,21 @@ Phases (any failure raises and the script exits non-zero):
    plain K8 path, K8's raw scores at b1024 held and timed;
 15. standalone PQ16 over the same corpus at b48 (ops/pq.py::pq_search on
    card tensors): labels equal to a Flat search (K1) over the decoded
-   corpus wherever the distances are separated.
+   corpus wherever the distances are separated;
+16. MS MARCO device path: IVF4096,SQ8 inner product over the full
+   8,841,823 x 1536 rows of the reference's deployment, phase 10's corpus
+   made on the card in 262,144-row chunks, faiss_train_device on the first
+   chunk, faiss_add_device of every chunk with assign_topk 4 into lists
+   padded to 2,560 (capacity-filled, tools/marco_device.py:288-299); in
+   fast mode at nprobe 16, k=10: faiss_search at b48 (K2 + K5), at b1024
+   under pairs_impl "grid" (K3 + K5) and "mega" (K9 + K5), equal exactly,
+   faiss_search_batched 16 x b48 and faiss_search_filter('id%2==0') under
+   "mega".  The launch counts must match the calls; every result is held
+   against the same path with the plain versions of K2, K3, K9 and K5;
+   recall@10 against exact fp32 search is printed; K9's raw tiles at b1024
+   are bit-equal to its plain version and K3's, then K9 is timed against
+   both, and faiss_search's wall time and device stages are taken under
+   both pairs_impl values.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -198,6 +222,26 @@ PQ_FACTORY, RQ_FACTORY = "IDMap,IVF4096,PQ16", "IVF4096,RQ8x8"
 PQ_SWEEP_D, PQ_SWEEP_LMAX = (16, 128, 1536), (256, 1024)
 PQ_SWEEP_CODECS = (("pq", lambda d: d // 8, 8), ("pq", lambda d: d // 4, 4),
                    ("rq", lambda d: 2, 4), ("rq", lambda d: 8, 8))
+SQ_MEGA_KERNEL = {
+    "name": "ivf_sq_pairs_mega",
+    "route": "cuda",
+    "source": "duckdb_faiss_ext_tpu_torch/csrc/ivf_sq_pairs_mega.cu",
+    "replaces": "duckdb_faiss_ext_tpu/ops/pallas_ivf_pairs.py:503",
+}
+FLAT_MEGA_KERNEL = {
+    "name": "ivf_pairs_mega",
+    "route": "cuda",
+    "source": "duckdb_faiss_ext_tpu_torch/csrc/ivf_pairs_mega.cu",
+    "replaces": "duckdb_faiss_ext_tpu/ops/pallas_ivf_pairs.py:655",
+}
+#: the K9 sweep's list lengths: K3's, and the MS MARCO device layout's
+SQ_MEGA_SWEEP_LMAX = (256, 1024, 2560)
+#: the MS MARCO device path: the reference's deployment at its full
+#: 8,841,823 rows (tools/marco_scale.py:3-8), ingested on the card with
+#: capped assignment over each row's 4 nearest lists, lmax capacity-filled
+#: as tools/marco_device.py:288-299 sizes it: ceil(1.15·n / (nlist·512))·512
+MARCO_N, MARCO_TOPK = 8_841_823, 4
+MARCO_LMAX = 512 * -(-int(1.15 * MARCO_N) // (SQ_NLIST * 512))
 #: the H100's published peaks (SXM data sheet, dense): device memory,
 #: float32 outside the tensor cores, int8
 HBM_BYTES_S, FP32_OPS_S, INT8_OPS_S = 3.35e12, 67e12, 1979e12
@@ -669,6 +713,76 @@ def phase_ivf_sweep():
     return err6, err7
 
 
+def k10_raw_error(lists, counts, xq_t, qs_t, meta, mask, metric):
+    """K10's raw tiles bit-equal to K7's and against its plain version (K7's)
+    on the same card tensors, over the real tiles; then with n_tiles cut to
+    0 and to a count no tile grouping divides.  Returns the max abs error
+    against the plain version."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs_mega as k10
+
+    args = [lists, counts, xq_t, qs_t, meta, mask, metric]
+    raw = k10.ivf_pairs_mega_scan(*args)
+    n = int(meta[0])
+    grid = k7.ivf_pairs_scan(*args)
+    check(torch.equal(raw[:n], grid[:n]), "K10 differs from K7")
+    ref = k7.ivf_pairs_scan_reference(*args)
+    err = compare_raw(raw[:n].reshape(-1, raw.shape[2]),
+                      ref[:n].reshape(-1, raw.shape[2]),
+                      qs_t[:n, :, 1].reshape(-1))
+    for cut in (0, max(0, n - 3)):
+        args[4] = meta.clone()
+        args[4][0] = cut
+        raw = k10.ivf_pairs_mega_scan(*args)
+        check(torch.equal(raw[:cut], grid[:cut]), f"K10 at n_tiles {cut}")
+    return err
+
+
+def phase_ivf_mega_sweep():
+    """K10 bit-equal to K7 and against its plain version: L2 / IP, mask off
+    / on, nprobe 1 / 3 / 64, d 8 / 128 / 1536, lmax 256 and 1024 (counts on
+    both sides of each 256-row chunk edge), lists of count 0 and count ==
+    lmax, dead slots, n_tiles < t_max, n_tiles 0 and n_tiles - 3."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs_mega as k10
+
+    g = torch.Generator(device=DEVICE).manual_seed(4322)
+    nlist, nq = 64, 256
+    before = k10.LAUNCHES
+    err, n_cases = 0.0, 0
+    for d, lmax in itertools.product(SWEEP_D, (256, 1024)):
+        t0 = time.perf_counter()
+        counts = torch.randint(1, lmax, (nlist,), device=DEVICE, generator=g,
+                               dtype=torch.int32)
+        counts[0], counts[1] = 0, lmax
+        if lmax > 256:
+            counts[2:8] = torch.tensor([255, 257, 511, 513, 767, 769])
+        lane = torch.arange(lmax, device=DEVICE)
+        lists = torch.randn(nlist, lmax, d, device=DEVICE, generator=g)
+        lists *= (lane[None, :] < counts[:, None])[:, :, None]
+        mask = (torch.rand(nlist, lmax, device=DEVICE, generator=g)
+                < 0.6).to(torch.int8)
+        xq = torch.randn(nq, d, device=DEVICE, generator=g)
+        for metric, m, nprobe in itertools.product(
+                ("L2", "INNER_PRODUCT"), (None, mask), (1, 3, 64)):
+            probe = probe_table(g, nq, nlist, nprobe)
+            xq_t, qs_t, meta, _ = k7.pair_tile_inputs(probe, xq, nlist)
+            check(int(meta[0]) < xq_t.shape[0], "no padding tiles")
+            err = max(err, k10_raw_error(lists, counts, xq_t, qs_t, meta, m,
+                                         metric))
+            n_cases += 1
+        log(f"ivf mega sweep d={d} lmax={lmax}: 12 cases, K10 equal to K7 "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del lists, mask, xq
+        torch.cuda.empty_cache()
+    check(k10.LAUNCHES - before == 3 * n_cases,
+          "an ivf mega sweep case did not launch")
+    log(f"ivf mega sweep: {n_cases} cases, K10 bit-equal to K7, max abs "
+        f"score error against the plain version {err:.3g}; plan (stages, "
+        f"blocks) {k10.last_plan}")
+    return err
+
+
 def plain_ivf_search(index, xq, k, nprobe, mask=None):
     """The IVF,Flat search of ``index`` (no IDMap) through the plain list
     scan on the same device layout: the coarse top-nprobe on the batch
@@ -899,10 +1013,13 @@ def clustered_f32(n, d, nq, ncl, seed):
 
 def phase_ivf_pairs(smi):
     """IVF1024,Flat IP over 262,144 x 1536 at nprobe 16: b1024 takes the
-    pair tiles (K7) by the static gate, b48 the per-query scan (K6)."""
+    pair tiles (K7) by the static gate, and K10 under pairs_impl "mega",
+    b48 the per-query scan (K6); then the same trained index filled on the
+    card by faiss_add_device, layout and results equal to faiss_add's."""
     import duckdb_faiss_ext_tpu_torch as dt
     from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs_mega as k10
     from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
 
     t0 = time.perf_counter()
@@ -913,40 +1030,63 @@ def phase_ivf_pairs(smi):
     dt.faiss_create("marco", PAIRS_D, f"IVF{PAIRS_NLIST},Flat",
                     metric_type="INNER_PRODUCT", catalog=cat)
     dt.faiss_manual_train(xb, "marco", catalog=cat)
-    dt.faiss_add(xb, "marco", catalog=cat)
     index = cat.get("marco").index
+    trained = index.state_dict()
+    dt.faiss_add(xb, "marco", catalog=cat)
     lay = index._build_device_layout()
     lmax = lay.payload.shape[1]
     log(f"ivf pairs path: {PAIRS_N}x{PAIRS_D} built in "
         f"{time.perf_counter() - t0:.1f} s; lmax {lmax}")
     check(index.pairs_wanted(BIG_BATCH, lmax), "the gate does not take the "
           "pair tiles at b1024")
-    k6.LAUNCHES = k7.LAUNCHES = 0
-    out = {"b1024": dt.faiss_search("marco", K, xq[BATCH:], params,
-                                    catalog=cat),
-           "b48": dt.faiss_search("marco", K, xq[:BATCH], params,
-                                  catalog=cat)}
-    launches = (k6.LAUNCHES, k7.LAUNCHES)
-    check(launches == (1, 1), f"pairs path launched (K6, K7) {launches}")
+
+    def run_all(name):
+        res = {"b1024": dt.faiss_search(name, K, xq[BATCH:], params,
+                                        catalog=cat),
+               "b48": dt.faiss_search(name, K, xq[:BATCH], params,
+                                      catalog=cat)}
+        dt.config.pairs_impl = "mega"
+        try:
+            res["b1024-mega"] = dt.faiss_search(name, K, xq[BATCH:], params,
+                                                catalog=cat)
+        finally:
+            dt.config.pairs_impl = "grid"
+        return res
+
+    k6.LAUNCHES = k7.LAUNCHES = k10.LAUNCHES = 0
+    out = run_all("marco")
+    launches = (k6.LAUNCHES, k7.LAUNCHES, k10.LAUNCHES)
+    check(launches == (1, 1, 1), f"pairs path launched (K6, K7, K10) "
+          f"{launches}")
+    check(index._last_scan_path == "pairs-mega-flat", "mega not taken")
+    for key in ("label", "distance"):
+        check(np.array_equal(out["b1024-mega"][key], out["b1024"][key]),
+              f"mega and grid b1024 {key}s differ")
     max_err = 0.0
     for name, q in (("b1024", xq[BATCH:]), ("b48", xq[:BATCH])):
         ref_d, ref_l = plain_ivf_search(index, q, K + 1, PAIRS_NPROBE)
         max_err = max(max_err, compare_results(
             f"pairs {name}", out[name], ref_d, ref_l, True))
-    log(f"ivf pairs path: b1024 through K7 and b48 through K6 agree with "
-        f"the plain path (max distance error {max_err:.3g})")
+    log(f"ivf pairs path: b1024 through K7 and through K10 (equal) and b48 "
+        f"through K6 agree with the plain path (max distance error "
+        f"{max_err:.3g})")
 
     xq_dev = torch.from_numpy(xq[BATCH:]).to(DEVICE)
     probe = coarse_topk(xq_dev, lay.centroids, PAIRS_NPROBE, "INNER_PRODUCT")
     xq_t, qs_t, meta, _ = k7.pair_tile_inputs(probe, xq_dev, PAIRS_NLIST)
     args = (lay.payload, lay.counts, xq_t, qs_t, meta, None, "INNER_PRODUCT")
     raw_err = k7_raw_error(*args)
+    raw_err10 = k10_raw_error(*args)
     log(f"ivf pairs path b1024 raw tiles ({int(meta[0])} of {xq_t.shape[0]} "
         f"tiles, lmax {lmax}): K7 agrees with its plain version (max abs "
-        f"error {raw_err:.3g})")
+        f"error {raw_err:.3g}); K10 bit-equal to K7 (max abs error against "
+        f"the plain version {raw_err10:.3g}); K10 plan (stages, blocks) "
+        f"{k10.last_plan}")
     ms, plain_ms = time_pair(lambda: k7.ivf_pairs_scan(*args),
                              lambda: k7.ivf_pairs_scan_reference(*args),
                              reps=6)
+    ms10, ms7 = time_pair(lambda: k10.ivf_pairs_mega_scan(*args),
+                          lambda: k7.ivf_pairs_scan(*args), reps=6)
     # The distinct probed lists' rows and the queries read once, the real
     # tiles written once; 2·d operations a probed row.
     _, rows_once, rows_all = probed_rows(lay.counts, probe)
@@ -955,8 +1095,9 @@ def phase_ivf_pairs(smi):
               2 * PAIRS_D * rows_all)
     log(f"time IVF{PAIRS_NLIST} {PAIRS_N}x{PAIRS_D} IP nprobe {PAIRS_NPROBE} "
         f"b1024 ({int(meta[0])} of {xq_t.shape[0]} tiles): K7 {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms (median CUDA events), bound {b[0]:.3f} ms "
-        f"({b[1]}) [{smi}]")
+        f"plain {plain_ms:.3f} ms; K10 {ms10:.3f} ms against K7 {ms7:.3f} ms "
+        f"(median CUDA events, in turns), bound {b[0]:.3f} ms ({b[1]}) "
+        f"[{smi}]")
     lists = (lay.payload, lay.counts, lay.row_pos, probe, xq_dev, None)
     search = dict(k=K, metric="INNER_PRODUCT")
     k7_ms, k6_ms = time_pair(
@@ -966,8 +1107,37 @@ def phase_ivf_pairs(smi):
     log(f"time IVF{PAIRS_NLIST} {PAIRS_N}x{PAIRS_D} IP nprobe {PAIRS_NPROBE} "
         f"b1024 scan + top-k: K7 pair tiles {k7_ms:.3f} ms, K6 per query "
         f"{k6_ms:.3f} ms (median CUDA events) [{smi}]")
-    return max(max_err, raw_err), launches[1], (ms, plain_ms, b)
 
+    # The same trained index filled on the card: faiss_add_device of the
+    # corpus as a card tensor, at the host layout's lmax.
+    dt.faiss_create("marco_dev", PAIRS_D, f"IVF{PAIRS_NLIST},Flat",
+                    metric_type="INNER_PRODUCT", catalog=cat)
+    dev_index = cat.get("marco_dev").index
+    dev_index.load_state(trained)
+    xb_dev = torch.from_numpy(xb).to(DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dt.faiss_add_device(xb_dev, "marco_dev", lmax=lmax, catalog=cat)
+    dev_lay = dev_index._build_device_layout()
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    del xb_dev
+    for name in ("payload", "counts", "row_pos", "centroids"):
+        check(torch.equal(getattr(dev_lay, name), getattr(lay, name)),
+              f"device-built {name} differs from the host-built one")
+    check(dev_index._spill is None and index._spill is None, "a spill")
+    dev_out = run_all("marco_dev")
+    for name, res in dev_out.items():
+        for key in ("label", "distance"):
+            check(np.array_equal(res[key], out[name][key]),
+                  f"device-ingested {name} {key}s differ")
+    log(f"ivf pairs path: faiss_add_device of the {PAIRS_N}x{PAIRS_D} card "
+        f"tensor + layout {t_dev:.2f} s; layout byte-equal to faiss_add's, "
+        f"b1024 (K7 and K10) and b48 results equal [{smi}]")
+    del dev_lay, dev_out
+    dt.faiss_destroy("marco_dev", catalog=cat)
+    return ((max(max_err, raw_err), launches[1], (ms, plain_ms, b)),
+            (raw_err10, launches[2], (ms10, plain_ms, b)))
 
 def sq_rows(g, n, d, codec):
     """n random packed SQ rows, their rn / rs, ranges and a row mask."""
@@ -1119,6 +1289,75 @@ def phase_sq_sweep():
     return err2, err3, err5
 
 
+def k9_raw_error(codes, rn, rs, counts, tiles, mask, metric, codec):
+    """K9's raw tiles bit-equal to its plain version's and to K3's on the
+    same card tensors, over the real tiles; then with n_tiles cut to 0 and
+    to a count no tile grouping divides.  Returns the max abs error (0 when
+    bit-equal)."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs_mega as k9
+
+    digits_t, scalars_t, meta, _ = tiles
+    args = [codes, rn, rs, counts, digits_t, scalars_t, meta, mask, metric,
+            codec]
+    raw = k9.ivf_sq_pairs_mega_scan(*args)
+    n = int(meta[0])
+    ref = k3.ivf_sq_pairs_scan_reference(*args)
+    check(torch.equal(raw[:n], ref[:n]), "K9 differs from its plain version")
+    check(torch.equal(raw[:n], k3.ivf_sq_pairs_scan(*args)[:n]),
+          "K9 differs from K3")
+    for cut in (0, max(0, n - 3)):
+        args[6] = meta.clone()
+        args[6][0] = cut
+        check(torch.equal(k9.ivf_sq_pairs_mega_scan(*args)[:cut], ref[:cut]),
+              f"K9 at n_tiles {cut}")
+    return 0.0
+
+
+def phase_sq_mega_sweep():
+    """K9 bit-equal to its plain version and to K3: sq8 / sq4 / sq6, L2 /
+    IP, mask off / on, d 16 / 33 / 128 / 1536, lmax 256 / 1024 / 2560
+    (counts on both sides of 256, 512 and 768, count 0 and count == lmax),
+    nprobe in turn 1 / 3 / 16 / 64, dead slots, n_tiles < t_max, n_tiles 0
+    and n_tiles - 3."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs_mega as k9
+    from duckdb_faiss_ext_tpu_torch.ops.sq_digits import (KERNEL_SHIFT,
+                                                          query_digits)
+
+    g = torch.Generator(device=DEVICE).manual_seed(2469)
+    nlist, nq = 64, 256
+    before = k9.LAUNCHES
+    err, n_cases = 0.0, 0
+    nprobes = itertools.cycle((1, 3, 16, 64))
+    for d, lmax in itertools.product(SQ_SWEEP_D, SQ_MEGA_SWEEP_LMAX):
+        t0 = time.perf_counter()
+        xq = torch.randn(nq, d, device=DEVICE, generator=g)
+        for codec in ("sq8", "sq4", "sq6"):
+            codes, counts, rn, rs, vmin, scale, mask = sq_sweep_layout(
+                g, nlist, lmax, d, codec)
+            w = codes.shape[2]
+            for metric, m in itertools.product(("L2", "INNER_PRODUCT"),
+                                               (None, mask)):
+                probe = probe_table(g, nq, nlist, next(nprobes))
+                q = query_digits(xq, vmin, scale, metric, codec, w,
+                                 KERNEL_SHIFT[codec])
+                tiles = k3.sq_pair_tile_inputs(probe, q, nlist, metric)
+                check(int(tiles[2][0]) < tiles[1].shape[0], "no padding tiles")
+                err = max(err, k9_raw_error(codes, rn, rs, counts, tiles, m,
+                                            metric, codec))
+                n_cases += 1
+            del codes, rn, rs, mask
+        log(f"sq mega sweep d={d} lmax={lmax}: 12 cases, K9 bit-equal to its "
+            f"plain version and K3 ({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+    check(k9.LAUNCHES - before == 3 * n_cases,
+          "an sq mega sweep case did not launch")
+    log(f"sq mega sweep: {n_cases} cases bit-equal; plan (stages, blocks) "
+        f"{k9.last_plan}")
+    return err
+
+
 class MarcoCorpus:
     """The SQ main path's corpus, made on the card chunk by chunk from
     seeded generators, so any chunk can be made again for exact search."""
@@ -1141,10 +1380,9 @@ class MarcoCorpus:
             n, SQ_D, device=DEVICE, generator=g) * (SQ_NOISE / SQ_D ** 0.5)
         return torch.nn.functional.normalize(x, dim=1)
 
-    def chunk(self, i):
-        """Rows [i·SQ_CHUNK, (i+1)·SQ_CHUNK) on the card."""
-        return self._draw(SQ_CHUNK, self.w_train if i == 0 else self.w_rest,
-                          i + 1)
+    def chunk(self, i, n=SQ_CHUNK):
+        """Rows [i·SQ_CHUNK, i·SQ_CHUNK + n) on the card."""
+        return self._draw(n, self.w_train if i == 0 else self.w_rest, i + 1)
 
     def queries(self, n):
         return self._draw(n, self.w_rest, 999).cpu().numpy()
@@ -1152,25 +1390,29 @@ class MarcoCorpus:
 
 @contextlib.contextmanager
 def plain_sq_kernels():
-    """Run the IVF,SQ path with the plain versions of K2, K3 and K5 in place
-    of their wrappers (same signatures, same inputs)."""
+    """Run the IVF,SQ path with the plain versions of K2, K3, K9 and K5 in
+    place of their wrappers (same signatures, same inputs)."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs_mega as k9
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
     from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
 
-    saved = (k2.ivf_sq_scan, k3.ivf_sq_pairs_scan, k5.sq_spill_windows)
+    saved = (k2.ivf_sq_scan, k3.ivf_sq_pairs_scan, k9.ivf_sq_pairs_mega_scan,
+             k5.sq_spill_windows)
     k2.ivf_sq_scan = k2.ivf_sq_scan_reference
     k3.ivf_sq_pairs_scan = k3.ivf_sq_pairs_scan_reference
+    k9.ivf_sq_pairs_mega_scan = k3.ivf_sq_pairs_scan_reference
     k5.sq_spill_windows = k5.sq_spill_windows_reference
     try:
         yield
     finally:
-        k2.ivf_sq_scan, k3.ivf_sq_pairs_scan, k5.sq_spill_windows = saved
+        (k2.ivf_sq_scan, k3.ivf_sq_pairs_scan, k9.ivf_sq_pairs_mega_scan,
+         k5.sq_spill_windows) = saved
 
 
-def exact_ip_labels(corpus, xq, k):
-    """Exact fp32 inner-product top-k over the corpus, made again on the
-    card chunk by chunk."""
+def exact_ip_labels(corpus, xq, k, n_rows=SQ_N):
+    """Exact fp32 inner-product top-k over the corpus's first ``n_rows``,
+    made again on the card chunk by chunk."""
     from duckdb_faiss_ext_tpu_torch.ops.flat_search import (exact_topk,
                                                             topk_ordered)
     from duckdb_faiss_ext_tpu_torch.utils.config import full_fp32
@@ -1179,13 +1421,30 @@ def exact_ip_labels(corpus, xq, k):
     best_s = torch.full((q.shape[0], k), float("-inf"), device=DEVICE)
     best_p = torch.full((q.shape[0], k), -1, dtype=torch.int64,
                         device=DEVICE)
-    for i in range(SQ_N // SQ_CHUNK):
+    for i, n in corpus_chunks(n_rows):
         with full_fp32():
-            s, p = exact_topk(q @ corpus.chunk(i).T, k)
+            s, p = exact_topk(q @ corpus.chunk(i, n).T, k)
         best_s, best_p = topk_ordered(torch.cat([best_s, s], 1),
                                       torch.cat([best_p, i * SQ_CHUNK + p],
                                                 1), k)
     return best_p.cpu().numpy()
+
+
+def corpus_chunks(n_rows):
+    """(chunk index, rows) of the corpus's first ``n_rows``."""
+    return [(i, min(SQ_CHUNK, n_rows - i * SQ_CHUNK))
+            for i in range(-(-n_rows // SQ_CHUNK))]
+
+
+def sq_bound(q, probe, out_bytes, rows_bytes, pairs):
+    """An int8 SQ scan's bound: the distinct probed lists' codes with their
+    rn / rs (``rows_bytes``), the queries' digits and scalars read once,
+    the raw scores written once (``out_bytes``: K2 every slot, K3 / K9 the
+    real tiles, K5 a (max, argmax) per real window); 2 int8 operations a
+    digit of every scored (query, row) pair."""
+    dig = q.digits[0].numel()
+    return bound(rows_bytes + q.digits.numel() + 4 * q.scalars.numel()
+                 + 4 * probe.numel() + out_bytes, 2 * dig * pairs, INT8_OPS_S)
 
 
 def recall(labels, ref):
@@ -1346,18 +1605,7 @@ def phase_sq_main(smi):
     timings["k5"] = time_pair(
         lambda: k5.sq_spill_windows(*spill_args),
         lambda: k5.sq_spill_windows_reference(*spill_args), reps=6)
-    # Bounds: the distinct probed lists' codes with their rn / rs, the
-    # queries' digits and scalars read once, the raw scores (K2: every
-    # slot; K3: the real tiles; K5: a (max, argmax) per real window) written
-    # once; 2 int8 operations a digit of every scored (query, row) pair.
     w = lay.payload.shape[2]
-
-    def sq_bound(q_, probe_, out_bytes, rows_bytes, pairs):
-        dig = q_.digits[0].numel()
-        return bound(rows_bytes + q_.digits.numel() + 4 * q_.scalars.numel()
-                     + 4 * probe_.numel() + out_bytes, 2 * dig * pairs,
-                     INT8_OPS_S)
-
     _, once48, all48 = probed_rows(lay.counts, probe48)
     timings["k2"] += (sq_bound(q48, probe48, 4 * probe48.numel() * lmax,
                                once48 * (w + 8), all48),)
@@ -1431,6 +1679,200 @@ def phase_sq_main(smi):
     dt.set_precision("parity")
     return {"launches": launches, "err": (max(max_err, raw2), raw3, raw5),
             "timings": timings}
+
+
+def phase_marco_device(smi):
+    """IVF4096,SQ8 IP over the full 8,841,823 x 1536 MS MARCO shape,
+    ingested on the card (faiss_train_device / faiss_add_device with
+    capped assignment) and searched at nprobe 16 through the public API in
+    fast mode, b1024 under both pairs_impl values."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs_mega as k9
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
+    from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_sq_pairs import (
+        ivf_sq_pairs_search)
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_sq_scan import ivf_sq_list_search
+    from duckdb_faiss_ext_tpu_torch.ops.sq_digits import (KERNEL_SHIFT,
+                                                          query_digits)
+    from duckdb_faiss_ext_tpu_torch.ops.sq_spill import sq_spill_search
+    from duckdb_faiss_ext_tpu_torch.utils.config import pad_rows
+
+    metric, codec = "INNER_PRODUCT", "sq8"
+    corpus = MarcoCorpus()
+    xq_all = corpus.queries(BATCH * N_BATCHES + BIG_BATCH)
+    data = {"b48": xq_all[:BATCH], "b1024": xq_all[-BIG_BATCH:],
+            "batched": xq_all[:BATCH * N_BATCHES]}
+    db = dt.Database()
+    db.register("passages", {"id": np.arange(MARCO_N, dtype=np.int64)})
+    cat = dt.Catalog()
+    params = {"nprobe": str(SQ_NPROBE)}
+    dt.faiss_create_params("marco", SQ_D, f"IVF{SQ_NLIST},SQ8",
+                           {"assign_topk": str(MARCO_TOPK)},
+                           metric_type=metric, catalog=cat)
+    index = cat.get("marco").index
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dt.faiss_train_device(corpus.chunk(0), "marco", catalog=cat)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i, n in corpus_chunks(MARCO_N):
+        dt.faiss_add_device(corpus.chunk(i, n), "marco",
+                            lmax=MARCO_LMAX if i == 0 else None, catalog=cat)
+    torch.cuda.synchronize()
+    t_add = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lay = index._build_device_layout()
+    torch.cuda.synchronize()
+    t_layout = time.perf_counter() - t0
+    spill = index._spill
+    n_spill = spill.n if spill is not None else 0
+    counts = index._counts()
+    lmax = lay.payload.shape[1]
+    check(index.ntotal == MARCO_N and lmax == MARCO_LMAX
+          and index._layout_plan() == ("device", MARCO_LMAX),
+          "device layout differs")
+    log(f"marco device path: train_device {t_train:.2f} s, add_device of "
+        f"{MARCO_N} rows in {len(corpus_chunks(MARCO_N))} chunks "
+        f"{t_add:.2f} s, layout {t_layout:.2f} s; payload "
+        f"{lay.payload.numel() / 1e9:.2f} GB (lmax {lmax}); lists: mean "
+        f"{MARCO_N / SQ_NLIST:.0f}, longest {int(counts.max())}, "
+        f"{int((counts > lmax).sum())} over lmax; spill {n_spill} rows "
+        f"({100 * n_spill / MARCO_N:.3f}%); card memory peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    dt.set_precision("fast")
+
+    def run_all():
+        res = {"b48": dt.faiss_search("marco", K, data["b48"], params,
+                                      catalog=cat),
+               "b1024": dt.faiss_search("marco", K, data["b1024"], params,
+                                        catalog=cat),
+               "batched": dt.faiss_search_batched(
+                   "marco", K, data["batched"], params, batch_size=BATCH,
+                   catalog=cat)}
+        dt.config.pairs_impl = "mega"
+        try:
+            res["b1024-mega"] = dt.faiss_search("marco", K, data["b1024"],
+                                                params, catalog=cat)
+            res["filter"] = dt.faiss_search_filter(
+                "marco", K, data["b48"], "id%2==0", "id", "passages", params,
+                catalog=cat, database=db)
+        finally:
+            dt.config.pairs_impl = "grid"
+        return res
+
+    k2.LAUNCHES = k3.LAUNCHES = k9.LAUNCHES = k5.LAUNCHES = 0
+    out = run_all()
+    launches = (k2.LAUNCHES, k3.LAUNCHES, k9.LAUNCHES, k5.LAUNCHES)
+    expected = (N_BATCHES + 2, 1, 1, (N_BATCHES + 4) if n_spill else 0)
+    check(launches == expected, f"marco device path launched (K2, K3, K9, "
+          f"K5) {launches} times, not {expected}")
+    log(f"marco device path: (K2, K3, K9, K5) launches {launches}")
+    for key in ("label", "distance"):
+        check(np.array_equal(out["b1024-mega"][key], out["b1024"][key]),
+              f"mega and grid b1024 {key}s differ")
+
+    t0 = time.perf_counter()
+    with plain_sq_kernels():
+        ref = run_all()
+    check((k2.LAUNCHES, k3.LAUNCHES, k9.LAUNCHES, k5.LAUNCHES) == launches,
+          "the plain path launched a kernel")
+    log(f"marco device path: plain path ({time.perf_counter() - t0:.1f} s)")
+    max_err = 0.0
+    for name, res in out.items():
+        nq = data["b48" if name == "filter" else name.split("-")[0]].shape[0]
+        check(res["label"].shape == (nq, K), f"{name}: shape")
+        check(np.isfinite(res["distance"]).all(), f"{name}: non-finite")
+        max_err = max(max_err, compare_same_k(f"marco {name}", res, ref[name],
+                                              True))
+        if name == "filter":
+            check((res["label"] % 2 == 0).all(), "filter: odd label")
+    log(f"marco device path: b48, b1024 (grid and mega, equal), batched and "
+        f"filter agree with the plain path (max distance error "
+        f"{max_err:.3g})")
+    exact = {name: exact_ip_labels(corpus, data[name], K, MARCO_N)
+             for name in ("b48", "b1024")}
+    r48 = recall(out["b48"]["label"], exact["b48"])
+    r1024 = recall(out["b1024"]["label"], exact["b1024"])
+    log(f"marco device path: recall@10 vs exact fp32 search over the "
+        f"{MARCO_N} rows: b48 {r48:.4f}, b1024 {r1024:.4f}")
+
+    vmin, scale = index._sq_ranges()
+    xq = torch.from_numpy(data["b1024"]).to(DEVICE)
+    probe = coarse_topk(xq, lay.centroids, SQ_NPROBE, metric)
+    q = query_digits(xq, vmin, scale, metric, codec, lay.payload.shape[2],
+                     KERNEL_SHIFT[codec])
+    tiles = k3.sq_pair_tile_inputs(probe, q, SQ_NLIST, metric)
+    lists = (lay.payload, lay.rn, lay.rs, lay.counts)
+    raw9 = k9_raw_error(*lists, tiles, None, metric, codec)
+    n_tiles = int(tiles[2][0])
+    log(f"marco device path b1024 raw tiles (lmax {lmax}, {n_tiles} of "
+        f"{tiles[1].shape[0]} tiles): K9 bit-equal to its plain version and "
+        f"to K3; K9 plan (stages, blocks) {k9.last_plan}")
+    a3 = (*lists, *tiles[:3], None, metric, codec)
+    ms9, plain_ms = time_pair(lambda: k9.ivf_sq_pairs_mega_scan(*a3),
+                              lambda: k3.ivf_sq_pairs_scan_reference(*a3),
+                              reps=4)
+    ms9b, ms3 = time_pair(lambda: k9.ivf_sq_pairs_mega_scan(*a3),
+                          lambda: k3.ivf_sq_pairs_scan(*a3), reps=10)
+    _, once, rows_all = probed_rows(lay.counts, probe)
+    w = lay.payload.shape[2]
+    b9 = sq_bound(q, probe, 4 * n_tiles * tiles[1].shape[1] * lmax,
+                  once * (w + 8), rows_all)
+    log(f"time IVF{SQ_NLIST},SQ8 {MARCO_N}x{SQ_D} IP nprobe {SQ_NPROBE} "
+        f"b1024 raw tiles (median CUDA events): K9 {ms9:.3f} ms, plain "
+        f"{plain_ms:.3f} ms; in turns K9 {ms9b:.3f} ms against K3 "
+        f"{ms3:.3f} ms; bound {b9[0]:.3f} ms ({b9[1]}) [{smi}]")
+
+    walls = {}
+    for name, impl in (("b48", "grid"), ("b1024", "grid"), ("b1024", "mega")):
+        dt.config.pairs_impl = impl
+        try:
+            times = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                dt.faiss_search("marco", K, data[name], params, catalog=cat)
+                times.append(1e3 * (time.perf_counter() - t0))
+        finally:
+            dt.config.pairs_impl = "grid"
+        walls[f"{name} {impl}"] = statistics.median(times)
+        nq_pad = 64 if name == "b48" else BIG_BATCH
+        xq_s = torch.from_numpy(pad_rows(data[name], nq_pad)).to(DEVICE)
+        probe_s = coarse_topk(xq_s, lay.centroids, SQ_NPROBE, metric)
+        pairs = index.pairs_wanted(nq_pad, lmax)
+        k_scan = index._sq_kscan(K, SQ_NPROBE * lmax)
+        scan_name = ("K9" if impl == "mega" else "K3") if pairs else "K2"
+        stages = {
+            "coarse top-k": lambda: coarse_topk(xq_s, lay.centroids,
+                                                SQ_NPROBE, metric),
+            f"{scan_name} scan + top-k + rerank": lambda: (
+                ivf_sq_pairs_search(
+                    *lists, lay.row_pos, probe_s, xq_s, None, vmin, scale,
+                    k=K, k_scan=k_scan, metric=metric, codec=codec,
+                    mega=impl == "mega") if pairs else ivf_sq_list_search(
+                    *lists, lay.row_pos, probe_s, xq_s, None, vmin, scale,
+                    k=K, k_scan=k_scan, metric=metric, codec=codec)),
+        }
+        if n_spill:
+            stages["K5 spill search"] = lambda: sq_spill_search(
+                spill.payload, spill.assign, spill.pos, spill.rs, spill.rn,
+                spill.n, probe_s, xq_s, None, vmin, scale, k=K,
+                metric=metric, codec=codec)
+        parts = []
+        for label, fn in stages.items():
+            fn()
+            ms = statistics.median(cuda_ms(fn) for _ in range(5))
+            parts.append(f"{label} {ms:.3f} ms")
+        log(f"time IVF{SQ_NLIST},SQ8 {MARCO_N}x{SQ_D} IP nprobe {SQ_NPROBE} "
+            f"k={K} {name} pairs_impl {impl}: faiss_search wall "
+            f"{walls[f'{name} {impl}']:.3f} ms (median of 10); device stages "
+            f"(median CUDA events): {'; '.join(parts)} [{smi}]")
+    dt.set_precision("parity")
+    return {"launches": launches[2], "err": max(max_err, raw9),
+            "timing": (ms9, plain_ms, b9)}
 
 
 def k8_raw_error(lists, counts, probe, xq, centroids, codebooks, mask,
@@ -1790,6 +2232,7 @@ def main():
     main_err, launches, timings, exact = phase_main_path(smi, data)
     phase_time_1536(smi)
     err6, err7 = phase_ivf_sweep()
+    err10 = phase_ivf_mega_sweep()
     ivf_err, ivf_err7, ivf_launches, ivf_timings = phase_ivf_main(smi, data,
                                                                   exact)
     torch.cuda.empty_cache()
@@ -1803,13 +2246,17 @@ def main():
     phase_pq_standalone(data)
     del data
     torch.cuda.empty_cache()
-    pairs_err, pairs_launches, pairs_timing = phase_ivf_pairs(smi)
+    ((pairs_err, pairs_launches, pairs_timing),
+     (mega_err, mega_launches, mega_timing)) = phase_ivf_pairs(smi)
     torch.cuda.empty_cache()
     sq_errs = phase_sq_sweep()
+    err9 = phase_sq_mega_sweep()
     sq = phase_sq_main(smi)
+    torch.cuda.empty_cache()
+    marco = phase_marco_device(smi)
     log(smi)
     # Flat, K6 and the SQ kernels at the shapes timed above; no single
-    # PyTorch call computes what K1-K7 compute (a distance, a selection and
+    # PyTorch call computes what K1-K10 compute (a distance, a selection and
     # a layout walk), so their library_ms is null.
     pq_ms, pq_plain_ms, pq_bound, pq_lib_ms = pq["timings"]["b1024"]
     print(json.dumps({"kernels": [
@@ -1829,6 +2276,10 @@ def main():
         kernel_entry(PQ_KERNEL, pq["launches"],
                      max(pq_sweep_err, pq["err"], pq_spill_err, rq_err),
                      pq_ms, pq_plain_ms, pq_bound, pq_lib_ms),
+        kernel_entry(SQ_MEGA_KERNEL, marco["launches"],
+                     max(err9, marco["err"]), *marco["timing"]),
+        kernel_entry(FLAT_MEGA_KERNEL, mega_launches, max(err10, mega_err),
+                     *mega_timing),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

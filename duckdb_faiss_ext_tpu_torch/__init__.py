@@ -13,7 +13,11 @@ L2 and inner-product search run through hand-written CUDA kernels:
 ``csrc/ivf_pairs.cu`` (IVF list scans), ``csrc/ivf_sq_scan.cu``,
 ``csrc/ivf_sq_pairs.cu`` and ``csrc/sq_spill.cu`` (the int8 IVF,SQ scans,
 with ``set_sq_dot``) and ``csrc/ivf_pq_scan.cu`` (the IVF-PQ / IVF-RQ
-gather-decode-score scan).
+gather-decode-score scan); large IVF batches take the pipelined pair-tile
+kernels ``csrc/ivf_pairs_mega.cu`` / ``csrc/ivf_sq_pairs_mega.cu`` under
+``config.pairs_impl = "mega"``.  ``faiss_train_device`` /
+``faiss_add_device`` build an IVF,Flat or IVF,SQ layout on the card from
+rows already there.
 
 Every index keeps its corpus on ``config.device`` (``"cuda"`` by default;
 ``set_device("cpu")`` runs the plain torch paths on the CPU).
@@ -23,6 +27,7 @@ from .api import (
     RESULT_DTYPE,
     create_mask,
     faiss_add,
+    faiss_add_device,
     faiss_create,
     faiss_create_params,
     faiss_destroy,
@@ -34,6 +39,7 @@ from .api import (
     faiss_search_filter,
     faiss_search_filter_set,
     faiss_stats,
+    faiss_train_device,
     register_create_parameter,
 )
 from .catalog import GLOBAL_CATALOG, Catalog, IndexEntry
@@ -51,6 +57,7 @@ __all__ = [
     "RESULT_DTYPE",
     "create_mask",
     "faiss_add",
+    "faiss_add_device",
     "faiss_create",
     "faiss_create_params",
     "faiss_destroy",
@@ -62,6 +69,7 @@ __all__ = [
     "faiss_search_filter",
     "faiss_search_filter_set",
     "faiss_stats",
+    "faiss_train_device",
     "GLOBAL_CATALOG",
     "Catalog",
     "IndexEntry",

@@ -8,6 +8,10 @@ One function per SQL function registered by LoadInternal
     (__faiss_create_mask analogue), faiss_search, faiss_search_filter,
     faiss_search_filter_set
 
+and the JAX package's extensions faiss_search_batched, faiss_stats and
+the device-resident ingest of rows already on the card,
+faiss_train_device and faiss_add_device.
+
 faiss_to_gpu (the JAX package's faiss_to_device) is not ported yet: an index
 lives on ``config.device`` from its creation.
 
@@ -217,6 +221,58 @@ def faiss_manual_train(data, name: str, catalog: Catalog | None = None) -> None:
         except errors.TrainingTooSmallError as e:
             raise errors.too_few_training_points(e, None) from None
         entry.needs_training = False  # :411-413
+
+
+@_timed_op("faiss_train_device")
+def faiss_train_device(data, name: str,
+                       catalog: Catalog | None = None) -> None:
+    """faiss_manual_train for training rows already on the card (no
+    reference analogue): the k-means and SQ range fit run on the device
+    rows; only the centroid table comes back (models/ivf_device.py).
+    ``data`` is a torch tensor, or an array moved to the index's device."""
+    entry = _cat(catalog).get(name)
+    with entry.lock:
+        if not entry.is_mutable:
+            raise errors.immutable_train()
+        if not hasattr(entry.index, "train_device"):
+            raise errors.InvalidInputError(
+                f"index {name} does not support device-resident training "
+                f"(IVF with Flat/SQ8/SQ4 storage does)")
+        try:
+            entry.index.train_device(data)
+        except errors.TrainingTooSmallError as e:
+            raise errors.too_few_training_points(e, None) from None
+        entry.needs_training = False
+
+
+@_timed_op("faiss_add_device")
+def faiss_add_device(data, name: str, ids=None, *,
+                     expected_total: int | None = None,
+                     lmax: int | None = None,
+                     spill_capacity: int | None = None,
+                     catalog: Catalog | None = None) -> None:
+    """Ingest rows already on the card (no reference analogue): assignment,
+    SQ encoding and the scatter into the padded list layout run on the
+    device; only integer bookkeeping reaches the host.  ``data`` is a torch
+    tensor (never copied to the host), or an array moved to the index's
+    device.  The index must be trained.  See models/ivf_device.py for the
+    sizing (``expected_total`` / ``lmax``, ``spill_capacity``)."""
+    entry = _cat(catalog).get(name)
+    with entry.lock:
+        if not entry.is_mutable:
+            raise errors.immutable_add()
+        if not hasattr(entry.index, "add_device"):
+            raise errors.InvalidInputError(
+                f"index {name} does not support device-resident ingest "
+                f"(IVF with Flat/SQ8/SQ4 storage does)")
+        has_labels = ids is not None
+        if entry.custom_labels is None:
+            entry.custom_labels = has_labels
+        elif entry.custom_labels != has_labels:
+            raise errors.mixing_labels(with_labels_now=has_labels)
+        entry.index.add_device(data, ids, expected_total=expected_total,
+                               lmax=lmax, spill_capacity=spill_capacity)
+        entry.added = entry.index.ntotal
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 // Unpack-and-dot of packed SQ codes against int8 query digits (K4), shared
 // by the IVF,SQ kernels for Hopper (sm_90a): ivf_sq_scan.cu (K2),
-// ivf_sq_pairs.cu (K3) and sq_spill.cu (K5).  Replaces the in-kernel helper
+// ivf_sq_pairs.cu (K3), sq_spill.cu (K5) and ivf_sq_pairs_mega.cu (K9).  Replaces the in-kernel helper
 // duckdb_faiss_ext_tpu/ops/sq_digits.py::sq_block_digit_dot; the plain torch
 // version is duckdb_faiss_ext_tpu_torch/ops/sq_digits.py::digit_dots.
 //
@@ -22,10 +22,14 @@
 // Two ways through a row: VEC reads 16-byte units (sq6: three of them, 48
 // bytes = 64 codes) and needs w a multiple of the unit and 16-byte aligned
 // rows; the scalar way reads one group of four codes at a time (4, 2 or 3
-// bytes), with bytes at or past w read as 0.
+// bytes), with bytes at or past w read as 0.  Rows are read from device
+// memory (vec, group) or from rows already staged in shared memory
+// (from_units, group_at).
 //
-// Shared-memory digit layout: [word][slot] int32, S slots a word: slot
-// 2q holds query q's hi digits, slot 2q + 1 its lo digits.
+// Shared-memory digit layouts: [word][slot] int32, S slots a word (K2,
+// K3, K5: dot_word), or [slot][word] int32 rows as a copy lands them (K9:
+// dot_slot_major, dot_slot_major4); slot 2q holds query q's hi digits,
+// slot 2q + 1 its lo digits.
 
 #pragma once
 
@@ -42,40 +46,58 @@ struct Unpack;
 template <>
 struct Unpack<kSQ8> {
   static constexpr int kVecBytes = 16;
+  static constexpr int kVecUnits = 1;
   static constexpr int kVecWords = 4;
+  static constexpr int kGroupBytes = 4;
   __device__ static __forceinline__ int groups(int w) { return (w + 3) >> 2; }
-  __device__ static __forceinline__ int group(const uint8_t* row, int g, int w) {
-    const int b = g << 2;
+  // The group whose first byte is p, with avail bytes left in the row.
+  __device__ static __forceinline__ int group_at(const uint8_t* p, int avail) {
     uint32_t v = 0;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      if (b + i < w) v |= static_cast<uint32_t>(row[b + i]) << (8 * i);
+      if (i < avail) v |= static_cast<uint32_t>(p[i]) << (8 * i);
     return static_cast<int>(v ^ 0x80808080u);
   }
+  __device__ static __forceinline__ int group(const uint8_t* row, int g, int w) {
+    return group_at(row + (g << 2), w - (g << 2));
+  }
+  __device__ static __forceinline__ void from_units(const uint4 (&u)[kVecUnits],
+                                                    int (&out)[kVecWords]) {
+    out[0] = static_cast<int>(u[0].x ^ 0x80808080u);
+    out[1] = static_cast<int>(u[0].y ^ 0x80808080u);
+    out[2] = static_cast<int>(u[0].z ^ 0x80808080u);
+    out[3] = static_cast<int>(u[0].w ^ 0x80808080u);
+  }
   __device__ static __forceinline__ void vec(const uint8_t* p, int (&out)[kVecWords]) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    out[0] = static_cast<int>(v.x ^ 0x80808080u);
-    out[1] = static_cast<int>(v.y ^ 0x80808080u);
-    out[2] = static_cast<int>(v.z ^ 0x80808080u);
-    out[3] = static_cast<int>(v.w ^ 0x80808080u);
+    const uint4 u[kVecUnits] = {__ldg(reinterpret_cast<const uint4*>(p))};
+    from_units(u, out);
   }
 };
 
 template <>
 struct Unpack<kSQ4> {
   static constexpr int kVecBytes = 16;
+  static constexpr int kVecUnits = 1;
   static constexpr int kVecWords = 8;
+  static constexpr int kGroupBytes = 2;
   __device__ static __forceinline__ int groups(int w) { return (w + 1) >> 1; }
-  __device__ static __forceinline__ int group(const uint8_t* row, int g, int w) {
-    const uint32_t b0 = row[2 * g];
-    const uint32_t b1 = 2 * g + 1 < w ? row[2 * g + 1] : 0u;
+  __device__ static __forceinline__ int group_at(const uint8_t* p, int avail) {
+    const uint32_t b0 = p[0];
+    const uint32_t b1 = avail > 1 ? p[1] : 0u;
     return static_cast<int>((b0 & 15u) | (b0 >> 4) << 8 | (b1 & 15u) << 16 | (b1 >> 4) << 24);
+  }
+  __device__ static __forceinline__ int group(const uint8_t* row, int g, int w) {
+    return group_at(row + 2 * g, w - 2 * g);
+  }
+  __device__ static __forceinline__ void vec(const uint8_t* p, int (&out)[kVecWords]) {
+    const uint4 u[kVecUnits] = {__ldg(reinterpret_cast<const uint4*>(p))};
+    from_units(u, out);
   }
   // 4 bytes = dims 8j .. 8j+7: low nibbles are the even dims, high nibbles
   // the odd ones; interleave them back into dimension order.
-  __device__ static __forceinline__ void vec(const uint8_t* p, int (&out)[kVecWords]) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    const uint32_t x[4] = {v.x, v.y, v.z, v.w};
+  __device__ static __forceinline__ void from_units(const uint4 (&u)[kVecUnits],
+                                                    int (&out)[kVecWords]) {
+    const uint32_t x[4] = {u[0].x, u[0].y, u[0].z, u[0].w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const uint32_t lo = x[j] & 0x0F0F0F0Fu;
@@ -89,19 +111,29 @@ struct Unpack<kSQ4> {
 template <>
 struct Unpack<kSQ6> {
   static constexpr int kVecBytes = 48;
+  static constexpr int kVecUnits = 3;
   static constexpr int kVecWords = 16;
+  static constexpr int kGroupBytes = 3;
   __device__ static __forceinline__ int groups(int w) { return w / 3; }
   __device__ static __forceinline__ int codes(uint32_t b0, uint32_t b1, uint32_t b2) {
     const uint32_t v = b0 << 16 | b1 << 8 | b2;
     return static_cast<int>((v >> 18) | ((v >> 12) & 63u) << 8 | ((v >> 6) & 63u) << 16 |
                             (v & 63u) << 24);
   }
-  __device__ static __forceinline__ int group(const uint8_t* row, int g, int) {
-    return codes(row[3 * g], row[3 * g + 1], row[3 * g + 2]);
+  __device__ static __forceinline__ int group_at(const uint8_t* p, int) {
+    return codes(p[0], p[1], p[2]);
+  }
+  __device__ static __forceinline__ int group(const uint8_t* row, int g, int w) {
+    return group_at(row + 3 * g, w - 3 * g);
   }
   __device__ static __forceinline__ void vec(const uint8_t* p, int (&out)[kVecWords]) {
     const uint4* p4 = reinterpret_cast<const uint4*>(p);
-    const uint4 a = __ldg(p4), b = __ldg(p4 + 1), c = __ldg(p4 + 2);
+    const uint4 v[kVecUnits] = {__ldg(p4), __ldg(p4 + 1), __ldg(p4 + 2)};
+    from_units(v, out);
+  }
+  __device__ static __forceinline__ void from_units(const uint4 (&v)[kVecUnits],
+                                                    int (&out)[kVecWords]) {
+    const uint4 a = v[0], b = v[1], c = v[2];
     const uint32_t u[12] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w};
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -142,6 +174,30 @@ __device__ __forceinline__ void dot_word(int code, const int* __restrict__ dig, 
   } else {
 #pragma unroll
     for (int s = 0; s < S; ++s) acc[s] = __dp4a(code, d[s], acc[s]);
+  }
+}
+
+// acc[s] += row s of slot-major digits (stride ints a slot) . one code
+// word, the digits of word `word`.
+template <int S>
+__device__ __forceinline__ void dot_slot_major(int code, const int* __restrict__ dig, int stride,
+                                               int word, int (&acc)[S]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) acc[s] = __dp4a(code, dig[s * stride + word], acc[s]);
+}
+
+// The same for four consecutive code words from word `word` (a multiple of
+// 4, with stride one too): one 16-byte broadcast a slot, four __dp4a.
+template <int S>
+__device__ __forceinline__ void dot_slot_major4(const int (&code)[4], const int* __restrict__ dig,
+                                                int stride, int word, int (&acc)[S]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int4 v = *reinterpret_cast<const int4*>(dig + s * stride + word);
+    acc[s] = __dp4a(code[0], v.x, acc[s]);
+    acc[s] = __dp4a(code[1], v.y, acc[s]);
+    acc[s] = __dp4a(code[2], v.z, acc[s]);
+    acc[s] = __dp4a(code[3], v.w, acc[s]);
   }
 }
 

@@ -9,7 +9,9 @@ IndexIVFResidualQuantizer, by_residual) as the reference exercises them:
 ``IVFn[,Flat]``, ``IVFn,SQ{8,4,6}``, ``IVFn,PQm[xb]`` and ``IVFn,RQMxb``
 factory strings, deferred training through faiss_add, nprobe +
 ``quantiser.``-scoped search params (src/faiss_extension.cpp:675-689), and
-native add_with_ids (ids stored beside the lists).
+native add_with_ids (ids stored beside the lists).  Flat and SQ storage
+also ingest rows already on the card (``train_device`` / ``add_device``,
+models/ivf_device.py), building the padded layout there.
 
 State (the checkpoint both packages share): vectors (Flat) or codes (SQ,
 with the trained per-dimension ranges ``sq_vmin`` / ``sq_scale``; PQ / RQ,
@@ -27,9 +29,11 @@ The coarse quantizer (``quantizer``, a Flat index) mirrors FAISS's graph
 shape: it holds the centroids and answers ``quantiser.``-scoped params;
 assignment itself is one fused fp32 distance tile.
 
-Not yet ported (each raises "… is not yet available in
-duckdb_faiss_ext_tpu_torch"): SQfp16 / SQbf16 storage, and the create
-parameters ``soar_lambda`` and ``assign_topk`` (device-resident ingest).
+The create parameter ``assign_topk`` (capped assignment of
+device-resident ingest) is accepted and stored as in the JAX package.  Not
+yet ported (each raises "… is not yet available in
+duckdb_faiss_ext_tpu_torch"): SQfp16 / SQbf16 storage and the create
+parameter ``soar_lambda``.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import torch
 from .. import errors
 from ..metrics import Metric
 from ..ops.distance import pairwise_tile
-from ..ops.flat_search import SIMILARITY_METRICS
+from ..ops.flat_search import SIMILARITY_METRICS, exact_topk
 from ..ops.kmeans import (DEFAULT_NITER, DEFAULT_SEED, kmeans_fit,
                           subsample_for_training)
 from ..ops.pq import (codec_decode, codec_encode, codec_train,
@@ -51,11 +55,12 @@ from ..ops.sq import (SQ_LEVELS, sq_code_width, sq_decode, sq_pack,
                       sq_quantize, sq_train)
 from ..utils.config import full_fp32, resolve_device
 from .base import Index, as_matrix
+from .ivf_device import IVFDevice
 from .ivf_layout import IVFLayout
 from .ivf_serve import IVFServe
 
 #: create parameters of the JAX package this slice does not build yet
-_UNPORTED_PARAMS = ("soar_lambda", "assign_topk")
+_UNPORTED_PARAMS = ("soar_lambda",)
 
 #: scalar-quantizer encodings built here
 SQ_ENCODINGS = ("SQ8", "SQ4", "SQ6")
@@ -72,7 +77,7 @@ def not_available(what: str) -> errors.InvalidInputError:
         f"{what} is not yet available in duckdb_faiss_ext_tpu_torch")
 
 
-class IVFIndex(IVFLayout, IVFServe, Index):
+class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
     def __init__(self, d: int, metric: Metric, metric_arg: float,
                  nlist: int, quantizer: Index, encoding: str = "Flat"):
         super().__init__(d, metric, metric_arg)
@@ -118,6 +123,10 @@ class IVFIndex(IVFLayout, IVFServe, Index):
         self.train_seed = DEFAULT_SEED
         self.train_niter = DEFAULT_NITER
         self.train_balance = 0.0
+        #: capped device-ingest assignment: top-T candidate lists (0 = off)
+        self.assign_topk = 0
+        #: device-resident state (models/ivf_device.py), or None
+        self._dr = None
         self._centroids: np.ndarray | None = None
         self._sq_vmin: np.ndarray | None = None
         self._sq_scale: np.ndarray | None = None
@@ -155,7 +164,16 @@ class IVFIndex(IVFLayout, IVFServe, Index):
     def train(self, x) -> None:
         if self.is_trained:
             return  # FAISS skips retraining a trained quantizer
-        x = as_matrix(x, self.d)
+        self._fit(as_matrix(x, self.d))
+
+    def _on_device(self, x) -> torch.Tensor:
+        """Host rows or a tensor, on the index's device."""
+        return (x if torch.is_tensor(x) else torch.from_numpy(x)).to(
+            self.device)
+
+    def _fit(self, x) -> None:
+        """Training on (n, d) fp32 rows, host numpy or a tensor on the
+        index's device (``train_device``)."""
         self._centroids, x = self._train_coarse(x)
         self._populate_quantizer()
         if self.pq_m is not None:
@@ -165,7 +183,7 @@ class IVFIndex(IVFLayout, IVFServe, Index):
                 raise errors.TrainingTooSmallError(x.shape[0], ksub)
             self._pq_codebooks = self._train_codebooks(x)
         if self.sq_type is not None:
-            vmin, scale = sq_train(torch.from_numpy(x).to(self.device),
+            vmin, scale = sq_train(self._on_device(x),
                                    SQ_LEVELS[self.sq_type])
             self._sq_vmin = vmin.cpu().numpy()
             self._sq_scale = scale.cpu().numpy()
@@ -179,15 +197,17 @@ class IVFIndex(IVFLayout, IVFServe, Index):
 
     def _subsample_train(self, x, k: int):
         """Too-few-points check + FAISS's seeded per-centroid subsample
-        (numpy's generator, as in the JAX package: the same rows)."""
+        (numpy's generator, as in the JAX package: the same rows); rows on
+        the card are selected there."""
         n = x.shape[0]
         if n < k:
             raise errors.TrainingTooSmallError(n, k)
         nsub = subsample_for_training(n, k)
         if nsub < n:
             rng = np.random.default_rng(self.train_seed)
-            sel = rng.choice(n, size=nsub, replace=False)
-            x = x[np.sort(sel)]
+            sel = np.sort(rng.choice(n, size=nsub, replace=False))
+            x = (x[torch.from_numpy(sel).to(x.device)] if torch.is_tensor(x)
+                 else x[sel])
         return x
 
     def _train_coarse(self, x):
@@ -197,7 +217,7 @@ class IVFIndex(IVFLayout, IVFServe, Index):
         Level1Quantizer::train_q1)."""
         x = self._subsample_train(x, self.nlist)
         centroids, _ = kmeans_fit(
-            torch.from_numpy(x).to(self.device), self.nlist,
+            self._on_device(x), self.nlist,
             niter=self.train_niter, seed=self.train_seed,
             balance=self.train_balance,
             spherical=self.metric.name == "INNER_PRODUCT")
@@ -235,6 +255,10 @@ class IVFIndex(IVFLayout, IVFServe, Index):
 
     def add_with_ids(self, x, ids) -> None:
         self._require_trained()
+        if self._dr is not None:
+            raise errors.InvalidInputError(
+                "host-path adds cannot be mixed with device-resident "
+                "ingest on the same index (use add_device)")
         x = as_matrix(x, self.d)
         ids = np.asarray(ids, dtype=np.int64).reshape(-1)
         if ids.shape[0] != x.shape[0]:
@@ -262,6 +286,8 @@ class IVFIndex(IVFLayout, IVFServe, Index):
         if key < 0 or key >= self.ntotal:
             raise errors.InvalidInputError(
                 f"Position {key} is out of range (ntotal={self.ntotal})")
+        if self._dr is not None:
+            return self._device_reconstruct(key)
         if self.pq_m is not None:
             resid = codec_decode(torch.from_numpy(self._codes[key:key + 1]),
                                  torch.from_numpy(self._pq_codebooks),
@@ -309,10 +335,25 @@ class IVFIndex(IVFLayout, IVFServe, Index):
         return (torch.from_numpy(self._sq_vmin).to(self.device),
                 torch.from_numpy(self._sq_scale).to(self.device))
 
-    def _assign_lists(self, x: np.ndarray) -> np.ndarray:
-        """Best list of each new vector by the index metric, in fp32 chunks
-        on the index's device (first list on ties), fetched once."""
+    def _assign_lists(self, x) -> np.ndarray:
+        """Best list of each new vector (host rows or a tensor on the
+        index's device) by the index metric, in fp32 chunks on the index's
+        device (first list on ties), fetched once."""
         sim = self.metric.name in SIMILARITY_METRICS
+        return self._assign_tiles(
+            x, 1, lambda tile: (tile.argmax(1) if sim
+                                else tile.argmin(1))[:, None])[:, 0]
+
+    def _assign_candidates(self, x, t: int) -> np.ndarray:
+        """(n, t) int32 nearest lists of each vector, nearest first (lower
+        list on ties), from the same distance tiles."""
+        sim = self.metric.name in SIMILARITY_METRICS
+        return self._assign_tiles(
+            x, t, lambda tile: exact_topk(tile if sim else -tile, t)[1])
+
+    def _assign_tiles(self, x, width: int, pick) -> np.ndarray:
+        """``pick`` of each fp32 (chunk × nlist) distance tile of x against
+        the centroids, as (n, width) int32, fetched once."""
         cents = torch.from_numpy(self._centroids).to(self.device)
         # Bound the transient (chunk × nlist) score tile to ~512 MB, and an
         # elementwise metric's (chunk × nlist × d) broadcast to 2^24.
@@ -320,14 +361,13 @@ class IVFIndex(IVFLayout, IVFServe, Index):
             chunk = max(1024, min(65536, (1 << 27) // max(self.nlist, 1)))
         else:
             chunk = max(1, (1 << 24) // max(self.nlist * self.d, 1))
-        out = torch.empty(x.shape[0], dtype=torch.int32, device=self.device)
+        out = torch.empty((x.shape[0], width), dtype=torch.int32,
+                          device=self.device)
         with full_fp32():
             for i in range(0, x.shape[0], chunk):
-                tile = pairwise_tile(
-                    torch.from_numpy(x[i:i + chunk]).to(self.device), cents,
-                    self.metric.name, self.metric_arg)
-                best = tile.argmax(1) if sim else tile.argmin(1)
-                out[i:i + chunk] = best.to(torch.int32)
+                tile = pairwise_tile(self._on_device(x[i:i + chunk]), cents,
+                                     self.metric.name, self.metric_arg)
+                out[i:i + chunk] = pick(tile).to(torch.int32)
         return out.cpu().numpy()
 
     # --- create params ----------------------------------------------------
@@ -340,6 +380,9 @@ class IVFIndex(IVFLayout, IVFServe, Index):
         self.train_seed = params.get_int("train_seed", self.train_seed)
         self.train_niter = params.get_int("train_niter", self.train_niter)
         self.train_balance = params.get_float("kmeans_balance", 0.0)
+        # Capped assignment of device-resident ingest: each row goes to the
+        # nearest of its top-T lists with free capacity (0 / 1 = nearest).
+        self.assign_topk = params.get_int("assign_topk", 0)
         beam = params.get_int("beam")
         if beam is not None:
             # RQ-storage encode beam (models/rq.DEFAULT_BEAM otherwise).
@@ -362,6 +405,17 @@ class IVFIndex(IVFLayout, IVFServe, Index):
 
     # --- serialization ----------------------------------------------------
     def state_dict(self) -> dict:
+        if self._dr is not None:
+            # The resident rows gathered back in insertion order: the
+            # checkpoint loads as an ordinary host-path index.
+            rows = self._device_materialize()
+            state = {"xb": rows if self.sq_type is None else self._xb,
+                     "ids": self._ids, "assign": self._assign,
+                     "centroids": self._centroids}
+            if self.sq_type is not None:
+                state.update(codes=rows, sq_vmin=self._sq_vmin,
+                             sq_scale=self._sq_scale)
+            return state
         state = {"xb": self._xb, "ids": self._ids, "assign": self._assign}
         if self.aniso_eta > 1.0:
             state["aniso_eta"] = np.float32(self.aniso_eta)

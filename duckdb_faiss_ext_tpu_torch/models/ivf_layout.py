@@ -30,6 +30,9 @@ the selector masks aligned with each.
 
 Layouts are built on the host in numpy, as in the JAX package, uploaded
 to the index's device once per mutation, and cached until the next one.
+A device-resident index (models/ivf_device.py) already holds its padded
+layout on the card: its plan is ``("device", lmax)`` whatever the metric
+or precision mode, and the layout is its resident tensors.
 Selector masks are built on the host from ``selector.contains(ids)``
 through each layout's row positions.  The TPU-only limits of the JAX
 package (the SMEM probe-table blocking, the VMEM gate of the pair tiles)
@@ -134,7 +137,11 @@ class IVFLayout:
                          SPILL_FRACTION_MAX);
         ("full", None) — the padded (nlist, lmax, w) layout fits the budget;
         ("spill", L)   — lists capped at L, overflow rows in a spill
-                         region scanned densely and merged."""
+                         region scanned densely and merged;
+        ("device", L)  — device-resident lists of length L, the only
+                         serving path of such an index."""
+        if self._dr is not None:
+            return ("device", self._dr.lmax)
         if self.metric.name not in ("L2", "INNER_PRODUCT"):
             return None
         if self.sq_type is not None and not sq_int8_active():
@@ -204,6 +211,9 @@ class IVFLayout:
         """The padded layout (and spill region) on the device, built once
         per mutation."""
         if self._layout is not None:
+            return self._layout
+        if self._dr is not None:
+            self._layout, self._spill = self._device_layout()
             return self._layout
         plan = self._layout_plan()
         lmax_cap = plan[1] if plan is not None else None

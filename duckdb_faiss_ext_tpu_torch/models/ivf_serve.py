@@ -14,7 +14,12 @@ and path selection.
   ops/ivf_pairs.py) for Flat, K2 / K3 (ops/ivf_sq_scan.py,
   ops/ivf_sq_pairs.py) for SQ, whose top ``_sq_kscan`` int8 candidates are
   rescored in fp32; K8 (ops/ivf_pq_scan.py) for PQ / RQ, which has no
-  pair-tile path (nor had it in the JAX package).  The spill region of a
+  pair-tile path (nor had it in the JAX package).  Under
+  ``config.pairs_impl = "mega"`` the pair tiles go through the pipelined
+  K10 / K9 (ops/ivf_pairs_mega.py, ops/ivf_sq_pairs_mega.py) in place of
+  K7 / K3, with the same results.  A device-resident index
+  (models/ivf_device.py) always has a layout plan, and its SQ lists take
+  the int8 kernels in both precision modes.  The spill region of a
   capped layout is scanned densely and merged: for sq8 / sq4 at d ≥ 16 and
   k ≤ 128 by K5 (ops/sq_spill.py), otherwise by the plain spill scan
   (ops/ivf_scan.py; sq6 and PQ / RQ always).  A
@@ -209,11 +214,12 @@ class IVFServe:
                 lay.centroids, probe_ids, xq, mask, k=k_kernel,
                 metric=metric, codec=self.pq_codec)
         elif self.pairs_wanted(xq.shape[0], lmax):
-            self._last_scan_path = "pairs-flat"
+            mega = config.pairs_impl == "mega"
+            self._last_scan_path = "pairs-mega-flat" if mega else "pairs-flat"
             k_scan = min(nprobe * lmax, max(4 * k_kernel, k_kernel + 32))
             scores, pos = ivf_pairs_search(
                 lay.payload, lay.counts, lay.row_pos, probe_ids, xq, mask,
-                k=k_kernel, k_scan=k_scan, metric=metric)
+                k=k_kernel, k_scan=k_scan, metric=metric, mega=mega)
         else:
             self._last_scan_path = "per-query"
             scores, pos = ivf_list_search(
@@ -232,9 +238,10 @@ class IVFServe:
 
     def _scan_sq_lists(self, lay, xq, probe_ids, k_kernel, k_eff, mask,
                        sp_mask):
-        """``_scan_lists`` for SQ codes: K2 or K3 and the exact rerank, then
-        the spill region through K5 or the plain SQ spill scan."""
+        """``_scan_lists`` for SQ codes: K2, K3 or K9 and the exact rerank,
+        then the spill region through K5 or the plain SQ spill scan."""
         metric, codec = self.metric.name, self.sq_type
+        int8 = sq_int8_active() or self._dr is not None
         nprobe = probe_ids.shape[1]
         lmax = lay.payload.shape[1]
         vmin, scale = self._sq_ranges()
@@ -244,8 +251,9 @@ class IVFServe:
                                                         nprobe * lmax),
                       metric=metric, codec=codec)
         if self.pairs_wanted(xq.shape[0], lmax):
-            self._last_scan_path = "pairs-" + codec
-            scores, pos = ivf_sq_pairs_search(*args, **search)
+            mega = config.pairs_impl == "mega"
+            self._last_scan_path = ("pairs-mega-" if mega else "pairs-") + codec
+            scores, pos = ivf_sq_pairs_search(*args, **search, mega=mega)
         else:
             self._last_scan_path = "per-query"
             scores, pos = ivf_sq_list_search(*args, **search)
@@ -253,8 +261,8 @@ class IVFServe:
         if sp is None:
             return scores, pos
         k_sp = min(k_eff, sp.payload.shape[0])
-        if (codec in SPILL_KERNEL_CODECS and sq_int8_active()
-                and self.d >= 16 and k_eff <= 128 and sp.n > 0):
+        if (codec in SPILL_KERNEL_CODECS and int8 and self.d >= 16
+                and k_eff <= 128 and sp.n > 0):
             sp_scores, sp_pos = sq_spill_search(
                 sp.payload, sp.assign, sp.pos, sp.rs, sp.rn, sp.n, probe_ids,
                 xq, sp_mask, vmin, scale, k=k_sp, metric=metric, codec=codec)
@@ -263,6 +271,5 @@ class IVFServe:
                 sp.payload, sp.assign, sp.pos, probe_ids, xq, sp_mask,
                 self.metric_arg, k=k_sp, metric=metric, nlist=self.nlist,
                 sq=codec, sq_vmin=vmin, sq_scale=scale, spill_rn=sp.rn,
-                spill_rs=sp.rs,
-                int8_dot=self.d >= 16 and sq_int8_active())
+                spill_rs=sp.rs, int8_dot=self.d >= 16 and int8)
         return merge_topk(scores, pos, sp_scores, sp_pos, k_eff)

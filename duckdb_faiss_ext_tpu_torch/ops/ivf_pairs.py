@@ -138,7 +138,8 @@ def ivf_pairs_scan(lists: torch.Tensor, counts: torch.Tensor,
     if all(t.device.type == "cpu" for t in (lists, counts, xq_t, qs_t, meta)):
         return ivf_pairs_scan_reference(lists, counts, xq_t, qs_t, meta, mask,
                                         metric)
-    _check_pairs(lists, counts, xq_t, qs_t, meta, mask, metric)
+    check_pairs("ivf_pairs_scan", lists, counts, xq_t, qs_t, meta, mask,
+                metric)
     from ..utils.kernels import load_library
 
     lib = load_library()
@@ -164,8 +165,8 @@ def ivf_pairs_scan(lists: torch.Tensor, counts: torch.Tensor,
     return out
 
 
-def _check_pairs(lists, counts, xq_t, qs_t, meta, mask, metric):
-    fn = "ivf_pairs_scan"
+def check_pairs(fn, lists, counts, xq_t, qs_t, meta, mask, metric):
+    """Checks shared by the K7 and K10 wrappers."""
     check_lists(fn, lists, counts, mask, metric)
     dev = lists.device
     expect(fn, "xq_t", xq_t, (torch.float32,), (None, QG, lists.shape[2]),
@@ -228,12 +229,17 @@ def pair_tile_inputs(probe_ids, xq, nlist: int):
 
 
 def ivf_pairs_search(lists, counts, row_pos, probe_ids, xq, mask, *, k,
-                     k_scan, metric):
+                     k_scan, metric, mega=False):
     """``pallas_ivf_pairs_search``'s contract: (scores (nq, k) max-oriented
     with -inf missing, positions (nq, k) int32 original rows, -1
-    missing)."""
+    missing).  ``mega`` scans the tiles with K10 (ops/ivf_pairs_mega.py)
+    in place of K7."""
     xq_t, qs_t, meta, pair_slot = pair_tile_inputs(probe_ids, xq,
                                                    lists.shape[0])
-    raw = ivf_pairs_scan(lists, counts, xq_t, qs_t, meta, mask, metric)
+    if mega:
+        from .ivf_pairs_mega import ivf_pairs_mega_scan as scan
+    else:
+        scan = ivf_pairs_scan
+    raw = scan(lists, counts, xq_t, qs_t, meta, mask, metric)
     return pairs_flat_epilogue(raw, lists, pair_slot, probe_ids, row_pos, xq,
                                k=k, k_scan=k_scan, metric=metric)

@@ -138,17 +138,23 @@ def ivf_sq_pairs_scan(codes: torch.Tensor, rn: torch.Tensor,
 
 
 def ivf_sq_pairs_search(codes, rn, rs, counts, row_pos, probe_ids, xq, mask,
-                        vmin, scale, *, k, k_scan, metric, codec):
+                        vmin, scale, *, k, k_scan, metric, codec,
+                        mega=False):
     """``pallas_ivf_sq_pairs_search``'s contract: (scores (nq, k)
     max-oriented fp32-exact, positions (nq, k) int32 original rows, -1
-    missing)."""
+    missing).  ``mega`` scans the tiles with K9 (ops/ivf_sq_pairs_mega.py)
+    in place of K3."""
     nq, nprobe = probe_ids.shape
     nlist, lmax, w = codes.shape
     q = query_digits(xq, vmin, scale, metric, codec, w, KERNEL_SHIFT[codec])
     digits_t, scalars_t, meta, pair_slot = sq_pair_tile_inputs(
         probe_ids, q, nlist, metric)
-    raw = ivf_sq_pairs_scan(codes, rn, rs, counts, digits_t, scalars_t, meta,
-                            mask, metric, codec)
+    if mega:
+        from .ivf_sq_pairs_mega import ivf_sq_pairs_mega_scan as scan
+    else:
+        scan = ivf_sq_pairs_scan
+    raw = scan(codes, rn, rs, counts, digits_t, scalars_t, meta, mask, metric,
+               codec)
     pv = raw.reshape(-1, lmax)[pair_slot.reshape(-1).long()] \
         .reshape(nq, nprobe * lmax)
     best, sel = exact_topk(pv, min(k_scan, nprobe * lmax))

@@ -121,6 +121,24 @@ def sq6_unpack_host(packed: np.ndarray, d: int) -> np.ndarray:
     return np.stack([c0, c1, c2, c3], axis=-1).reshape(n, -1)[:, :d]
 
 
+def sq_pack_t(q: torch.Tensor, codec: str) -> torch.Tensor:
+    """``sq_pack`` on the codes' device (device-resident ingest): (n, d)
+    uint8 codes → packed rows, byte-equal to ``sq_pack``."""
+    n, d = q.shape
+    if codec == "sq8":
+        return q
+    step = 2 if codec == "sq4" else 4
+    if d % step:
+        q = torch.cat([q, q.new_zeros((n, step - d % step))], 1)
+    if codec == "sq4":
+        return q[:, 0::2] | (q[:, 1::2] << 4)
+    g = q.reshape(n, -1, 4).to(torch.int32)
+    b0 = (g[..., 0] << 2) | (g[..., 1] >> 4)
+    b1 = ((g[..., 1] & 15) << 4) | (g[..., 2] >> 2)
+    b2 = ((g[..., 2] & 3) << 6) | g[..., 3]
+    return torch.stack([b0, b1, b2], -1).reshape(n, -1).to(torch.uint8)
+
+
 def sq_unpack_host(packed: np.ndarray, d: int, codec: str) -> np.ndarray:
     if codec == "sq4":
         return sq4_unpack_host(packed, d)

@@ -17,10 +17,18 @@ card raises (``resolve_device``) instead of carrying on on the CPU.
 ``"auto"`` takes the int8 digit-dot path (the padded code layout and its
 kernels, then an exact fp32 rerank) in fast mode and the fp32 decode path
 in parity mode; ``"int8"`` / ``"decode"`` force one path
-(``sq_int8_active``).  The JAX package's TPU lowering knobs beside it
-(``sq_digit_dtype``, ``pairs_impl``, ``spill_impl``, ``spill_pallas_min``,
-``fused_dispatch``, ``spill_int8_via``, ``query_wire``) have no
-counterpart here.
+(``sq_int8_active``).  A device-resident index (``faiss_add_device``)
+scans its padded layout with the int8 kernels in both modes.
+
+``pairs_impl`` selects the pair-tile kernels of large IVF batches:
+``"grid"`` (the default) takes K7 / K3 (ops/ivf_pairs.py,
+ops/ivf_sq_pairs.py), ``"mega"`` their pipelined forms K10 / K9
+(ops/ivf_pairs_mega.py, ops/ivf_sq_pairs_mega.py), the same function;
+any other value means grid, as in the JAX package.
+
+The JAX package's TPU lowering knobs beside them (``sq_digit_dtype``,
+``spill_impl``, ``spill_pallas_min``, ``fused_dispatch``,
+``spill_int8_via``, ``query_wire``) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ class Config:
     #: IVF,SQ scoring: "auto" = int8 digit dots in fast mode, fp32 decode
     #: in parity mode; "int8" / "decode" force one path
     sq_dot: str = "auto"
+    #: pair-tile kernels: "grid" (K7 / K3) or "mega" (K10 / K9)
+    pairs_impl: str = "grid"
 
 
 config = Config()

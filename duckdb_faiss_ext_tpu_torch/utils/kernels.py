@@ -164,6 +164,21 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i, i,            # codec, l2, vec
         p, p,               # out, stream
     ]
+    lib.dfx_ivf_sq_pairs_mega.restype = ctypes.c_int
+    lib.dfx_ivf_sq_pairs_mega.argtypes = [
+        p, p, p, p,         # codes, rn, rs, counts
+        p, p, p, p,         # digits, qs, meta, mask
+        i, i, i, i,         # t_max, nlist, lmax, w
+        i, i, i, i,         # codec, l2, vec, dvec
+        p, p, p, p,         # next_tile, out, plan, stream
+    ]
+    lib.dfx_ivf_pairs_mega.restype = ctypes.c_int
+    lib.dfx_ivf_pairs_mega.argtypes = [
+        p, p, p, p, p, p,   # lists, counts, xq_t, qs, meta, mask
+        i, i, i, i,         # t_max, nlist, lmax, d
+        i, i,               # l2, vec4
+        p, p, p, p,         # next_tile, out, plan, stream
+    ]
     lib.dfx_sq_spill.restype = ctypes.c_int
     lib.dfx_sq_spill.argtypes = [
         p, p, p, p, p, p,   # codes, assign, pos, rs, rn, mask

@@ -436,9 +436,17 @@ def test_unported_ivf_forms_refused(pcat, factory, what):
 @pytest.mark.parametrize("key", ["soar_lambda", "anisotropic_eta", "beam",
                                  "assign_topk"])
 def test_unported_create_params_refused(catalog, pcat, key):
-    """soar_lambda and assign_topk are not yet available; anisotropic_eta
-    and beam are ported and refused on Flat storage with the JAX package's
-    own messages."""
+    """soar_lambda is not yet available; anisotropic_eta and beam are
+    ported and refused on Flat storage with the JAX package's own messages;
+    assign_topk (capped device-ingest assignment) is ported and accepted
+    and stored, as in the JAX package."""
+    if key == "assign_topk":
+        dfx.faiss_create_params("e", 8, "IVF4,Flat", {key: "4"},
+                                catalog=catalog)
+        dt.faiss_create_params("e", 8, "IVF4,Flat", {key: "4"}, catalog=pcat)
+        assert (pcat.get("e").index.assign_topk
+                == catalog.get("e").index.assign_topk == 4)
+        return
     if key in ("anisotropic_eta", "beam"):
         with pytest.raises(dfx.InvalidInputError) as want:
             dfx.faiss_create_params("e", 8, "IVF4,Flat", {key: "1"},

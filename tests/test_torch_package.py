@@ -7,8 +7,9 @@
   of the sources and the headers they include;
 * on the card (``-m gpu``), the CUDA kernels (flat top-k, IVF list scan,
   IVF pair tiles, the int8 IVF,SQ list scan, pair tiles and spill windows,
-  and the IVF-PQ / IVF-RQ scan) match their plain versions, and the IVF-PQ
-  scan raises on inputs it does not take.
+  the IVF-PQ / IVF-RQ scan, and the pipelined pair tiles K9 / K10) match
+  their plain versions, and the IVF-PQ scan raises on inputs it does not
+  take.
 """
 
 import os
@@ -42,6 +43,14 @@ def test_imports_and_searches_without_jax():
         dt.faiss_add((np.arange(50) + 7, xb), "v")
         res = dt.faiss_search("v", 3, xb[:2], {"nprobe": "2"})
         assert res["label"][:, 0].tolist() == [7, 8], res
+        from duckdb_faiss_ext_tpu_torch.ops import (ivf_pairs_mega,
+                                                    ivf_sq_pairs_mega)
+        dt.config.pairs_impl = "mega"
+        dt.faiss_create("s", 4, "IVF2,SQ8", metric_type="L2")
+        dt.faiss_train_device(xb, "s")
+        dt.faiss_add_device(xb, "s", expected_total=50)
+        res = dt.faiss_search("s", 3, xb[:2], {"nprobe": "2"})
+        assert res["label"][:, 0].tolist() == [0, 1], res
         assert not [m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "duckdb_faiss_ext_tpu")]
         print("ok")
@@ -99,8 +108,11 @@ def test_library_hash_covers_headers(tmp_path):
     assert kernels._library_path([src, hdr]) != first
     sources, headers = kernels._kernel_files()
     assert {p.name for p in headers} >= {"sq_digits.cuh"}
+    assert {p.name for p in headers} >= {"cp_async.cuh"}
     assert {p.name for p in sources} >= {"ivf_sq_scan.cu", "ivf_sq_pairs.cu",
-                                         "sq_spill.cu", "ivf_pq_scan.cu"}
+                                         "sq_spill.cu", "ivf_pq_scan.cu",
+                                         "ivf_sq_pairs_mega.cu",
+                                         "ivf_pairs_mega.cu"}
 
 
 def test_build_dir_is_ignored_by_git():
@@ -339,3 +351,88 @@ def test_pq_kernel_raises_on_bad_inputs(card):
         with pytest.raises(ValueError):
             k8.ivf_pq_scan(*(args[:i] + [value] + args[i + 1:]))
     assert k8.LAUNCHES == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("codec,d,lmax", [("sq8", 33, 256), ("sq8", 1536, 512),
+                                          ("sq4", 128, 256), ("sq6", 33, 256),
+                                          ("sq6", 1536, 256)])
+def test_sq_mega_kernel_matches_plain_on_card(card, codec, d, lmax, metric):
+    """K9 (pipelined SQ pair tiles) against its plain version and against
+    K3 on the same card tensors, raw tiles bit for bit, with a mask, an
+    empty list and a full one, and with n_tiles cut to 5 and to 0."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs_mega as k9
+    from duckdb_faiss_ext_tpu_torch.ops.sq import sq_code_width
+    from duckdb_faiss_ext_tpu_torch.ops.sq_digits import (KERNEL_SHIFT,
+                                                          query_digits)
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    nlist, nq, nprobe = 16, 64, 3
+    w = sq_code_width(d, codec)
+    codes = torch.randint(0, 256, (nlist, lmax, w), device="cuda",
+                          generator=g, dtype=torch.uint8)
+    counts = torch.randint(1, lmax, (nlist,), device="cuda", generator=g,
+                           dtype=torch.int32)
+    counts[0], counts[1] = 0, lmax
+    rn = torch.rand(nlist, lmax, device="cuda", generator=g) * 100
+    rs = torch.rand(nlist, lmax, device="cuda", generator=g) * 100
+    mask = (torch.rand(nlist, lmax, device="cuda", generator=g)
+            < 0.6).to(torch.int8)
+    vmin = torch.randn(d, device="cuda", generator=g)
+    scale = torch.rand(d, device="cuda", generator=g) / 50 + 1e-3
+    xq = torch.randn(nq, d, device="cuda", generator=g)
+    probe = torch.rand(nq, nlist, device="cuda", generator=g).argsort(1)[
+        :, :nprobe].to(torch.int32).contiguous()
+    q = query_digits(xq, vmin, scale, metric, codec, w, KERNEL_SHIFT[codec])
+    dig_t, sc_t, meta, _ = k3.sq_pair_tile_inputs(probe, q, nlist, metric)
+    args = [codes, rn, rs, counts, dig_t, sc_t, meta, mask, metric, codec]
+    before = k9.LAUNCHES
+    raw = k9.ivf_sq_pairs_mega_scan(*args)
+    torch.cuda.synchronize()
+    ref = k3.ivf_sq_pairs_scan_reference(*args)
+    grid = k3.ivf_sq_pairs_scan(*args)
+    n = int(meta[0])
+    assert torch.equal(raw[:n], ref[:n]) and torch.equal(raw[:n], grid[:n])
+    for cut in (5, 0):
+        args[6] = meta.clone()
+        args[6][0] = cut
+        raw = k9.ivf_sq_pairs_mega_scan(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(raw[:cut], ref[:cut])
+    assert k9.LAUNCHES == before + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("d,lmax", [(8, 256), (33, 256), (128, 512),
+                                    (1536, 256)])
+def test_flat_mega_kernel_matches_plain_on_card(card, d, lmax, metric):
+    """K10 (pipelined Flat pair tiles) bit-equal to K7, and within 1e-5 of
+    each row's scale of its plain version, on the same card tensors."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs_mega as k10
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    nlist, nq, nprobe = 16, 64, 3
+    counts = torch.randint(1, lmax, (nlist,), device="cuda", generator=g,
+                           dtype=torch.int32)
+    counts[0], counts[1] = 0, lmax
+    lists = torch.randn(nlist, lmax, d, device="cuda", generator=g)
+    mask = (torch.rand(nlist, lmax, device="cuda", generator=g)
+            < 0.6).to(torch.int8)
+    xq = torch.randn(nq, d, device="cuda", generator=g)
+    probe = torch.rand(nq, nlist, device="cuda", generator=g).argsort(1)[
+        :, :nprobe].to(torch.int32).contiguous()
+    xq_t, qs_t, meta, _ = k7.pair_tile_inputs(probe, xq, nlist)
+    args = (lists, counts, xq_t, qs_t, meta, mask, metric)
+    before = k10.LAUNCHES
+    raw = k10.ivf_pairs_mega_scan(*args)
+    torch.cuda.synchronize()
+    assert k10.LAUNCHES == before + 1
+    n = int(meta[0])
+    assert torch.equal(raw[:n], k7.ivf_pairs_scan(*args)[:n])
+    ref = k7.ivf_pairs_scan_reference(*args)
+    _rows_agree(raw[:n].reshape(-1, lmax), ref[:n].reshape(-1, lmax),
+                qs_t[:n, :, 1].reshape(-1))

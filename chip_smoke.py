@@ -13,6 +13,9 @@ Phases (any failure raises and the script exits non-zero):
    with and without a row mask, nvalid < capacity, d in {8, 128, 1536} at
    1M rows (the 1536-d corpus is 6 GB, generated on the card from a seeded
    generator), plus duplicated rows that must rank by ascending position;
+   each case prints its count of margin-unproven queries (the kernel's
+   3xTF32 candidates whose (k + m)-th lies within twice the error bound of
+   the k-th exact score);
 4. golden parity: the reference's test corpus (tests/data) through the
    public API on the card reproduces its 20 golden inner-product distances,
    labels and filtered results;
@@ -20,8 +23,11 @@ Phases (any failure raises and the script exits non-zero):
    faiss_create → faiss_add → faiss_search at b48 and b1024 (k=10) →
    faiss_search_batched 16 x b48 → faiss_search_filter('id%2==0') over a
    registered 1M-row table.  Every result is checked against the plain
-   version (recall@10 = 1.0, distances within tolerance) and the path must
-   have launched the kernel; then kernel and plain version are timed;
+   version (recall@10 = 1.0, distances within tolerance), the path must
+   have launched the kernel and counted no margin-unproven query; then the
+   kernel, its plain version and the library yardstick (cuBLAS SGEMM with
+   TF32 off + torch.topk, two calls the port never makes) are timed, here
+   and at 1M x 1536 inner product (b48 and b1024, no unproven query);
 6. IVF sweep: the per-query list scan (K6, ops/ivf_list_scan.py) and the
    pair-tile scan (K7, ops/ivf_pairs.py) against their plain versions on
    the card, raw scores element by element: L2 and inner product, with and
@@ -54,8 +60,11 @@ Phases (any failure raises and the script exits non-zero):
    sq8 / sq4 / sq6, L2 and inner product, with and without a mask, d 16 /
    33 / 128 / 1536, lmax 256 and 1024 (counts on both sides of 256, 512
    and 768), lists of count 0 and count == lmax, tiles with dead slots and
-   n_tiles < t_max; the spill windows (K5, ops/sq_spill.py) at sq8 / sq4,
-   nprobe 1 / 16 / 64, a ragged last window and a partial query group;
+   n_tiles < t_max; the spill search (K5, ops/sq_spill.py) at sq8 / sq4,
+   nprobe 1 / 16 / 64, a spill sorted by list with a list longer than four
+   windows and a query whose probes meet inside one window, a ragged last
+   window: the windows bit-equal to their plain version, the rescore held
+   against the plain rerank legs;
    then the pipelined pair tiles (K9, ops/ivf_sq_pairs_mega.py) bit-equal
    to their plain version and to K3 at the same codecs, metrics, masks and
    widths, lmax 256 / 1024 / 2560, with n_tiles cut to 0 and to n_tiles -
@@ -71,9 +80,12 @@ Phases (any failure raises and the script exits non-zero):
    launch counts must match the calls; every result is held against the
    same path with the plain versions of K2, K3 and K5 on the same layout;
    recall@10 against the parity decode path and against exact fp32 search
-   is printed; K2's, K3's and K5's raw scores at the b1024 shapes are held
-   against their plain versions, then each kernel is timed against its
-   plain version and faiss_search wall time is taken;
+   is printed; K2's and K3's raw scores at the b1024 shapes are held
+   against their plain versions and timed; the spill search at b48 and
+   b1024 checked (K5's windows bit-equal, its rescore against the plain
+   legs) and timed stage by stage (windows, window top-k, rescore, final
+   top-k) beside the plain windows and legs; faiss_search wall time under
+   both pairs_impl values;
 11. PQ sweep (after phase 7, while the 1M x 128 corpus is loaded): the
    IVF-PQ / IVF-RQ gather-decode-score scan (K8, ops/ivf_pq_scan.py)
    against its plain version, raw scores element by element: PQ with dsub
@@ -113,13 +125,15 @@ Phases (any failure raises and the script exits non-zero):
    against the same path with the plain versions of K2, K3, K9 and K5;
    recall@10 against exact fp32 search is printed; K9's raw tiles at b1024
    are bit-equal to its plain version and K3's, then K9 is timed against
-   both, and faiss_search's wall time and device stages are taken under
-   both pairs_impl values.
+   both, the spill search is checked and timed stage by stage at b48 and
+   b1024 as in phase 10, and faiss_search's wall time and device stages
+   are taken under both pairs_impl values.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
 over the card's peak rate for their type, computed from the inputs of the
-timed call.  The last two lines of standard output are a JSON object
+timed call; K1's operations run on the TF32 tensor cores, three products
+a term (495 / 3 TFLOP/s), and its fp32 FMA bound is printed beside.  The last two lines of standard output are a JSON object
 describing each kernel and the JSON result line {"ok": true, "device":
 {...}}.
 """
@@ -243,8 +257,10 @@ SQ_MEGA_SWEEP_LMAX = (256, 1024, 2560)
 MARCO_N, MARCO_TOPK = 8_841_823, 4
 MARCO_LMAX = 512 * -(-int(1.15 * MARCO_N) // (SQ_NLIST * 512))
 #: the H100's published peaks (SXM data sheet, dense): device memory,
-#: float32 outside the tensor cores, int8
+#: float32 outside the tensor cores, int8, and TF32 on the tensor cores
+#: divided by the three products of a 3xTF32 term
 HBM_BYTES_S, FP32_OPS_S, INT8_OPS_S = 3.35e12, 67e12, 1979e12
+TF32X3_OPS_S = 495e12 / 3
 
 # test/sql/faiss.test:16-38 of the reference: k=2 IP distances per query.
 GOLDEN_FLAT_DISTANCES = [
@@ -427,11 +443,14 @@ def phase_sweep():
         queries = torch.randn(max(SWEEP_NQ), d, device=DEVICE, generator=g)
         queries[:4] = tie
         t0 = time.perf_counter()
+        unproven = []
         for metric, nq, k, m in itertools.product(
                 ("L2", "INNER_PRODUCT"), SWEEP_NQ, SWEEP_K, (None, mask)):
             xq = queries[:nq].contiguous()
+            ft.reset_unproven(DEVICE)
             s, p = ft.flat_topk(xb, N, xq, k, metric, m)
             torch.cuda.synchronize()
+            unproven.append(ft.unproven(DEVICE))
             rs, rp = ft.flat_topk_reference(xb, N, xq, k + 1, metric, m)
             max_err = max(max_err, compare(s, p, rs, rp, xq))
             n_cases += 1
@@ -439,7 +458,9 @@ def phase_sweep():
                 ties = p[:min(nq, 4), :len(dups)].cpu().tolist()
                 check(ties == [dups] * len(ties), f"tie order {ties}")
         log(f"sweep d={d}: {2 * len(SWEEP_NQ) * len(SWEEP_K) * 2} cases "
-            f"agree ({time.perf_counter() - t0:.1f} s)")
+            f"agree ({time.perf_counter() - t0:.1f} s); margin-unproven "
+            f"queries per case (metric x nq {SWEEP_NQ} x k {SWEEP_K} x mask "
+            f"off/on): {unproven}")
         del xb, mask, queries
         torch.cuda.empty_cache()
     check(ft.LAUNCHES - before == n_cases, "a sweep case did not launch")
@@ -515,6 +536,7 @@ def phase_main_path(smi, data):
     cat = dt.Catalog()
 
     ft.LAUNCHES = 0
+    ft.reset_unproven(DEVICE)
     t0 = time.perf_counter()
     dt.faiss_create("sift", D, "IDMap,Flat", metric_type="L2", catalog=cat)
     dt.faiss_add((ids, xb), "sift", catalog=cat)
@@ -532,7 +554,10 @@ def phase_main_path(smi, data):
     check(launches == expected,
           f"main path launched the kernel {launches} times, not {expected}")
     check(catalog_device(cat, "sift") == DEVICE, "index not on the card")
-    log(f"main path: create+add {t_add:.2f} s; {launches} kernel launches")
+    unproven = ft.unproven(DEVICE)
+    check(unproven == 0, f"main path: {unproven} margin-unproven queries")
+    log(f"main path: create+add {t_add:.2f} s; {launches} kernel launches; "
+        f"0 margin-unproven queries")
 
     index = cat.get("sift").index.inner
     corpus = index.device_vectors()
@@ -571,23 +596,56 @@ def phase_main_path(smi, data):
         ms, plain_ms = time_pair(
             lambda: ft.flat_topk(corpus, N, xq_pad, K, "L2"),
             lambda: ft.flat_topk_reference(corpus, N, xq_pad, K, "L2"))
+        lib_ms = library_topk_ms(corpus[:N], xq_pad, K, "L2")
+        ft.reset_unproven(DEVICE)
+        ft.flat_topk(corpus, N, xq_pad, K, "L2")
+        check(ft.unproven(DEVICE) == 0, f"{name}: margin-unproven queries")
         walls = []
         for _ in range(10):
             t0 = time.perf_counter()
             dt.faiss_search("sift", K, xq, catalog=cat)
             walls.append(1e3 * (time.perf_counter() - t0))
-        # The corpus and the queries read once, (score, position) written
-        # once; 2·d operations a (query, row) pair.
-        b = bound(4 * N * D + 4 * nq_pad * D + 8 * nq_pad * K,
-                  2 * nq_pad * N * D)
-        timings[name] = (ms, plain_ms, b)
+        b, b_fma = k1_bounds(N, D, nq_pad, K)
+        timings[name] = (ms, plain_ms, b, lib_ms)
         log(f"time {N}x{D} L2 k={K} {name} ({nq_pad} rows launched): "
-            f"kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms (median CUDA events), bound {b[0]:.3f} ms "
-            f"({b[1]}); faiss_search wall "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+            f"{lib_ms:.3f} ms (two calls: cuBLAS SGEMM with TF32 off via "
+            f"torch.addmm, then torch.topk) (median CUDA events); bound "
+            f"{b[0]:.3f} ms ({b[1]}, 3xTF32 tensor cores), {b_fma[0]:.3f} ms "
+            f"({b_fma[1]}, fp32 FMA); faiss_search wall "
             f"{statistics.median(walls):.3f} ms (median) [{smi}]")
     exact = {name: out[name]["label"] for name in ("b48", "b1024")}
     return max_err, launches, timings, exact
+
+
+def k1_bounds(n, d, nq, k):
+    """K1's bound by the 3xTF32 tensor-core rate and by the fp32 FMA rate:
+    the corpus and the queries read once, (score, position) written once;
+    2·d operations a (query, row) pair."""
+    nbytes, ops = 4 * n * d + 4 * nq * d + 8 * nq * k, 2 * nq * n * d
+    return bound(nbytes, ops, TF32X3_OPS_S), bound(nbytes, ops)
+
+
+def library_topk_ms(xb, xq, k, metric):
+    """K1's yardstick, two PyTorch calls the port never makes: cuBLAS SGEMM
+    with TF32 off (``torch.addmm`` with the rows' norms for L2, which
+    ranks as -distance) and ``torch.topk``; median CUDA-event ms."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if metric == "L2":
+            bias = -(xb * xb).sum(1)[None, :]
+            fn = lambda: torch.topk(  # noqa: E731
+                torch.addmm(bias, xq, xb.T, alpha=2.0), k, dim=1)
+        else:
+            fn = lambda: torch.topk(xq @ xb.T, k, dim=1)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        ms = statistics.median(cuda_ms(fn) for _ in range(6))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.cuda.empty_cache()
+    return ms
 
 
 def phase_time_1536(smi):
@@ -597,14 +655,28 @@ def phase_time_1536(smi):
 
     g = torch.Generator(device=DEVICE).manual_seed(99)
     xb = torch.randn(next_capacity(N), 1536, device=DEVICE, generator=g)
+    out = {}
     for nq in (BATCH, BIG_BATCH):
         xq = torch.randn(nq, 1536, device=DEVICE, generator=g)
         ms, plain_ms = time_pair(
             lambda: ft.flat_topk(xb, N, xq, K, "INNER_PRODUCT"),
             lambda: ft.flat_topk_reference(xb, N, xq, K, "INNER_PRODUCT"),
             reps=6)
+        lib_ms = library_topk_ms(xb[:N], xq, K, "INNER_PRODUCT")
+        ft.reset_unproven(DEVICE)
+        s, p = ft.flat_topk(xb, N, xq, K, "INNER_PRODUCT")
+        unproven = ft.unproven(DEVICE)
+        check(unproven == 0, f"1536 b{nq}: {unproven} margin-unproven")
+        rs, rp = ft.flat_topk_reference(xb, N, xq, K + 1, "INNER_PRODUCT")
+        compare(s, p, rs, rp, xq)
+        b, b_fma = k1_bounds(N, 1536, nq, K)
+        out[nq] = (ms, plain_ms, lib_ms)
         log(f"time {N}x1536 IP k={K} b{nq}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms (median CUDA events) [{smi}]")
+            f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms (two calls: cuBLAS "
+            f"SGEMM with TF32 off, then torch.topk) (median CUDA events); "
+            f"bound {b[0]:.3f} ms ({b[1]}, 3xTF32), {b_fma[0]:.3f} ms "
+            f"({b_fma[1]}, fp32 FMA); 0 margin-unproven queries [{smi}]")
+    return out
 
 
 def compare_raw(got, want, qn):
@@ -1199,15 +1271,60 @@ def k3_raw_error(codes, rn, rs, counts, tiles, mask, metric, codec):
 
 
 def k5_raw_error(args):
-    """K5's (window max, first argmax) against its plain version: maxima
-    as raw scores, argmaxes equal."""
+    """K5's (window max, first argmax) bit-equal to its plain version
+    (torch.equal: -0.0 equals +0.0)."""
     from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
 
     wmax, warg = k5.sq_spill_windows(*args)
     rmax, rarg = k5.sq_spill_windows_reference(*args)
-    err = compare_raw(wmax, rmax, args[8][:, 2].abs())
+    check(torch.equal(wmax, rmax), "window maxima differ")
     check(torch.equal(warg, rarg), "window argmax differs")
-    return err
+    return 0.0
+
+
+def rescore_inputs(wmax, k):
+    """The windows an sq8 spill search selects for k: (bestw, wsel,
+    kw)."""
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import exact_topk
+
+    nwin = wmax.shape[1]
+    k = min(k, nwin)
+    k_scan = min(nwin, max(4 * k, k + 32))
+    bestw, wsel = exact_topk(wmax, k_scan)
+    return bestw, wsel, min(nwin, k + 2)
+
+
+def rescore_error(codes, assign, pos, mask, n_rows, probe, xq, vmin, scale,
+                  wmax, warg, metric, codec, k=K):
+    """K5's rescore against ``spill_rescore_reference`` on the same card
+    tensors: -inf in the same places, every other score within REL_TOL of
+    the largest.  Returns (max abs error, the plain version's scores)."""
+    from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
+
+    bestw, wsel, kw = rescore_inputs(wmax, k)
+    args = (codes, assign, pos, mask, n_rows, probe, xq, vmin, scale, bestw,
+            wsel, warg, kw, metric, codec)
+    got = k5.spill_rescore(*args)
+    want = k5.spill_rescore_reference(*args)
+    finite = torch.isfinite(want)
+    check(torch.equal(torch.isneginf(got), torch.isneginf(want)),
+          "rescore: -inf slots differ")
+    if not bool(finite.any()):
+        return 0.0, want
+    tol = REL_TOL * float(want[finite].abs().max())
+    err = float((got[finite] - want[finite]).abs().max())
+    check(err <= tol, f"rescore error {err} above {tol}")
+    return err, want
+
+
+def spill_probe_table(g, nq, nlist, nprobe):
+    """``probe_table`` where, with two probes or more, query 2 probes lists
+    5 and 6, whose spill rows meet inside a window."""
+    keys = torch.rand(nq, nlist, device=DEVICE, generator=g)
+    keys[0, 0] = keys[1, 1] = -1.0
+    if nprobe > 1:
+        keys[2, 5] = keys[2, 6] = -1.0
+    return keys.argsort(1)[:, :nprobe].to(torch.int32).contiguous()
 
 
 def phase_sq_sweep():
@@ -1257,13 +1374,25 @@ def phase_sq_sweep():
         log(f"sq sweep d={d} lmax={lmax}: 12 cases x (K2, K3) agree "
             f"({time.perf_counter() - t0:.1f} s)")
         torch.cuda.empty_cache()
+    from duckdb_faiss_ext_tpu_torch.ops.sq_spill import spill_offsets
+
     nq5, s_pad, n_rows = 250, SPILL_SWEEP_ROWS, SPILL_SWEEP_ROWS - 53
+    rescore_before = k5.RESCORE_LAUNCHES
     for d, codec in itertools.product(SPILL_SWEEP_D, ("sq8", "sq4")):
         t0 = time.perf_counter()
         codes, rn, rs, vmin, scale, mask = sq_rows(g, s_pad, d, codec)
         w = codes.shape[1]
-        assign = torch.randint(0, nlist, (s_pad,), device=DEVICE,
-                               generator=g, dtype=torch.int32)
+        # Sorted by list as the layouts keep a spill; list 5 holds about
+        # 1,100 rows (over eight windows), list 7 none.
+        weights = torch.ones(nlist, device=DEVICE)
+        weights[5], weights[7] = 6.0, 0.0
+        assign = torch.multinomial(weights, s_pad, replacement=True,
+                                   generator=g).sort().values.to(torch.int32)
+        offsets = torch.from_numpy(spill_offsets(
+            assign[:n_rows].cpu().numpy(), nlist)).to(DEVICE)
+        check(int(offsets[6] - offsets[5]) > 4 * k5.WIN, "no long list")
+        check(int(offsets[6]) % k5.WIN != 0, "lists 5 and 6 meet on a "
+              "window edge")
         pos = torch.where(torch.rand(s_pad, device=DEVICE, generator=g)
                           < 0.95, torch.arange(s_pad, device=DEVICE),
                           -1).to(torch.int32)
@@ -1272,20 +1401,27 @@ def phase_sq_sweep():
                 ("L2", "INNER_PRODUCT"), (None, mask), (1, 16, 64)):
             q = query_digits(xq, vmin, scale, metric, codec, w,
                              KERNEL_SHIFT[codec])
-            probe = probe_table(g, nq5, nlist, nprobe)
-            err5 = max(err5, k5_raw_error((
-                codes, assign, pos, rs, rn, m, probe, q.digits, q.scalars,
-                n_rows, metric, codec)))
+            probe = spill_probe_table(g, nq5, nlist, nprobe)
+            args = (codes, assign, pos, rs, rn, m, probe, q.digits,
+                    q.scalars, n_rows, metric, codec, offsets)
+            k5_raw_error(args)
+            wmax, warg = k5.sq_spill_windows(*args)
+            err, _ = rescore_error(codes, assign, pos, m, n_rows, probe, xq,
+                                   vmin, scale, wmax, warg, metric, codec)
+            err5 = max(err5, err)
             n5 += 1
-        log(f"sq sweep K5 d={d} {codec}: 12 cases agree "
-            f"({time.perf_counter() - t0:.1f} s)")
+        log(f"sq sweep K5 d={d} {codec}: 12 cases, windows bit-equal, "
+            f"rescore agrees ({time.perf_counter() - t0:.1f} s)")
         del codes
         torch.cuda.empty_cache()
+    check(k5.RESCORE_LAUNCHES - rescore_before == n5,
+          "an sq sweep rescore did not launch")
     check((k2.LAUNCHES - before[0], k3.LAUNCHES - before[1],
-           k5.LAUNCHES - before[2]) == (n23, n23, n5),
+           k5.LAUNCHES - before[2]) == (n23, n23, 2 * n5),
           "an sq sweep case did not launch")
-    log(f"sq sweep: {n23} cases each for K2 and K3, {n5} for K5; max abs "
-        f"score error K2 {err2:.3g}, K3 {err3:.3g}, K5 {err5:.3g}")
+    log(f"sq sweep: {n23} cases each for K2 and K3, {n5} for K5 (windows "
+        f"bit-equal); max abs score error K2 {err2:.3g}, K3 {err3:.3g}, K5 "
+        f"rescore {err5:.3g}")
     return err2, err3, err5
 
 
@@ -1390,24 +1526,26 @@ class MarcoCorpus:
 
 @contextlib.contextmanager
 def plain_sq_kernels():
-    """Run the IVF,SQ path with the plain versions of K2, K3, K9 and K5 in
-    place of their wrappers (same signatures, same inputs)."""
+    """Run the IVF,SQ path with the plain versions of K2, K3, K9 and K5
+    (windows and rescore) in place of their wrappers (same signatures, same
+    inputs)."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs_mega as k9
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
     from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
 
     saved = (k2.ivf_sq_scan, k3.ivf_sq_pairs_scan, k9.ivf_sq_pairs_mega_scan,
-             k5.sq_spill_windows)
+             k5.sq_spill_windows, k5.spill_rescore)
     k2.ivf_sq_scan = k2.ivf_sq_scan_reference
     k3.ivf_sq_pairs_scan = k3.ivf_sq_pairs_scan_reference
     k9.ivf_sq_pairs_mega_scan = k3.ivf_sq_pairs_scan_reference
     k5.sq_spill_windows = k5.sq_spill_windows_reference
+    k5.spill_rescore = k5.spill_rescore_reference
     try:
         yield
     finally:
         (k2.ivf_sq_scan, k3.ivf_sq_pairs_scan, k9.ivf_sq_pairs_mega_scan,
-         k5.sq_spill_windows) = saved
+         k5.sq_spill_windows, k5.spill_rescore) = saved
 
 
 def exact_ip_labels(corpus, xq, k, n_rows=SQ_N):
@@ -1450,6 +1588,85 @@ def sq_bound(q, probe, out_bytes, rows_bytes, pairs):
 def recall(labels, ref):
     return float(np.mean([len(set(a) & set(b)) / len(a)
                           for a, b in zip(labels, ref)]))
+
+
+def spill_report(tag, spill, vmin, scale, xq, probe, metric, codec, smi):
+    """The spill search of one batch on the card: K5's windows bit-equal to
+    the plain version and its rescore held against the plain legs, then
+    the stages timed (windows, window top-k, rescore, final top-k) beside
+    the plain windows and legs.  Returns (K5 ms: windows + rescore, plain
+    ms: plain windows + plain legs, bound, rescore error)."""
+    from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import exact_topk
+    from duckdb_faiss_ext_tpu_torch.ops.sq_digits import (KERNEL_SHIFT,
+                                                          query_digits)
+
+    w = spill.payload.shape[1]
+    q = query_digits(xq, vmin, scale, metric, codec, w, KERNEL_SHIFT[codec])
+    wargs = (spill.payload, spill.assign, spill.pos, spill.rs, spill.rn,
+             None, probe, q.digits, q.scalars, spill.n, metric, codec,
+             spill.offsets)
+    k5_raw_error(wargs)
+    wmax, warg = k5.sq_spill_windows(*wargs)
+    err, plain_s2 = rescore_error(
+        spill.payload, spill.assign, spill.pos, None, spill.n, probe, xq,
+        vmin, scale, wmax, warg, metric, codec)
+    bestw, wsel, kw = rescore_inputs(wmax, K)
+    rargs = (spill.payload, spill.assign, spill.pos, None, spill.n, probe, xq,
+             vmin, scale, bestw, wsel, warg, kw, metric, codec)
+    s2 = k5.spill_rescore(*rargs)
+    stages = {
+        "windows (K5)": lambda: k5.sq_spill_windows(*wargs),
+        "window top-k": lambda: exact_topk(wmax, wsel.shape[1]),
+        "rescore (K5)": lambda: k5.spill_rescore(*rargs),
+        "final top-k": lambda: exact_topk(s2, K),
+        "whole spill search": lambda: k5.sq_spill_search(
+            spill.payload, spill.assign, spill.pos, spill.rs, spill.rn,
+            spill.n, probe, xq, None, vmin, scale, k=K, metric=metric,
+            codec=codec, offsets=spill.offsets),
+        "plain windows": lambda: k5.sq_spill_windows_reference(*wargs),
+        "plain legs": lambda: k5.spill_rescore_reference(*rargs),
+    }
+    ms = {}
+    for label, fn in stages.items():
+        fn()
+        ms[label] = statistics.median(cuda_ms(fn) for _ in range(5))
+    k5_ms = ms["windows (K5)"] + ms["rescore (K5)"]
+    plain_ms = ms["plain windows"] + ms["plain legs"]
+    # Bytes: the probed lists' spill rows (codes, pos, rs, rn) and the
+    # queries' digits, scalars and probes read once, the windows' (max,
+    # argmax) written once; the distinct valid rescored rows' codes, the
+    # queries and the window selection read once, the score block written
+    # once.  Operations: 2 int8 a digit of every scored (query, row) pair;
+    # 4·d fp32 (decode and dot) a valid rescored pair, 6·d for L2.
+    nq, nwin = wmax.shape
+    sp_counts = torch.bincount(spill.assign[:spill.n].long(),
+                               minlength=int(spill.offsets.numel()) - 1)
+    once = int(sp_counts[torch.unique(probe.long())].sum())
+    pairs = int(sp_counts[probe.long()].sum())
+    lane = torch.arange(k5.WIN, device=DEVICE)
+    cand = torch.cat([(wsel[:, :kw, None] * k5.WIN + lane).reshape(nq, -1),
+                      warg.gather(1, wsel[:, kw:]).long()], 1)
+    live = torch.isfinite(plain_s2)
+    rows = int(torch.unique(cand[live]).numel())
+    d = xq.shape[1]
+    nbytes = (once * (w + 12) + q.digits.numel() + 4 * q.scalars.numel()
+              + 4 * probe.numel() + 8 * nq * nwin + rows * w + 4 * nq * d
+              + 8 * wsel.numel() + 4 * plain_s2.numel())
+    by_bytes = 1e3 * nbytes / HBM_BYTES_S
+    by_ops = 1e3 * (2 * q.digits[0].numel() * pairs / INT8_OPS_S
+                    + (6 if metric == "L2" else 4) * d * int(live.sum())
+                    / FP32_OPS_S)
+    b = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    log(f"time {tag} spill search {nq} rows launched ({spill.n} spill rows, "
+        f"{once} in probed lists, {pairs} (query, row) pairs, {rows} rows "
+        f"rescored): windows bit-equal, rescore max abs error {err:.3g}; "
+        f"stages (median CUDA events) "
+        + "; ".join(f"{label} {v:.3f} ms" for label, v in ms.items())
+        + f"; K5 (windows + rescore) {k5_ms:.3f} ms against the plain "
+        f"windows + legs {plain_ms:.3f} ms; bound {b[0]:.3f} ms ({b[1]}) "
+        f"[{smi}]")
+    return k5_ms, plain_ms, b, err
 
 
 def phase_sq_main(smi):
@@ -1525,9 +1742,11 @@ def phase_sq_main(smi):
                                              database=db),
         }
 
-    k2.LAUNCHES = k3.LAUNCHES = k5.LAUNCHES = 0
+    k2.LAUNCHES = k3.LAUNCHES = k5.LAUNCHES = k5.RESCORE_LAUNCHES = 0
     out = run_all()
     launches = (k2.LAUNCHES, k3.LAUNCHES, k5.LAUNCHES)
+    check(k5.RESCORE_LAUNCHES == k5.LAUNCHES, "a spill search missed the "
+          "rescore kernel")
     calls = [(64, 1), (BIG_BATCH, 1), (64, N_BATCHES), (64, 1)]
     expected = (sum(n for nq, n in calls if not index.pairs_wanted(nq, lmax)),
                 sum(n for nq, n in calls if index.pairs_wanted(nq, lmax)),
@@ -1541,7 +1760,8 @@ def phase_sq_main(smi):
     t0 = time.perf_counter()
     with plain_sq_kernels():
         ref = run_all()
-    check((k2.LAUNCHES, k3.LAUNCHES, k5.LAUNCHES) == launches,
+    check((k2.LAUNCHES, k3.LAUNCHES, k5.LAUNCHES) == launches
+          and k5.RESCORE_LAUNCHES == launches[2],
           "the plain path launched a kernel")
     log(f"sq main path: plain path ({time.perf_counter() - t0:.1f} s)")
     max_err = 0.0
@@ -1583,15 +1803,11 @@ def phase_sq_main(smi):
     xq, probe, q = shapes["b1024"]
     tiles = k3.sq_pair_tile_inputs(probe, q, SQ_NLIST, metric)
     lists = (lay.payload, lay.rn, lay.rs, lay.counts)
-    spill_args = (spill.payload, spill.assign, spill.pos, spill.rs, spill.rn,
-                  None, probe, q.digits, q.scalars, spill.n, metric, codec)
     raw2 = k2_raw_error(*lists, probe, q, None, metric, codec)
     raw3 = k3_raw_error(*lists, tiles, None, metric, codec)
-    raw5 = k5_raw_error(spill_args)
     log(f"sq main path b1024 raw scores (lmax {lmax}, {int(tiles[2][0])} of "
-        f"{tiles[1].shape[0]} tiles, {spill.n} spill rows): K2, K3 and K5 "
-        f"agree with their plain versions (max abs error K2 {raw2:.3g}, K3 "
-        f"{raw3:.3g}, K5 {raw5:.3g})")
+        f"{tiles[1].shape[0]} tiles): K2 and K3 agree with their plain "
+        f"versions (max abs error K2 {raw2:.3g}, K3 {raw3:.3g})")
 
     timings = {}
     xq48, probe48, q48 = shapes["b48"]
@@ -1602,9 +1818,13 @@ def phase_sq_main(smi):
     timings["k3"] = time_pair(lambda: k3.ivf_sq_pairs_scan(*a3),
                               lambda: k3.ivf_sq_pairs_scan_reference(*a3),
                               reps=4)
-    timings["k5"] = time_pair(
-        lambda: k5.sq_spill_windows(*spill_args),
-        lambda: k5.sq_spill_windows_reference(*spill_args), reps=6)
+    k5_48 = spill_report(f"IVF{SQ_NLIST},SQ8 {SQ_N}x{SQ_D} IP b48", spill,
+                         vmin, scale, shapes["b48"][0], shapes["b48"][1],
+                         metric, codec, smi)
+    k5_1024 = spill_report(f"IVF{SQ_NLIST},SQ8 {SQ_N}x{SQ_D} IP b1024", spill,
+                           vmin, scale, xq, probe, metric, codec, smi)
+    timings["k5"] = k5_1024[:3]
+    raw5 = max(k5_48[3], k5_1024[3])
     w = lay.payload.shape[2]
     _, once48, all48 = probed_rows(lay.counts, probe48)
     timings["k2"] += (sq_bound(q48, probe48, 4 * probe48.numel() * lmax,
@@ -1613,15 +1833,6 @@ def phase_sq_main(smi):
     n_tiles = int(tiles[2][0])
     timings["k3"] += (sq_bound(q, probe, 4 * n_tiles * tiles[1].shape[1]
                                * lmax, once * (w + 8), rows_all),)
-    sp_counts = torch.bincount(spill.assign[:spill.n].long(),
-                               minlength=SQ_NLIST)
-    timings["k5"] += (sq_bound(
-        q, probe, 8 * BIG_BATCH * -(-spill.n // k5.WIN), spill.n * (w + 16),
-        int(sp_counts[probe.long()].sum())),)
-    a248 = (*spill_args[:6], probe48, q48.digits, q48.scalars,
-            *spill_args[9:])
-    k5_48 = time_pair(lambda: k5.sq_spill_windows(*a248),
-                      lambda: k5.sq_spill_windows_reference(*a248), reps=6)
     a21024 = (*lists, probe, q.digits, q.scalars, None, metric, codec)
     k2_1024 = statistics.median(
         cuda_ms(lambda: k2.ivf_sq_scan(*a21024)) for _ in range(6))
@@ -1636,7 +1847,7 @@ def phase_sq_main(smi):
         f"scores (median CUDA events): K2 b48 (64 rows) {timings['k2'][0]:.3f}"
         f" ms, plain {timings['k2'][1]:.3f} ms; K2 b1024 {k2_1024:.3f} ms; "
         f"K3 b1024 {timings['k3'][0]:.3f} ms, plain {timings['k3'][1]:.3f} "
-        f"ms; K5 b1024 {timings['k5'][0]:.3f} ms, plain "
+        f"ms; K5 (windows + rescore) b1024 {timings['k5'][0]:.3f} ms, plain "
         f"{timings['k5'][1]:.3f} ms; K5 b48 {k5_48[0]:.3f} ms, plain "
         f"{k5_48[1]:.3f} ms; top-{k_scan} of the b1024 pair-gathered block "
         f"{topk_ms:.3f} ms; bounds K2 b48 {timings['k2'][2][0]:.3f} ms "
@@ -1662,10 +1873,10 @@ def phase_sq_main(smi):
                 lay.payload, lay.rn, lay.rs, lay.counts, lay.row_pos,
                 probe_s, xq_s, None, vmin, scale, k=K, k_scan=k_scan,
                 metric=metric, codec=codec),
-            "K5 spill search (windows + rerank legs)": lambda: sq_spill_search(
+            "K5 spill search (windows + rescore)": lambda: sq_spill_search(
                 spill.payload, spill.assign, spill.pos, spill.rs, spill.rn,
                 spill.n, probe_s, xq_s, None, vmin, scale, k=K,
-                metric=metric, codec=codec),
+                metric=metric, codec=codec, offsets=spill.offsets),
         }
         parts = []
         for label, fn in stages.items():
@@ -1676,6 +1887,18 @@ def phase_sq_main(smi):
             f"k={K} {name}: faiss_search wall {statistics.median(walls):.3f}"
             f" ms (median of 10); device stages (median CUDA events): "
             f"{'; '.join(parts)} [{smi}]")
+    dt.config.pairs_impl = "mega"
+    try:
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            dt.faiss_search("marco", K, data["b1024"], params, catalog=cat)
+            walls.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        dt.config.pairs_impl = "grid"
+    log(f"time IVF{SQ_NLIST},SQ8 {SQ_N}x{SQ_D} IP nprobe {SQ_NPROBE} k={K} "
+        f"b1024 pairs_impl mega: faiss_search wall "
+        f"{statistics.median(walls):.3f} ms (median of 10) [{smi}]")
     dt.set_precision("parity")
     return {"launches": launches, "err": (max(max_err, raw2), raw3, raw5),
             "timings": timings}
@@ -1765,8 +1988,11 @@ def phase_marco_device(smi):
         return res
 
     k2.LAUNCHES = k3.LAUNCHES = k9.LAUNCHES = k5.LAUNCHES = 0
+    k5.RESCORE_LAUNCHES = 0
     out = run_all()
     launches = (k2.LAUNCHES, k3.LAUNCHES, k9.LAUNCHES, k5.LAUNCHES)
+    check(k5.RESCORE_LAUNCHES == k5.LAUNCHES, "a spill search missed the "
+          "rescore kernel")
     expected = (N_BATCHES + 2, 1, 1, (N_BATCHES + 4) if n_spill else 0)
     check(launches == expected, f"marco device path launched (K2, K3, K9, "
           f"K5) {launches} times, not {expected}")
@@ -1778,7 +2004,8 @@ def phase_marco_device(smi):
     t0 = time.perf_counter()
     with plain_sq_kernels():
         ref = run_all()
-    check((k2.LAUNCHES, k3.LAUNCHES, k9.LAUNCHES, k5.LAUNCHES) == launches,
+    check((k2.LAUNCHES, k3.LAUNCHES, k9.LAUNCHES, k5.LAUNCHES) == launches
+          and k5.RESCORE_LAUNCHES == launches[3],
           "the plain path launched a kernel")
     log(f"marco device path: plain path ({time.perf_counter() - t0:.1f} s)")
     max_err = 0.0
@@ -1826,6 +2053,16 @@ def phase_marco_device(smi):
         f"b1024 raw tiles (median CUDA events): K9 {ms9:.3f} ms, plain "
         f"{plain_ms:.3f} ms; in turns K9 {ms9b:.3f} ms against K3 "
         f"{ms3:.3f} ms; bound {b9[0]:.3f} ms ({b9[1]}) [{smi}]")
+    k5_timing = None
+    if n_spill:
+        xq48 = torch.from_numpy(pad_rows(data["b48"], 64)).to(DEVICE)
+        spill_report(f"IVF{SQ_NLIST},SQ8 {MARCO_N}x{SQ_D} IP b48", spill,
+                     vmin, scale, xq48,
+                     coarse_topk(xq48, lay.centroids, SQ_NPROBE, metric),
+                     metric, codec, smi)
+        k5_timing = spill_report(f"IVF{SQ_NLIST},SQ8 {MARCO_N}x{SQ_D} IP "
+                                 f"b1024", spill, vmin, scale, xq, probe,
+                                 metric, codec, smi)
 
     walls = {}
     for name, impl in (("b48", "grid"), ("b1024", "grid"), ("b1024", "mega")):
@@ -1860,7 +2097,7 @@ def phase_marco_device(smi):
             stages["K5 spill search"] = lambda: sq_spill_search(
                 spill.payload, spill.assign, spill.pos, spill.rs, spill.rn,
                 spill.n, probe_s, xq_s, None, vmin, scale, k=K,
-                metric=metric, codec=codec)
+                metric=metric, codec=codec, offsets=spill.offsets)
         parts = []
         for label, fn in stages.items():
             fn()
@@ -1872,7 +2109,7 @@ def phase_marco_device(smi):
             f"(median CUDA events): {'; '.join(parts)} [{smi}]")
     dt.set_precision("parity")
     return {"launches": launches[2], "err": max(max_err, raw9),
-            "timing": (ms9, plain_ms, b9)}
+            "timing": (ms9, plain_ms, b9), "k5": k5_timing}
 
 
 def k8_raw_error(lists, counts, probe, xq, centroids, codebooks, mask,
@@ -2261,7 +2498,7 @@ def main():
     pq_ms, pq_plain_ms, pq_bound, pq_lib_ms = pq["timings"]["b1024"]
     print(json.dumps({"kernels": [
         kernel_entry(KERNEL, launches, max(sweep_err, golden_err, main_err),
-                     *timings["b48"]),
+                     *timings["b1024"]),
         kernel_entry(IVF_LIST_KERNEL, ivf_launches, max(err6, ivf_err),
                      *ivf_timings["b48"]),
         kernel_entry(IVF_PAIRS_KERNEL, pairs_launches,

@@ -50,6 +50,7 @@ import torch
 
 from .. import errors
 from ..ops.sq import SQ_LEVELS, sq_decode, sq_pack_t, sq_quantize
+from ..ops.sq_spill import spill_offsets
 from ..utils.config import full_fp32, next_pow2, pad_rows
 from .ivf_layout import ListLayout, Spill, choose_lmax
 
@@ -334,10 +335,11 @@ class IVFDevice:
                 dr.spill_rs = dr.spill_rs[:s_pad].clone()
         pos_host = pad_rows(dr.spill_pos, s_pad, fill=-1).astype(np.int32)
         extras = ((dr.spill_rn[:s_pad], dr.spill_rs[:s_pad])
-                  if dr.spill_rn is not None else ())
+                  if dr.spill_rn is not None else (None, None))
         spill = Spill(dr.spill_payload[:s_pad],
                       up(pad_rows(dr.spill_assign, s_pad).astype(np.int32)),
-                      up(pos_host), pos_host, n, *extras)
+                      up(pos_host), pos_host, n, *extras,
+                      up(spill_offsets(dr.spill_assign, self.nlist)))
         return lay, spill
 
     def _sort_spill(self) -> None:

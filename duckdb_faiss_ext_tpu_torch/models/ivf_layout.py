@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..ops.sq import sq_row_norms, sq_row_sums
+from ..ops.sq_spill import spill_offsets
 from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
                             sq_int8_active)
 
@@ -85,6 +86,9 @@ class Spill(NamedTuple):
     n: int                     # real rows
     rn: torch.Tensor | None = None   # SQ: (s_pad,) fp32 Σ(scale·c)²
     rs: torch.Tensor | None = None   # SQ: (s_pad,) fp32 Σc
+    #: (nlist + 1,) int64: list l's rows are [offsets[l], offsets[l + 1])
+    #: (the rows are sorted by list)
+    offsets: torch.Tensor | None = None
 
 
 class SortedLayout(NamedTuple):
@@ -243,11 +247,12 @@ class IVFLayout:
             pos_host = pad_rows(sp_pos, s_pad, fill=-1).astype(np.int32)
             extras = ((up(pad_rows(rn[sp_pos], s_pad)),
                        up(pad_rows(rs[sp_pos], s_pad)))
-                      if rn is not None else ())
+                      if rn is not None else (None, None))
             self._spill = Spill(
                 up(pad_rows(sp_payload, s_pad)),
                 up(pad_rows(sp_assign, s_pad).astype(np.int32)),
-                up(pos_host), pos_host, int(sp_pos.shape[0]), *extras)
+                up(pos_host), pos_host, int(sp_pos.shape[0]), *extras,
+                up(spill_offsets(sp_assign, self.nlist)))
         return self._layout
 
     def _sq_row_extras(self):

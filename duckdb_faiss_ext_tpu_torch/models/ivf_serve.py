@@ -265,7 +265,8 @@ class IVFServe:
                 and k_eff <= 128 and sp.n > 0):
             sp_scores, sp_pos = sq_spill_search(
                 sp.payload, sp.assign, sp.pos, sp.rs, sp.rn, sp.n, probe_ids,
-                xq, sp_mask, vmin, scale, k=k_sp, metric=metric, codec=codec)
+                xq, sp_mask, vmin, scale, k=k_sp, metric=metric, codec=codec,
+                offsets=sp.offsets)
         else:
             sp_scores, sp_pos = ivf_spill_scan(
                 sp.payload, sp.assign, sp.pos, probe_ids, xq, sp_mask,

@@ -4,16 +4,18 @@
 Replaces the TPU kernel ``duckdb_faiss_ext_tpu/ops/pallas_topk.py::
 _topk_kernel`` (with the sort and slice of ``_pallas_topk`` and
 ``finalize_scores``).  The (nq, cap) score matrix never exists: each block
-keeps a running top-k per query in shared memory.
+keeps a running candidate list per query in shared memory.
 
-What bounds it on the H100: at a small batch (b48 over 1M x 128 fp32)
-reading the corpus, 512 MB at 3.35 TB/s; at b1024 fp32 FMA throughput.
-This first version runs well above both floors; PERF.md records where
-its time goes.
+What bounds it on the H100: at b1024 over 1M x 128 the operations, which
+the kernel runs on the TF32 tensor cores (three products a term, 3xTF32);
+at a small batch (b48 as 64 rows) reading the corpus, 512 MB at 3.35 TB/s.
 The design (details in the CUDA source): the corpus is split across enough
-blocks to fill the card, each block writes its split's sorted top-k, and a
-second launch merges the splits.  Blocks that share a split run side by
-side so the corpus rows they both read come from L2.
+blocks to fill the card, each block keeps the best k + m rows of its split
+by their 3xTF32 scores, and a second launch merges the splits, rescores
+the best k + m rows exactly in fp32 FMA and sorts them, so the result is
+exact fp32 in both precision modes.  ``margin`` gives m; the merge counts
+the queries whose (k + m)-th candidate lies within twice ``error_bound``
+of the k-th exact score (``unproven``), a diagnostic.
 
 ``flat_topk`` launches the kernel for CUDA tensors and raises on anything
 the kernel does not take; it takes the plain version only for CPU tensors.
@@ -31,20 +33,49 @@ LAUNCHES = 0
 
 METRICS = ("INNER_PRODUCT", "L2")
 MAX_K = 1024
-_NT, _DK, _WARPS = 128, 32, 8            # tile shape of the CUDA source
-_SMEM_PREFERRED = 113 * 1024             # two blocks fit in an SM
+_LD, _STAGES, _THREADS = 36, 3, 256     # shape of the CUDA source's ring
+_QTILES = (64, 32, 16, 8)                # query tiles the kernel is built for
+_SMEM_MAX = 227 * 1024
+_WAVES = 1                               # blocks a split plan aims at, per SM
 _MERGE_SMEM = 64 * 1024
-_BLOCKS_PER_SM = 4
+_U = 2.0 ** -24
+
+#: per device index, a one-element int32 count of unproven queries, added
+#: to by every launch until a caller zeroes it (``reset_unproven``)
+_UNPROVEN: dict[int, torch.Tensor] = {}
 
 
-def _slots(k: int) -> int:
-    """Per-query shared-memory slots: k sorted + at least max(k, 32)
-    candidate slots, rounded to the bitonic sort's power of two."""
-    return next_pow2(k + max(k, 32))
+def margin(k: int) -> int:
+    """m: candidates kept beyond k per query and split (CUDA source note)."""
+    return max(16, k // 8)
+
+
+def error_bound(qn, bn_max, d: int, metric: str):
+    """E of the CUDA source note: a bound on |3xTF32 score − fp32 FMA
+    score| for a query of squared norm ``qn`` against rows of squared norm
+    at most ``bn_max`` (the kernel's ``error_bound``)."""
+    eps = (3.01 * 4 + 3 * -(-d // 8)) * 4 * _U + d * _U
+    s = (qn * bn_max) ** 0.5 * 1.001
+    if metric == "L2":
+        return 2 * s * eps + (2 * d + 4) * _U * (qn + bn_max) + 8 * _U * s
+    return s * eps
+
+
+def _slots(k2: int) -> int:
+    """Per-query shared-memory slots of the partial launch: k2 sorted + at
+    least 64 candidates, a power of two."""
+    return next_pow2(k2 + 64)
+
+
+def _tile_rows(qt: int) -> int:
+    """Corpus rows a tile of the partial launch."""
+    return 256 if qt >= 32 else 128
 
 
 def _partial_smem(qt: int, slots: int) -> int:
-    return 4 * (qt * _DK + _DK * (_NT + 1) + _NT) + 8 * qt * slots
+    nt = _tile_rows(qt)
+    return (4 * _STAGES * (nt + qt) * _LD + 4 * _THREADS + nt + 16 * qt
+            + 8 * qt * slots)
 
 
 def supports(metric: str, k: int, d: int) -> bool:
@@ -53,24 +84,41 @@ def supports(metric: str, k: int, d: int) -> bool:
 
 
 def plan(nq: int, d: int, k: int, n_scan: int, n_sm: int) -> dict:
-    """Launch shape: queries per warp (rq), corpus splits and the merge
-    launch's warps per block."""
-    slots = _slots(k)
-    rq = 1
-    for cand in (4, 2):
-        qt = _WARPS * cand
-        if qt <= next_pow2(max(nq, 1)) and \
-                _partial_smem(qt, slots) <= _SMEM_PREFERRED:
-            rq = cand
-            break
-    qtiles = -(-nq // (_WARPS * rq))
-    tiles = max(1, -(-n_scan // _NT))
-    splits = max(1, min(tiles, -(-_BLOCKS_PER_SM * n_sm // qtiles)))
-    rows_per_split = -(-tiles // splits) * _NT
+    """Launch shape: candidates a query (k2 = k + m), the query tile (qt),
+    corpus splits, and the merge launch's slots and warps per block."""
+    k2 = k + margin(k)
+    slots = _slots(k2)
+    qt = next(q for q in _QTILES
+              if _partial_smem(q, slots) <= _SMEM_MAX
+              and (q <= next_pow2(max(nq, 1)) or q == _QTILES[-1]))
+    nt = _tile_rows(qt)
+    qtiles = -(-nq // qt)
+    tiles = max(1, -(-n_scan // nt))
+    splits = max(1, min(tiles, _WAVES * n_sm // qtiles))
+    rows_per_split = -(-tiles // splits) * nt
     splits = max(1, -(-n_scan // rows_per_split))
-    return {"rq": rq, "splits": splits, "rows_per_split": rows_per_split,
-            "slots": slots,
-            "merge_warps": max(1, min(_WARPS, _MERGE_SMEM // (8 * slots)))}
+    merge_slots = next_pow2(k2 + max(k2, 32))
+    return {"k2": k2, "qt": qt, "splits": splits,
+            "rows_per_split": rows_per_split, "slots": slots,
+            "merge_slots": merge_slots,
+            "merge_warps": max(1, min(8, _MERGE_SMEM // (8 * merge_slots)))}
+
+
+def _unproven_counter(dev: torch.device) -> torch.Tensor:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _UNPROVEN:
+        _UNPROVEN[index] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _UNPROVEN[index]
+
+
+def unproven(dev) -> int:
+    """Queries counted unproven on ``dev`` since the last reset (reads the
+    card: a synchronisation)."""
+    return int(_unproven_counter(torch.device(dev)).item())
+
+
+def reset_unproven(dev) -> None:
+    _unproven_counter(torch.device(dev)).zero_()
 
 
 def flat_topk_reference(xb, nvalid, xq, k, metric, mask=None):
@@ -111,8 +159,8 @@ def flat_topk(xb: torch.Tensor, nvalid: int, xq: torch.Tensor, k: int,
     mask, rows whose mask byte is non-zero).
 
     Returns (scores (nq, k) float32, positions (nq, k) int32): max-oriented
-    scores (IP: x·y; L2: -squared distance), sorted score descending then
-    position ascending; missing slots are (-inf, -1)."""
+    fp32 scores (IP: x·y; L2: -squared distance), sorted score descending
+    then position ascending; missing slots are (-inf, -1)."""
     global LAUNCHES
     nvalid = int(nvalid)
     if xb.device.type == "cpu" and xq.device.type == "cpu":
@@ -125,19 +173,26 @@ def flat_topk(xb: torch.Tensor, nvalid: int, xq: torch.Tensor, k: int,
     dev = xb.device
     p = plan(nq, d, k, nvalid,
              torch.cuda.get_device_properties(dev).multi_processor_count)
-    part_s = torch.empty((nq, p["splits"], k), dtype=torch.float32, device=dev)
-    part_p = torch.empty((nq, p["splits"], k), dtype=torch.int32, device=dev)
+    k2 = p["k2"]
+    part_s = torch.empty((nq, p["splits"], k2), dtype=torch.float32,
+                         device=dev)
+    part_p = torch.empty((nq, p["splits"], k2), dtype=torch.int32,
+                         device=dev)
+    bn_max = torch.zeros(1, dtype=torch.float32, device=dev)
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_p = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    vec4 = d % 4 == 0 and xb.data_ptr() % 16 == 0
+    count = _unproven_counter(dev)
+    vec4 = (d % 4 == 0 and xb.data_ptr() % 16 == 0
+            and xq.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
         err = lib.dfx_flat_topk(
             xb.data_ptr(), xq.data_ptr(),
             mask.data_ptr() if mask is not None else None,
-            nq, d, nvalid, k, int(metric == "L2"), p["rq"], int(vec4),
-            p["splits"], p["rows_per_split"], p["slots"], p["merge_warps"],
-            part_s.data_ptr(), part_p.data_ptr(), out_s.data_ptr(),
-            out_p.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            nq, d, nvalid, k, k2, int(metric == "L2"), p["qt"], int(vec4),
+            p["splits"], p["rows_per_split"], p["slots"], p["merge_slots"],
+            p["merge_warps"], part_s.data_ptr(), part_p.data_ptr(),
+            bn_max.data_ptr(), out_s.data_ptr(), out_p.data_ptr(),
+            count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flat_topk: CUDA launch failed with error {err}")
     LAUNCHES += 1

@@ -7,7 +7,9 @@
   match the reference's fp32 BLAS distances (the golden-value tests,
   test/sql/faiss.test:16-38).
 * ``"fast"``   — TF32 allowed.  The hand-written Flat kernel
-  (ops/flat_topk.py) computes in fp32 FMA in both modes.
+  (ops/flat_topk.py) is the same in both modes: 3xTF32 tensor-core scores
+  select candidates, which it rescores in fp32 FMA, so its results are
+  fp32 either way.
 
 ``device`` names where every index keeps its corpus and runs its search.
 It defaults to ``"cuda"``; asking for ``"cuda"`` on a machine without a

@@ -120,10 +120,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dfx_flat_topk.restype = ctypes.c_int
     lib.dfx_flat_topk.argtypes = [
         p, p, p,            # xb, xq, mask
-        i, i, ll, i, i,     # nq, d, n_scan, k, l2
-        i, i, i, ll,        # rq, vec4, splits, rows_per_split
-        i, i,               # slots, merge_warps
-        p, p, p, p,         # part_s, part_p, out_s, out_p
+        i, i, ll, i, i, i,  # nq, d, n_scan, k, k2, l2
+        i, i, i, ll,        # qt, vec4, splits, rows_per_split
+        i, i, i,            # slots, merge_slots, merge_warps
+        p, p, p,            # part_s, part_p, bn_max
+        p, p, p,            # out_s, out_p, unproven
         p,                  # stream
     ]
     lib.dfx_ivf_list_scan.restype = ctypes.c_int
@@ -179,15 +180,23 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i,               # l2, vec4
         p, p, p, p,         # next_tile, out, plan, stream
     ]
-    lib.dfx_sq_spill.restype = ctypes.c_int
-    lib.dfx_sq_spill.argtypes = [
-        p, p, p, p, p, p,   # codes, assign, pos, rs, rn, mask
-        p, p, p,            # probe_ids, digits, qs
+    lib.dfx_sq_spill_windows.restype = ctypes.c_int
+    lib.dfx_sq_spill_windows.argtypes = [
+        p, p, p, p, p,      # codes, pos, rs, rn, mask
+        p, p, p, p, p,      # offsets, probe_ids, units, digits, qs
         i, i, i, i,         # nq, nprobe, n_rows, w
         i, i, i,            # codec, l2, vec
-        p, p, p,            # wmax, warg, stream
+        p, p, p, p,         # keys, wmax, warg, stream
     ]
-
+    lib.dfx_sq_spill_rescore.restype = ctypes.c_int
+    lib.dfx_sq_spill_rescore.argtypes = [
+        p, p, p, p, p,      # codes, assign, pos, mask, probe_ids
+        p, p, p, p, p,      # xq, vmin, scale, wsel, warg
+        i, i, i, i,         # nq, nprobe, n_rows, nwin
+        i, i, i, i,         # k_scan, kw, d, w
+        i, i, i,            # codec, l2, words
+        p, p,               # out, stream
+    ]
 
 def load_library() -> ctypes.CDLL:
     """The compiled kernel library, built on first use."""

@@ -136,6 +136,21 @@ def _assert_layouts_equal(dev, host):
         if sa.rn is not None:
             np.testing.assert_allclose(sa.rn.numpy(), sb.rn.numpy(),
                                        rtol=1e-6)
+        for spill in (sa, sb):
+            _assert_spill_offsets(spill, dev.nlist)
+        np.testing.assert_array_equal(sa.offsets.numpy(), sb.offsets.numpy())
+
+
+def _assert_spill_offsets(spill, nlist):
+    """The spill is sorted by list and ``offsets`` brackets each list's
+    rows: list l holds rows [offsets[l], offsets[l + 1])."""
+    assign = spill.assign[:spill.n].numpy()
+    assert (np.diff(assign) >= 0).all()
+    off = spill.offsets.numpy()
+    assert off.dtype == np.int64 and off.shape == (nlist + 1,)
+    assert off[0] == 0 and off[-1] == spill.n
+    for lst in range(nlist):
+        assert (assign[off[lst]:off[lst + 1]] == lst).all()
 
 
 def _assert_same(got, want):
@@ -426,3 +441,31 @@ def test_search_add_search(catalog, pcat):
     _assert_same(dt.faiss_search("p", 5, xq, params, catalog=pcat),
                  dt.faiss_search("h", 5, xq, params, catalog=pcat))
     _assert_layouts_equal(dev, host)
+
+
+@pytest.mark.parametrize("adds", [1, 2])
+def test_spill_offsets_host_and_device(catalog, pcat, adds):
+    """Both layouts build their spill sorted by list with its (nlist + 1,)
+    offsets, after one add and after a second one that appends spill rows
+    of lists already spilled (the device spill is re-sorted at the next
+    layout build)."""
+    n, d, nlist = 3000, 16, 8
+    xb = _clustered(19, n, d, ncl=8, skew=0.4)
+    _trained(catalog, pcat, f"IVF{nlist},SQ8", "L2", xb[:800],
+             names=("p", "h"))
+    dt.set_sq_dot("int8")
+    host = pcat.get("h").index
+    host.LAYOUT_BUDGET_BYTES = nlist * 128 * d
+    host.SPILL_FRACTION_MAX = 0.9
+    cut = n if adds == 1 else 1700
+    dt.faiss_add_device(xb[:cut], "p", lmax=128, spill_capacity=1 << 14,
+                        catalog=pcat)
+    dt.faiss_add(xb[:cut], "h", catalog=pcat)
+    dev = pcat.get("p").index
+    if adds == 2:
+        dev._build_device_layout()
+        dt.faiss_add_device(xb[cut:], "p", catalog=pcat)
+        dt.faiss_add(xb[cut:], "h", catalog=pcat)
+        assert not (np.diff(dev._dr.spill_assign) >= 0).all()
+    _assert_layouts_equal(dev, host)
+    assert dev._spill.n > n / 2

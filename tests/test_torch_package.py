@@ -263,16 +263,17 @@ def test_sq_kernels_match_plain_on_card(codec, d, metric):
         flat = codes.reshape(-1, w)
         s_pad = flat.shape[0]
         assign = torch.randint(0, nlist, (s_pad,), device="cuda", generator=g,
-                               dtype=torch.int32)
+                               dtype=torch.int32).sort().values
+        offsets = torch.from_numpy(k5.spill_offsets(
+            assign[:s_pad - 77].cpu().numpy(), nlist)).cuda()
         pos = torch.arange(s_pad, device="cuda", dtype=torch.int32)
         args = (flat, assign, pos, rs.reshape(-1), rn.reshape(-1),
                 mask.reshape(-1), probe, q.digits, q.scalars, s_pad - 77,
-                metric, codec)
+                metric, codec, offsets)
         wmax, warg = k5.sq_spill_windows(*args)
         torch.cuda.synchronize()
         rmax, rarg = k5.sq_spill_windows_reference(*args)
-        assert torch.equal(warg, rarg)
-        _rows_agree(wmax, rmax, q.scalars[:, 2].abs())
+        assert torch.equal(warg, rarg) and torch.equal(wmax, rmax)
         launched = (1, 1, 1)
     assert (k2.LAUNCHES - before[0], k3.LAUNCHES - before[1],
             k5.LAUNCHES - before[2]) == launched
@@ -436,3 +437,96 @@ def test_flat_mega_kernel_matches_plain_on_card(card, d, lmax, metric):
     ref = k7.ivf_pairs_scan_reference(*args)
     _rows_agree(raw[:n].reshape(-1, lmax), ref[:n].reshape(-1, lmax),
                 qs_t[:n, :, 1].reshape(-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("codec,d", [("sq8", 33), ("sq8", 1536), ("sq4", 128)])
+def test_spill_rescore_matches_plain_on_card(card, codec, d, metric):
+    """K5's rescore launch against ``spill_rescore_reference`` on the same
+    card tensors: -inf in the same places, other scores within 1e-5 of the
+    largest; then the whole spill search equal to its plain path's."""
+    from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import exact_topk
+    from duckdb_faiss_ext_tpu_torch.ops.sq import sq_code_width
+    from duckdb_faiss_ext_tpu_torch.ops.sq_digits import (KERNEL_SHIFT,
+                                                          query_digits)
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    nlist, s_pad, n_rows, nq, nprobe = 16, 4096, 4000, 64, 4
+    w = sq_code_width(d, codec)
+    codes = torch.randint(0, 256, (s_pad, w), device="cuda", generator=g,
+                          dtype=torch.uint8)
+    assign = torch.randint(0, nlist, (s_pad,), device="cuda", generator=g,
+                           dtype=torch.int32).sort().values
+    offsets = torch.from_numpy(k5.spill_offsets(
+        assign[:n_rows].cpu().numpy(), nlist)).cuda()
+    pos = torch.where(torch.rand(s_pad, device="cuda", generator=g) < 0.9,
+                      torch.arange(s_pad, device="cuda"), -1).to(torch.int32)
+    rn = torch.rand(s_pad, device="cuda", generator=g) * 100
+    rs = torch.rand(s_pad, device="cuda", generator=g) * 100
+    mask = (torch.rand(s_pad, device="cuda", generator=g) < 0.7).to(
+        torch.int8)
+    vmin = torch.randn(d, device="cuda", generator=g)
+    scale = torch.rand(d, device="cuda", generator=g) / 50 + 1e-3
+    xq = torch.randn(nq, d, device="cuda", generator=g)
+    probe = torch.rand(nq, nlist, device="cuda", generator=g).argsort(1)[
+        :, :nprobe].to(torch.int32).contiguous()
+    q = query_digits(xq, vmin, scale, metric, codec, w, KERNEL_SHIFT[codec])
+    wmax, warg = k5.sq_spill_windows_reference(
+        codes, assign, pos, rs, rn, mask, probe, q.digits, q.scalars, n_rows,
+        metric, codec)
+    bestw, wsel = exact_topk(wmax, 32)
+    args = (codes, assign, pos, mask, n_rows, probe, xq, vmin, scale, bestw,
+            wsel, warg, 12, metric, codec)
+    before = k5.RESCORE_LAUNCHES
+    got = k5.spill_rescore(*args)
+    torch.cuda.synchronize()
+    assert k5.RESCORE_LAUNCHES == before + 1
+    want = k5.spill_rescore_reference(*args)
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert finite.any()
+    tol = 1e-5 * float(want[finite].abs().max())
+    assert float((got[finite] - want[finite]).abs().max()) <= tol
+    search = dict(k=10, metric=metric, codec=codec)
+    s_k, p_k = k5.sq_spill_search(codes, assign, pos, rs, rn, n_rows, probe,
+                                  xq, mask, vmin, scale, offsets=offsets,
+                                  **search)
+    saved = k5.sq_spill_windows, k5.spill_rescore
+    k5.sq_spill_windows = k5.sq_spill_windows_reference
+    k5.spill_rescore = k5.spill_rescore_reference
+    try:
+        s_r, p_r = k5.sq_spill_search(codes, assign, pos, rs, rn, n_rows,
+                                      probe, xq, mask, vmin, scale, **search)
+    finally:
+        k5.sq_spill_windows, k5.spill_rescore = saved
+    assert torch.equal(torch.isneginf(s_k), torch.isneginf(s_r))
+    np.testing.assert_allclose(s_k.cpu().numpy(), s_r.cpu().numpy(),
+                               rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+def test_flat_kernel_proves_its_margin_on_card(card, metric):
+    """K1's partial and merge launches on a clustered corpus: the result
+    equals the plain version's and no query's (k + m)-th 3xTF32 candidate
+    comes within twice the error bound of its k-th exact score."""
+    rng = np.random.default_rng(8)
+    centers = rng.standard_normal((64, 128)).astype(np.float32) * 4
+    xb = torch.from_numpy(centers[rng.integers(0, 64, 20000)]
+                          + rng.standard_normal((20000, 128))
+                          .astype(np.float32)).cuda()
+    xq = torch.from_numpy(centers[rng.integers(0, 64, 64)]
+                          + rng.standard_normal((64, 128))
+                          .astype(np.float32)).cuda()
+    ft.reset_unproven("cuda")
+    before = ft.LAUNCHES
+    s, p = ft.flat_topk(xb, 20000, xq, 10, metric)
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES == before + 1 and ft.unproven("cuda") == 0
+    rs, rp = ft.flat_topk_reference(xb, 20000, xq, 10, metric)
+    np.testing.assert_array_equal(p.cpu().numpy(), rp.cpu().numpy())
+    tol = 1e-5 * float(rs.abs().max())
+    np.testing.assert_allclose(s.cpu().numpy(), rs.cpu().numpy(), rtol=0,
+                               atol=tol)

@@ -424,6 +424,89 @@ def test_spill_windows_reference(metric, n_rows):
                                       v * 128 + blk.argmax(1))
 
 
+def _legs_inline(codes, assign, pos, n_rows, probe_ids, xq, mask, vmin,
+                 scale, wmax, warg, k, codec, metric):
+    """The spill search's two rerank legs as ``sq_spill_search`` ran them
+    inline before they became ``spill_rescore_reference``."""
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import exact_topk
+    from duckdb_faiss_ext_tpu_torch.ops.sq import sq_decode
+
+    nq, d = xq.shape
+    s_pad = codes.shape[0]
+    nwin = wmax.shape[1]
+    k = min(k, nwin)
+    f, add = (8, 96) if codec == "sq4" else (4, 32)
+    k_scan = min(nwin, max(f * k, k + add))
+    bestw, wsel = exact_topk(wmax, k_scan)
+    kw = min(nwin, k + 2)
+    parts_s = []
+    lane = torch.arange(k5.WIN)
+    rows_full = (wsel[:, :kw, None].long() * k5.WIN + lane).reshape(
+        nq, kw * k5.WIN)
+    s_full = torch.empty((nq, kw * k5.WIN), dtype=torch.float32)
+    qb = max(1, (1 << 26) // max(kw * k5.WIN * d, 1))
+    for q0 in range(0, nq, qb):
+        rows = rows_full[q0:q0 + qb]
+        safe = rows.clamp(max=s_pad - 1)
+        n = rows.shape[0]
+        xs = sq_decode(codes[safe.reshape(-1)], vmin, scale, codec) \
+            .reshape(n, kw * k5.WIN, d)
+        ok = (k5.probed(probe_ids[q0:q0 + qb], assign[safe])
+              & (rows < n_rows) & (pos[safe] >= 0))
+        if mask is not None:
+            ok = ok & (mask[safe] != 0)
+        s_full[q0:q0 + qb] = torch.where(
+            ok, k5.spill_rerank_scores(xs, xq[q0:q0 + qb], metric),
+            float("-inf"))
+    parts_s.append(s_full)
+    nt = k_scan - kw
+    if nt:
+        cand = warg.gather(1, wsel[:, kw:]).long()
+        xs = sq_decode(codes[cand.reshape(-1)], vmin, scale, codec) \
+            .reshape(nq, nt, d)
+        parts_s.append(torch.where(torch.isneginf(bestw[:, kw:]),
+                                   float("-inf"),
+                                   k5.spill_rerank_scores(xs, xq, metric)))
+    return torch.cat(parts_s, 1), (bestw, wsel, kw)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("codec", ["sq8", "sq4"])
+def test_spill_rescore_reference_equals_inline_legs(codec, metric, masked):
+    """``spill_rescore_reference`` is the two legs the spill search ran
+    inline, moved into a function: bit for bit the same scores, -inf in the
+    same places."""
+    S = _spill(5, codec, 20, 1024, 900, 12, 16, 6)
+    mask = torch.from_numpy(S["mask"]) if masked else None
+    codes, assign, pos, rs, rn, probe, xq, vmin, scale = _t(
+        S["codes"], S["assign"], S["pos"], S["rs"], S["rn"], S["probe"],
+        S["xq"], S["vmin"], S["scale"])
+    q = sq_digits.query_digits(xq, vmin, scale, metric, codec,
+                               codes.shape[1], sq_digits.KERNEL_SHIFT[codec])
+    wmax, warg = k5.sq_spill_windows_reference(
+        codes, assign, pos, rs, rn, mask, probe, q.digits, q.scalars, 900,
+        metric, codec)
+    want, (bestw, wsel, kw) = _legs_inline(
+        codes, assign, pos, 900, probe, xq, mask, vmin, scale, wmax, warg,
+        10, codec, metric)
+    got = k5.spill_rescore_reference(codes, assign, pos, mask, 900, probe, xq,
+                                     vmin, scale, bestw, wsel, warg, kw,
+                                     metric, codec)
+    assert torch.equal(got, want)
+    assert torch.isneginf(got).any() and torch.isfinite(got).any()
+
+
+def test_spill_offsets_bracket_sorted_lists():
+    """``spill_offsets``: list l's rows are [offsets[l], offsets[l + 1]),
+    empty lists included; an unsorted spill is refused."""
+    assign = np.array([0, 0, 2, 2, 2, 5], np.int32)
+    np.testing.assert_array_equal(k5.spill_offsets(assign, 7),
+                                  [0, 2, 2, 5, 5, 5, 6, 6])
+    with pytest.raises(ValueError, match="sorted"):
+        k5.spill_offsets(assign[::-1], 7)
+
+
 # --- the plain SQ scans around the kernels -----------------------------------
 
 def _sorted_codes(seed, codec, d):

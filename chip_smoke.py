@@ -58,13 +58,14 @@ Phases (any failure raises and the script exits non-zero):
    card, raw scores element by element: the per-query list scan (K2,
    ops/ivf_sq_scan.py) and the pair tiles (K3, ops/ivf_sq_pairs.py) at
    sq8 / sq4 / sq6, L2 and inner product, with and without a mask, d 16 /
-   33 / 128 / 1536, lmax 256 and 1024 (counts on both sides of 256, 512
-   and 768), lists of count 0 and count == lmax, tiles with dead slots and
-   n_tiles < t_max; the spill search (K5, ops/sq_spill.py) at sq8 / sq4,
-   nprobe 1 / 16 / 64, a spill sorted by list with a list longer than four
-   windows and a query whose probes meet inside one window, a ragged last
-   window: the windows bit-equal to their plain version, the rescore held
-   against the plain rerank legs;
+   33 / 80 / 128 / 1536, lmax 256 and 1024 (K3 also 2560; counts on both
+   sides of 256, 512 and 768), lists of count 0 and count == lmax, tiles
+   with dead slots and n_tiles < t_max, K3's tiles bit-equal, also with
+   n_tiles cut to 0 and to n_tiles - 3; the spill search (K5,
+   ops/sq_spill.py) at sq8 / sq4, nprobe 1 / 16 / 64, a spill sorted by
+   list with a list longer than four windows and a query whose probes meet
+   inside one window, a ragged last window: the windows bit-equal to their
+   plain version, the rescore held against the plain rerank legs;
    then the pipelined pair tiles (K9, ops/ivf_sq_pairs_mega.py) bit-equal
    to their plain version and to K3 at the same codecs, metrics, masks and
    widths, lmax 256 / 1024 / 2560, with n_tiles cut to 0 and to n_tiles -
@@ -80,12 +81,13 @@ Phases (any failure raises and the script exits non-zero):
    launch counts must match the calls; every result is held against the
    same path with the plain versions of K2, K3 and K5 on the same layout;
    recall@10 against the parity decode path and against exact fp32 search
-   is printed; K2's and K3's raw scores at the b1024 shapes are held
-   against their plain versions and timed; the spill search at b48 and
-   b1024 checked (K5's windows bit-equal, its rescore against the plain
-   legs) and timed stage by stage (windows, window top-k, rescore, final
-   top-k) beside the plain windows and legs; faiss_search wall time under
-   both pairs_impl values;
+   is printed; K2's raw scores at the b1024 shapes are held against its
+   plain version, K3's and K9's tiles bit-equal to their plain version and
+   to each other, all timed, K3 against K9 in turns; the spill search at
+   b48 and b1024 checked (K5's windows bit-equal, its rescore against the
+   plain legs) and timed stage by stage (windows, window top-k, rescore,
+   final top-k) beside the plain windows and legs; faiss_search wall time
+   under both pairs_impl values;
 11. PQ sweep (after phase 7, while the 1M x 128 corpus is loaded): the
    IVF-PQ / IVF-RQ gather-decode-score scan (K8, ops/ivf_pq_scan.py)
    against its plain version, raw scores element by element: PQ with dsub
@@ -125,9 +127,10 @@ Phases (any failure raises and the script exits non-zero):
    against the same path with the plain versions of K2, K3, K9 and K5;
    recall@10 against exact fp32 search is printed; K9's raw tiles at b1024
    are bit-equal to its plain version and K3's, then K9 is timed against
-   both, the spill search is checked and timed stage by stage at b48 and
-   b1024 as in phase 10, and faiss_search's wall time and device stages
-   are taken under both pairs_impl values.
+   its plain version and against K3 in turns, the spill search is checked
+   and timed stage by stage at b48 and b1024 as in phase 10, and
+   faiss_search's wall time and device stages are taken under both
+   pairs_impl values.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -159,7 +162,8 @@ SWEEP_NQ = (1, 48, 64, 1024)   # 64: b48 as the Flat model launches it
 SWEEP_K = (1, 10, 100, 1024)
 #: the SQ sweep: widths and list lengths of K2 / K3, widths and spill rows
 #: of K5 (its last window ragged)
-SQ_SWEEP_D, SQ_SWEEP_LMAX = (16, 33, 128, 1536), (256, 1024)
+#: (80: at sq8 whole 16-byte units but half a 32-dimension k-step)
+SQ_SWEEP_D, SQ_SWEEP_LMAX = (16, 33, 80, 128, 1536), (256, 1024)
 SPILL_SWEEP_D, SPILL_SWEEP_ROWS = (33, 1536), 12_800
 #: kernel sweep: scores agree to 1e-5 of the query's scale (fp32 sums taken
 #: in another order, see compare); main path: distances to 1e-5 of the
@@ -1256,18 +1260,25 @@ def k2_raw_error(codes, rn, rs, counts, probe, q, mask, metric, codec):
 
 
 def k3_raw_error(codes, rn, rs, counts, tiles, mask, metric, codec):
-    """K3's raw tiles against its plain version over the real tiles."""
+    """K3's raw tiles bit-equal to its plain version's (torch.equal: -0.0
+    equals +0.0) over the real tiles, then with n_tiles cut to 0 and to a
+    count no tile grouping divides.  Returns the max abs error (0 when
+    bit-equal)."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
 
     digits_t, scalars_t, meta, _ = tiles
-    args = (codes, rn, rs, counts, digits_t, scalars_t, meta, mask, metric,
-            codec)
-    raw = k3.ivf_sq_pairs_scan(*args)
+    args = [codes, rn, rs, counts, digits_t, scalars_t, meta, mask, metric,
+            codec]
+    n = int(meta[0])
     ref = k3.ivf_sq_pairs_scan_reference(*args)
-    n, lmax = int(meta[0]), raw.shape[2]
-    base = scalars_t[:n, :, 2].abs()
-    return compare_raw(raw[:n].reshape(-1, lmax), ref[:n].reshape(-1, lmax),
-                       torch.where(torch.isinf(base), 0.0, base).reshape(-1))
+    check(torch.equal(k3.ivf_sq_pairs_scan(*args)[:n], ref[:n]),
+          "K3 differs from its plain version")
+    for cut in (0, max(0, n - 3)):
+        args[6] = meta.clone()
+        args[6][0] = cut
+        check(torch.equal(k3.ivf_sq_pairs_scan(*args)[:cut], ref[:cut]),
+              f"K3 at n_tiles {cut}")
+    return 0.0
 
 
 def k5_raw_error(args):
@@ -1329,7 +1340,8 @@ def spill_probe_table(g, nq, nlist, nprobe):
 
 def phase_sq_sweep():
     """K2 and K3 against their plain versions: sq8 / sq4 / sq6, L2 / IP,
-    mask off / on, d 16 / 33 / 128 / 1536, lmax 256 and 1024, nprobe in
+    mask off / on, d 16 / 33 / 80 / 128 / 1536, lmax 256 and 1024 (K3 also
+    2560, bit-equal, and with n_tiles cut to 0 and n_tiles - 3), nprobe in
     turn 1 / 3 / 16 / 64; K5 at sq8 / sq4, nprobe 1 / 16 / 64, d 33 /
     1536, a ragged last window and a partial query group."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
@@ -1343,9 +1355,9 @@ def phase_sq_sweep():
     nlist, nq2, nq3 = 64, BATCH, 256
     before = (k2.LAUNCHES, k3.LAUNCHES, k5.LAUNCHES)
     err2 = err3 = err5 = 0.0
-    n23 = n5 = 0
+    n2 = n3 = n5 = 0
     nprobes = itertools.cycle((1, 3, 16, 64))
-    for d, lmax in itertools.product(SQ_SWEEP_D, SQ_SWEEP_LMAX):
+    for d, lmax in itertools.product(SQ_SWEEP_D, SQ_MEGA_SWEEP_LMAX):
         t0 = time.perf_counter()
         xq = torch.randn(nq3, d, device=DEVICE, generator=g)
         for codec in ("sq8", "sq4", "sq6"):
@@ -1357,11 +1369,13 @@ def phase_sq_sweep():
                 probe = probe_table(g, nq3, nlist, next(nprobes))
                 q = query_digits(xq, vmin, scale, metric, codec, w,
                                  KERNEL_SHIFT[codec])
-                q2 = type(q)(q.digits[:nq2].contiguous(),
-                             q.scalars[:nq2].contiguous())
-                err2 = max(err2, k2_raw_error(
-                    codes, rn, rs, counts, probe[:nq2].contiguous(), q2, m,
-                    metric, codec))
+                if lmax in SQ_SWEEP_LMAX:
+                    q2 = type(q)(q.digits[:nq2].contiguous(),
+                                 q.scalars[:nq2].contiguous())
+                    err2 = max(err2, k2_raw_error(
+                        codes, rn, rs, counts, probe[:nq2].contiguous(), q2,
+                        m, metric, codec))
+                    n2 += 1
                 tiles = k3.sq_pair_tile_inputs(probe, q, nlist, metric)
                 n_tiles = int(tiles[2][0])
                 check(n_tiles < tiles[1].shape[0], "no padding tiles")
@@ -1369,9 +1383,10 @@ def phase_sq_sweep():
                       or probe.numel() % QG == 0, "no dead slots")
                 err3 = max(err3, k3_raw_error(codes, rn, rs, counts, tiles,
                                               m, metric, codec))
-                n23 += 1
+                n3 += 1
             del codes, rn, rs, mask
-        log(f"sq sweep d={d} lmax={lmax}: 12 cases x (K2, K3) agree "
+        log(f"sq sweep d={d} lmax={lmax}: 12 cases, "
+            f"{'K2 agrees, ' if lmax in SQ_SWEEP_LMAX else ''}K3 bit-equal "
             f"({time.perf_counter() - t0:.1f} s)")
         torch.cuda.empty_cache()
     from duckdb_faiss_ext_tpu_torch.ops.sq_spill import spill_offsets
@@ -1417,11 +1432,12 @@ def phase_sq_sweep():
     check(k5.RESCORE_LAUNCHES - rescore_before == n5,
           "an sq sweep rescore did not launch")
     check((k2.LAUNCHES - before[0], k3.LAUNCHES - before[1],
-           k5.LAUNCHES - before[2]) == (n23, n23, 2 * n5),
+           k5.LAUNCHES - before[2]) == (n2, 3 * n3, 2 * n5),
           "an sq sweep case did not launch")
-    log(f"sq sweep: {n23} cases each for K2 and K3, {n5} for K5 (windows "
-        f"bit-equal); max abs score error K2 {err2:.3g}, K3 {err3:.3g}, K5 "
-        f"rescore {err5:.3g}")
+    log(f"sq sweep: {n2} cases for K2, {n3} for K3 (bit-equal; K3 blocks an "
+        f"SM at the last {k3.last_blocks}), {n5} for K5 (windows bit-equal); "
+        f"max abs score error K2 {err2:.3g}, K3 {err3:.3g}, K5 rescore "
+        f"{err5:.3g}")
     return err2, err3, err5
 
 
@@ -1452,7 +1468,7 @@ def k9_raw_error(codes, rn, rs, counts, tiles, mask, metric, codec):
 
 def phase_sq_mega_sweep():
     """K9 bit-equal to its plain version and to K3: sq8 / sq4 / sq6, L2 /
-    IP, mask off / on, d 16 / 33 / 128 / 1536, lmax 256 / 1024 / 2560
+    IP, mask off / on, d 16 / 33 / 80 / 128 / 1536, lmax 256 / 1024 / 2560
     (counts on both sides of 256, 512 and 768, count 0 and count == lmax),
     nprobe in turn 1 / 3 / 16 / 64, dead slots, n_tiles < t_max, n_tiles 0
     and n_tiles - 3."""
@@ -1489,8 +1505,8 @@ def phase_sq_mega_sweep():
         torch.cuda.empty_cache()
     check(k9.LAUNCHES - before == 3 * n_cases,
           "an sq mega sweep case did not launch")
-    log(f"sq mega sweep: {n_cases} cases bit-equal; plan (stages, blocks) "
-        f"{k9.last_plan}")
+    log(f"sq mega sweep: {n_cases} cases bit-equal; last plan (stages, "
+        f"blocks, TMA) {k9.last_plan}")
     return err
 
 
@@ -1674,6 +1690,7 @@ def phase_sq_main(smi):
     API, in fast mode (the int8 path)."""
     import duckdb_faiss_ext_tpu_torch as dt
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs_mega as k9
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
     from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
     from duckdb_faiss_ext_tpu_torch.ops.flat_search import exact_topk
@@ -1804,10 +1821,12 @@ def phase_sq_main(smi):
     tiles = k3.sq_pair_tile_inputs(probe, q, SQ_NLIST, metric)
     lists = (lay.payload, lay.rn, lay.rs, lay.counts)
     raw2 = k2_raw_error(*lists, probe, q, None, metric, codec)
-    raw3 = k3_raw_error(*lists, tiles, None, metric, codec)
+    raw3 = max(k3_raw_error(*lists, tiles, None, metric, codec),
+               k9_raw_error(*lists, tiles, None, metric, codec))
     log(f"sq main path b1024 raw scores (lmax {lmax}, {int(tiles[2][0])} of "
-        f"{tiles[1].shape[0]} tiles): K2 and K3 agree with their plain "
-        f"versions (max abs error K2 {raw2:.3g}, K3 {raw3:.3g})")
+        f"{tiles[1].shape[0]} tiles): K2 agrees with its plain version (max "
+        f"abs error {raw2:.3g}); K3 and K9 tiles bit-equal to the plain "
+        f"version and to each other")
 
     timings = {}
     xq48, probe48, q48 = shapes["b48"]
@@ -1818,6 +1837,8 @@ def phase_sq_main(smi):
     timings["k3"] = time_pair(lambda: k3.ivf_sq_pairs_scan(*a3),
                               lambda: k3.ivf_sq_pairs_scan_reference(*a3),
                               reps=4)
+    ms9, ms3 = time_pair(lambda: k9.ivf_sq_pairs_mega_scan(*a3),
+                         lambda: k3.ivf_sq_pairs_scan(*a3), reps=10)
     k5_48 = spill_report(f"IVF{SQ_NLIST},SQ8 {SQ_N}x{SQ_D} IP b48", spill,
                          vmin, scale, shapes["b48"][0], shapes["b48"][1],
                          metric, codec, smi)
@@ -1847,7 +1868,8 @@ def phase_sq_main(smi):
         f"scores (median CUDA events): K2 b48 (64 rows) {timings['k2'][0]:.3f}"
         f" ms, plain {timings['k2'][1]:.3f} ms; K2 b1024 {k2_1024:.3f} ms; "
         f"K3 b1024 {timings['k3'][0]:.3f} ms, plain {timings['k3'][1]:.3f} "
-        f"ms; K5 (windows + rescore) b1024 {timings['k5'][0]:.3f} ms, plain "
+        f"ms; in turns K9 {ms9:.3f} ms against K3 {ms3:.3f} ms (K3 "
+        f"{k3.last_blocks} blocks an SM, K9 plan {k9.last_plan}); K5 (windows + rescore) b1024 {timings['k5'][0]:.3f} ms, plain "
         f"{timings['k5'][1]:.3f} ms; K5 b48 {k5_48[0]:.3f} ms, plain "
         f"{k5_48[1]:.3f} ms; top-{k_scan} of the b1024 pair-gathered block "
         f"{topk_ms:.3f} ms; bounds K2 b48 {timings['k2'][2][0]:.3f} ms "
@@ -2038,7 +2060,7 @@ def phase_marco_device(smi):
     n_tiles = int(tiles[2][0])
     log(f"marco device path b1024 raw tiles (lmax {lmax}, {n_tiles} of "
         f"{tiles[1].shape[0]} tiles): K9 bit-equal to its plain version and "
-        f"to K3; K9 plan (stages, blocks) {k9.last_plan}")
+        f"to K3; K9 plan (stages, blocks, TMA) {k9.last_plan}")
     a3 = (*lists, *tiles[:3], None, metric, codec)
     ms9, plain_ms = time_pair(lambda: k9.ivf_sq_pairs_mega_scan(*a3),
                               lambda: k3.ivf_sq_pairs_scan_reference(*a3),
@@ -2052,7 +2074,8 @@ def phase_marco_device(smi):
     log(f"time IVF{SQ_NLIST},SQ8 {MARCO_N}x{SQ_D} IP nprobe {SQ_NPROBE} "
         f"b1024 raw tiles (median CUDA events): K9 {ms9:.3f} ms, plain "
         f"{plain_ms:.3f} ms; in turns K9 {ms9b:.3f} ms against K3 "
-        f"{ms3:.3f} ms; bound {b9[0]:.3f} ms ({b9[1]}) [{smi}]")
+        f"{ms3:.3f} ms (K3 {k3.last_blocks} blocks an SM, K9 plan "
+        f"{k9.last_plan}); bound of both {b9[0]:.3f} ms ({b9[1]}) [{smi}]")
     k5_timing = None
     if n_spill:
         xq48 = torch.from_numpy(pad_rows(data["b48"], 64)).to(DEVICE)

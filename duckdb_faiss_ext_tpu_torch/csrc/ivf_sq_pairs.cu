@@ -4,156 +4,136 @@
 // duckdb_faiss_ext_tpu_torch/ops/ivf_sq_pairs.py.
 //
 // Contract: codes (nlist, lmax, w) uint8, rn / rs (nlist, lmax) fp32,
-// counts (nlist,), digits (t_max * 8, 2, 4 * words) int8 (each tile's 8
-// query slots' hi and lo digits), qs (t_max, 8, 4) fp32 each slot's (su2,
-// c0, base, mu) with base +inf (L2) / -inf (IP) on empty slots, meta
-// (1 + t_max,) = n_tiles followed by each tile's list id, optional mask
-// (nlist, lmax) bytes.  For every tile t < n_tiles with list l = meta[1 + t],
-// slot s and row r < lmax: the fp32 score of sq_digits.cuh::score (so -inf
-// on empty slots), and -inf where r >= counts[l] or mask[l, r] == 0.  Tiles
-// t >= n_tiles return at once and are left unwritten (no pair points into
-// them); n_tiles is read on the device, so the host never waits for it.
+// counts (nlist,), digits (t_max * 8, 2, width) int8 (each tile's 8 query
+// slots' hi and lo digits, width a multiple of 4), qs (t_max, 8, 4) fp32
+// each slot's (su2, c0, base, mu) with base +inf (L2) / -inf (IP) on empty
+// slots, meta (1 + t_max,) = n_tiles followed by each tile's list id,
+// optional mask (nlist, lmax) bytes.  For every tile t < n_tiles with list
+// l = meta[1 + t], slot s and row r < lmax: the fp32 score of
+// sq_digits.cuh::score (so -inf on empty slots), and -inf where r >=
+// counts[l] or mask[l, r] == 0.  Tiles t >= n_tiles return at once and are
+// left unwritten (no pair points into them); n_tiles is read on the device,
+// so the host never waits for it.  lmax is a multiple of 4 and rn / rs
+// are 8-byte aligned (a lane loads two rows' scalars as one float2).
 //
 // Design.  The TPU kernel ran one (16, w) x (lmax, w)^T int8 MXU dot per
 // tile, the 8 queries' hi and lo digits stacked into 16 rows.  Here one
-// block of 256 threads serves one tile, as K7 (ivf_pairs.cu) does: the 16
-// digit rows (16 x d bytes, 24 KB at d = 1536) are staged in shared memory
-// as [word][slot], each thread owns one list row of a 256-row chunk and
-// keeps the 16 int32 dots (8 queries x hi / lo) in registers, reading its
-// row once in 16-byte units (48 for sq6), unpacking in registers and
-// running 16 __dp4a per code word against broadcast digit words.  Chunks
-// wholly past the count are skipped and written -inf.  Offsets into the
-// codes are 64-bit.
-// What bounds it on the H100: __dp4a throughput (16 per 4 codes of a row)
-// and the shared-memory digit broadcasts feeding it, then the code bytes of
-// the tiles' lists (a list is read once per tile: 8 queries a read).
-// Neighbouring threads read rows w bytes apart, so a warp's loads are not
-// coalesced; L1 keeps each row's 128-byte lines between its loads.  int8
-// tensor cores (mma.sync m16n8k32, whose M of 16 fits the 16 digit rows,
-// or wgmma), cp.async / TMA staging of the code chunks, and several tiles
-// of one list per block are left to later work.
+// block of 8 warps serves one tile, as the grid branch does, and the dot
+// runs on the int8 tensor cores: mma.sync m16n8k32 with the 16 digit rows
+// as A and 8 list rows as B (sq_mma.cuh).  The tile's list streams through
+// a cp.async ring of 256-row x 128-byte chunks (96 for sq6), each with the
+// digits of its dimensions, in shared memory, the next chunks in flight
+// while one computes (sq_mma.cuh::ring_scan): each row's bytes of a chunk
+// copy in neighbouring 16-byte pieces, so a warp's loads are coalesced.
+// The wrapper plans the stages (ops/ivf_sq_pairs.py::stage_plan): two
+// blocks an SM, then the deepest ring (at d = 1536: 3 stages, 103 KB).
+// Chunks wholly past the count are written -inf without a copy.  Offsets
+// into the codes are 64-bit.
+// What bounds it on the H100: the code bytes of each tile's list (read
+// once a tile, 8 queries a read).  The MMAs (2 int8 operations a digit of
+// every (query, row) pair, a twentieth of the bytes' time at the MS MARCO
+// shape) and the fragment loads from shared memory stay below it; what
+// keeps the copies from the bound is the ring's depth (one chunk in flight
+// a block) and the tiles a wave leaves unfinished.
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
-#include "sq_digits.cuh"
+#include "sq_mma.cuh"
 
 namespace {
 
-constexpr int kQG = 8;          // queries per tile
-constexpr int kSlots = 2 * kQG;  // hi and lo digit rows
-constexpr int kRows = 256;      // list rows per chunk: one per thread
-
 template <int CODEC, bool VEC, bool L2>
-__global__ void __launch_bounds__(kRows)
-ivf_sq_pairs_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ rn,
-                    const float* __restrict__ rs, const int* __restrict__ counts,
-                    const int8_t* __restrict__ digits, const float* __restrict__ qs,
-                    const int* __restrict__ meta, const int8_t* __restrict__ mask,
-                    int t_max, int nlist, int lmax, int w, float* __restrict__ out) {
-  extern __shared__ int4 dig_s4[];
-  int* dig = reinterpret_cast<int*>(dig_s4);
-  const int tile = blockIdx.x;
-  if (tile >= meta[0]) return;  // padding tile: block-uniform
-  const int lid = meta[1 + tile];
-  const bool live = lid >= 0 && lid < nlist;
-  const int cnt = live ? min(max(counts[lid], 0), lmax) : 0;
-  float* o = out + static_cast<int64_t>(tile) * kQG * lmax;
-  const int64_t slot0 = static_cast<int64_t>(live ? lid : 0) * lmax;
-  const int words = sqd::digit_words<CODEC>(w);
-  if (cnt > 0) sqd::stage_digits(digits, tile * kQG, t_max * kQG, kQG, words, dig);
-  float q4[kQG][4];
-#pragma unroll
-  for (int q = 0; q < kQG; ++q) {
-    const float4 v = reinterpret_cast<const float4*>(qs)[static_cast<int64_t>(tile) * kQG + q];
-    q4[q][0] = v.x; q4[q][1] = v.y; q4[q][2] = v.z; q4[q][3] = v.w;
-  }
-  __syncthreads();
-
-  for (int row0 = 0; row0 < lmax; row0 += kRows) {
-    const int r = row0 + threadIdx.x;
-    if (r >= lmax) break;
-    if (row0 >= cnt || r >= cnt || (mask && mask[slot0 + r] == 0)) {
-#pragma unroll
-      for (int q = 0; q < kQG; ++q) o[q * lmax + r] = -INFINITY;
-      continue;
-    }
-    int acc[kSlots];
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) acc[s] = 0;
-    sqd::row_dot<CODEC, VEC, kSlots>(codes + (slot0 + r) * w, w, 0, 1, dig, acc);
-    const float rs_r = rs[slot0 + r];
-    const float rn_r = L2 ? rn[slot0 + r] : 0.f;
-#pragma unroll
-    for (int q = 0; q < kQG; ++q)
-      o[q * lmax + r] = sqd::score<L2>(acc[2 * q], acc[2 * q + 1], q4[q][0], q4[q][1],
-                                       q4[q][2], q4[q][3], rs_r, rn_r);
-  }
+__global__ void __launch_bounds__(sqm::kThreads, 2)
+    ivf_sq_pairs_kernel(sqm::RingArgs a, float* __restrict__ out) {
+  extern __shared__ int4 smem4[];
+  sqm::ring_scan<CODEC, VEC, L2>(a, out, reinterpret_cast<uint8_t*>(smem4));
 }
 
 template <int CODEC, bool VEC, bool L2>
-cudaError_t launch(const uint8_t* codes, const float* rn, const float* rs, const int* counts,
-                   const int8_t* digits, const float* qs, const int* meta, const int8_t* mask,
-                   int t_max, int nlist, int lmax, int w, float* out, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(int) * kSlots * static_cast<size_t>(sqd::digit_words<CODEC>(w));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ivf_sq_pairs_kernel<CODEC, VEC, L2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  ivf_sq_pairs_kernel<CODEC, VEC, L2><<<t_max, kRows, smem, stream>>>(
-      codes, rn, rs, counts, digits, qs, meta, mask, t_max, nlist, lmax, w, out);
+cudaError_t launch(const sqm::RingArgs& a, float* out, int smem, int* plan,
+                   cudaStream_t stream) {
+  auto kernel = ivf_sq_pairs_kernel<CODEC, VEC, L2>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, sqm::kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (blocks == 0) return cudaErrorInvalidValue;
+  if (plan != nullptr) plan[0] = blocks;
+  kernel<<<a.t_max, sqm::kThreads, smem, stream>>>(a, out);
   return cudaGetLastError();
 }
 
 template <int CODEC>
-cudaError_t dispatch(bool vec, bool l2, const uint8_t* codes, const float* rn,
-                     const float* rs, const int* counts, const int8_t* digits, const float* qs,
-                     const int* meta, const int8_t* mask, int t_max, int nlist, int lmax,
-                     int w, float* out, cudaStream_t s) {
+cudaError_t dispatch(bool vec, bool l2, const sqm::RingArgs& a, float* out, int smem,
+                     int* plan, cudaStream_t s) {
+  const size_t need =
+      sqm::kHeadBytes + static_cast<size_t>(a.stages) *
+                            (vec ? sqm::Ring<CODEC, true>::kStageBytes
+                                 : sqm::Ring<CODEC, false>::kStageBytes);
+  if (static_cast<size_t>(smem) < need) return cudaErrorInvalidValue;
   if (vec)
-    return l2 ? launch<CODEC, true, true>(codes, rn, rs, counts, digits, qs, meta, mask, t_max,
-                                          nlist, lmax, w, out, s)
-              : launch<CODEC, true, false>(codes, rn, rs, counts, digits, qs, meta, mask,
-                                           t_max, nlist, lmax, w, out, s);
-  return l2 ? launch<CODEC, false, true>(codes, rn, rs, counts, digits, qs, meta, mask, t_max,
-                                         nlist, lmax, w, out, s)
-            : launch<CODEC, false, false>(codes, rn, rs, counts, digits, qs, meta, mask, t_max,
-                                          nlist, lmax, w, out, s);
+    return l2 ? launch<CODEC, true, true>(a, out, smem, plan, s)
+              : launch<CODEC, true, false>(a, out, smem, plan, s);
+  return l2 ? launch<CODEC, false, true>(a, out, smem, plan, s)
+            : launch<CODEC, false, false>(a, out, smem, plan, s);
 }
 
 }  // namespace
 
-// Returns the CUDA error of the launch (0 on success), or cudaErrorInvalidValue
-// for an unknown codec.  codec: 0 sq8, 1 sq4, 2 sq6.  The caller sizes out as
-// (t_max, 8, lmax) and passes vec = 1 only with w a multiple of the unit
-// (16 bytes; 48 for sq6) and 16-byte aligned codes; digits must be 4-byte
-// and qs 16-byte aligned.
+// Returns the CUDA error of the launch (0 on success), or
+// cudaErrorInvalidValue for an unknown codec, a chunk width or a shared
+// memory size that does not match the kernel's, or a plan no block fits.
+// codec: 0 sq8, 1 sq4, 2 sq6.  The caller sizes out as (t_max, 8, lmax)
+// and passes lmax a multiple of 4, 8-byte aligned rn and rs, a 4-byte
+// aligned mask, 16-byte aligned qs, vec = 1 only with w a multiple of the
+// unit (16 bytes; 48 for sq6) and 16-byte aligned codes, dvec = 1 only with width a multiple of 16 and
+// 16-byte aligned digits; chunk (code bytes a row per chunk), stages and
+// smem from the stage plan.  plan (1 int, or null) receives the blocks an
+// SM holds.
 extern "C" int dfx_ivf_sq_pairs(const uint8_t* codes, const float* rn, const float* rs,
                                 const int* counts, const int8_t* digits, const float* qs,
                                 const int* meta, const int8_t* mask, int t_max, int nlist,
-                                int lmax, int w, int codec, int l2, int vec, float* out,
-                                void* stream_ptr) {
+                                int lmax, int w, int codec, int l2, int vec, int dvec,
+                                int width, int chunk, int stages, int smem, float* out,
+                                int* plan, void* stream_ptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err;
+  sqm::RingArgs a{};
+  a.codes = codes;
+  a.codes_end = codes + static_cast<int64_t>(nlist) * lmax * w;
+  a.rn = rn;
+  a.rs = rs;
+  a.counts = counts;
+  a.digits = digits;
+  a.qs = qs;
+  a.meta = meta;
+  a.mask = reinterpret_cast<const uint8_t*>(mask);
+  a.t_max = t_max;
+  a.nlist = nlist;
+  a.lmax = lmax;
+  a.w = w;
+  a.width = width;
+  a.dvec = dvec;
+  a.ncc = (w + chunk - 1) / chunk;
+  a.stages = stages;
+  a.next_tile = nullptr;
+  if (stages < 2 || stages > sqm::kMaxStages) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
   switch (codec) {
     case sqd::kSQ8:
-      err = dispatch<sqd::kSQ8>(vec, l2, codes, rn, rs, counts, digits, qs, meta, mask, t_max,
-                                nlist, lmax, w, out, s);
+      if (chunk == sqm::Geo<sqd::kSQ8>::kCW)
+        err = dispatch<sqd::kSQ8>(vec, l2, a, out, smem, plan, s);
       break;
     case sqd::kSQ4:
-      err = dispatch<sqd::kSQ4>(vec, l2, codes, rn, rs, counts, digits, qs, meta, mask, t_max,
-                                nlist, lmax, w, out, s);
+      if (chunk == sqm::Geo<sqd::kSQ4>::kCW)
+        err = dispatch<sqd::kSQ4>(vec, l2, a, out, smem, plan, s);
       break;
     case sqd::kSQ6:
-      err = dispatch<sqd::kSQ6>(vec, l2, codes, rn, rs, counts, digits, qs, meta, mask, t_max,
-                                nlist, lmax, w, out, s);
+      if (chunk == sqm::Geo<sqd::kSQ6>::kCW)
+        err = dispatch<sqd::kSQ6>(vec, l2, a, out, smem, plan, s);
       break;
-    default:
-      err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

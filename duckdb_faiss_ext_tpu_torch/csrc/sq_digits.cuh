@@ -1,6 +1,8 @@
 // Unpack-and-dot of packed SQ codes against int8 query digits (K4), shared
-// by the IVF,SQ kernels for Hopper (sm_90a): ivf_sq_scan.cu (K2),
-// ivf_sq_pairs.cu (K3), sq_spill.cu (K5) and ivf_sq_pairs_mega.cu (K9).  Replaces the in-kernel helper
+// by the IVF,SQ kernels for Hopper (sm_90a): ivf_sq_scan.cu (K2) and
+// sq_spill.cu (K5) dot with __dp4a here; ivf_sq_pairs.cu (K3) and
+// ivf_sq_pairs_mega.cu (K9) take the unpack helpers and the epilogue into
+// their int8 tensor-core core (sq_mma.cuh).  Replaces the in-kernel helper
 // duckdb_faiss_ext_tpu/ops/sq_digits.py::sq_block_digit_dot; the plain torch
 // version is duckdb_faiss_ext_tpu_torch/ops/sq_digits.py::digit_dots.
 //
@@ -26,10 +28,8 @@
 // memory (vec, group) or from rows already staged in shared memory
 // (from_units, group_at).
 //
-// Shared-memory digit layouts: [word][slot] int32, S slots a word (K2,
-// K3, K5: dot_word), or [slot][word] int32 rows as a copy lands them (K9:
-// dot_slot_major, dot_slot_major4); slot 2q holds query q's hi digits,
-// slot 2q + 1 its lo digits.
+// Shared-memory digit layout of dot_word: [word][slot] int32, S slots a
+// word; slot 2q holds query q's hi digits, slot 2q + 1 its lo digits.
 
 #pragma once
 
@@ -174,30 +174,6 @@ __device__ __forceinline__ void dot_word(int code, const int* __restrict__ dig, 
   } else {
 #pragma unroll
     for (int s = 0; s < S; ++s) acc[s] = __dp4a(code, d[s], acc[s]);
-  }
-}
-
-// acc[s] += row s of slot-major digits (stride ints a slot) . one code
-// word, the digits of word `word`.
-template <int S>
-__device__ __forceinline__ void dot_slot_major(int code, const int* __restrict__ dig, int stride,
-                                               int word, int (&acc)[S]) {
-#pragma unroll
-  for (int s = 0; s < S; ++s) acc[s] = __dp4a(code, dig[s * stride + word], acc[s]);
-}
-
-// The same for four consecutive code words from word `word` (a multiple of
-// 4, with stride one too): one 16-byte broadcast a slot, four __dp4a.
-template <int S>
-__device__ __forceinline__ void dot_slot_major4(const int (&code)[4], const int* __restrict__ dig,
-                                                int stride, int word, int (&acc)[S]) {
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int4 v = *reinterpret_cast<const int4*>(dig + s * stride + word);
-    acc[s] = __dp4a(code[0], v.x, acc[s]);
-    acc[s] = __dp4a(code[1], v.y, acc[s]);
-    acc[s] = __dp4a(code[2], v.z, acc[s]);
-    acc[s] = __dp4a(code[3], v.w, acc[s]);
   }
 }
 

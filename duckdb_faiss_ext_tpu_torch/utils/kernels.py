@@ -162,15 +162,18 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p, p,         # codes, rn, rs, counts
         p, p, p, p,         # digits, qs, meta, mask
         i, i, i, i,         # t_max, nlist, lmax, w
-        i, i, i,            # codec, l2, vec
-        p, p,               # out, stream
+        i, i, i, i,         # codec, l2, vec, dvec
+        i, i, i, i,         # width, chunk, stages, smem
+        p, p, p,            # out, plan, stream
     ]
     lib.dfx_ivf_sq_pairs_mega.restype = ctypes.c_int
     lib.dfx_ivf_sq_pairs_mega.argtypes = [
         p, p, p, p,         # codes, rn, rs, counts
         p, p, p, p,         # digits, qs, meta, mask
         i, i, i, i,         # t_max, nlist, lmax, w
-        i, i, i, i,         # codec, l2, vec, dvec
+        i, i, i, i, i,      # codec, l2, vec, dvec, tma
+        p,                  # shape (10 int64: the tensor maps)
+        i, i, i, i,         # width, chunk, stages, smem
         p, p, p, p,         # next_tile, out, plan, stream
     ]
     lib.dfx_ivf_pairs_mega.restype = ctypes.c_int

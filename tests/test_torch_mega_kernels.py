@@ -41,6 +41,8 @@ from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
 from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs_mega as k9
 from duckdb_faiss_ext_tpu_torch.ops import sq as psq
 from duckdb_faiss_ext_tpu_torch.ops import sq_digits
+from test_torch_sq_kernels import (  # noqa: E402  (same test dir)
+    _assert_raw_agree, _terms, walk_tiles)
 
 #: tests/test_pallas_pairs.py's mega shapes
 N, D, NLIST, LMAX, NPROBE, K, NQ = 600, 64, 8, 128, 4, 5, 20
@@ -80,13 +82,13 @@ def _assert_topk_agree(got, want):
     np.testing.assert_array_equal(gp[separated], wp[separated])
 
 
-def _sq_layout(codec, metric, seed=23):
-    """test_pallas_pairs.py's SQ state, encoded by the port (byte-equal to
-    the JAX package's codes): round-robin lists, a probe table, queries and
-    a mask."""
+def _sq_layout(codec, metric, seed=23, d=D):
+    """test_pallas_pairs.py's SQ state (at width d), encoded by the port
+    (byte-equal to the JAX package's codes): round-robin lists, a probe
+    table, queries and a mask."""
     rng = np.random.default_rng(seed)
-    xb = rng.standard_normal((N, D)).astype(np.float32)
-    xq = rng.standard_normal((NQ, D)).astype(np.float32)
+    xb = rng.standard_normal((N, d)).astype(np.float32)
+    xq = rng.standard_normal((NQ, d)).astype(np.float32)
     vmin, scale = psq.sq_train(torch.from_numpy(xb), psq.SQ_LEVELS[codec])
     q = psq.sq_quantize(torch.from_numpy(xb), vmin, scale,
                         psq.SQ_LEVELS[codec]).numpy()
@@ -100,8 +102,8 @@ def _sq_layout(codec, metric, seed=23):
         rows = np.nonzero(assign == li)[0]
         lists[li, :rows.size] = codes[rows]
         row_pos[li, :rows.size] = rows
-    rn_all = psq.sq_row_norms(codes, scale.numpy(), D, codec)
-    rs_all = psq.sq_row_sums(codes, D, codec)
+    rn_all = psq.sq_row_norms(codes, scale.numpy(), d, codec)
+    rs_all = psq.sq_row_sums(codes, d, codec)
     valid = row_pos >= 0
     rn = np.zeros((NLIST, LMAX), np.float32)
     rs = np.zeros((NLIST, LMAX), np.float32)
@@ -172,6 +174,107 @@ def test_k9_route_matches_jax_mega(codec, metric, masked):
     grid = k3.ivf_sq_pairs_search(*args, **kw)
     for a, b in zip(got, grid):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("codec", ["sq8", "sq4", "sq6"])
+@pytest.mark.parametrize("d", [16, 33, 80])
+def test_k9_plan_walk_matches_jax_mega(d, codec, metric, masked):
+    """K9's host plan walked as the kernel walks it, through its TMA
+    tensor map where ``tma_ok`` takes the width and through the cp.async
+    ring's staging always: the plain version's raw tiles bit for bit, and
+    the interpreted mega-step kernel's within 2e-5 of each row's scale
+    (tests/test_torch_sq_kernels.py's terms)."""
+    L = _sq_layout(codec, metric, seed=23 + d, d=d)
+    mask = L["mask"] if masked else None
+    raw, tl, tq, _ = (np.asarray(a) for a in _jax_sq_mega(
+        L, codec, metric, mask, k=K, k_scan=2 * K, debug_raw=True))
+    q = sq_digits.query_digits(*_t(L["xq"], L["vmin"], L["scale"]), metric,
+                               codec, L["lists"].shape[2],
+                               sq_digits.KERNEL_SHIFT[codec])
+    digits_t, scalars_t, meta, _ = k3.sq_pair_tile_inputs(
+        torch.from_numpy(L["probe"]), q, NLIST, metric)
+    codes = torch.from_numpy(L["lists"])
+    args = (codes, *_t(L["rn"], L["rs"], L["counts"]), digits_t, scalars_t,
+            meta, *_t(mask), metric, codec)
+    n = int(meta[0])
+    np.testing.assert_array_equal(meta[1:n + 1].numpy(), tl[:n])
+    want = k3.ivf_sq_pairs_scan_reference(*args)[:n]
+    w = codes.shape[2]
+    tma = k9.tma_ok(codes, digits_t, codec)
+    assert tma == (codec != "sq6" and w % 16 == 0)
+    walks = [walk_tiles(*args, k3.stage_plan(
+        w, codec, persistent=True, vec=k3.vec_ok(codes, codec)))]
+    if tma:
+        walks.append(walk_tiles(
+            *args, k3.stage_plan(w, codec, persistent=True, tma=True),
+            k9.tensor_maps(codes, digits_t)))
+    for got in walks:
+        assert torch.equal(got[:n], want)
+    terms = _terms(L, np.clip(tq[:n], 0, None), tl[:n, None], metric, codec)
+    _assert_raw_agree(walks[-1][:n].numpy(), raw[:n], terms)
+
+
+@pytest.mark.parametrize("codec,d", [("sq8", 272), ("sq8", 300), ("sq4", 600),
+                                     ("sq6", 200)])
+def test_k9_plan_walk_over_many_chunks(codec, d):
+    """Lists of 640 rows (three row chunks, the last partial) and rows of
+    several column chunks (the last partial, misaligned at sq8 d = 300),
+    counts 0, 1, lmax and across chunk edges: the walk under both copy
+    plans equals the plain version bit for bit."""
+    g = torch.Generator().manual_seed(d)
+    nlist, lmax, nq, nprobe = 6, 640, 24, 2
+    w = psq.sq_code_width(d, codec)
+    codes = torch.randint(0, 256, (nlist, lmax, w), generator=g,
+                          dtype=torch.uint8)
+    counts = torch.tensor([0, 1, lmax, 255, 257, 513], dtype=torch.int32)
+    rn = torch.rand(nlist, lmax, generator=g) * 100
+    rs = torch.rand(nlist, lmax, generator=g) * 100
+    mask = (torch.rand(nlist, lmax, generator=g) < 0.7).to(torch.int8)
+    xq = torch.randn(nq, d, generator=g)
+    vmin = torch.randn(d, generator=g)
+    scale = torch.rand(d, generator=g) / 50 + 1e-3
+    probe = torch.rand(nq, nlist, generator=g).argsort(1)[:, :nprobe] \
+        .to(torch.int32).contiguous()
+    for metric in ("L2", "INNER_PRODUCT"):
+        q = sq_digits.query_digits(xq, vmin, scale, metric, codec, w,
+                                   sq_digits.KERNEL_SHIFT[codec])
+        digits_t, scalars_t, meta, _ = k3.sq_pair_tile_inputs(
+            probe, q, nlist, metric)
+        args = (codes, rn, rs, counts, digits_t, scalars_t, meta, mask,
+                metric, codec)
+        n = int(meta[0])
+        want = k3.ivf_sq_pairs_scan_reference(*args)[:n]
+        plan = k3.stage_plan(w, codec, persistent=True,
+                             vec=k3.vec_ok(codes, codec))
+        assert plan.col_chunks > 1
+        assert torch.equal(walk_tiles(*args, plan)[:n], want)
+        if k9.tma_ok(codes, digits_t, codec):
+            plan = k3.stage_plan(w, codec, persistent=True, tma=True)
+            assert torch.equal(walk_tiles(
+                *args, plan, k9.tensor_maps(codes, digits_t))[:n], want)
+
+
+def test_tensor_maps_and_tma_gate():
+    """The TMA views: the payload as (nlist·lmax, w) bytes in 64-row
+    boxes, the digit rows as t_max·8 hi rows 2·width bytes apart in 8-row
+    boxes, both 128 bytes wide; TMA takes sq8 / sq4 at code and digit
+    widths a multiple of 16 with 16-byte aligned codes and digits, and
+    nothing else."""
+    codes = torch.zeros(3, 512, 48, dtype=torch.uint8)
+    dig = torch.zeros(16, 2, 48, dtype=torch.int8)
+    assert k9.tensor_maps(codes, dig) == ((48, 3 * 512, 48, 128, 64),
+                                          (48, 16, 96, 128, 8))
+    assert k9.tma_ok(codes, dig, "sq8") and k9.tma_ok(codes, dig, "sq4")
+    assert not k9.tma_ok(codes, dig, "sq6")
+    assert not k9.tma_ok(torch.zeros(3, 512, 40, dtype=torch.uint8),
+                         torch.zeros(16, 2, 40, dtype=torch.int8), "sq8")
+    shifted = torch.zeros(codes.numel() + 16, dtype=torch.uint8)[1:]
+    assert not k9.tma_ok(shifted[:codes.numel()].view(codes.shape), dig,
+                         "sq8")
+    shifted = torch.zeros(dig.numel() + 16, dtype=torch.int8)[4:]
+    assert not k9.tma_ok(codes, shifted[:dig.numel()].view(dig.shape), "sq8")
 
 
 @pytest.mark.parametrize("masked", [False, True])

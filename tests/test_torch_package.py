@@ -407,6 +407,53 @@ def test_sq_mega_kernel_matches_plain_on_card(card, codec, d, lmax, metric):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("lmax", [384, 640])
+@pytest.mark.parametrize("codec", ["sq8", "sq4", "sq6"])
+def test_sq_pair_kernels_bit_equal_at_d80_on_card(card, codec, lmax, metric):
+    """K3 and K9 (its TMA producer at sq8, its cp.async instance at sq4 /
+    sq6) bit-equal to their plain version and to each other at d = 80 (at
+    sq8 whole 16-byte units but half a k-step), lists of count 0, 1 and
+    lmax, lmax not a multiple of 256, with a mask."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs_mega as k9
+    from duckdb_faiss_ext_tpu_torch.ops.sq import sq_code_width
+    from duckdb_faiss_ext_tpu_torch.ops.sq_digits import (KERNEL_SHIFT,
+                                                          query_digits)
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    d, nlist, nq, nprobe = 80, 16, 64, 3
+    w = sq_code_width(d, codec)
+    codes = torch.randint(0, 256, (nlist, lmax, w), device="cuda",
+                          generator=g, dtype=torch.uint8)
+    counts = torch.randint(2, lmax, (nlist,), device="cuda", generator=g,
+                           dtype=torch.int32)
+    counts[0], counts[1], counts[2] = 0, 1, lmax
+    rn = torch.rand(nlist, lmax, device="cuda", generator=g) * 100
+    rs = torch.rand(nlist, lmax, device="cuda", generator=g) * 100
+    mask = (torch.rand(nlist, lmax, device="cuda", generator=g)
+            < 0.6).to(torch.int8)
+    vmin = torch.randn(d, device="cuda", generator=g)
+    scale = torch.rand(d, device="cuda", generator=g) / 50 + 1e-3
+    xq = torch.randn(nq, d, device="cuda", generator=g)
+    keys = torch.rand(nq, nlist, device="cuda", generator=g)
+    keys[0, 0] = keys[1, 1] = keys[2, 2] = -1.0   # lists of count 0, 1, lmax
+    probe = keys.argsort(1)[:, :nprobe].to(torch.int32).contiguous()
+    q = query_digits(xq, vmin, scale, metric, codec, w, KERNEL_SHIFT[codec])
+    dig_t, sc_t, meta, _ = k3.sq_pair_tile_inputs(probe, q, nlist, metric)
+    args = (codes, rn, rs, counts, dig_t, sc_t, meta, mask, metric, codec)
+    before = (k3.LAUNCHES, k9.LAUNCHES)
+    got = [k3.ivf_sq_pairs_scan(*args), k9.ivf_sq_pairs_mega_scan(*args)]
+    torch.cuda.synchronize()
+    assert (k3.LAUNCHES, k9.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert k9.last_plan[2] == (codec == "sq8")
+    n = int(meta[0])
+    ref = k3.ivf_sq_pairs_scan_reference(*args)
+    for raw in got:
+        assert torch.equal(raw[:n], ref[:n])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
 @pytest.mark.parametrize("d,lmax", [(8, 256), (33, 256), (128, 512),
                                     (1536, 256)])
 def test_flat_mega_kernel_matches_plain_on_card(card, d, lmax, metric):

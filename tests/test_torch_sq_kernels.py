@@ -301,6 +301,165 @@ def test_pairs_search_matches_jax(codec, metric):
     _assert_topk_agree(got, want)
 
 
+# --- K3 / K9: the kernels' host plan, their walk emulated -------------------
+
+def walk_tiles(codes, rn, rs, counts, digits_t, scalars_t, meta, mask, metric,
+               codec, plan, tensor_maps=None):
+    """The pair-tile kernels' raw tiles, computed as the kernels walk them
+    under the wrapper's ``plan`` (ops/ivf_sq_pairs.py::stage_plan) and, for
+    K9's TMA copies, its ``tensor_maps`` (ops/ivf_sq_pairs_mega.py).  Each
+    256-row x ``plan.chunk``-byte item is staged as the copies stage it
+    (cp.async: the rows below the count; TMA: 64-row boxes of the codes'
+    view up to the count, zeros out of bounds), the rest of the stage
+    holding stale bytes (0xA5 here), with the digit slice of the chunk's
+    dimensions (hi rows, then lo rows; cp.async: zero-filled past the
+    width; TMA: 8-row boxes of the digit view, zeros out of bounds); exact
+    int64 dots over the item's 32-dimension k-steps; the fp32 epilogue
+    after a row chunk's last column chunk; whole row chunks past the count
+    -inf.  Tiles at or past n_tiles are NaN (the kernels leave them
+    unwritten)."""
+    nlist, lmax, w = codes.shape
+    rows_a, dims = k3.CHUNK_ROWS, plan.steps * k3.STEP_DIMS
+    step = plan.chunk // plan.steps              # code bytes a k-step
+    shift = sq_digits.KERNEL_SHIFT[codec]
+    width = digits_t.shape[-1]
+    if tensor_maps is None:
+        box_h = rows_a
+        # the digit rows, zero past the width, slot 2q + h as row h·8 + q
+        pad = torch.zeros(digits_t.shape[0], 2, plan.col_chunks * dims,
+                          dtype=torch.int64)
+        pad[:, :, :width] = digits_t
+        hi, lo = pad[:, 0], pad[:, 1]
+    else:
+        (cols, n_rows, stride, box_w, box_h), dmap = tensor_maps
+        assert (box_w, stride) == (plan.chunk, w) and rows_a % box_h == 0
+        view = codes.reshape(-1)[:n_rows * stride].reshape(n_rows, stride)
+        view = view[:, :cols]
+        dcols, drows, dstride, dbox_w, dbox_h = dmap
+        assert (dbox_w, dbox_h, dcols) == (128, QG, width)
+        flat = digits_t.reshape(-1)
+        hi, lo = (torch.zeros(drows, plan.col_chunks * dims, dtype=torch.int64)
+                  for _ in range(2))
+        hi[:, :dcols] = torch.as_strided(flat, (drows, dcols), (dstride, 1))
+        lo[:, :dcols] = torch.as_strided(flat, (drows, dcols), (dstride, 1),
+                                         flat.storage_offset() + dcols)
+    t_max = scalars_t.shape[0]
+    out = torch.full((t_max, QG, lmax), float("nan"))
+    for t in range(min(int(meta[0]), t_max)):
+        lid = int(meta[1 + t])
+        cnt = min(max(int(counts[lid]), 0), lmax) if 0 <= lid < nlist else 0
+        dig = torch.cat([hi[t * QG:(t + 1) * QG], lo[t * QG:(t + 1) * QG]])
+        tile = torch.full((QG, lmax), float("-inf"))
+        for r0 in range(0, cnt, rows_a):
+            acc = torch.zeros(2 * QG, rows_a, dtype=torch.int64)
+            n = min(rows_a, cnt - r0)
+            for cc in range(plan.col_chunks):
+                c0 = cc * plan.chunk
+                span = min(plan.chunk, w - c0)
+                st = torch.full((rows_a, plan.chunk), 0xA5, dtype=torch.uint8)
+                if tensor_maps is None:
+                    st[:n, :span] = codes[lid, r0:r0 + n, c0:c0 + span]
+                else:
+                    boxed = -(-n // box_h) * box_h
+                    st[:boxed] = 0
+                    box = view[lid * lmax + r0:lid * lmax + r0 + boxed,
+                               c0:c0 + plan.chunk]
+                    st[:box.shape[0], :box.shape[1]] = box
+                k = -(-span // step) * k3.STEP_DIMS     # dims of its k-steps
+                c = psq.sq_unpack(st, codec).to(torch.int64) - shift
+                acc += dig[:, cc * dims:cc * dims + k] @ c[:, :k].T
+            rows = torch.arange(r0, min(r0 + rows_a, lmax))
+            s = sq_digits.int8_scores(acc[:QG, :rows.numel()],
+                                      acc[QG:, :rows.numel()],
+                                      scalars_t[t][:, None, :],
+                                      rs[lid, rows][None], rn[lid, rows][None],
+                                      metric)
+            live = rows < cnt
+            if mask is not None:
+                live &= mask[lid, rows] != 0
+            tile[:, rows] = torch.where(live[None], s, float("-inf"))
+        out[t] = tile
+    return out
+
+
+def test_stage_plan():
+    """The plan the pair-tile kernels launch with: whole k-steps and
+    16-byte pieces a chunk, enough chunks to cover a row; the shared memory
+    within a block's, growing with the ring; the launch bounds' blocks an
+    SM (K3 two, K9 one), then the deepest ring."""
+    for codec, d in [("sq8", 16), ("sq8", 80), ("sq8", 1536), ("sq4", 33),
+                     ("sq4", 1536), ("sq6", 33), ("sq6", 1536)]:
+        w = psq.sq_code_width(d, codec)
+        for persistent, tma, vec in [(False, False, True),
+                                     (False, False, False),
+                                     (True, False, True), (True, True, True)]:
+            p = k3.stage_plan(w, codec, persistent=persistent, tma=tma,
+                              vec=vec)
+            assert p.chunk % 16 == 0 and p.chunk % k3.STEP_BYTES[codec] == 0
+            assert p.steps == p.chunk // k3.STEP_BYTES[codec]
+            assert p.col_chunks * p.chunk >= w > (p.col_chunks - 1) * p.chunk
+            assert p.smem <= k3.SMEM_BLOCK_MAX
+            blocks = 1 if persistent else 2
+            assert blocks * (p.smem + k3.SMEM_RESERVED) <= k3.SMEM_SM
+            assert p.stages <= (k3.MAX_STAGES_TMA if tma else k3.MAX_STAGES)
+    p = k3.stage_plan(1536, "sq8", persistent=False)
+    assert p.stages == 3 and 2 * (p.smem + k3.SMEM_RESERVED) <= k3.SMEM_SM
+    assert k3.stage_plan(1536, "sq8", persistent=True, tma=True).stages == 6
+    assert k3.stage_plan(1536, "sq8", persistent=True).stages == 4
+    assert k3.stage_plan(1536, "sq8", persistent=True).smem > p.smem
+
+
+@pytest.mark.parametrize("bad", ["codes", "rn", "rs", "mask", "lmax"])
+def test_pair_layout_refuses_misaligned_inputs(bad):
+    """``check_pair_layout``: the pair-tile kernels load rn / rs as float2,
+    codes in 16-byte units and the mask in 2-byte pairs, so a view at an
+    odd offset, or lmax not a multiple of 4, raises ValueError before any
+    launch; the aligned tensors pass."""
+    nlist, lmax, w = 3, 8, 32
+
+    def shifted(n, dtype, by):
+        return torch.zeros(n + by, dtype=dtype)[by:]
+
+    t = dict(codes=torch.zeros(nlist, lmax, w, dtype=torch.uint8),
+             rn=torch.zeros(nlist, lmax), rs=torch.zeros(nlist, lmax),
+             mask=torch.ones(nlist, lmax, dtype=torch.int8))
+    k3.check_pair_layout("scan", t["codes"], t["rn"], t["rs"], t["mask"])
+    if bad == "lmax":
+        t["codes"] = torch.zeros(nlist, lmax + 2, w, dtype=torch.uint8)
+    else:
+        src = t[bad]
+        by = {"codes": 1, "rn": 1, "rs": 1, "mask": 2}[bad]
+        t[bad] = shifted(src.numel(), src.dtype, by).view(src.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        k3.check_pair_layout("scan", t["codes"], t["rn"], t["rs"], t["mask"])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("d", [16, 33, 80])
+def test_k3_plan_walk_matches_jax(d, codec, metric, masked):
+    """K3's plan, walked as the kernel walks it, gives the plain version's
+    raw tiles bit for bit, and the interpreted Pallas pair kernel's
+    (``debug_raw``, grid branch) within RAW_TOL."""
+    nq, nprobe = 16, 3
+    L = _layout(d + 7, codec, d, nq, nprobe)
+    mask = L["mask"] if masked else None
+    raw, tl, tq, _ = (np.asarray(a) for a in _jax_pairs(
+        L, codec, metric, mask, nprobe, k=5, k_scan=20, debug_raw=True))
+    digits_t, scalars_t, meta, _ = k3.sq_pair_tile_inputs(
+        torch.from_numpy(L["probe"]), _digits(L, codec, metric), NLIST,
+        metric)
+    args = (*_t(L["lists"], L["rn"], L["rs"], L["counts"]), digits_t,
+            scalars_t, meta, *_t(mask), metric, codec)
+    plan = k3.stage_plan(L["lists"].shape[2], codec, persistent=False)
+    got = walk_tiles(*args, plan)
+    n = int(meta[0])
+    assert torch.equal(got[:n], k3.ivf_sq_pairs_scan_reference(*args)[:n])
+    terms = _terms(L, np.clip(tq[:n], 0, None), tl[:n, None], metric, codec)
+    _assert_raw_agree(got[:n].numpy(), raw[:n], terms)
+
+
 # --- K2: per-query list scan -------------------------------------------------
 
 @pytest.mark.parametrize("masked", [False, True])

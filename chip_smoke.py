@@ -89,13 +89,18 @@ Phases (any failure raises and the script exits non-zero):
    final top-k) beside the plain windows and legs; faiss_search wall time
    under both pairs_impl values;
 11. PQ sweep (after phase 7, while the 1M x 128 corpus is loaded): the
-   IVF-PQ / IVF-RQ gather-decode-score scan (K8, ops/ivf_pq_scan.py)
-   against its plain version, raw scores element by element: PQ with dsub
-   8 (8 bits) and dsub 4 (4 bits), RQ with 2 stages of 4 bits and 8 of 8,
-   L2 and inner product, with and without a mask, d 16 / 128 / 1536 (the
-   1536-d PQ codebook is larger than shared memory), lmax 256 and 1024
-   (counts on both sides of 256, 512 and 768), lists of count 0 and count
-   == lmax, nprobe 1 / 16 / 64;
+   IVF-PQ / IVF-RQ list search (K8, ops/ivf_pq_scan.py: the query's
+   distance table, the table-form scan with its candidates, the merge
+   with an exact rescore) against its plain version (the raw score block,
+   top-k, resolve), labels equal where the scores are apart and scores
+   within 1e-5 of each query's scale, and its table launch against the
+   plain table: PQ with dsub 8 (8 bits) and dsub 4 (4 bits), RQ with 2
+   stages of 4 bits and 8 of 8, L2 and inner product, with and without a
+   mask, d 16 / 128 / 1536 (the 1536-d PQ table with dsub 8 is larger than
+   the shared-memory budget), lmax 256 and 1024 (counts on both sides of
+   256, 512 and 768), lists of count 0 and count == lmax, duplicated rows,
+   nprobe 1 / 16 / 64, k 1 / 10 / 100 / 1024; each case's count of
+   margin-unproven queries is printed;
 12. IVF-PQ main path: IDMap,IVF4096,PQ16 L2 over the same corpus, 16 bytes
    a vector (examples/compression_pipeline.py:8): faiss_manual_train on its
    first 262,144 rows → faiss_add of all 1M with ids → at nprobe 64
@@ -103,15 +108,18 @@ Phases (any failure raises and the script exits non-zero):
    faiss_search_filter('id%2==0').  K8's launch count must match the
    calls; every result is held against the same path with K8's plain
    version on the same layout; recall@10 against exact Flat is printed;
-   K8's raw scores at b1024 are held against its plain version; then K8,
-   its plain version and the library call lists[probe_ids] are timed at
-   b48 and b1024, with faiss_search's wall time and its device stages;
+   at b48 and b1024 K8 is held against its plain version (and its
+   unproven count printed), its peak device memory held below a quarter
+   of the (nq, nprobe, lmax) score block the TPU design wrote, then K8,
+   its plain version and the library call lists[probe_ids] are timed,
+   with faiss_search's wall time and its device stages (coarse top-k,
+   table, partial, merge);
 13. PQ spill: the same index with its layout capped below its longest
    list, so that the longest lists spill, searched at b48 and held against
    the uncapped index and the gather path (no layout plan);
 14. IVF-RQ leg: IVF4096,RQ8x8 L2 over the same corpus (BASELINE.md:80),
    beam-4 encode on the card, b48 and b1024 through K8 held against the
-   plain K8 path, K8's raw scores at b1024 held and timed;
+   plain K8 path, then K8 held and timed at b1024 as in phase 12;
 15. standalone PQ16 over the same corpus at b48 (ops/pq.py::pq_search on
    card tensors): labels equal to a Flat search (K1) over the decoded
    corpus wherever the distances are separated;
@@ -2135,28 +2143,64 @@ def phase_marco_device(smi):
             "timing": (ms9, plain_ms, b9), "k5": k5_timing}
 
 
-def k8_raw_error(lists, counts, probe, xq, centroids, codebooks, mask,
-                 metric, codec):
-    """K8's raw (nq, nprobe, lmax) scores against its plain version on the
-    same card tensors, each query's tolerance REL_TOL of its largest
-    |score| over all its probed slots."""
+def k8_plain(args, kw, k):
+    """K8's plain version (raw score block, top-k, resolve) on the same
+    card tensors, one wider, padded with (-inf, -1) to k + 1 columns."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
 
-    args = (lists, counts, probe, xq, centroids, codebooks, mask, metric,
-            codec)
-    raw = k8.ivf_pq_scan(*args)
-    ref = k8.ivf_pq_scan_reference(*args)
-    nq = raw.shape[0]
-    return compare_raw(raw.reshape(nq, -1), ref.reshape(nq, -1),
-                       torch.zeros(nq, device=DEVICE))
+    s, p = k8.ivf_pq_list_search_reference(*args, k=k + 1, **kw)
+    pad = k + 1 - s.shape[1]
+    if pad > 0:
+        s = torch.cat([s, s.new_full((s.shape[0], pad), float("-inf"))], 1)
+        p = torch.cat([p, p.new_full((p.shape[0], pad), -1)], 1)
+    return s, p
+
+
+def k8_error(args, kw, k):
+    """K8 (its table, partial and merge launches) against its plain version
+    on the same card tensors (``compare``: scores within REL_TOL of each
+    query's scale, positions equal where the scores are apart), and the
+    table its first launch writes against ``pq_lut_reference`` within
+    REL_TOL of Σ|q_t|·max|cb|.  Returns (max abs score error, queries the
+    merge counted unproven)."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+
+    xq, cb, codec = args[6], args[3], kw["codec"]
+    k8.reset_unproven(DEVICE)
+    s, p = k8.ivf_pq_list_search(*args, k=k, **kw)
+    unproven = k8.unproven(DEVICE)
+    err = compare(s, p, *k8_plain(args, kw, k), xq)
+    launch = k8.Launch(*args, k=k, **kw)
+    launch.run(k8.TABLE)
+    diff = float((launch.lut - k8.pq_lut_reference(xq, cb, codec)).abs()
+                 .max())
+    scale = float(xq.abs().sum(1).max() * cb.abs().max())
+    check(diff <= REL_TOL * scale, f"K8 table error {diff} above tolerance")
+    return err, unproven
+
+
+def pq_sweep_layout(g, nlist, lmax, m, nbits, counts):
+    """A padded (nlist, lmax, m) code layout for ``counts`` with duplicated
+    rows (slots 4 and 5), and its row positions."""
+    live = torch.arange(lmax, device=DEVICE)[None, :] < counts[:, None]
+    lists = torch.randint(0, 1 << nbits, (nlist, lmax, m), device=DEVICE,
+                          generator=g, dtype=torch.uint8)
+    lists[:, 5] = lists[:, 4]
+    lists *= live[:, :, None].to(torch.uint8)
+    start = torch.cumsum(counts, 0) - counts
+    row_pos = torch.where(live, start[:, None] + torch.arange(
+        lmax, device=DEVICE)[None, :], -1).to(torch.int32)
+    return lists, row_pos
 
 
 def phase_pq_sweep():
-    """K8 against its plain version: PQ (dsub 8 with 8 bits, dsub 4 with 4
-    bits) and RQ (2 stages of 4 bits, 8 of 8), L2 / IP, mask off / on, d
-    16 / 128 / 1536 (the 1536-d PQ codebook, 1.5 MB, is larger than shared
-    memory), lmax 256 and 1024 (counts on both sides of 256, 512 and 768),
-    lists of count 0 and count == lmax, nprobe in turn 1 / 16 / 64."""
+    """K8 against its plain version, results and table: PQ (dsub 8 with 8
+    bits, dsub 4 with 4 bits) and RQ (2 stages of 4 bits, 8 of 8), L2 / IP,
+    mask off / on, d 16 / 128 / 1536 (the 1536-d PQ table with dsub 8, 192
+    x 256 entries, is read from device memory, not shared memory), lmax
+    256 and 1024 (counts on both sides of 256, 512 and 768), lists of count
+    0 and count == lmax, duplicated rows, nprobe in turn 1 / 16 / 64, k in
+    turn 10 / 1 / 100 / 1024; each case's unproven count is printed."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
 
     g = torch.Generator(device=DEVICE).manual_seed(8642)
@@ -2164,6 +2208,7 @@ def phase_pq_sweep():
     before = k8.LAUNCHES
     err, n_cases = 0.0, 0
     nprobes = itertools.cycle((1, 16, 64))
+    ks = itertools.cycle((10, 1, 100, 1024))
     for d, lmax in itertools.product(PQ_SWEEP_D, PQ_SWEEP_LMAX):
         t0 = time.perf_counter()
         counts = torch.randint(1, lmax, (nlist,), device=DEVICE, generator=g,
@@ -2171,28 +2216,29 @@ def phase_pq_sweep():
         counts[0], counts[1] = 0, lmax
         if lmax > 256:
             counts[2:8] = torch.tensor([255, 257, 511, 513, 767, 769])
-        live = (torch.arange(lmax, device=DEVICE)[None, :]
-                < counts[:, None]).to(torch.uint8)
         mask = (torch.rand(nlist, lmax, device=DEVICE, generator=g)
                 < 0.6).to(torch.int8)
         cents = torch.randn(nlist, d, device=DEVICE, generator=g)
         xq = torch.randn(nq, d, device=DEVICE, generator=g)
+        unproven = []
         for codec, m_of, nbits in PQ_SWEEP_CODECS:
             m = m_of(d)
-            lists = torch.randint(0, 1 << nbits, (nlist, lmax, m),
-                                  device=DEVICE, generator=g,
-                                  dtype=torch.uint8) * live[:, :, None]
+            lists, row_pos = pq_sweep_layout(g, nlist, lmax, m, nbits, counts)
             cb = torch.randn(m, 1 << nbits, d // m if codec == "pq" else d,
                              device=DEVICE, generator=g)
+            rt = k8.pq_row_terms(lists, counts, cents, cb, codec)
             for metric, msk in itertools.product(("L2", "INNER_PRODUCT"),
                                                  (None, mask)):
                 probe = probe_table(g, nq, nlist, next(nprobes))
-                err = max(err, k8_raw_error(lists, counts, probe, xq, cents,
-                                            cb, msk, metric, codec))
+                args = [lists, counts, row_pos, cb, cents, probe, xq, msk]
+                kw = dict(metric=metric, codec=codec, row_terms=rt)
+                e, u = k8_error(args, kw, next(ks))
+                err = max(err, e)
+                unproven.append(u)
                 n_cases += 1
-            del lists, cb
-        log(f"pq sweep d={d} lmax={lmax}: 16 cases agree "
-            f"({time.perf_counter() - t0:.1f} s)")
+            del lists, cb, rt
+        log(f"pq sweep d={d} lmax={lmax}: 16 cases agree, unproven queries "
+            f"{unproven} ({time.perf_counter() - t0:.1f} s)")
         torch.cuda.empty_cache()
     check(k8.LAUNCHES - before == n_cases, "a pq sweep case did not launch")
     log(f"pq sweep: {n_cases} cases, max abs score error K8 {err:.3g}")
@@ -2201,16 +2247,17 @@ def phase_pq_sweep():
 
 @contextlib.contextmanager
 def plain_k8():
-    """Run the IVF-PQ / IVF-RQ path with K8's plain version in place of its
-    wrapper (same signature, same inputs)."""
+    """Run the IVF-PQ / IVF-RQ path with K8's plain version in place of the
+    fused call (same signature, same inputs)."""
+    from duckdb_faiss_ext_tpu_torch.models import ivf_serve
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
 
-    saved = k8.ivf_pq_scan
-    k8.ivf_pq_scan = k8.ivf_pq_scan_reference
+    saved = ivf_serve.ivf_pq_list_search
+    ivf_serve.ivf_pq_list_search = k8.ivf_pq_list_search_reference
     try:
         yield
     finally:
-        k8.ivf_pq_scan = saved
+        ivf_serve.ivf_pq_list_search = saved
 
 
 def build_coded_ivf(dt, cat, name, factory, data, ids=None):
@@ -2241,24 +2288,114 @@ def build_coded_ivf(dt, cat, name, factory, data, ids=None):
 
 def k8_shapes(index, lay, xq, nq_pad):
     """The b48 / b1024 batch as the index launches K8: padded queries, the
-    coarse probe table, K8's arguments, and K8's bound for them (the
-    distinct probed lists' codes and centroids, the codebooks and queries
-    read once, the score block written once; a probed row takes 2·d
-    operations, and an RQ row d more a stage for its decode sum)."""
+    coarse probe table, K8's arguments and keywords, and K8's bound for
+    them.  Bytes, each moved once: the distinct probed lists' live codes,
+    row terms and centroids, the codebooks, the queries, the probe table
+    and the (nq, k) result.  Operations: the table build (2·nq·M·ksub·dsub
+    for PQ, 2·nq·M·ksub·d for RQ), M + 2 adds a probed row, and the rescore
+    of k + m candidates a query (4 a dimension, M more for RQ's stage
+    sum)."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
     from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
     from duckdb_faiss_ext_tpu_torch.utils.config import pad_rows
 
     xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(DEVICE)
     probe = coarse_topk(xq_pad, lay.centroids, IVF_NPROBE, "L2")
-    args = (lay.payload, lay.counts, probe, xq_pad, lay.centroids,
-            lay.codebooks, None, "L2", index.pq_codec)
-    m, lmax = lay.payload.shape[2], lay.payload.shape[1]
+    args = [lay.payload, lay.counts, lay.row_pos, lay.codebooks,
+            lay.centroids, probe, xq_pad, None]
+    kw = dict(metric="L2", codec=index.pq_codec, row_terms=lay.rt)
+    m, ksub, w = lay.codebooks.shape
     lists_once, rows_once, rows_all = probed_rows(lay.counts, probe)
-    per_row = D * (2 + (m if index.pq_codec == "rq" else 0))
-    b = bound(rows_once * m + 4 * lists_once * D + 4 * lay.codebooks.numel()
-              + 4 * nq_pad * D + 4 * probe.numel()
-              + 4 * probe.numel() * lmax, per_row * rows_all)
-    return xq_pad, probe, args, b
+    per_dim = 4 + (m if index.pq_codec == "rq" else 0)
+    b = bound(rows_once * (m + 4) + 4 * lists_once * D
+              + 4 * lay.codebooks.numel() + 4 * nq_pad * D
+              + 4 * probe.numel() + 8 * nq_pad * K,
+              2 * nq_pad * m * ksub * w + (m + 2) * rows_all
+              + nq_pad * (K + k8.margin(K)) * D * per_dim)
+    return xq_pad, probe, args, kw, b
+
+
+def time_k8(tag, index, lay, xq, nq_pad, search, smi):
+    """K8 at one batch of a main path: held against its plain version
+    (``k8_error``), its peak device memory against the (nq, nprobe, lmax)
+    score block the TPU design wrote, then timed: K8 (its three launches)
+    and its plain version in turns, the library call lists[probe_ids] (the
+    TPU kernel's gather alone), ``search()``'s wall (faiss_search), the
+    device stages (coarse top-k, table, partial, merge; CUDA events, and
+    the three launches' device time from torch.profiler) and the fetch.
+    Returns ((ms, plain_ms, bound, library_ms), max abs error)."""
+    from duckdb_faiss_ext_tpu_torch.models.base import fetch_results
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
+
+    xq_pad, probe, args, kw, b = k8_shapes(index, lay, xq, nq_pad)
+    err, unproven = k8_error(args, kw, K)
+    lmax = lay.payload.shape[1]
+    block = 4 * nq_pad * IVF_NPROBE * lmax
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    k8.ivf_pq_list_search(*args, k=K, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    check(peak < block // 4, f"{tag}: K8 took {peak} bytes, near the "
+          f"{block}-byte score block")
+    ms, plain_ms = time_pair(
+        lambda: k8.ivf_pq_list_search(*args, k=K, **kw),
+        lambda: k8.ivf_pq_list_search_reference(*args, k=K, **kw),
+        reps=6 if nq_pad < BIG_BATCH else 4)
+    # The library call: the gather the TPU kernel did, as one indexing.
+    probe_l = probe.long()
+    lay.payload[probe_l]
+    lib_ms = statistics.median(cuda_ms(lambda: lay.payload[probe_l])
+                               for _ in range(6))
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        search()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    launch = k8.Launch(*args, k=K, **kw)
+    launch.run()
+    best = (launch.scores, launch.positions)
+    p = launch.plan
+    stages = {"coarse top-k": lambda: coarse_topk(
+                  xq_pad, lay.centroids, IVF_NPROBE, "L2"),
+              "table": lambda: launch.run(k8.TABLE),
+              "partial": lambda: launch.run(k8.PARTIAL),
+              "merge": lambda: launch.run(k8.MERGE)}
+    parts = []
+    for label, fn in stages.items():
+        fn()
+        parts.append(f"{label} "
+                     f"{statistics.median(cuda_ms(fn) for _ in range(5)):.3f}"
+                     f" ms")
+    # The launches' own device time (the stages above include the host's).
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            launch.run()
+        torch.cuda.synchronize()
+    device = "; ".join(
+        f"{e.key.split('<')[0].split('::')[-1]} "
+        f"{e.device_time_total / 10e3:.3f} ms"
+        for e in prof.key_averages() if e.device_time_total > 0)
+    fetch = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fetch_results(*best)
+        fetch.append(1e3 * (time.perf_counter() - t0))
+    log(f"time {tag} ({nq_pad} rows launched; {p['splits']} splits of "
+        f"{p['warps']} warps): K8 {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"library lists[probe_ids] {lib_ms:.3f} ms (median CUDA events), "
+        f"bound {b[0]:.3f} ms ({b[1]}); agrees with the plain version (max "
+        f"abs error {err:.3g}, unproven queries {unproven}); peak device "
+        f"memory {peak / 2**20:.1f} MiB against a {block / 2**20:.0f} MiB "
+        f"score block; faiss_search wall {statistics.median(walls):.3f} ms "
+        f"(median of 10); device stages (median CUDA events): "
+        f"{'; '.join(parts)}; fetch {statistics.median(fetch):.3f} ms (host "
+        f"clock); device time a call (torch.profiler): {device or 'none'} "
+        f"[{smi}]")
+    return (ms, plain_ms, b, lib_ms), err
 
 
 def coded_path(dt, cat, name, data, params, db=None, k=K):
@@ -2307,12 +2444,10 @@ def check_coded_path(tag, dt, cat, name, data, params, out, exact, db=None):
 
 def phase_pq_main(smi, data, exact):
     """IDMap,IVF4096,PQ16 L2 over the 1M x 128 corpus at nprobe 64 through
-    the public API; every result held against the plain K8 path."""
+    the public API; every result held against the plain K8 path; K8 held
+    and timed at b48 and b1024 (``time_k8``)."""
     import duckdb_faiss_ext_tpu_torch as dt
-    from duckdb_faiss_ext_tpu_torch.models.base import fetch_results
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
-    from duckdb_faiss_ext_tpu_torch.ops.flat_search import exact_topk
-    from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
 
     ids = data["ids"]
     db = dt.Database()
@@ -2320,7 +2455,6 @@ def phase_pq_main(smi, data, exact):
     cat = dt.Catalog()
     params = {"nprobe": str(IVF_NPROBE)}
     index, lay = build_coded_ivf(dt, cat, "pq", PQ_FACTORY, data, ids)
-    lmax = lay.payload.shape[1]
 
     k8.LAUNCHES = 0
     out = coded_path(dt, cat, "pq", data, params, db)
@@ -2333,52 +2467,14 @@ def phase_pq_main(smi, data, exact):
     max_err = check_coded_path("pq main path", dt, cat, "pq", data, params,
                                out, exact, db)
 
-    timings = {}
+    timings, raw_err = {}, 0.0
     for name, nq_pad in (("b48", 64), ("b1024", BIG_BATCH)):
-        xq_pad, probe, args, b = k8_shapes(index, lay, data[name], nq_pad)
-        if name == "b1024":
-            raw_err = k8_raw_error(*args)
-            log(f"pq main path b1024 raw scores (lmax {lmax}): K8 agrees "
-                f"with its plain version (max abs error {raw_err:.3g})")
-        ms, plain_ms = time_pair(lambda: k8.ivf_pq_scan(*args),
-                                 lambda: k8.ivf_pq_scan_reference(*args),
-                                 reps=6 if name == "b48" else 4)
-        # The library call: the gather the TPU kernel did, as one indexing.
-        probe_l = probe.long()
-        lay.payload[probe_l]
-        lib_ms = statistics.median(cuda_ms(lambda: lay.payload[probe_l])
-                                   for _ in range(6))
-        timings[name] = (ms, plain_ms, b, lib_ms)
-        walls = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            dt.faiss_search("pq", K, data[name], params, catalog=cat)
-            walls.append(1e3 * (time.perf_counter() - t0))
-        raw = k8.ivf_pq_scan(*args).reshape(nq_pad, -1)
-        best = exact_topk(raw, K)
-        stages = {"coarse top-k": lambda: coarse_topk(
-                      xq_pad, lay.centroids, IVF_NPROBE, "L2"),
-                  "K8": lambda: k8.ivf_pq_scan(*args),
-                  "top-k of the score block": lambda: exact_topk(raw, K)}
-        parts = []
-        for label, fn in stages.items():
-            fn()
-            parts.append(f"{label} "
-                         f"{statistics.median(cuda_ms(fn) for _ in range(5)):.3f}"
-                         f" ms")
-        fetch = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            fetch_results(*best)
-            fetch.append(1e3 * (time.perf_counter() - t0))
-        del raw, best
-        log(f"time IVF4096,PQ16 {N}x{D} L2 nprobe {IVF_NPROBE} k={K} {name} "
-            f"({nq_pad} rows launched): K8 {ms:.3f} ms, plain {plain_ms:.3f} "
-            f"ms, library lists[probe_ids] {lib_ms:.3f} ms (median CUDA "
-            f"events), bound {b[0]:.3f} ms ({b[1]}); faiss_search wall "
-            f"{statistics.median(walls):.3f} ms (median of 10); device "
-            f"stages (median CUDA events): {'; '.join(parts)}; fetch "
-            f"{statistics.median(fetch):.3f} ms (host clock) [{smi}]")
+        timings[name], e = time_k8(
+            f"IVF4096,PQ16 {N}x{D} L2 nprobe {IVF_NPROBE} k={K} {name}",
+            index, lay, data[name], nq_pad,
+            lambda: dt.faiss_search("pq", K, data[name], params,
+                                    catalog=cat), smi)
+        raw_err = max(raw_err, e)
     return {"launches": launches, "err": max(max_err, raw_err),
             "timings": timings, "cat": cat, "index": index,
             "params": params}
@@ -2426,7 +2522,8 @@ def phase_pq_spill(pq, data):
 
 def phase_rq_leg(smi, data, exact):
     """IVF4096,RQ8x8 L2 over the same corpus (beam-4 encode on the card),
-    b48 and b1024 through K8, held against the plain K8 path."""
+    b48 and b1024 through K8, held against the plain K8 path; K8 held and
+    timed at b1024 (``time_k8``)."""
     import duckdb_faiss_ext_tpu_torch as dt
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
 
@@ -2438,15 +2535,11 @@ def phase_rq_leg(smi, data, exact):
     check(k8.LAUNCHES == 2, f"rq leg launched K8 {k8.LAUNCHES} times, not 2")
     max_err = check_coded_path("rq leg", dt, cat, "rq", data, params, out,
                                exact)
-    xq_pad, probe, args, b = k8_shapes(index, lay, data["b1024"], BIG_BATCH)
-    raw_err = k8_raw_error(*args)
-    k8.ivf_pq_scan(*args)
-    ms = statistics.median(cuda_ms(lambda: k8.ivf_pq_scan(*args))
-                           for _ in range(4))
-    log(f"time IVF4096,RQ8x8 {N}x{D} L2 nprobe {IVF_NPROBE} b1024: K8 raw "
-        f"scores agree with the plain version (max abs error {raw_err:.3g});"
-        f" K8 {ms:.3f} ms (median CUDA events), bound {b[0]:.3f} ms "
-        f"({b[1]}) [{smi}]")
+    _, raw_err = time_k8(
+        f"IVF4096,RQ8x8 {N}x{D} L2 nprobe {IVF_NPROBE} k={K} b1024", index,
+        lay, data["b1024"], BIG_BATCH,
+        lambda: dt.faiss_search("rq", K, data["b1024"], params, catalog=cat),
+        smi)
     return max(max_err, raw_err)
 
 

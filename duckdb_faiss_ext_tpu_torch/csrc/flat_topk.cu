@@ -81,6 +81,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "warp_topk.cuh"
 
 namespace {
 
@@ -89,92 +90,13 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kDK = 32;          // dims per staged chunk
 constexpr int kLD = kDK + 4;     // staged row stride: conflict-free fragment loads
 constexpr int kStages = 3;
-constexpr int kNoPos = 0x7fffffff;
-constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ bool better(float s, int p, float ts, int tp) {
-  return s > ts || (s == ts && p < tp);
-}
-
-// Bitonic sort of n (a power of two) slots best-first, by one warp.
-__device__ void warp_sort(float* s, int* p, int n, int lane) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = lane; i < (n >> 1); i += 32) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        const float sl = s[lo], sh = s[hi];
-        const int pl = p[lo], ph = p[hi];
-        const bool swap = (lo & size) == 0 ? better(sh, ph, sl, pl)
-                                           : better(sl, pl, sh, ph);
-        if (swap) {
-          s[lo] = sh; s[hi] = sl;
-          p[lo] = ph; p[hi] = pl;
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// Sort slots [0, used) of a list best-first (padding to a power of two).
-__device__ void sort_used(float* s, int* p, int used, int lane) {
-  int n = 1;
-  while (n < used) n <<= 1;
-  for (int i = used + lane; i < n; i += 32) { s[i] = -INFINITY; p[i] = kNoPos; }
-  __syncwarp();
-  warp_sort(s, p, n, lane);
-}
-
-// One query's running top-k in the merge, owned by one warp.  Slots [0, k)
-// are the best k so far, sorted; [k, k + cnt) unsorted candidates; (ts, tp)
-// is slot k-1.
-struct TopK {
-  float* s;
-  int* p;
-  int k;
-  int buf;      // candidate capacity: slots - k
-  int cnt;
-  float ts;
-  int tp;
-
-  __device__ void init(float* s_, int* p_, int k_, int slots, int lane) {
-    s = s_; p = p_; k = k_; buf = slots - k_; cnt = 0;
-    ts = -INFINITY; tp = kNoPos;
-    for (int i = lane; i < k; i += 32) { s[i] = -INFINITY; p[i] = kNoPos; }
-    __syncwarp();
-  }
-
-  __device__ void flush(int lane) {
-    sort_used(s, p, k + cnt, lane);
-    ts = s[k - 1];
-    tp = p[k - 1];
-    cnt = 0;
-    __syncwarp();
-  }
-
-  __device__ __forceinline__ bool passes(bool valid, float sc, int pos) const {
-    return valid && better(sc, pos, ts, tp);
-  }
-
-  // One candidate per lane; all 32 lanes call together.
-  __device__ void push(bool valid, float sc, int pos, int lane) {
-    bool pass = passes(valid, sc, pos);
-    unsigned b = __ballot_sync(kFull, pass);
-    if (b == 0) return;
-    if (cnt + __popc(b) > buf) {
-      flush(lane);
-      pass = passes(valid, sc, pos);
-      b = __ballot_sync(kFull, pass);
-    }
-    if (pass) {
-      const int at = k + cnt + __popc(b & ((1u << lane) - 1u));
-      s[at] = sc;
-      p[at] = pos;
-    }
-    cnt += __popc(b);
-  }
-};
+using wtk::better;
+using wtk::kFull;
+using wtk::kNoPos;
+using wtk::push_sorted_lists;
+using wtk::sort_used;
+using wtk::TopK;
 
 // x = hi + lo (3xTF32 split): hi is x truncated to TF32 (its 13 low
 // mantissa bits cleared), lo = x - hi exactly, which the tensor core reads
@@ -564,36 +486,7 @@ flat_topk_merge(const float* __restrict__ xb, const float* __restrict__ xq,
 
   const float* qs = part_s + static_cast<int64_t>(q) * splits * k2;
   const int* qp = part_p + static_cast<int64_t>(q) * splits * k2;
-  if (k2 < 32) {
-    // Short lists: each step reads 32 / k2 whole lists, one entry a lane.
-    const int per = 32 / k2;
-    for (int sp0 = 0; sp0 < splits; sp0 += per) {
-      const int sp = sp0 + lane / k2;
-      float sc = -INFINITY;
-      int pos = kNoPos;
-      if (lane < per * k2 && sp < splits) {
-        sc = qs[sp * k2 + lane % k2];
-        pos = qp[sp * k2 + lane % k2];
-      }
-      top.push(pos != kNoPos, sc, pos, lane);
-    }
-  }
-  for (int sp = 0; k2 >= 32 && sp < splits; ++sp) {
-    for (int base = 0; base < k2; base += 32) {
-      const int idx = base + lane;
-      float sc = -INFINITY;
-      int pos = kNoPos;
-      if (idx < k2) {
-        sc = qs[sp * k2 + idx];
-        pos = qp[sp * k2 + idx];
-      }
-      const bool valid = pos != kNoPos;
-      // Each split's list is sorted best-first: once 32 entries in a row
-      // fail the threshold, the rest of the list fails it too.
-      if (__ballot_sync(kFull, top.passes(valid, sc, pos)) == 0) break;
-      top.push(valid, sc, pos, lane);
-    }
-  }
+  push_sorted_lists(top, qs, qp, splits, lane, k2);
   if (top.cnt > 0) top.flush(lane);
   const float a_last = s[k2 - 1];
   const bool full = p[k2 - 1] != kNoPos;

@@ -8,7 +8,9 @@ the selector masks aligned with each.
 * The padded list layout: (nlist, lmax, d) fp32 rows, (nlist, lmax, w)
   uint8 packed SQ codes with each slot's Σ(scale·c)² (``rn``) and Σc
   (``rs``) in (nlist, lmax) fp32, or (nlist, lmax, m) uint8 PQ / RQ codes
-  with the trained codebooks beside them, with lmax from ``choose_lmax``
+  with the trained codebooks beside them (and, under L2, each slot's row
+  term ‖res‖² + 2⟨c, res⟩ in (nlist, lmax) fp32, built on the device from
+  the uploaded codes, ``rt``), with lmax from ``choose_lmax``
   (the JAX package's rule, so both packages build the same layout from the
   same data), read by the list-scan kernels (K6 / K7; K2 / K3 for SQ; K8
   for PQ / RQ).  The plan counts the bytes a row takes (d·4, the SQ code
@@ -47,6 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.ivf_pq_scan import pq_row_terms
 from ..ops.sq import sq_row_norms, sq_row_sums
 from ..ops.sq_spill import spill_offsets
 from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
@@ -75,6 +78,8 @@ class ListLayout(NamedTuple):
     rn: torch.Tensor | None = None   # SQ: (nlist, lmax) fp32 Σ(scale·c)²
     rs: torch.Tensor | None = None   # SQ: (nlist, lmax) fp32 Σc
     codebooks: torch.Tensor | None = None   # PQ / RQ codebooks
+    rt: torch.Tensor | None = None   # PQ / RQ under L2: (nlist, lmax) fp32
+    #                                  ‖res‖² + 2⟨c, res⟩, 0 past the count
 
 
 class Spill(NamedTuple):
@@ -236,11 +241,17 @@ class IVFLayout:
             lay_rs = np.zeros(row_pos.shape, np.float32)
             lay_rn[valid] = rn[row_pos[valid]]
             lay_rs[valid] = rs[row_pos[valid]]
-        self._layout = ListLayout(
+        lay = ListLayout(
             up(payload), up(counts), up(row_pos), up(self._centroids),
             row_pos, *((up(lay_rn), up(lay_rs)) if rn is not None
                        else (None, None)),
             up(self._pq_codebooks) if self.pq_m is not None else None)
+        if self.pq_m is not None and self.metric.name == "L2":
+            # K8's L2 table form reads each slot's row term beside its codes.
+            lay = lay._replace(rt=pq_row_terms(
+                lay.payload, lay.counts, lay.centroids, lay.codebooks,
+                self.pq_codec))
+        self._layout = lay
         if spill is not None:
             sp_payload, sp_assign, sp_pos = spill
             s_pad = max(128, next_pow2(sp_pos.shape[0]))

@@ -14,10 +14,12 @@ and path selection.
   ops/ivf_pairs.py) for Flat, K2 / K3 (ops/ivf_sq_scan.py,
   ops/ivf_sq_pairs.py) for SQ, whose top ``_sq_kscan`` int8 candidates are
   rescored in fp32; K8 (ops/ivf_pq_scan.py) for PQ / RQ, which has no
-  pair-tile path (nor had it in the JAX package).  Under
-  ``config.pairs_impl = "mega"`` the pair tiles go through the pipelined
-  K10 / K9 (ops/ivf_pairs_mega.py, ops/ivf_sq_pairs_mega.py) in place of
-  K7 / K3, with the same results.  A device-resident index
+  pair-tile path (nor had it in the JAX package) and returns the top-k
+  itself; a PQ / RQ search with k above K8's limit (``MAX_K``, 1024)
+  takes the sorted+gather path below, as Flat takes its plain scan above
+  K1's.  Under ``config.pairs_impl = "mega"`` the pair tiles go through
+  the pipelined K10 / K9 (ops/ivf_pairs_mega.py, ops/ivf_sq_pairs_mega.py)
+  in place of K7 / K3, with the same results.  A device-resident index
   (models/ivf_device.py) always has a layout plan, and its SQ lists take
   the int8 kernels in both precision modes.  The spill region of a
   capped layout is scanned densely and merged: for sq8 / sq4 at d ≥ 16 and
@@ -48,6 +50,7 @@ import torch
 from ..ops.flat_search import finalize_scores
 from ..ops.ivf_list_scan import ivf_list_search
 from ..ops.ivf_pairs import ivf_pairs_search
+from ..ops.ivf_pq_scan import MAX_K as PQ_MAX_K
 from ..ops.ivf_pq_scan import ivf_pq_list_search
 from ..ops.ivf_scan import (choose_q_chunk, coarse_topk, ivf_pq_search,
                             ivf_search, ivf_spill_scan, ivf_sq_int8_search,
@@ -117,6 +120,13 @@ class IVFServe:
             blk //= 2
         return blk
 
+    def _layout_serves(self, k: int) -> bool:
+        """Whether a search for k goes through the padded layout: there is
+        a layout plan, and for PQ / RQ k is within K8's limit (PQ_MAX_K);
+        above it the sorted+gather scan serves."""
+        return (self._layout_plan() is not None
+                and (self.pq_m is None or k <= PQ_MAX_K))
+
     def search_dispatch(self, xq, k, params=EMPTY, selector=None):
         """Device dispatch without the host fetch: (dist, pos, nq, k_eff,
         positions→labels) or None when no device work applies (empty
@@ -137,7 +147,7 @@ class IVFServe:
         xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(self.device)
         metric = self.metric.name
 
-        if self._layout_plan() is not None:
+        if self._layout_serves(k):
             lay = self._build_device_layout()
             lmax = lay.payload.shape[1]
             spill = self._spill
@@ -212,7 +222,7 @@ class IVFServe:
             scores, pos = ivf_pq_list_search(
                 lay.payload, lay.counts, lay.row_pos, lay.codebooks,
                 lay.centroids, probe_ids, xq, mask, k=k_kernel,
-                metric=metric, codec=self.pq_codec)
+                metric=metric, codec=self.pq_codec, row_terms=lay.rt)
         elif self.pairs_wanted(xq.shape[0], lmax):
             mega = config.pairs_impl == "mega"
             self._last_scan_path = "pairs-mega-flat" if mega else "pairs-flat"

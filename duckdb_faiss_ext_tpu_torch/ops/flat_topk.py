@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.config import next_pow2
+from ..utils.kernels import DeviceCounter
 from .flat_search import finalize_scores, search_scan
 
 #: launches of the CUDA kernel since import (or since a caller reset it)
@@ -40,9 +41,9 @@ _WAVES = 1                               # blocks a split plan aims at, per SM
 _MERGE_SMEM = 64 * 1024
 _U = 2.0 ** -24
 
-#: per device index, a one-element int32 count of unproven queries, added
-#: to by every launch until a caller zeroes it (``reset_unproven``)
-_UNPROVEN: dict[int, torch.Tensor] = {}
+#: per device, the count of unproven queries, added to by every launch
+#: until a caller zeroes it (``reset_unproven``)
+_UNPROVEN = DeviceCounter()
 
 
 def margin(k: int) -> int:
@@ -104,21 +105,14 @@ def plan(nq: int, d: int, k: int, n_scan: int, n_sm: int) -> dict:
             "merge_warps": max(1, min(8, _MERGE_SMEM // (8 * merge_slots)))}
 
 
-def _unproven_counter(dev: torch.device) -> torch.Tensor:
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    if index not in _UNPROVEN:
-        _UNPROVEN[index] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return _UNPROVEN[index]
-
-
 def unproven(dev) -> int:
     """Queries counted unproven on ``dev`` since the last reset (reads the
     card: a synchronisation)."""
-    return int(_unproven_counter(torch.device(dev)).item())
+    return _UNPROVEN.read(dev)
 
 
 def reset_unproven(dev) -> None:
-    _unproven_counter(torch.device(dev)).zero_()
+    _UNPROVEN.reset(dev)
 
 
 def flat_topk_reference(xb, nvalid, xq, k, metric, mask=None):
@@ -181,7 +175,7 @@ def flat_topk(xb: torch.Tensor, nvalid: int, xq: torch.Tensor, k: int,
     bn_max = torch.zeros(1, dtype=torch.float32, device=dev)
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_p = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    count = _unproven_counter(dev)
+    count = _UNPROVEN.tensor(dev)
     vec4 = (d % 4 == 0 and xb.data_ptr() % 16 == 0
             and xq.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):

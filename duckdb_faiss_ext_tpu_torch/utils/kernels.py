@@ -8,7 +8,8 @@ headers they include (``csrc/*.cuh``) and the flags, so an edited source or
 header is rebuilt and a stale library is never loaded;
 a file lock keeps concurrent processes from building the same library
 twice.  ``nvcc`` is found through ``CUDA_HOME`` or ``/usr/local/cuda/bin``;
-without it, loading raises.
+without it, loading raises.  ``DeviceCounter`` holds the per-device counts
+that kernels add their diagnostics to.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -33,6 +36,28 @@ _lib: ctypes.CDLL | None = None
 #: seconds the last build took in this process (0.0 when the library was
 #: already built)
 build_seconds = 0.0
+
+
+class DeviceCounter:
+    """One int32 count on each CUDA device, which kernels add to (a
+    diagnostic) until a caller zeroes it."""
+
+    def __init__(self) -> None:
+        self._counts: dict[int, torch.Tensor] = {}
+
+    def tensor(self, dev) -> torch.Tensor:
+        dev = torch.device(dev)
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        if index not in self._counts:
+            self._counts[index] = torch.zeros(1, dtype=torch.int32, device=dev)
+        return self._counts[index]
+
+    def read(self, dev) -> int:
+        """The count on ``dev`` (reads the card: a synchronisation)."""
+        return int(self.tensor(dev).item())
+
+    def reset(self, dev) -> None:
+        self.tensor(dev).zero_()
 
 
 def find_nvcc() -> str:
@@ -141,13 +166,18 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i,               # l2, vec4
         p, p,               # out, stream
     ]
-    lib.dfx_ivf_pq_scan.restype = ctypes.c_int
-    lib.dfx_ivf_pq_scan.argtypes = [
-        p, p, p, p,         # lists, counts, probe_ids, xq
-        p, p, p,            # centroids, codebooks, mask
+    lib.dfx_ivf_pq_topk.restype = ctypes.c_int
+    lib.dfx_ivf_pq_topk.argtypes = [
+        p, p, p, p, p,      # lists, counts, rt, row_pos, probe_ids
+        p, p, p, p,         # xq, centroids, codebooks, mask
         i, i, i, i, i, i,   # nq, nprobe, nlist, lmax, m, d
-        i, i, i, i,         # ksub, dsub, rq, l2
-        p, p,               # out, stream
+        i, i, i, i, i,      # ksub, dsub, k, rq, l2
+        i, i, i,            # smem_lut, vec, vec4
+        i, i, i, i, i,      # splits, pps, warps, k2, slots
+        i, i,               # merge_slots, merge_warps
+        p, p, p, p, p,      # lut, cbn, part_s, part_p, cmax
+        p, p, p,            # out_s, out_p, unproven
+        i, p,               # stages, stream
     ]
     lib.dfx_ivf_sq_scan.restype = ctypes.c_int
     lib.dfx_ivf_sq_scan.argtypes = [

@@ -7,9 +7,9 @@
   of the sources and the headers they include;
 * on the card (``-m gpu``), the CUDA kernels (flat top-k, IVF list scan,
   IVF pair tiles, the int8 IVF,SQ list scan, pair tiles and spill windows,
-  the IVF-PQ / IVF-RQ scan, and the pipelined pair tiles K9 / K10) match
-  their plain versions, and the IVF-PQ scan raises on inputs it does not
-  take.
+  the IVF-PQ / IVF-RQ list search, and the pipelined pair tiles K9 / K10)
+  match their plain versions, and the IVF-PQ list search raises on inputs
+  it does not take.
 """
 
 import os
@@ -288,9 +288,12 @@ def card():
 
 
 def _pq_inputs(codec, m, nbits, d, nlist=16, lmax=256, nq=64, nprobe=3):
-    """K8's arguments on the card: a padded code layout with an empty list
-    and a full one, codebooks, centroids, a probe table, queries and a
-    mask."""
+    """K8's arguments on the card, in ``ivf_pq_list_search``'s order: a
+    padded code layout with an empty list, a full one and duplicated rows
+    (slots 4 and 5 of every list), its row positions, codebooks,
+    centroids, a probe table, queries and a mask; and the row terms."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+
     g = torch.Generator(device="cuda").manual_seed(3)
     counts = torch.randint(1, lmax, (nlist,), device="cuda", generator=g,
                            dtype=torch.int32)
@@ -298,7 +301,12 @@ def _pq_inputs(codec, m, nbits, d, nlist=16, lmax=256, nq=64, nprobe=3):
     live = (torch.arange(lmax, device="cuda")[None, :]
             < counts[:, None]).to(torch.uint8)
     lists = torch.randint(0, 1 << nbits, (nlist, lmax, m), device="cuda",
-                          generator=g, dtype=torch.uint8) * live[:, :, None]
+                          generator=g, dtype=torch.uint8)
+    lists[:, 5] = lists[:, 4]
+    lists *= live[:, :, None]
+    start = torch.cumsum(counts, 0) - counts
+    row_pos = torch.where(live.bool(), start[:, None] + torch.arange(
+        lmax, device="cuda")[None, :], -1).to(torch.int32)
     cb = torch.randn(m, 1 << nbits, d // m if codec == "pq" else d,
                      device="cuda", generator=g)
     cents = torch.randn(nlist, d, device="cuda", generator=g)
@@ -307,30 +315,57 @@ def _pq_inputs(codec, m, nbits, d, nlist=16, lmax=256, nq=64, nprobe=3):
     xq = torch.randn(nq, d, device="cuda", generator=g)
     mask = (torch.rand(nlist, lmax, device="cuda", generator=g)
             < 0.6).to(torch.int8)
-    return [lists, counts, probe, xq, cents, cb, mask]
+    rt = k8.pq_row_terms(lists, counts, cents, cb, codec)
+    return [lists, counts, row_pos, cb, cents, probe, xq, mask], rt
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [10, 100])
 @pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
 @pytest.mark.parametrize("codec,m,nbits,d", [("pq", 16, 8, 128),
                                              ("pq", 4, 4, 16),
                                              ("rq", 2, 4, 16),
                                              ("rq", 8, 8, 128)])
-def test_pq_kernel_matches_plain_on_card(card, codec, m, nbits, d, metric):
-    """K8 (IVF-PQ / IVF-RQ scan) against its plain torch version on the
-    same card tensors, raw scores element by element, each query within
-    1e-5 of its largest |score| (fp32 sums in another order)."""
+def test_pq_kernel_matches_plain_on_card(card, codec, m, nbits, d, metric,
+                                         k):
+    """K8 (the table, partial and merge launches of ivf_pq_list_search)
+    against its plain torch version on the same card tensors: scores
+    within 1e-5 of each query's scale (fp32 sums in another order),
+    positions equal wherever the neighbouring scores are apart, tied rows
+    to the lower storage row; one launch counted, no query unproven; the
+    table launch against ``pq_lut_reference``."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
 
-    args = _pq_inputs(codec, m, nbits, d) + [metric, codec]
+    args, rt = _pq_inputs(codec, m, nbits, d)
+    kw = dict(metric=metric, codec=codec, row_terms=rt)
+    xq = args[6]
     before = k8.LAUNCHES
-    raw = k8.ivf_pq_scan(*args)
+    k8.reset_unproven(card)
+    s, p = k8.ivf_pq_list_search(*args, k=k, **kw)
     torch.cuda.synchronize()
+    assert k8.LAUNCHES == before + 1 and k8.unproven(card) == 0
+    rs, rp = k8.ivf_pq_list_search_reference(*args, k=k + 1, **kw)
+    s, p, rs, rp = (t.cpu().numpy() for t in (s, p, rs, rp))
+    finite = np.isfinite(rs)
+    np.testing.assert_array_equal(np.isneginf(s), np.isneginf(rs[:, :k]))
+    tol = 1e-5 * np.maximum(np.abs(np.where(finite, rs, 0)).max(1),
+                            (xq * xq).sum(1).cpu().numpy())[:, None]
+    diff = np.abs(np.where(finite[:, :k], s - rs[:, :k], 0))
+    assert (diff <= tol).all(), diff.max()
+    apart = np.abs(np.diff(np.where(finite, rs, -1e30), axis=1)) > 2 * tol
+    sep = np.ones_like(s, bool)
+    sep[:, 1:] &= apart[:, :k - 1]
+    sep &= apart[:, :k]
+    np.testing.assert_array_equal(p[sep], rp[:, :k][sep])
+    np.testing.assert_array_equal(p[~finite[:, :k]], -1)
+    tied = (s[:, 1:] == s[:, :-1]) & np.isfinite(s[:, 1:])
+    assert (p[:, 1:][tied] > p[:, :-1][tied]).all()
+    launch = k8.Launch(*args, k=k, **kw)
+    launch.run(k8.TABLE)
+    want = k8.pq_lut_reference(xq, args[3], codec)
+    scale = (xq.abs().sum(1) * args[3].abs().max()).max()
+    assert (launch.lut - want).abs().max() <= 1e-5 * scale
     assert k8.LAUNCHES == before + 1
-    ref = k8.ivf_pq_scan_reference(*args)
-    nq = raw.shape[0]
-    _rows_agree(raw.reshape(nq, -1), ref.reshape(nq, -1),
-                torch.zeros(nq))
 
 
 @pytest.mark.gpu
@@ -339,18 +374,25 @@ def test_pq_kernel_raises_on_bad_inputs(card):
     plain version."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
 
-    args = _pq_inputs("pq", 4, 8, 16) + ["L2", "pq"]
+    args, rt = _pq_inputs("pq", 4, 8, 16)
+    kw = dict(k=10, metric="L2", codec="pq", row_terms=rt)
     before = k8.LAUNCHES
-    k8.ivf_pq_scan(*args)
+    k8.ivf_pq_list_search(*args, **kw)
     torch.cuda.synchronize()
     assert k8.LAUNCHES == before + 1
-    lists, counts, probe, xq, cents, cb, mask = args[:7]
+    lists, counts, row_pos, cb, cents, probe, xq, mask = args
     bad = {0: lists.to(torch.int32), 1: counts.to(torch.int64),
-           2: probe[:, :1].t(), 3: xq.cpu(), 4: cents[:, :8].contiguous(),
-           5: cb[:, :, :3].contiguous(), 6: mask[:4], 7: "L1", 8: "opq"}
+           2: row_pos[:, :8].contiguous(), 3: cb[:, :, :3].contiguous(),
+           4: cents[:, :8].contiguous(), 5: probe[:, :1].t(), 6: xq.cpu(),
+           7: mask[:4]}
     for i, value in bad.items():
         with pytest.raises(ValueError):
-            k8.ivf_pq_scan(*(args[:i] + [value] + args[i + 1:]))
+            k8.ivf_pq_list_search(*(args[:i] + [value] + args[i + 1:]),
+                                  **kw)
+    for change in ({"metric": "L1"}, {"codec": "opq"}, {"row_terms": None},
+                   {"row_terms": rt[:4]}, {"k": 0}, {"k": k8.MAX_K + 1}):
+        with pytest.raises(ValueError):
+            k8.ivf_pq_list_search(*args, **{**kw, **change})
     assert k8.LAUNCHES == before + 1
 
 

@@ -141,15 +141,17 @@ def test_list_search_matches_jax(codec, m, nbits, metric, masked):
 
 @pytest.mark.parametrize("codec", ["pq", "rq"])
 def test_raw_scores_mask_counts_and_residual(codec):
-    """The plain K8 scores every slot as dec(code) + centroid against the
-    query: -inf past the count and where the mask is 0, the difference-form
-    L2 otherwise; CPU tensors never launch the kernel."""
+    """The plain raw scores of K8's probed slots (its plain building block
+    and oracle) take every slot as dec(code) + centroid against the query:
+    -inf past the count and where the mask is 0, the difference-form L2
+    otherwise; nothing launches a kernel."""
     d, nq, nprobe, m = 16, 4, 3, 4
     L = _layout(3, codec, m, 8, d, nq, nprobe)
     t = {n: torch.from_numpy(L[n]) for n in L}
     before = k8.LAUNCHES
-    raw = k8.ivf_pq_scan(t["lists"], t["counts"], t["probe"], t["xq"],
-                         t["cents"], t["cb"], t["mask"], "L2", codec)
+    raw = k8.ivf_pq_scan_reference(t["lists"], t["counts"], t["probe"],
+                                   t["xq"], t["cents"], t["cb"], t["mask"],
+                                   "L2", codec)
     assert k8.LAUNCHES == before and raw.shape == (nq, nprobe, LMAX)
     for q in range(nq):
         for j in range(nprobe):

@@ -28,38 +28,54 @@ Phases (any failure raises and the script exits non-zero):
    kernel, its plain version and the library yardstick (cuBLAS SGEMM with
    TF32 off + torch.topk, two calls the port never makes) are timed, here
    and at 1M x 1536 inner product (b48 and b1024, no unproven query);
-6. IVF sweep: the per-query list scan (K6, ops/ivf_list_scan.py) and the
+6. IVF sweep: the per-query list search (K6, ops/ivf_list_scan.py: the
+   fused search, partial and merge launches, and the raw launch) and the
    pair-tile scan (K7, ops/ivf_pairs.py) against their plain versions on
-   the card, raw scores element by element: L2 and inner product, with and
-   without a mask, nprobe 1 / 3 / 64, d 8 / 128 / 1536, lmax 256 and 1024
-   (counts on both sides of 256, 512 and 768), lists of count 0 and
-   count == lmax, pair tiles with dead slots and n_tiles < t_max; then the
-   pipelined pair tiles (K10, ops/ivf_pairs_mega.py) at the same shapes,
-   bit-equal to K7 and held against the plain version, also with n_tiles
-   cut to 0 and to n_tiles - 3;
+   the card, raw scores element by element and the fused search's results
+   (scores within 1e-5 of each query's scale, positions where apart) at k
+   1 / 10 / 100 / 1024 in turn, with equal rows that must rank by the
+   lower flat index: L2 and inner product, with and without a mask, nprobe
+   1 / 3 / 64, d 8 / 128 / 1536, lmax 256 and 1024 (counts on both sides
+   of 256, 512 and 768), lists of count 0 and count == lmax, pair tiles
+   with dead slots and n_tiles < t_max; then the pipelined pair tiles
+   (K10, ops/ivf_pairs_mega.py) at the same shapes, bit-equal to K7 and
+   held against the plain version, also with n_tiles cut to 0 and to
+   n_tiles - 3;
 7. IVF main path: IDMap,IVF4096,Flat L2 over the same corpus
    (BASELINE.json configs[2]): faiss_manual_train on its first 262,144
    rows → faiss_add of all 1M with ids → faiss_search at nprobe 64 at b48
    and b1024, faiss_search_batched 16 x b48, faiss_search_filter.  Every
    result is held against the plain list scan on the same layout (labels
    equal where distances are separated), the kernel launch counts must
-   match the calls, and recall@10 against exact Flat is printed; K6's and
-   K7's raw scores at b1024 are held against their plain versions; then
-   K6 is timed against its plain version, K7 against K6 and the top-k of
-   the score block alone at b1024, and faiss_search wall time is taken;
+   match the calls (the fused K6 on every call below the pairs rule, its
+   raw launch on none), and recall@10 against exact Flat is printed; at
+   b48 and b1024 the fused K6 is held against its plain version, timed in
+   turns against the raw launch with exact_topk and the resolve (the
+   design it replaced), beside its plain version, with its device time a
+   call from torch.profiler and faiss_search's wall time; K6's raw and
+   K7's scores at b1024 are held against their plain versions, K7 is
+   timed against the fused K6, and the top-k of the raw score block
+   alone;
 8. pair-tile path: IVF1024,Flat inner product over 262,144 x 1536
    (seed 7) at nprobe 16: b1024 goes through K7 by the static gate, and
    through K10 under pairs_impl "mega" with equal results, b48 through
-   K6, all held against the plain path; K7's and K10's raw tiles at b1024
-   are held against the plain version and each other, then timed; the
+   the fused K6 (held against its plain version and timed in turns
+   against the raw launch with exact_topk and the resolve), all held
+   against the plain path; K7's and K10's raw tiles at b1024 are held
+   against the plain version and each other, then timed; the
    same trained index filled again by faiss_add_device of the corpus as a
    card tensor builds a byte-equal layout and equal results;
 9. SQ sweep: the int8 IVF,SQ kernels against their plain versions on the
-   card, raw scores element by element: the per-query list scan (K2,
-   ops/ivf_sq_scan.py) and the pair tiles (K3, ops/ivf_sq_pairs.py) at
-   sq8 / sq4 / sq6, L2 and inner product, with and without a mask, d 16 /
-   33 / 80 / 128 / 1536, lmax 256 and 1024 (K3 also 2560; counts on both
-   sides of 256, 512 and 768), lists of count 0 and count == lmax, tiles
+   card, raw scores element by element: the per-query list search (K2,
+   ops/ivf_sq_scan.py: its raw launch, and its fused search, whose k_scan
+   candidates must equal the plain top-k_scan bit for bit and whose
+   results are held against the plain search, at (k, k_scan) (1, 33) /
+   (10, 42) / (100, 400) / (256, 1024) in turn, with equal rows that must
+   rank by the lower flat index) and the pair tiles (K3,
+   ops/ivf_sq_pairs.py) at sq8 / sq4 / sq6, L2 and inner product, with and
+   without a mask, d 16 / 33 / 80 / 128 / 1536, lmax 256 and 1024 (K3 also
+   2560; counts on both sides of 256, 512 and 768), lists of count 0 and
+   count == lmax, tiles
    with dead slots and n_tiles < t_max, K3's tiles bit-equal, also with
    n_tiles cut to 0 and to n_tiles - 3; the spill search (K5,
    ops/sq_spill.py) at sq8 / sq4, nprobe 1 / 16 / 64, a spill sorted by
@@ -76,14 +92,19 @@ Phases (any failure raises and the script exits non-zero):
    the card in 262,144-row chunks, faiss_manual_train on the first chunk,
    faiss_add of every chunk, the padded layout capped at lmax 1024 so the
    longest lists spill; in fast mode at nprobe 16, k=10: faiss_search at
-   b48 (K2 + K5) and b1024 (K3 by the static rule + K5),
+   b48 (the fused K2 + K5) and b1024 (K3 by the static rule + K5),
    faiss_search_batched 16 x b48 and faiss_search_filter('id%2==0').  The
-   launch counts must match the calls; every result is held against the
-   same path with the plain versions of K2, K3 and K5 on the same layout;
-   recall@10 against the parity decode path and against exact fp32 search
-   is printed; K2's raw scores at the b1024 shapes are held against its
-   plain version, K3's and K9's tiles bit-equal to their plain version and
-   to each other, all timed, K3 against K9 in turns; the spill search at
+   launch counts must match the calls (K2's raw launch none); every result
+   is held against the same path with the plain versions of K2, K3 and K5
+   on the same layout; recall@10 against the parity decode path and
+   against exact fp32 search is printed; at b48 the fused K2's candidates
+   are held bit-equal to the plain top-k_scan and its results against the
+   plain search, then it is timed in turns against the raw launch with
+   top-k_scan and the torch rerank (the design it replaced), with its
+   device time a call;
+   K2's raw scores at the b1024 shapes are held against its plain version,
+   K3's and K9's tiles bit-equal to their plain version and to each other,
+   all timed, K3 against K9 in turns; the spill search at
    b48 and b1024 checked (K5's windows bit-equal, its rescore against the
    plain legs) and timed stage by stage (windows, window top-k, rescore,
    final top-k) beside the plain windows and legs; faiss_search wall time
@@ -128,14 +149,15 @@ Phases (any failure raises and the script exits non-zero):
    made on the card in 262,144-row chunks, faiss_train_device on the first
    chunk, faiss_add_device of every chunk with assign_topk 4 into lists
    padded to 2,560 (capacity-filled, tools/marco_device.py:288-299); in
-   fast mode at nprobe 16, k=10: faiss_search at b48 (K2 + K5), at b1024
-   under pairs_impl "grid" (K3 + K5) and "mega" (K9 + K5), equal exactly,
-   faiss_search_batched 16 x b48 and faiss_search_filter('id%2==0') under
-   "mega".  The launch counts must match the calls; every result is held
-   against the same path with the plain versions of K2, K3, K9 and K5;
-   recall@10 against exact fp32 search is printed; K9's raw tiles at b1024
-   are bit-equal to its plain version and K3's, then K9 is timed against
-   its plain version and against K3 in turns, the spill search is checked
+   fast mode at nprobe 16, k=10: faiss_search at b48 (the fused K2 + K5),
+   at b1024 under pairs_impl "grid" (K3 + K5) and "mega" (K9 + K5), equal
+   exactly, faiss_search_batched 16 x b48 and faiss_search_filter(
+   'id%2==0') under "mega".  The launch counts must match the calls; every
+   result is held against the same path with the plain versions of K2,
+   K3, K9 and K5; recall@10 against exact fp32 search is printed; K9's raw
+   tiles at b1024 are bit-equal to its plain version and K3's, then K9 is
+   timed against its plain version and against K3 in turns, the fused K2
+   is checked and timed at b48 as in phase 10, the spill search is checked
    and timed stage by stage at b48 and b1024 as in phase 10, and
    faiss_search's wall time and device stages are taken under both
    pairs_impl values.
@@ -144,8 +166,12 @@ Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
 over the card's peak rate for their type, computed from the inputs of the
 timed call; K1's operations run on the TF32 tensor cores, three products
-a term (495 / 3 TFLOP/s), and its fp32 FMA bound is printed beside.  The last two lines of standard output are a JSON object
-describing each kernel and the JSON result line {"ok": true, "device":
+a term (495 / 3 TFLOP/s), and its fp32 FMA bound is printed beside.  The
+fused K6 and K2 write no score block: their bounds count the probed lists'
+bytes, the queries, the probe table and the (nq, k) result.  The last two
+lines of standard output are a JSON object describing each kernel (K6's
+and K2's with before_ms, the time of the design they replaced, taken in
+turns with them) and the JSON result line {"ok": true, "device":
 {...}}.
 """
 
@@ -172,6 +198,9 @@ SWEEP_K = (1, 10, 100, 1024)
 #: of K5 (its last window ragged)
 #: (80: at sq8 whole 16-byte units but half a 32-dimension k-step)
 SQ_SWEEP_D, SQ_SWEEP_LMAX = (16, 33, 80, 128, 1536), (256, 1024)
+#: the fused K2's (k, k_scan) in turn: k_scan as the index picks it for sq8
+#: (max(4 k, k + 32)) up to the fused search's limit of 1024
+SQ_SWEEP_K = ((1, 33), (10, 42), (100, 400), (256, 1024))
 SPILL_SWEEP_D, SPILL_SWEEP_ROWS = (33, 1536), 12_800
 #: kernel sweep: scores agree to 1e-5 of the query's scale (fp32 sums taken
 #: in another order, see compare); main path: distances to 1e-5 of the
@@ -322,13 +351,14 @@ def synthetic_dataset(n, d, nq, ncl=1024, seed=42):
     return xb, xq
 
 
-def compare(scores, pos, ref_scores, ref_pos, xq):
+def compare(scores, pos, ref_scores, ref_pos, xq, batch=False):
     """Max abs score error after checking the kernel's k (score, position)
     pairs against the plain version's, computed one wider so the k-th
     position is checked only when the (k+1)-th score is apart from it;
     raises on disagreement.  Each query's tolerance is REL_TOL times the
     larger of its largest |score| and |q|^2 (the scale of the terms an L2
-    score cancels)."""
+    score cancels), or with ``batch`` REL_TOL times the batch's largest
+    |score|."""
     s, p, rs, rp = (t.cpu().numpy() for t in (scores, pos, ref_scores,
                                                 ref_pos))
     k = s.shape[1]
@@ -339,8 +369,12 @@ def compare(scores, pos, ref_scores, ref_pos, xq):
     check(np.array_equal(p[~finite], rp[~finite]), "missing positions differ")
     if not finite.any():
         return 0.0
-    qn = (xq * xq).sum(1).cpu().numpy()
-    tol = REL_TOL * np.maximum(np.abs(np.where(finite, rs, 0)).max(1), qn)
+    if batch:
+        tol = np.full(rs.shape[0], REL_TOL * np.abs(rs[finite]).max())
+    else:
+        qn = (xq * xq).sum(1).cpu().numpy()
+        tol = REL_TOL * np.maximum(np.abs(np.where(finite, rs, 0)).max(1),
+                                   qn)
     diff = np.abs(np.where(finite, s - rs, 0))
     check((diff <= tol[:, None]).all(),
           f"score error {diff.max()} above tolerance")
@@ -381,10 +415,10 @@ def probed_rows(counts, probe):
 
 
 def kernel_entry(spec, launches, err, ms, plain_ms, bound_ms_by,
-                 library_ms=None):
+                 library_ms=None, **extra):
     return dict(spec, launches=launches, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms_by[0],
-                bound_by=bound_ms_by[1], library_ms=library_ms)
+                bound_by=bound_ms_by[1], library_ms=library_ms, **extra)
 
 
 def cuda_ms(fn):
@@ -724,6 +758,51 @@ def k6_raw_error(lists, counts, probe, xq, mask, metric):
                        qn.reshape(-1))
 
 
+def live_row_pos(counts, lmax):
+    """Storage rows of a padded layout's live slots, list after list; -1
+    past each list's count."""
+    live = torch.arange(lmax, device=DEVICE)[None, :] < counts[:, None]
+    start = torch.cumsum(counts, 0) - counts
+    return torch.where(live, start[:, None] + torch.arange(
+        lmax, device=DEVICE)[None, :], -1).to(torch.int32)
+
+
+def k6_topk_error(lists, counts, row_pos, probe, xq, mask, metric, k):
+    """The fused K6 search (ivf_list_search on the card) against its plain
+    version (``compare``: scores within REL_TOL of each query's scale,
+    positions equal where the scores are apart)."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+    from duckdb_faiss_ext_tpu_torch.ops.list_topk import pad_to
+
+    args = (lists, counts, row_pos, probe, xq, mask)
+    s, p = pad_to(*k6.ivf_list_search(*args, k=k, metric=metric), k)
+    ref = pad_to(*k6.ivf_list_search_reference(*args, k=k + 1,
+                                               metric=metric), k + 1)
+    return compare(s, p, *ref, xq), (s, p)
+
+
+def device_ms(fn, reps=10):
+    """Device time a call of ``fn`` by kernel (torch.profiler), as 'name
+    ms; ...'."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return "; ".join(
+        f"{kernel_name(e.key)} {e.device_time_total / (reps * 1e3):.3f} ms"
+        for e in prof.key_averages() if e.device_time_total > 0) or "none"
+
+
+def kernel_name(key):
+    """A profiler event's kernel name without return type, namespace,
+    template and parameters."""
+    key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return key.split("<")[0].split("(")[0].split("::")[-1]
+
+
 def k7_raw_error(lists, counts, xq_t, qs_t, meta, mask, metric):
     """K7's raw (t_max, qg, lmax) tiles against its plain version on the
     same card tensors, over the n_tiles real tiles (the kernel leaves the
@@ -741,25 +820,40 @@ def k7_raw_error(lists, counts, xq_t, qs_t, meta, mask, metric):
 
 def probe_table(g, nq, nlist, nprobe):
     """Distinct random lists per query; query 0 probes list 0 (empty) and
-    query 1 list 1 (full) first."""
+    queries 1 and 2 list 1 (full) first."""
     keys = torch.rand(nq, nlist, device=DEVICE, generator=g)
-    keys[0, 0] = keys[1, 1] = -1.0
+    keys[0, 0] = keys[1, 1] = keys[2, 1] = -1.0
     return keys.argsort(1)[:, :nprobe].to(torch.int32).contiguous()
 
 
+def check_tie(p, row_pos, k, metric):
+    """Query 2 sits on list 1's rows 4 and 5 (equal rows, both live): under
+    L2 they are its two best, tied, and the lower flat index (slot 4) comes
+    first."""
+    if metric != "L2":
+        return
+    want = row_pos[1, 4:4 + min(k, 2)]
+    check(torch.equal(p[2, :want.numel()], want), f"tie of query 2: "
+          f"{p[2, :2].tolist()} not {want.tolist()}")
+
+
 def phase_ivf_sweep():
-    """K6 and K7 against their plain versions: L2 / IP, mask off / on,
-    nprobe 1 / 3 / 64, d 8 / 128 / 1536, lmax 256 and 1024 (counts on both
-    sides of each 256-row chunk edge of K7), lists of count 0 and count ==
-    lmax, K7 with dead slots and n_tiles < t_max."""
+    """K6 (the fused search and the raw launch) and K7 against their plain
+    versions: L2 / IP, mask off / on, nprobe 1 / 3 / 64, d 8 / 128 / 1536,
+    lmax 256 and 1024 (counts on both sides of each 256-row chunk edge of
+    K7), lists of count 0 and count == lmax, K7 with dead slots and n_tiles
+    < t_max; the fused K6 at k 1 / 10 / 100 / 1024 in turn, with equal rows
+    (slots 4 and 5 of every list) that must rank by the lower flat
+    index."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
 
     g = torch.Generator(device=DEVICE).manual_seed(4321)
     nlist, nq6, nq7 = 64, BATCH, 256
-    before = (k6.LAUNCHES, k7.LAUNCHES)
-    err6 = err7 = 0.0
+    before = (k6.LAUNCHES, k6.TOPK_LAUNCHES, k7.LAUNCHES)
+    err6 = err6f = err7 = 0.0
     n_cases = 0
+    ks = itertools.cycle(SWEEP_K)
     for d, lmax in itertools.product(SWEEP_D, (256, 1024)):
         t0 = time.perf_counter()
         counts = torch.randint(1, lmax, (nlist,), device=DEVICE, generator=g,
@@ -769,16 +863,25 @@ def phase_ivf_sweep():
             counts[2:8] = torch.tensor([255, 257, 511, 513, 767, 769])
         lane = torch.arange(lmax, device=DEVICE)
         lists = torch.randn(nlist, lmax, d, device=DEVICE, generator=g)
+        lists[:, 5] = lists[:, 4]
         lists *= (lane[None, :] < counts[:, None])[:, :, None]
+        row_pos = live_row_pos(counts, lmax)
         mask = (torch.rand(nlist, lmax, device=DEVICE, generator=g)
                 < 0.6).to(torch.int8)
+        mask[1, 4:6] = 1
         xq = torch.randn(nq7, d, device=DEVICE, generator=g)
+        xq[2] = lists[1, 4]
         for metric, m, nprobe in itertools.product(
                 ("L2", "INNER_PRODUCT"), (None, mask), (1, 3, 64)):
             probe = probe_table(g, nq7, nlist, nprobe)
-            err6 = max(err6, k6_raw_error(lists, counts,
-                                          probe[:nq6].contiguous(),
-                                          xq[:nq6].contiguous(), m, metric))
+            probe6, xq6 = probe[:nq6].contiguous(), xq[:nq6].contiguous()
+            err6 = max(err6, k6_raw_error(lists, counts, probe6, xq6, m,
+                                          metric))
+            k = next(ks)
+            e, (_, p) = k6_topk_error(lists, counts, row_pos, probe6, xq6, m,
+                                      metric, k)
+            check_tie(p, row_pos, k, metric)
+            err6f = max(err6f, e)
             xq_t, qs_t, meta, _ = k7.pair_tile_inputs(probe, xq, nlist)
             check(int(meta[0]) < xq_t.shape[0], "no padding tiles")
             check(bool(torch.isneginf(qs_t[:int(meta[0]), :, 0]).any())
@@ -786,15 +889,16 @@ def phase_ivf_sweep():
             err7 = max(err7, k7_raw_error(lists, counts, xq_t, qs_t, meta, m,
                                           metric))
             n_cases += 1
-        log(f"ivf sweep d={d} lmax={lmax}: 12 cases x (K6, K7) agree "
-            f"({time.perf_counter() - t0:.1f} s)")
+        log(f"ivf sweep d={d} lmax={lmax}: 12 cases x (K6 fused, K6 raw, "
+            f"K7) agree ({time.perf_counter() - t0:.1f} s)")
         del lists, mask, xq
         torch.cuda.empty_cache()
-    check((k6.LAUNCHES - before[0], k7.LAUNCHES - before[1])
-          == (n_cases, n_cases), "an ivf sweep case did not launch")
-    log(f"ivf sweep: {n_cases} cases each, max abs score error K6 "
-        f"{err6:.3g}, K7 {err7:.3g}")
-    return err6, err7
+    check((k6.LAUNCHES - before[0], k6.TOPK_LAUNCHES - before[1],
+           k7.LAUNCHES - before[2]) == (n_cases, n_cases, n_cases),
+          "an ivf sweep case did not launch")
+    log(f"ivf sweep: {n_cases} cases each, max abs score error K6 fused "
+        f"{err6f:.3g}, K6 raw {err6:.3g}, K7 {err7:.3g}")
+    return max(err6, err6f), err7
 
 
 def k10_raw_error(lists, counts, xq_t, qs_t, meta, mask, metric):
@@ -977,7 +1081,7 @@ def phase_ivf_main(smi, data, exact):
         f"build+upload {t_layout:.2f} s; lmax {lmax}, longest list "
         f"{int(lay.counts.max())}")
 
-    k6.LAUNCHES = k7.LAUNCHES = 0
+    k6.LAUNCHES = k6.TOPK_LAUNCHES = k7.LAUNCHES = 0
     out = {
         "b48": dt.faiss_search("ivf", K, data["b48"], params, catalog=cat),
         "b1024": dt.faiss_search("ivf", K, data["b1024"], params,
@@ -988,14 +1092,15 @@ def phase_ivf_main(smi, data, exact):
                                          "id", "base", params, catalog=cat,
                                          database=db),
     }
-    launches = (k6.LAUNCHES, k7.LAUNCHES)
+    launches = (k6.TOPK_LAUNCHES, k7.LAUNCHES)
     calls = [(64, 1), (BIG_BATCH, 1), (64, N_BATCHES), (64, 1)]
     expected = (sum(n for nq, n in calls if not index.pairs_wanted(nq, lmax)),
                 sum(n for nq, n in calls if index.pairs_wanted(nq, lmax)))
-    check(launches == expected, f"ivf main path launched (K6, K7) "
-          f"{launches} times, not {expected}")
+    check(launches == expected and k6.LAUNCHES == 0, f"ivf main path "
+          f"launched (K6 fused, K7) {launches} times, not {expected}, and "
+          f"K6's raw launch {k6.LAUNCHES} times")
     check(index.device.type == DEVICE, "index not on the card")
-    log(f"ivf main path: (K6, K7) launches {launches}")
+    log(f"ivf main path: (K6 fused, K7) launches {launches}")
 
     even = ((lay.row_pos >= 0) & (lay.row_pos % 2 == 0)).to(torch.int8)
     max_err = 0.0
@@ -1031,24 +1136,45 @@ def phase_ivf_main(smi, data, exact):
         xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(DEVICE)
         probe = coarse_topk(xq_pad, lay.centroids, IVF_NPROBE, "L2")
         args = (lay.payload, lay.counts, probe, xq_pad, None, "L2")
-        ms, plain_ms = time_pair(lambda: k6.ivf_list_scan(*args),
-                                 lambda: k6.ivf_list_scan_reference(*args))
+        search6 = (lay.payload, lay.counts, lay.row_pos, probe, xq_pad, None)
+        err_f, _ = k6_topk_error(*search6, "L2", K)
+        max_err = max(max_err, err_f)
+        # In turns: the raw launch with exact_topk and the resolve (the
+        # design the fused search replaced), the fused search, the fused
+        # search, the raw launch.
+        ms, before_ms = time_pair(
+            lambda: k6.ivf_list_search(*search6, k=K, metric="L2"),
+            lambda: k6.ivf_list_search_raw(*search6, k=K, metric="L2"),
+            reps=6)
+        plain_ms = statistics.median(
+            cuda_ms(lambda: k6.ivf_list_search_reference(*search6, k=K,
+                                                         metric="L2"))
+            for _ in range(3))
+        launch = k6.TopKLaunch(*search6, k=K, metric="L2")
+        dev_ms = device_ms(launch.run)
         walls = []
         for _ in range(10):
             t0 = time.perf_counter()
             dt.faiss_search("ivf", K, xq, params, catalog=cat)
             walls.append(1e3 * (time.perf_counter() - t0))
-        # The distinct probed lists' rows and the queries read once, the
-        # score block written once; 2·d operations a probed row.
+        # The distinct probed lists' rows, the queries and the probe table
+        # read once, the (nq, k) result written once; 2·d operations a
+        # probed row.
         _, rows_once, rows_all = probed_rows(lay.counts, probe)
         b = bound(4 * rows_once * D + 4 * nq_pad * D + 4 * probe.numel()
-                  + 4 * probe.numel() * lmax, 2 * D * rows_all)
-        timings[name] = (ms, plain_ms, b)
-        log(f"time IVF4096 {N}x{D} L2 nprobe {IVF_NPROBE} {name} ({nq_pad} "
-            f"rows launched): K6 {ms:.3f} ms, plain {plain_ms:.3f} ms "
-            f"(median CUDA events), bound {b[0]:.3f} ms ({b[1]}); "
-            f"faiss_search wall {statistics.median(walls):.3f} ms (median) "
-            f"[{smi}]")
+                  + 8 * nq_pad * K, 2 * D * rows_all)
+        timings[name] = (ms, plain_ms, b, before_ms)
+        p = launch.plan
+        log(f"time IVF4096 {N}x{D} L2 nprobe {IVF_NPROBE} k={K} {name} "
+            f"({nq_pad} rows launched; {p['splits']} splits, chunks of "
+            f"{p['chunk_rows']} rows, {p['stages']} stages, {p['warps']} "
+            f"consumer warps, lanes {launch.lanes}, tma {p['tma']}): K6 fused "
+            f"{ms:.3f} ms against the raw launch + exact_topk + resolve "
+            f"{before_ms:.3f} ms (in turns), plain {plain_ms:.3f} ms (median "
+            f"CUDA events), bound {b[0]:.3f} ms ({b[1]}); agrees with the "
+            f"plain version (max abs error {err_f:.3g}); device time a call "
+            f"(torch.profiler): {dev_ms}; faiss_search wall "
+            f"{statistics.median(walls):.3f} ms (median) [{smi}]")
         if name == "b1024":
             search = dict(k=K, metric="L2")
             lists = (lay.payload, lay.counts, lay.row_pos, probe, xq_pad, None)
@@ -1077,10 +1203,10 @@ def phase_ivf_main(smi, data, exact):
                                           qs_t, meta, None, "L2"),
                 lambda: k6.ivf_list_scan(*args), reps=6)
             log(f"time IVF4096 {N}x{D} L2 nprobe {IVF_NPROBE} b1024, K7 "
-                f"pair tiles against K6 per query: scan + top-k "
-                f"{k7_ms:.3f} vs {k6_ms:.3f} ms, raw scores only "
-                f"{raw7_ms:.3f} vs {raw6_ms:.3f} ms (median CUDA events) "
-                f"[{smi}]")
+                f"pair tiles against K6 per query: K7 scan + top-k "
+                f"{k7_ms:.3f} vs the fused K6 {k6_ms:.3f} ms, raw scores "
+                f"only K7 {raw7_ms:.3f} vs K6's raw launch {raw6_ms:.3f} ms "
+                f"(median CUDA events) [{smi}]")
     return max(max_err, raw_err6), raw_err7, launches[0], timings
 
 
@@ -1105,6 +1231,7 @@ def phase_ivf_pairs(smi):
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs_mega as k10
     from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
+    from duckdb_faiss_ext_tpu_torch.utils.config import pad_rows
 
     t0 = time.perf_counter()
     xb, xq = clustered_f32(PAIRS_N, PAIRS_D, BATCH + BIG_BATCH, PAIRS_NLIST,
@@ -1137,11 +1264,11 @@ def phase_ivf_pairs(smi):
             dt.config.pairs_impl = "grid"
         return res
 
-    k6.LAUNCHES = k7.LAUNCHES = k10.LAUNCHES = 0
+    k6.LAUNCHES = k6.TOPK_LAUNCHES = k7.LAUNCHES = k10.LAUNCHES = 0
     out = run_all("marco")
-    launches = (k6.LAUNCHES, k7.LAUNCHES, k10.LAUNCHES)
-    check(launches == (1, 1, 1), f"pairs path launched (K6, K7, K10) "
-          f"{launches}")
+    launches = (k6.TOPK_LAUNCHES, k7.LAUNCHES, k10.LAUNCHES)
+    check(launches == (1, 1, 1) and k6.LAUNCHES == 0, f"pairs path launched "
+          f"(K6 fused, K7, K10) {launches}, K6's raw launch {k6.LAUNCHES}")
     check(index._last_scan_path == "pairs-mega-flat", "mega not taken")
     for key in ("label", "distance"):
         check(np.array_equal(out["b1024-mega"][key], out["b1024"][key]),
@@ -1152,8 +1279,24 @@ def phase_ivf_pairs(smi):
         max_err = max(max_err, compare_results(
             f"pairs {name}", out[name], ref_d, ref_l, True))
     log(f"ivf pairs path: b1024 through K7 and through K10 (equal) and b48 "
-        f"through K6 agree with the plain path (max distance error "
+        f"through the fused K6 agree with the plain path (max distance error "
         f"{max_err:.3g})")
+    xq48 = torch.from_numpy(pad_rows(xq[:BATCH], 64)).to(DEVICE)
+    probe48 = coarse_topk(xq48, lay.centroids, PAIRS_NPROBE, "INNER_PRODUCT")
+    search48 = (lay.payload, lay.counts, lay.row_pos, probe48, xq48, None)
+    err48, _ = k6_topk_error(*search48, "INNER_PRODUCT", K)
+    ms48, before48 = time_pair(
+        lambda: k6.ivf_list_search(*search48, k=K, metric="INNER_PRODUCT"),
+        lambda: k6.ivf_list_search_raw(*search48, k=K,
+                                       metric="INNER_PRODUCT"), reps=6)
+    dev48 = device_ms(k6.TopKLaunch(*search48, k=K,
+                                    metric="INNER_PRODUCT").run)
+    max_err = max(max_err, err48)
+    log(f"time IVF{PAIRS_NLIST} {PAIRS_N}x{PAIRS_D} IP nprobe {PAIRS_NPROBE} "
+        f"b48 (64 rows launched): K6 fused {ms48:.3f} ms against the raw "
+        f"launch + exact_topk + resolve {before48:.3f} ms (in turns, median "
+        f"CUDA events); agrees with the plain version (max abs error "
+        f"{err48:.3g}); device time a call (torch.profiler): {dev48} [{smi}]")
 
     xq_dev = torch.from_numpy(xq[BATCH:]).to(DEVICE)
     probe = coarse_topk(xq_dev, lay.centroids, PAIRS_NPROBE, "INNER_PRODUCT")
@@ -1238,8 +1381,9 @@ def sq_rows(g, n, d, codec):
 
 def sq_sweep_layout(g, nlist, lmax, d, codec):
     """Random SQ codes padded per list (one list empty, one full, counts on
-    both sides of 256 / 512 / 768 at lmax 1024), their rn / rs, ranges
-    and a mask."""
+    both sides of 256 / 512 / 768 at lmax 1024, slot 5 of every list equal
+    to slot 4), their rn / rs, ranges and a mask (list 1's slots 4 and 5
+    live)."""
     codes, rn, rs, vmin, scale, mask = sq_rows(g, nlist * lmax, d, codec)
     counts = torch.randint(1, lmax, (nlist,), device=DEVICE, generator=g,
                            dtype=torch.int32)
@@ -1247,10 +1391,52 @@ def sq_sweep_layout(g, nlist, lmax, d, codec):
     if lmax > 256:
         counts[2:8] = torch.tensor([255, 257, 511, 513, 767, 769])
     live = (torch.arange(lmax, device=DEVICE)[None, :] < counts[:, None])
-    codes = codes.reshape(nlist, lmax, -1) * live[:, :, None].to(torch.uint8)
-    return (codes, counts, rn.reshape(nlist, lmax) * live,
-            rs.reshape(nlist, lmax) * live, vmin, scale,
-            mask.reshape(nlist, lmax))
+    codes, rn, rs, mask = (t.reshape(nlist, lmax, -1) for t in (codes, rn, rs,
+                                                               mask))
+    for t in (codes, rn, rs):
+        t[:, 5] = t[:, 4]
+    mask[1, 4:6] = 1
+    codes = codes * live[:, :, None].to(torch.uint8)
+    return (codes, counts, rn[:, :, 0] * live, rs[:, :, 0] * live, vmin,
+            scale, mask[:, :, 0].contiguous())
+
+
+def k2_topk_error(codes, rn, rs, counts, row_pos, probe, xq, mask, vmin,
+                  scale, metric, codec, k, k_scan):
+    """The fused K2 search on the card against its plain version: the
+    k_scan candidates its merge writes bit-equal to the plain exact_topk of
+    the raw int8 scores (scores, and flat indices where the score is
+    finite), then its results (``compare`` one wider: distances within
+    REL_TOL of the batch's largest, positions where they are apart).
+    Returns (max abs error, (scores, positions))."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import exact_topk
+    from duckdb_faiss_ext_tpu_torch.ops.list_topk import pad_to
+    from duckdb_faiss_ext_tpu_torch.ops.sq_digits import (KERNEL_SHIFT,
+                                                          query_digits)
+
+    args = (codes, rn, rs, counts, row_pos, probe, xq, mask, vmin, scale)
+    kw = dict(k_scan=k_scan, metric=metric, codec=codec)
+    s, p = pad_to(*k2.ivf_sq_list_search(*args, k=k, **kw), k)
+    launch = k2.TopKLaunch(*args, k=k, **kw)
+    launch.run()
+    cs, cp = launch.candidates
+    q = query_digits(xq, vmin, scale, metric, codec, codes.shape[2],
+                     KERNEL_SHIFT[codec])
+    raw = k2.ivf_sq_scan_reference(codes, rn, rs, counts, probe, q.digits,
+                                   q.scalars, mask, metric, codec)
+    bs, sel = exact_topk(raw.reshape(xq.shape[0], -1), launch.plan["k2"])
+    check(torch.equal(cs, bs), "K2 candidate scores differ from the plain "
+          "top-k_scan")
+    fin = torch.isfinite(bs)
+    check(torch.equal(cp[fin].long(), sel[fin]) and bool((cp[~fin] == -1)
+                                                         .all()),
+          "K2 candidates differ from the plain top-k_scan")
+    check(torch.equal(launch.scores, s) and torch.equal(launch.positions, p),
+          "K2 differs between two runs")
+    ref = pad_to(*k2.ivf_sq_list_search_reference(*args, k=k + 1, **kw),
+                 k + 1)
+    return compare(s, p, *ref, xq, batch=True), (s, p)
 
 
 def k2_raw_error(codes, rn, rs, counts, probe, q, mask, metric, codec):
@@ -1347,31 +1533,41 @@ def spill_probe_table(g, nq, nlist, nprobe):
 
 
 def phase_sq_sweep():
-    """K2 and K3 against their plain versions: sq8 / sq4 / sq6, L2 / IP,
-    mask off / on, d 16 / 33 / 80 / 128 / 1536, lmax 256 and 1024 (K3 also
-    2560, bit-equal, and with n_tiles cut to 0 and n_tiles - 3), nprobe in
-    turn 1 / 3 / 16 / 64; K5 at sq8 / sq4, nprobe 1 / 16 / 64, d 33 /
-    1536, a ragged last window and a partial query group."""
+    """K2 (the raw launch and the fused search) and K3 against their plain
+    versions: sq8 / sq4 / sq6, L2 / IP, mask off / on, d 16 / 33 / 80 /
+    128 / 1536, lmax 256 and 1024 (K3 also 2560, bit-equal, and with
+    n_tiles cut to 0 and n_tiles - 3), nprobe in turn 1 / 3 / 16 / 64; the
+    fused K2's k_scan candidates bit-equal to the plain top-k_scan and its
+    results held against the plain search at (k, k_scan) in turn
+    SQ_SWEEP_K, with equal rows (slots 4 and 5) that must rank by the lower
+    flat index; K5 at sq8 / sq4, nprobe 1 / 16 / 64, d 33 / 1536, a ragged
+    last window and a partial query group."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
     from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
     from duckdb_faiss_ext_tpu_torch.ops.ivf_pairs import QG
+    from duckdb_faiss_ext_tpu_torch.ops.sq import sq_decode
     from duckdb_faiss_ext_tpu_torch.ops.sq_digits import (KERNEL_SHIFT,
                                                           query_digits)
 
     g = torch.Generator(device=DEVICE).manual_seed(2468)
     nlist, nq2, nq3 = 64, BATCH, 256
-    before = (k2.LAUNCHES, k3.LAUNCHES, k5.LAUNCHES)
-    err2 = err3 = err5 = 0.0
+    before = (k2.LAUNCHES, k2.TOPK_LAUNCHES, k3.LAUNCHES, k5.LAUNCHES)
+    err2 = err2f = err3 = err5 = 0.0
     n2 = n3 = n5 = 0
     nprobes = itertools.cycle((1, 3, 16, 64))
+    k_pairs = itertools.cycle(SQ_SWEEP_K)
     for d, lmax in itertools.product(SQ_SWEEP_D, SQ_MEGA_SWEEP_LMAX):
         t0 = time.perf_counter()
-        xq = torch.randn(nq3, d, device=DEVICE, generator=g)
+        xq0 = torch.randn(nq3, d, device=DEVICE, generator=g)
         for codec in ("sq8", "sq4", "sq6"):
             codes, counts, rn, rs, vmin, scale, mask = sq_sweep_layout(
                 g, nlist, lmax, d, codec)
             w = codes.shape[2]
+            row_pos = live_row_pos(counts, lmax)
+            # query 2 sits on list 1's equal rows 4 and 5
+            xq = xq0.clone()
+            xq[2] = sq_decode(codes[1, 4:5], vmin, scale, codec)[0]
             for metric, m in itertools.product(("L2", "INNER_PRODUCT"),
                                                (None, mask)):
                 probe = probe_table(g, nq3, nlist, next(nprobes))
@@ -1380,9 +1576,16 @@ def phase_sq_sweep():
                 if lmax in SQ_SWEEP_LMAX:
                     q2 = type(q)(q.digits[:nq2].contiguous(),
                                  q.scalars[:nq2].contiguous())
+                    probe2 = probe[:nq2].contiguous()
                     err2 = max(err2, k2_raw_error(
-                        codes, rn, rs, counts, probe[:nq2].contiguous(), q2,
-                        m, metric, codec))
+                        codes, rn, rs, counts, probe2, q2, m, metric, codec))
+                    k, k_scan = next(k_pairs)
+                    e, (_, p) = k2_topk_error(
+                        codes, rn, rs, counts, row_pos, probe2,
+                        xq[:nq2].contiguous(), m, vmin, scale, metric, codec,
+                        k, k_scan)
+                    check_tie(p, row_pos, k, metric)
+                    err2f = max(err2f, e)
                     n2 += 1
                 tiles = k3.sq_pair_tile_inputs(probe, q, nlist, metric)
                 n_tiles = int(tiles[2][0])
@@ -1393,8 +1596,9 @@ def phase_sq_sweep():
                                               m, metric, codec))
                 n3 += 1
             del codes, rn, rs, mask
-        log(f"sq sweep d={d} lmax={lmax}: 12 cases, "
-            f"{'K2 agrees, ' if lmax in SQ_SWEEP_LMAX else ''}K3 bit-equal "
+        k2_note = ("K2 raw agrees, K2 fused candidates bit-equal and results "
+                   "agree, " if lmax in SQ_SWEEP_LMAX else "")
+        log(f"sq sweep d={d} lmax={lmax}: 12 cases, {k2_note}K3 bit-equal "
             f"({time.perf_counter() - t0:.1f} s)")
         torch.cuda.empty_cache()
     from duckdb_faiss_ext_tpu_torch.ops.sq_spill import spill_offsets
@@ -1439,14 +1643,15 @@ def phase_sq_sweep():
         torch.cuda.empty_cache()
     check(k5.RESCORE_LAUNCHES - rescore_before == n5,
           "an sq sweep rescore did not launch")
-    check((k2.LAUNCHES - before[0], k3.LAUNCHES - before[1],
-           k5.LAUNCHES - before[2]) == (n2, 3 * n3, 2 * n5),
-          "an sq sweep case did not launch")
-    log(f"sq sweep: {n2} cases for K2, {n3} for K3 (bit-equal; K3 blocks an "
-        f"SM at the last {k3.last_blocks}), {n5} for K5 (windows bit-equal); "
-        f"max abs score error K2 {err2:.3g}, K3 {err3:.3g}, K5 rescore "
-        f"{err5:.3g}")
-    return err2, err3, err5
+    check((k2.LAUNCHES - before[0], k2.TOPK_LAUNCHES - before[1],
+           k3.LAUNCHES - before[2], k5.LAUNCHES - before[3])
+          == (n2, n2, 3 * n3, 2 * n5), "an sq sweep case did not launch")
+    log(f"sq sweep: {n2} cases for K2 (raw, and fused: candidates bit-equal), "
+        f"{n3} for K3 (bit-equal; K3 blocks an SM at the last "
+        f"{k3.last_blocks}), {n5} for K5 (windows bit-equal); max abs score "
+        f"error K2 raw {err2:.3g}, K2 fused {err2f:.3g}, K3 {err3:.3g}, K5 "
+        f"rescore {err5:.3g}")
+    return max(err2, err2f), err3, err5
 
 
 def k9_raw_error(codes, rn, rs, counts, tiles, mask, metric, codec):
@@ -1550,17 +1755,18 @@ class MarcoCorpus:
 
 @contextlib.contextmanager
 def plain_sq_kernels():
-    """Run the IVF,SQ path with the plain versions of K2, K3, K9 and K5
-    (windows and rescore) in place of their wrappers (same signatures, same
-    inputs)."""
+    """Run the IVF,SQ path with the plain versions of K2 (the fused search),
+    K3, K9 and K5 (windows and rescore) in place of their wrappers (same
+    signatures, same inputs)."""
+    from duckdb_faiss_ext_tpu_torch.models import ivf_serve
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs_mega as k9
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
     from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
 
-    saved = (k2.ivf_sq_scan, k3.ivf_sq_pairs_scan, k9.ivf_sq_pairs_mega_scan,
-             k5.sq_spill_windows, k5.spill_rescore)
-    k2.ivf_sq_scan = k2.ivf_sq_scan_reference
+    saved = (ivf_serve.ivf_sq_list_search, k3.ivf_sq_pairs_scan,
+             k9.ivf_sq_pairs_mega_scan, k5.sq_spill_windows, k5.spill_rescore)
+    ivf_serve.ivf_sq_list_search = k2.ivf_sq_list_search_reference
     k3.ivf_sq_pairs_scan = k3.ivf_sq_pairs_scan_reference
     k9.ivf_sq_pairs_mega_scan = k3.ivf_sq_pairs_scan_reference
     k5.sq_spill_windows = k5.sq_spill_windows_reference
@@ -1568,8 +1774,49 @@ def plain_sq_kernels():
     try:
         yield
     finally:
-        (k2.ivf_sq_scan, k3.ivf_sq_pairs_scan, k9.ivf_sq_pairs_mega_scan,
-         k5.sq_spill_windows, k5.spill_rescore) = saved
+        (ivf_serve.ivf_sq_list_search, k3.ivf_sq_pairs_scan,
+         k9.ivf_sq_pairs_mega_scan, k5.sq_spill_windows,
+         k5.spill_rescore) = saved
+
+
+def time_k2(tag, lay, xq, probe, vmin, scale, k_scan, metric, codec, smi):
+    """The fused K2 at one batch of a main path: its candidates bit-equal
+    to the plain top-k_scan and its results held against the plain search
+    (``k2_topk_error``), then timed in turns against the raw launch with
+    top-k_scan and the torch rerank (the design it replaced), beside its
+    plain version, with its device time a call.  Returns (ms, plain ms,
+    bound, before ms), the max abs error."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
+    from duckdb_faiss_ext_tpu_torch.ops.sq_digits import (KERNEL_SHIFT,
+                                                          query_digits)
+
+    args = (lay.payload, lay.rn, lay.rs, lay.counts, lay.row_pos, probe, xq,
+            None, vmin, scale)
+    kw = dict(k=K, k_scan=k_scan, metric=metric, codec=codec)
+    err, _ = k2_topk_error(*args, metric, codec, K, k_scan)
+    ms, before_ms = time_pair(lambda: k2.ivf_sq_list_search(*args, **kw),
+                              lambda: k2.ivf_sq_list_search_raw(*args, **kw),
+                              reps=6)
+    plain_ms = statistics.median(
+        cuda_ms(lambda: k2.ivf_sq_list_search_reference(*args, **kw))
+        for _ in range(3))
+    launch = k2.TopKLaunch(*args, **kw)
+    dev = device_ms(launch.run)
+    w = lay.payload.shape[2]
+    q = query_digits(xq, vmin, scale, metric, codec, w, KERNEL_SHIFT[codec])
+    _, once, pairs = probed_rows(lay.counts, probe)
+    b = sq_bound(q, probe, 8 * xq.shape[0] * K, once * (w + 8), pairs)
+    p = launch.plan
+    log(f"time {tag} k={K} k_scan={k_scan} ({xq.shape[0]} rows launched; "
+        f"{p['splits']} splits, chunks of {p['chunk_rows']} rows, "
+        f"{p['stages']} stages, {p['warps']} consumer warps, tma "
+        f"{p['tma']}): K2 fused {ms:.3f} ms against the "
+        f"raw launch + top-k_scan + torch rerank {before_ms:.3f} ms (in "
+        f"turns), plain {plain_ms:.3f} ms (median CUDA events), bound "
+        f"{b[0]:.3f} ms ({b[1]}); candidates bit-equal to the plain "
+        f"top-k_scan, results agree (max abs error {err:.3g}); device time a "
+        f"call (torch.profiler): {dev} [{smi}]")
+    return (ms, plain_ms, b, before_ms), err
 
 
 def exact_ip_labels(corpus, xq, k, n_rows=SQ_N):
@@ -1767,26 +2014,28 @@ def phase_sq_main(smi):
                                              database=db),
         }
 
-    k2.LAUNCHES = k3.LAUNCHES = k5.LAUNCHES = k5.RESCORE_LAUNCHES = 0
+    k2.LAUNCHES = k2.TOPK_LAUNCHES = k3.LAUNCHES = k5.LAUNCHES = 0
+    k5.RESCORE_LAUNCHES = 0
     out = run_all()
-    launches = (k2.LAUNCHES, k3.LAUNCHES, k5.LAUNCHES)
+    launches = (k2.TOPK_LAUNCHES, k3.LAUNCHES, k5.LAUNCHES)
     check(k5.RESCORE_LAUNCHES == k5.LAUNCHES, "a spill search missed the "
           "rescore kernel")
     calls = [(64, 1), (BIG_BATCH, 1), (64, N_BATCHES), (64, 1)]
     expected = (sum(n for nq, n in calls if not index.pairs_wanted(nq, lmax)),
                 sum(n for nq, n in calls if index.pairs_wanted(nq, lmax)),
                 sum(n for _, n in calls))
-    check(launches == expected, f"sq main path launched (K2, K3, K5) "
-          f"{launches} times, not {expected}")
+    check(launches == expected and k2.LAUNCHES == 0, f"sq main path "
+          f"launched (K2 fused, K3, K5) {launches} times, not {expected}, "
+          f"and K2's raw launch {k2.LAUNCHES} times")
     check(expected[1] == 1, "b1024 does not take the pair tiles")
     check(index.device.type == DEVICE, "index not on the card")
-    log(f"sq main path: (K2, K3, K5) launches {launches}")
+    log(f"sq main path: (K2 fused, K3, K5) launches {launches}")
 
     t0 = time.perf_counter()
     with plain_sq_kernels():
         ref = run_all()
-    check((k2.LAUNCHES, k3.LAUNCHES, k5.LAUNCHES) == launches
-          and k5.RESCORE_LAUNCHES == launches[2],
+    check((k2.TOPK_LAUNCHES, k3.LAUNCHES, k5.LAUNCHES) == launches
+          and k2.LAUNCHES == 0 and k5.RESCORE_LAUNCHES == launches[2],
           "the plain path launched a kernel")
     log(f"sq main path: plain path ({time.perf_counter() - t0:.1f} s)")
     max_err = 0.0
@@ -1838,9 +2087,11 @@ def phase_sq_main(smi):
 
     timings = {}
     xq48, probe48, q48 = shapes["b48"]
-    a2 = (*lists, probe48, q48.digits, q48.scalars, None, metric, codec)
-    timings["k2"] = time_pair(lambda: k2.ivf_sq_scan(*a2),
-                              lambda: k2.ivf_sq_scan_reference(*a2), reps=6)
+    k_scan48 = index._sq_kscan(K, SQ_NPROBE * lmax)
+    timings["k2"], err2f = time_k2(
+        f"IVF{SQ_NLIST},SQ8 {SQ_N}x{SQ_D} IP nprobe {SQ_NPROBE} b48", lay,
+        xq48, probe48, vmin, scale, k_scan48, metric, codec, smi)
+    raw2 = max(raw2, err2f)
     a3 = (*lists, *tiles[:3], None, metric, codec)
     timings["k3"] = time_pair(lambda: k3.ivf_sq_pairs_scan(*a3),
                               lambda: k3.ivf_sq_pairs_scan_reference(*a3),
@@ -1855,9 +2106,6 @@ def phase_sq_main(smi):
     timings["k5"] = k5_1024[:3]
     raw5 = max(k5_48[3], k5_1024[3])
     w = lay.payload.shape[2]
-    _, once48, all48 = probed_rows(lay.counts, probe48)
-    timings["k2"] += (sq_bound(q48, probe48, 4 * probe48.numel() * lmax,
-                               once48 * (w + 8), all48),)
     _, once, rows_all = probed_rows(lay.counts, probe)
     n_tiles = int(tiles[2][0])
     timings["k3"] += (sq_bound(q, probe, 4 * n_tiles * tiles[1].shape[1]
@@ -1873,8 +2121,9 @@ def phase_sq_main(smi):
         cuda_ms(lambda: exact_topk(pv, k_scan)) for _ in range(6))
     del pv
     log(f"time IVF{SQ_NLIST},SQ8 {SQ_N}x{SQ_D} IP nprobe {SQ_NPROBE} raw "
-        f"scores (median CUDA events): K2 b48 (64 rows) {timings['k2'][0]:.3f}"
-        f" ms, plain {timings['k2'][1]:.3f} ms; K2 b1024 {k2_1024:.3f} ms; "
+        f"scores (median CUDA events): K2 fused b48 (64 rows) "
+        f"{timings['k2'][0]:.3f} ms, plain {timings['k2'][1]:.3f} ms; K2's "
+        f"raw launch b1024 {k2_1024:.3f} ms; "
         f"K3 b1024 {timings['k3'][0]:.3f} ms, plain {timings['k3'][1]:.3f} "
         f"ms; in turns K9 {ms9:.3f} ms against K3 {ms3:.3f} ms (K3 "
         f"{k3.last_blocks} blocks an SM, K9 plan {k9.last_plan}); K5 (windows + rescore) b1024 {timings['k5'][0]:.3f} ms, plain "
@@ -1899,7 +2148,8 @@ def phase_sq_main(smi):
         stages = {
             "coarse top-k": lambda: coarse_topk(xq_s, lay.centroids,
                                                 SQ_NPROBE, metric),
-            ("K3" if pairs else "K2") + " scan + top-k + rerank": lambda: scan(
+            ("K3 scan + top-k + rerank" if pairs
+             else "K2 fused search"): lambda: scan(
                 lay.payload, lay.rn, lay.rs, lay.counts, lay.row_pos,
                 probe_s, xq_s, None, vmin, scale, k=K, k_scan=k_scan,
                 metric=metric, codec=codec),
@@ -2017,16 +2267,17 @@ def phase_marco_device(smi):
             dt.config.pairs_impl = "grid"
         return res
 
-    k2.LAUNCHES = k3.LAUNCHES = k9.LAUNCHES = k5.LAUNCHES = 0
-    k5.RESCORE_LAUNCHES = 0
+    k2.LAUNCHES = k2.TOPK_LAUNCHES = k3.LAUNCHES = k9.LAUNCHES = 0
+    k5.LAUNCHES = k5.RESCORE_LAUNCHES = 0
     out = run_all()
-    launches = (k2.LAUNCHES, k3.LAUNCHES, k9.LAUNCHES, k5.LAUNCHES)
+    launches = (k2.TOPK_LAUNCHES, k3.LAUNCHES, k9.LAUNCHES, k5.LAUNCHES)
     check(k5.RESCORE_LAUNCHES == k5.LAUNCHES, "a spill search missed the "
           "rescore kernel")
     expected = (N_BATCHES + 2, 1, 1, (N_BATCHES + 4) if n_spill else 0)
-    check(launches == expected, f"marco device path launched (K2, K3, K9, "
-          f"K5) {launches} times, not {expected}")
-    log(f"marco device path: (K2, K3, K9, K5) launches {launches}")
+    check(launches == expected and k2.LAUNCHES == 0, f"marco device path "
+          f"launched (K2 fused, K3, K9, K5) {launches} times, not "
+          f"{expected}, and K2's raw launch {k2.LAUNCHES} times")
+    log(f"marco device path: (K2 fused, K3, K9, K5) launches {launches}")
     for key in ("label", "distance"):
         check(np.array_equal(out["b1024-mega"][key], out["b1024"][key]),
               f"mega and grid b1024 {key}s differ")
@@ -2034,7 +2285,8 @@ def phase_marco_device(smi):
     t0 = time.perf_counter()
     with plain_sq_kernels():
         ref = run_all()
-    check((k2.LAUNCHES, k3.LAUNCHES, k9.LAUNCHES, k5.LAUNCHES) == launches
+    check((k2.TOPK_LAUNCHES, k3.LAUNCHES, k9.LAUNCHES, k5.LAUNCHES)
+          == launches and k2.LAUNCHES == 0
           and k5.RESCORE_LAUNCHES == launches[3],
           "the plain path launched a kernel")
     log(f"marco device path: plain path ({time.perf_counter() - t0:.1f} s)")
@@ -2084,13 +2336,16 @@ def phase_marco_device(smi):
         f"{plain_ms:.3f} ms; in turns K9 {ms9b:.3f} ms against K3 "
         f"{ms3:.3f} ms (K3 {k3.last_blocks} blocks an SM, K9 plan "
         f"{k9.last_plan}); bound of both {b9[0]:.3f} ms ({b9[1]}) [{smi}]")
+    xq48 = torch.from_numpy(pad_rows(data["b48"], 64)).to(DEVICE)
+    probe48 = coarse_topk(xq48, lay.centroids, SQ_NPROBE, metric)
+    k2_timing, err2 = time_k2(
+        f"IVF{SQ_NLIST},SQ8 {MARCO_N}x{SQ_D} IP nprobe {SQ_NPROBE} b48", lay,
+        xq48, probe48, vmin, scale, index._sq_kscan(K, SQ_NPROBE * lmax),
+        metric, codec, smi)
     k5_timing = None
     if n_spill:
-        xq48 = torch.from_numpy(pad_rows(data["b48"], 64)).to(DEVICE)
         spill_report(f"IVF{SQ_NLIST},SQ8 {MARCO_N}x{SQ_D} IP b48", spill,
-                     vmin, scale, xq48,
-                     coarse_topk(xq48, lay.centroids, SQ_NPROBE, metric),
-                     metric, codec, smi)
+                     vmin, scale, xq48, probe48, metric, codec, smi)
         k5_timing = spill_report(f"IVF{SQ_NLIST},SQ8 {MARCO_N}x{SQ_D} IP "
                                  f"b1024", spill, vmin, scale, xq, probe,
                                  metric, codec, smi)
@@ -2113,10 +2368,12 @@ def phase_marco_device(smi):
         pairs = index.pairs_wanted(nq_pad, lmax)
         k_scan = index._sq_kscan(K, SQ_NPROBE * lmax)
         scan_name = ("K9" if impl == "mega" else "K3") if pairs else "K2"
+        scan_label = (f"{scan_name} scan + top-k + rerank" if pairs
+                      else "K2 fused search")
         stages = {
             "coarse top-k": lambda: coarse_topk(xq_s, lay.centroids,
                                                 SQ_NPROBE, metric),
-            f"{scan_name} scan + top-k + rerank": lambda: (
+            scan_label: lambda: (
                 ivf_sq_pairs_search(
                     *lists, lay.row_pos, probe_s, xq_s, None, vmin, scale,
                     k=K, k_scan=k_scan, metric=metric, codec=codec,
@@ -2140,20 +2397,18 @@ def phase_marco_device(smi):
             f"(median CUDA events): {'; '.join(parts)} [{smi}]")
     dt.set_precision("parity")
     return {"launches": launches[2], "err": max(max_err, raw9),
-            "timing": (ms9, plain_ms, b9), "k5": k5_timing}
+            "timing": (ms9, plain_ms, b9), "k5": k5_timing,
+            "k2": (launches[0], err2, k2_timing)}
 
 
 def k8_plain(args, kw, k):
     """K8's plain version (raw score block, top-k, resolve) on the same
     card tensors, one wider, padded with (-inf, -1) to k + 1 columns."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+    from duckdb_faiss_ext_tpu_torch.ops.list_topk import pad_to
 
-    s, p = k8.ivf_pq_list_search_reference(*args, k=k + 1, **kw)
-    pad = k + 1 - s.shape[1]
-    if pad > 0:
-        s = torch.cat([s, s.new_full((s.shape[0], pad), float("-inf"))], 1)
-        p = torch.cat([p, p.new_full((p.shape[0], pad), -1)], 1)
-    return s, p
+    return pad_to(*k8.ivf_pq_list_search_reference(*args, k=k + 1, **kw),
+                  k + 1)
 
 
 def k8_error(args, kw, k):
@@ -2187,10 +2442,7 @@ def pq_sweep_layout(g, nlist, lmax, m, nbits, counts):
                           generator=g, dtype=torch.uint8)
     lists[:, 5] = lists[:, 4]
     lists *= live[:, :, None].to(torch.uint8)
-    start = torch.cumsum(counts, 0) - counts
-    row_pos = torch.where(live, start[:, None] + torch.arange(
-        lmax, device=DEVICE)[None, :], -1).to(torch.int32)
-    return lists, row_pos
+    return lists, live_row_pos(counts, lmax)
 
 
 def phase_pq_sweep():
@@ -2370,15 +2622,7 @@ def time_k8(tag, index, lay, xq, nq_pad, search, smi):
                      f"{statistics.median(cuda_ms(fn) for _ in range(5)):.3f}"
                      f" ms")
     # The launches' own device time (the stages above include the host's).
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            launch.run()
-        torch.cuda.synchronize()
-    device = "; ".join(
-        f"{e.key.split('<')[0].split('::')[-1]} "
-        f"{e.device_time_total / 10e3:.3f} ms"
-        for e in prof.key_averages() if e.device_time_total > 0)
+    device = device_ms(launch.run)
     fetch = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -2609,22 +2853,29 @@ def main():
     marco = phase_marco_device(smi)
     log(smi)
     # Flat, K6 and the SQ kernels at the shapes timed above; no single
-    # PyTorch call computes what K1-K10 compute (a distance, a selection and
-    # a layout walk), so their library_ms is null.
+    # PyTorch call computes what K2-K7, K9 and K10 compute (a distance, a
+    # selection and a layout walk), so their library_ms is null.
     pq_ms, pq_plain_ms, pq_bound, pq_lib_ms = pq["timings"]["b1024"]
+    # K6 and K2: the fused search's time, and beside it (before_ms) the
+    # design it replaced (raw launch, torch top-k, resolve or rerank),
+    # timed in turns with it.
+    k6_ms, k6_plain, k6_bound, k6_before_ms = ivf_timings["b1024"]
+    k2_ms, k2_plain, k2_bound, k2_before_ms = sq["timings"]["k2"]
     print(json.dumps({"kernels": [
         kernel_entry(KERNEL, launches, max(sweep_err, golden_err, main_err),
                      *timings["b1024"]),
         kernel_entry(IVF_LIST_KERNEL, ivf_launches, max(err6, ivf_err),
-                     *ivf_timings["b48"]),
+                     k6_ms, k6_plain, k6_bound, before_ms=k6_before_ms),
         kernel_entry(IVF_PAIRS_KERNEL, pairs_launches,
                      max(err7, ivf_err7, pairs_err), *pairs_timing),
+        kernel_entry(SQ_LIST_KERNEL, sq["launches"][0],
+                     max(sq_errs[0], sq["err"][0], marco["k2"][1]), k2_ms,
+                     k2_plain, k2_bound, before_ms=k2_before_ms),
     ] + [
         kernel_entry(kernel, sq["launches"][i],
                      max(sq_errs[i], sq["err"][i]), *sq["timings"][key])
-        for i, (kernel, key) in enumerate(((SQ_LIST_KERNEL, "k2"),
-                                           (SQ_PAIRS_KERNEL, "k3"),
-                                           (SQ_SPILL_KERNEL, "k5")))
+        for i, (kernel, key) in ((1, (SQ_PAIRS_KERNEL, "k3")),
+                                 (2, (SQ_SPILL_KERNEL, "k5")))
     ] + [
         kernel_entry(PQ_KERNEL, pq["launches"],
                      max(pq_sweep_err, pq["err"], pq_spill_err, rq_err),

@@ -1,6 +1,7 @@
 // Unpack-and-dot of packed SQ codes against int8 query digits (K4), shared
 // by the IVF,SQ kernels for Hopper (sm_90a): ivf_sq_scan.cu (K2) and
-// sq_spill.cu (K5) dot with __dp4a here; ivf_sq_pairs.cu (K3) and
+// sq_spill.cu (K5) dot with __dp4a here, and decode for their fp32
+// rescores; ivf_sq_pairs.cu (K3) and
 // ivf_sq_pairs_mega.cu (K9) take the unpack helpers and the epilogue into
 // their int8 tensor-core core (sq_mma.cuh).  Replaces the in-kernel helper
 // duckdb_faiss_ext_tpu/ops/sq_digits.py::sq_block_digit_dot; the plain torch
@@ -224,6 +225,14 @@ __device__ __forceinline__ float score(int hi, int lo, float su2, float c0, floa
   const float uc = __fadd_rn(__fadd_rn(__fmul_rn(su2, t), c0), __fmul_rn(mu, rs));
   if (!L2) return __fadd_rn(base, uc);
   return -fmaxf(__fadd_rn(__fsub_rn(base, __fmul_rn(2.f, uc)), rn), 0.f);
+}
+
+// Decoded value of dimension `dim` from its raw code c (ops/sq.py::
+// sq_decode's arithmetic, c * scale + vmin without contraction): the fp32
+// rescores of K5 (sq_spill.cu) and K2 (ivf_sq_scan.cu) decode with it.
+__device__ __forceinline__ float decode(uint32_t c, const float* scale, const float* vmin,
+                                        int dim) {
+  return __fadd_rn(__fmul_rn(static_cast<float>(c), scale[dim]), vmin[dim]);
 }
 
 }  // namespace sqd

@@ -143,19 +143,13 @@ __global__ void sq_spill_decode_kernel(const unsigned long long* __restrict__ ke
   }
 }
 
-// Decoded value of dimension `dim` from code c (sq_decode's arithmetic).
-__device__ __forceinline__ float decode(uint32_t c, const float* scale, const float* vmin,
-                                        int dim) {
-  return __fadd_rn(__fmul_rn(static_cast<float>(c), scale[dim]), vmin[dim]);
-}
-
 // Accumulate one code byte (sq8: one dim; sq4: dims 2b, 2b + 1 below d).
 template <int CODEC>
 __device__ __forceinline__ void dot_byte(uint32_t byte, int b, int d, const float* xq,
                                          const float* scale, const float* vmin, float& xy,
                                          float& xx) {
   if (CODEC == sqd::kSQ8) {
-    const float x = decode(byte, scale, vmin, b);
+    const float x = sqd::decode(byte, scale, vmin, b);
     xy = fmaf(x, xq[b], xy);
     xx = fmaf(x, x, xx);
   } else {
@@ -163,7 +157,7 @@ __device__ __forceinline__ void dot_byte(uint32_t byte, int b, int d, const floa
     for (int h = 0; h < 2; ++h) {
       const int dim = 2 * b + h;
       if (dim < d) {
-        const float x = decode((byte >> (4 * h)) & 15u, scale, vmin, dim);
+        const float x = sqd::decode((byte >> (4 * h)) & 15u, scale, vmin, dim);
         xy = fmaf(x, xq[dim], xy);
         xx = fmaf(x, x, xx);
       }

@@ -159,6 +159,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i,               # l2, vec4
         p, p,               # out, stream
     ]
+    plan = ctypes.POINTER(ctypes.c_int)
+    lib.dfx_ivf_list_topk.restype = ctypes.c_int
+    lib.dfx_ivf_list_topk.argtypes = [
+        p, p, p, p, p, p,   # lists, counts, row_pos, probe_ids, xq, mask
+        plan, i, i, i, i,   # plan (list_topk.cuh::Plan), d, l2, vec4, lanes
+        p, p, p, p,         # part_s, part_p, out_s, out_p
+        i, p,               # stages, stream
+    ]
     lib.dfx_ivf_pairs.restype = ctypes.c_int
     lib.dfx_ivf_pairs.argtypes = [
         p, p, p, p, p, p,   # lists, counts, xq_t, qs, meta, mask
@@ -186,6 +194,16 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i, i, i, i,      # nq, nprobe, nlist, lmax, w
         i, i, i,            # codec, l2, vec
         p, p,               # out, stream
+    ]
+    lib.dfx_ivf_sq_topk.restype = ctypes.c_int
+    lib.dfx_ivf_sq_topk.argtypes = [
+        p, p, p, p, p, p,   # codes, rn, rs, counts, row_pos, probe_ids
+        p, p, p, p, p, p,   # digits, qs, xq, vmin, scale, mask
+        plan, i, i, i,      # plan (list_topk.cuh::Plan), d, codec, l2
+        i,                  # vec
+        p, p, p, p,         # part_s, part_p, cand_s, cand_p
+        p, p,               # out_s, out_p
+        i, p,               # stages, stream
     ]
     lib.dfx_ivf_sq_pairs.restype = ctypes.c_int
     lib.dfx_ivf_sq_pairs.argtypes = [

@@ -5,8 +5,9 @@
   running on the CPU;
 * the kernel build finds nvcc or raises, and names the library by a hash
   of the sources and the headers they include;
-* on the card (``-m gpu``), the CUDA kernels (flat top-k, IVF list scan,
-  IVF pair tiles, the int8 IVF,SQ list scan, pair tiles and spill windows,
+* on the card (``-m gpu``), the CUDA kernels (flat top-k, IVF list scan
+  and the fused IVF,Flat and IVF,SQ list searches, IVF pair tiles, the
+  int8 IVF,SQ list scan, pair tiles and spill windows,
   the IVF-PQ / IVF-RQ list search, and the pipelined pair tiles K9 / K10)
   match their plain versions, and the IVF-PQ list search raises on inputs
   it does not take.
@@ -277,6 +278,122 @@ def test_sq_kernels_match_plain_on_card(codec, d, metric):
         launched = (1, 1, 1)
     assert (k2.LAUNCHES - before[0], k3.LAUNCHES - before[1],
             k5.LAUNCHES - before[2]) == launched
+
+
+def _live_row_pos(counts, lmax):
+    live = torch.arange(lmax, device=counts.device)[None, :] < counts[:, None]
+    start = torch.cumsum(counts, 0) - counts
+    return torch.where(live, start[:, None] + torch.arange(
+        lmax, device=counts.device)[None, :], -1).to(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("d,k", [(8, 1), (128, 10), (1536, 100)])
+def test_fused_list_search_matches_plain_on_card(d, k, metric):
+    """The fused K6 (partial and merge launches) against its plain version
+    on the same card tensors: scores within 1e-5 of each query's scale,
+    positions equal where neighbouring scores are further apart; above
+    its k limit the raw launch serves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the H100)")
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    nlist, lmax, nq, nprobe = 16, 256, 64, 5
+    counts = torch.randint(1, lmax, (nlist,), device="cuda", generator=g,
+                           dtype=torch.int32)
+    counts[0], counts[1] = 0, lmax
+    lists = torch.randn(nlist, lmax, d, device="cuda", generator=g)
+    mask = (torch.rand(nlist, lmax, device="cuda", generator=g)
+            < 0.6).to(torch.int8)
+    xq = torch.randn(nq, d, device="cuda", generator=g)
+    probe = torch.rand(nq, nlist, device="cuda", generator=g).argsort(1)[
+        :, :nprobe].to(torch.int32).contiguous()
+    args = (lists, counts, _live_row_pos(counts, lmax), probe, xq, mask)
+    before = (k6.LAUNCHES, k6.TOPK_LAUNCHES)
+    s, p = k6.ivf_list_search(*args, k=k, metric=metric)
+    torch.cuda.synchronize()
+    rs, rp = k6.ivf_list_search_reference(*args, k=k, metric=metric)
+    s, p, rs, rp = (t.cpu().numpy() for t in (s, p, rs, rp))
+    finite = np.isfinite(rs)
+    np.testing.assert_array_equal(np.isfinite(s), finite)
+    tol = 1e-5 * np.maximum(np.abs(np.where(finite, rs, 0)).max(1),
+                            (xq * xq).sum(1).cpu().numpy())
+    assert (np.abs(np.where(finite, s - rs, 0)) <= tol[:, None]).all()
+    gap = np.abs(np.diff(np.where(finite, rs, -1e30), axis=1)) \
+        > 2 * tol[:, None]
+    sep = finite.copy()
+    sep[:, 1:] &= gap
+    sep[:, :-1] &= gap
+    np.testing.assert_array_equal(p[sep], rp[sep])
+    k6.ivf_list_search(*args, k=k6.MAX_K + 1, metric=metric)
+    assert (k6.LAUNCHES, k6.TOPK_LAUNCHES) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("codec,d", [("sq8", 33), ("sq8", 1536), ("sq4", 128),
+                                     ("sq6", 1536)])
+def test_fused_sq_search_matches_plain_on_card(codec, d, metric):
+    """The fused K2 on the card: its k_scan candidates bit-equal to the
+    plain top-k_scan of the raw int8 scores, its results equal to the plain
+    search's within 1e-5 of the batch's largest score and where apart;
+    above its k_scan limit the raw launch serves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the H100)")
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import exact_topk
+    from duckdb_faiss_ext_tpu_torch.ops.sq import sq_code_width
+    from duckdb_faiss_ext_tpu_torch.ops.sq_digits import (KERNEL_SHIFT,
+                                                          query_digits)
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    nlist, lmax, nq, nprobe, k, k_scan = 16, 256, 64, 5, 10, 42
+    w = sq_code_width(d, codec)
+    codes = torch.randint(0, 256, (nlist, lmax, w), device="cuda",
+                          generator=g, dtype=torch.uint8)
+    counts = torch.randint(1, lmax, (nlist,), device="cuda", generator=g,
+                           dtype=torch.int32)
+    counts[0], counts[1] = 0, lmax
+    rn = torch.rand(nlist, lmax, device="cuda", generator=g) * 100
+    rs = torch.rand(nlist, lmax, device="cuda", generator=g) * 100
+    mask = (torch.rand(nlist, lmax, device="cuda", generator=g)
+            < 0.6).to(torch.int8)
+    vmin = torch.randn(d, device="cuda", generator=g)
+    scale = torch.rand(d, device="cuda", generator=g) / 50 + 1e-3
+    xq = torch.randn(nq, d, device="cuda", generator=g)
+    probe = torch.rand(nq, nlist, device="cuda", generator=g).argsort(1)[
+        :, :nprobe].to(torch.int32).contiguous()
+    args = (codes, rn, rs, counts, _live_row_pos(counts, lmax), probe, xq,
+            mask, vmin, scale)
+    kw = dict(k=k, k_scan=k_scan, metric=metric, codec=codec)
+    launch = k2.TopKLaunch(*args, **kw)
+    launch.run()
+    q = query_digits(xq, vmin, scale, metric, codec, w, KERNEL_SHIFT[codec])
+    raw = k2.ivf_sq_scan_reference(codes, rn, rs, counts, probe, q.digits,
+                                   q.scalars, mask, metric, codec)
+    bs, sel = exact_topk(raw.reshape(nq, -1), k_scan)
+    cs, cp = launch.candidates
+    fin = torch.isfinite(bs)
+    assert torch.equal(cs, bs) and torch.equal(cp[fin].long(), sel[fin])
+    before = (k2.LAUNCHES, k2.TOPK_LAUNCHES)
+    s, p = k2.ivf_sq_list_search(*args, **kw)
+    torch.cuda.synchronize()
+    rs_, rp = k2.ivf_sq_list_search_reference(*args, **kw)
+    s, p, rs_, rp = (t.cpu().numpy() for t in (s, p, rs_, rp))
+    finite = np.isfinite(rs_)
+    np.testing.assert_array_equal(np.isfinite(s), finite)
+    tol = 1e-5 * np.abs(rs_[finite]).max()
+    assert (np.abs(np.where(finite, s - rs_, 0)) <= tol).all()
+    gap = np.abs(np.diff(np.where(finite, rs_, -1e30), axis=1)) > 2 * tol
+    sep = finite.copy()
+    sep[:, 1:] &= gap
+    sep[:, :-1] &= gap
+    np.testing.assert_array_equal(p[sep], rp[sep])
+    k2.ivf_sq_list_search(*args, k=k, k_scan=k2.MAX_K + 1, metric=metric,
+                          codec=codec)
+    assert (k2.LAUNCHES, k2.TOPK_LAUNCHES) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.fixture

@@ -30,39 +30,56 @@ Phases (any failure raises and the script exits non-zero):
    and at 1M x 1536 inner product (b48 and b1024, no unproven query);
 6. IVF sweep: the per-query list search (K6, ops/ivf_list_scan.py: the
    fused search, partial and merge launches, and the raw launch) and the
-   pair-tile scan (K7, ops/ivf_pairs.py) against their plain versions on
-   the card, raw scores element by element and the fused search's results
-   (scores within 1e-5 of each query's scale, positions where apart) at k
-   1 / 10 / 100 / 1024 in turn, with equal rows that must rank by the
-   lower flat index: L2 and inner product, with and without a mask, nprobe
-   1 / 3 / 64, d 8 / 128 / 1536, lmax 256 and 1024 (counts on both sides
-   of 256, 512 and 768), lists of count 0 and count == lmax, pair tiles
-   with dead slots and n_tiles < t_max; then the pipelined pair tiles
-   (K10, ops/ivf_pairs_mega.py) at the same shapes, bit-equal to K7 and
-   held against the plain version, also with n_tiles cut to 0 and to
-   n_tiles - 3;
+   pair-tile search (K7, ops/ivf_pairs.py: the fused search, partial and
+   merge launches over the 3xTF32 core, and the raw tile launch) against
+   their plain versions on the card, raw scores element by element and
+   the fused searches' results (K6: scores within 1e-5 of each query's
+   scale; K7: within 1e-5 of the batch's largest; positions where apart)
+   at k 1 / 10 / 100 / 1024 (K6) and (k, k_scan) (1, 33) / (10, 42) /
+   (100, 400) / (256, 1024) (K7) in turn, with equal rows that must rank
+   by the lower flat index, and K10's fused search (through TMA and
+   through its cp.async instance) bit-equal to K7's: L2 and inner
+   product, with and without a mask, nprobe 1 / 3 / 64, d 8 / 128 / 1536,
+   lmax 256 and 1024 (counts on both sides of 256, 512 and 768; lists of
+   two 512-row shares), lists of count 0 and count == lmax, lists probed
+   by up to 256 queries, pair tiles with dead slots and n_tiles < t_max;
+   then the pipelined pair tiles (K10, ops/ivf_pairs_mega.py) at the same
+   shapes, the raw launch bit-equal to K7's and held against the plain
+   version, also with n_tiles cut to 0 and to n_tiles - 3, and the fused
+   search bit-equal to K7's and held against the plain version;
 7. IVF main path: IDMap,IVF4096,Flat L2 over the same corpus
    (BASELINE.json configs[2]): faiss_manual_train on its first 262,144
    rows → faiss_add of all 1M with ids → faiss_search at nprobe 64 at b48
    and b1024, faiss_search_batched 16 x b48, faiss_search_filter.  Every
    result is held against the plain list scan on the same layout (labels
    equal where distances are separated), the kernel launch counts must
-   match the calls (the fused K6 on every call below the pairs rule, its
-   raw launch on none), and recall@10 against exact Flat is printed; at
+   match the calls (the fused K6 on every call below the pairs rule, the
+   fused K7 on every call the rule sends to the pair tiles, the raw
+   launches on none), and recall@10 against exact Flat is printed; at
    b48 and b1024 the fused K6 is held against its plain version, timed in
    turns against the raw launch with exact_topk and the resolve (the
    design it replaced), beside its plain version, with its device time a
-   call from torch.profiler and faiss_search's wall time; K6's raw and
-   K7's scores at b1024 are held against their plain versions, K7 is
-   timed against the fused K6, and the top-k of the raw score block
-   alone;
+   launch from torch.profiler and faiss_search's wall time; K6's raw and
+   K7's raw scores at b1024 are held against their plain versions, the
+   fused K7 is timed against the fused K6, and the top-k of the raw
+   score block alone;
 8. pair-tile path: IVF1024,Flat inner product over 262,144 x 1536
-   (seed 7) at nprobe 16: b1024 goes through K7 by the static gate, and
-   through K10 under pairs_impl "mega" with equal results, b48 through
-   the fused K6 (held against its plain version and timed in turns
-   against the raw launch with exact_topk and the resolve), all held
-   against the plain path; K7's and K10's raw tiles at b1024 are held
-   against the plain version and each other, then timed; the
+   (seed 7) at nprobe 16: b1024 goes through the fused K7 by the static
+   gate, and through the fused K10 under pairs_impl "mega" with equal
+   results, b48 through the fused K6, all held against the plain path;
+   the launch counts must show the fused K6, K7 and K10 once each and the
+   raw launches never.  The fused K6 at b48 is held against its plain
+   version and timed in turns against the raw launch with exact_topk and
+   the resolve, beside its bound; the raw K7 and K10 tiles at b1024 are
+   held against the plain version and each other; the fused K7 at b1024
+   is held against its plain version (K10 bit-equal, through TMA and its
+   cp.async instance), its margin-unproven queries counted, the peak card
+   memory of the fused call and of the raw launch + epilogue printed, and
+   the fused K7 and K10 timed in turns against their raw launch +
+   epilogue (the design they replaced), against each other and against
+   the fused K6 on the same probes, beside the plain version and the
+   bound, with their device time a launch from torch.profiler, and
+   faiss_search's wall time at b1024 under both pairs_impl values; the
    same trained index filled again by faiss_add_device of the corpus as a
    card tensor builds a byte-equal layout and equal results;
 9. SQ sweep: the int8 IVF,SQ kernels against their plain versions on the
@@ -101,7 +118,7 @@ Phases (any failure raises and the script exits non-zero):
    are held bit-equal to the plain top-k_scan and its results against the
    plain search, then it is timed in turns against the raw launch with
    top-k_scan and the torch rerank (the design it replaced), with its
-   device time a call;
+   device time a launch;
    K2's raw scores at the b1024 shapes are held against its plain version,
    K3's and K9's tiles bit-equal to their plain version and to each other,
    all timed, K3 against K9 in turns; the spill search at
@@ -165,14 +182,17 @@ Phases (any failure raises and the script exits non-zero):
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
 over the card's peak rate for their type, computed from the inputs of the
-timed call; K1's operations run on the TF32 tensor cores, three products
-a term (495 / 3 TFLOP/s), and its fp32 FMA bound is printed beside.  The
-fused K6 and K2 write no score block: their bounds count the probed lists'
-bytes, the queries, the probe table and the (nq, k) result.  The last two
-lines of standard output are a JSON object describing each kernel (K6's
-and K2's with before_ms, the time of the design they replaced, taken in
-turns with them) and the JSON result line {"ok": true, "device":
-{...}}.
+timed call; K1's and the fused K7 / K10's operations run on the TF32
+tensor cores, three products a term (495 / 3 TFLOP/s), and K1's fp32 FMA
+bound is printed beside.  The fused K6, K2, K7 and K10 write no score
+block: their bounds count the distinct probed lists' bytes, the queries,
+the probe table and the (nq, k) result (K7 / K10 also the merge's fp32
+rescore of k_scan rows a query, at the fp32 rate).  At K2's b48 shapes
+its partial launch is also timed alone on CUDA events beside the
+profiler's reading.  The last two lines of standard output are a JSON
+object describing each kernel (K6's, K2's, K7's and K10's with before_ms,
+the time of the design they replaced, taken in turns with them) and the
+JSON result line {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -201,6 +221,9 @@ SQ_SWEEP_D, SQ_SWEEP_LMAX = (16, 33, 80, 128, 1536), (256, 1024)
 #: the fused K2's (k, k_scan) in turn: k_scan as the index picks it for sq8
 #: (max(4 k, k + 32)) up to the fused search's limit of 1024
 SQ_SWEEP_K = ((1, 33), (10, 42), (100, 400), (256, 1024))
+#: the fused K7 / K10's (k, k_scan) in turn: k_scan as the IVF,Flat index
+#: picks it (max(4 k, k + 32)) up to the fused search's limit of 1024
+PAIRS_SWEEP_K = SQ_SWEEP_K
 SPILL_SWEEP_D, SPILL_SWEEP_ROWS = (33, 1536), 12_800
 #: kernel sweep: scores agree to 1e-5 of the query's scale (fp32 sums taken
 #: in another order, see compare); main path: distances to 1e-5 of the
@@ -782,8 +805,12 @@ def k6_topk_error(lists, counts, row_pos, probe, xq, mask, metric, k):
 
 
 def device_ms(fn, reps=10):
-    """Device time a call of ``fn`` by kernel (torch.profiler), as 'name
-    ms; ...'."""
+    """Device time a launch of each kernel of ``fn`` (torch.profiler) over
+    ``reps`` calls, as 'name ms (n of m); ...': the kernel's summed device
+    time over the n launches the profiler recorded, divided by n, and m
+    the launches made (``reps`` a call).  The profiler can lose launch
+    records (9 of 10 recorded at the 8.8M b48 K2 shape): dividing the sum
+    by ``reps`` instead read that launch at half its CUDA-event time."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -792,7 +819,8 @@ def device_ms(fn, reps=10):
             fn()
         torch.cuda.synchronize()
     return "; ".join(
-        f"{kernel_name(e.key)} {e.device_time_total / (reps * 1e3):.3f} ms"
+        f"{kernel_name(e.key)} {e.device_time_total / (e.count * 1e3):.3f} "
+        f"ms ({e.count} of {reps})"
         for e in prof.key_averages() if e.device_time_total > 0) or "none"
 
 
@@ -818,6 +846,35 @@ def k7_raw_error(lists, counts, xq_t, qs_t, meta, mask, metric):
                        qs_t[:n_tiles, :, 1].reshape(-1))
 
 
+def k7_topk_error(lists, counts, row_pos, probe, xq, mask, metric, k,
+                  k_scan):
+    """The fused pair-tile search through K7, K10 (TMA where it takes the
+    widths) and K10's cp.async instance on the same card tensors: K10's
+    results bit-equal to K7's, K7's held against the plain version
+    (``compare`` with the batch's scale: scores within REL_TOL of the
+    batch's largest, positions equal where the scores are apart).
+    Returns (max abs error, positions); prints nothing."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+    from duckdb_faiss_ext_tpu_torch.ops.list_topk import pad_to
+
+    args = (lists, counts, row_pos, probe, xq, mask)
+    kw = dict(k=k, k_scan=k_scan, metric=metric)
+    s, p = k7.ivf_pairs_search(*args, **kw)
+    s10, p10 = k7.ivf_pairs_search(*args, **kw, mega=True)
+    check(torch.equal(s10, s) and torch.equal(p10, p), "fused K10 differs "
+          "from K7")
+    if k7.tma_ok(lists, xq):
+        launch = k7.TopKLaunch(*args, **kw, mega=True, tma=False)
+        launch.run()
+        check(torch.equal(launch.scores, s)
+              and torch.equal(launch.positions, p), "fused K10's cp.async "
+              "instance differs from K7")
+    ref = pad_to(*k7.ivf_pairs_search_reference(*args, k=k + 1,
+                                                k_scan=k_scan,
+                                                metric=metric), k + 1)
+    return compare(s, p, *ref, xq, batch=True), p
+
+
 def probe_table(g, nq, nlist, nprobe):
     """Distinct random lists per query; query 0 probes list 0 (empty) and
     queries 1 and 2 list 1 (full) first."""
@@ -838,22 +895,28 @@ def check_tie(p, row_pos, k, metric):
 
 
 def phase_ivf_sweep():
-    """K6 (the fused search and the raw launch) and K7 against their plain
-    versions: L2 / IP, mask off / on, nprobe 1 / 3 / 64, d 8 / 128 / 1536,
-    lmax 256 and 1024 (counts on both sides of each 256-row chunk edge of
-    K7), lists of count 0 and count == lmax, K7 with dead slots and n_tiles
-    < t_max; the fused K6 at k 1 / 10 / 100 / 1024 in turn, with equal rows
-    (slots 4 and 5 of every list) that must rank by the lower flat
-    index."""
+    """K6 (the fused search and the raw launch) and K7 (the fused search
+    and the raw launch) against their plain versions: L2 / IP, mask off /
+    on, nprobe 1 / 3 / 64, d 8 / 128 / 1536, lmax 256 and 1024 (counts on
+    both sides of each 256-row chunk edge of the raw K7 and of the fused
+    search's 512-row shares), lists of count 0 and count == lmax, K7 with
+    dead slots and n_tiles < t_max; the fused K6 at k 1 / 10 / 100 / 1024
+    and the fused K7 at (k, k_scan) PAIRS_SWEEP_K in turn, with K10's
+    fused search bit-equal to K7's (through TMA and its cp.async
+    instance), with equal rows (slots 4 and 5 of every list) that must rank
+    by the lower flat index."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs_mega as k10
 
     g = torch.Generator(device=DEVICE).manual_seed(4321)
     nlist, nq6, nq7 = 64, BATCH, 256
-    before = (k6.LAUNCHES, k6.TOPK_LAUNCHES, k7.LAUNCHES)
-    err6 = err6f = err7 = 0.0
+    before = (k6.LAUNCHES, k6.TOPK_LAUNCHES, k7.LAUNCHES, k7.TOPK_LAUNCHES,
+              k10.TOPK_LAUNCHES)
+    err6 = err6f = err7 = err7f = 0.0
     n_cases = 0
     ks = itertools.cycle(SWEEP_K)
+    k_pairs = itertools.cycle(PAIRS_SWEEP_K)
     for d, lmax in itertools.product(SWEEP_D, (256, 1024)):
         t0 = time.perf_counter()
         counts = torch.randint(1, lmax, (nlist,), device=DEVICE, generator=g,
@@ -888,17 +951,26 @@ def phase_ivf_sweep():
                   or nprobe * nq7 % k7.QG == 0, "no dead slots")
             err7 = max(err7, k7_raw_error(lists, counts, xq_t, qs_t, meta, m,
                                           metric))
+            k, k_scan = next(k_pairs)
+            e, p = k7_topk_error(lists, counts, row_pos, probe, xq, m, metric,
+                                 k, k_scan)
+            check_tie(p, row_pos, k, metric)
+            err7f = max(err7f, e)
             n_cases += 1
         log(f"ivf sweep d={d} lmax={lmax}: 12 cases x (K6 fused, K6 raw, "
-            f"K7) agree ({time.perf_counter() - t0:.1f} s)")
+            f"K7 fused = K10 fused, K7 raw) agree "
+            f"({time.perf_counter() - t0:.1f} s)")
         del lists, mask, xq
         torch.cuda.empty_cache()
     check((k6.LAUNCHES - before[0], k6.TOPK_LAUNCHES - before[1],
-           k7.LAUNCHES - before[2]) == (n_cases, n_cases, n_cases),
+           k7.LAUNCHES - before[2], k7.TOPK_LAUNCHES - before[3],
+           k10.TOPK_LAUNCHES - before[4]) == (n_cases,) * 5,
           "an ivf sweep case did not launch")
     log(f"ivf sweep: {n_cases} cases each, max abs score error K6 fused "
-        f"{err6f:.3g}, K6 raw {err6:.3g}, K7 {err7:.3g}")
-    return max(err6, err6f), err7
+        f"{err6f:.3g}, K6 raw {err6:.3g}, K7 fused {err7f:.3g} (K10 fused "
+        f"bit-equal, plan (stages, blocks, TMA) {k10.last_plan}), K7 raw "
+        f"{err7:.3g}")
+    return max(err6, err6f), max(err7, err7f)
 
 
 def k10_raw_error(lists, counts, xq_t, qs_t, meta, mask, metric):
@@ -927,17 +999,20 @@ def k10_raw_error(lists, counts, xq_t, qs_t, meta, mask, metric):
 
 
 def phase_ivf_mega_sweep():
-    """K10 bit-equal to K7 and against its plain version: L2 / IP, mask off
-    / on, nprobe 1 / 3 / 64, d 8 / 128 / 1536, lmax 256 and 1024 (counts on
-    both sides of each 256-row chunk edge), lists of count 0 and count ==
-    lmax, dead slots, n_tiles < t_max, n_tiles 0 and n_tiles - 3."""
+    """K10 (the raw launch and the fused search) bit-equal to K7 and
+    against its plain version: L2 / IP, mask off / on, nprobe 1 / 3 / 64,
+    d 8 / 128 / 1536, lmax 256 and 1024 (counts on both sides of each
+    256-row chunk edge), lists of count 0 and count == lmax, dead slots,
+    n_tiles < t_max, the raw launch at n_tiles 0 and n_tiles - 3, the
+    fused search at (k, k_scan) PAIRS_SWEEP_K in turn."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs_mega as k10
 
     g = torch.Generator(device=DEVICE).manual_seed(4322)
     nlist, nq = 64, 256
-    before = k10.LAUNCHES
+    before = (k10.LAUNCHES, k10.TOPK_LAUNCHES)
     err, n_cases = 0.0, 0
+    k_pairs = itertools.cycle(PAIRS_SWEEP_K)
     for d, lmax in itertools.product(SWEEP_D, (256, 1024)):
         t0 = time.perf_counter()
         counts = torch.randint(1, lmax, (nlist,), device=DEVICE, generator=g,
@@ -948,6 +1023,7 @@ def phase_ivf_mega_sweep():
         lane = torch.arange(lmax, device=DEVICE)
         lists = torch.randn(nlist, lmax, d, device=DEVICE, generator=g)
         lists *= (lane[None, :] < counts[:, None])[:, :, None]
+        row_pos = live_row_pos(counts, lmax)
         mask = (torch.rand(nlist, lmax, device=DEVICE, generator=g)
                 < 0.6).to(torch.int8)
         xq = torch.randn(nq, d, device=DEVICE, generator=g)
@@ -958,16 +1034,19 @@ def phase_ivf_mega_sweep():
             check(int(meta[0]) < xq_t.shape[0], "no padding tiles")
             err = max(err, k10_raw_error(lists, counts, xq_t, qs_t, meta, m,
                                          metric))
+            k, k_scan = next(k_pairs)
+            err = max(err, k7_topk_error(lists, counts, row_pos, probe, xq,
+                                         m, metric, k, k_scan)[0])
             n_cases += 1
-        log(f"ivf mega sweep d={d} lmax={lmax}: 12 cases, K10 equal to K7 "
-            f"({time.perf_counter() - t0:.1f} s)")
+        log(f"ivf mega sweep d={d} lmax={lmax}: 12 cases, K10 raw and fused "
+            f"equal to K7 ({time.perf_counter() - t0:.1f} s)")
         del lists, mask, xq
         torch.cuda.empty_cache()
-    check(k10.LAUNCHES - before == 3 * n_cases,
-          "an ivf mega sweep case did not launch")
-    log(f"ivf mega sweep: {n_cases} cases, K10 bit-equal to K7, max abs "
-        f"score error against the plain version {err:.3g}; plan (stages, "
-        f"blocks) {k10.last_plan}")
+    check((k10.LAUNCHES - before[0], k10.TOPK_LAUNCHES - before[1])
+          == (3 * n_cases, n_cases), "an ivf mega sweep case did not launch")
+    log(f"ivf mega sweep: {n_cases} cases, K10 (raw and fused) bit-equal to "
+        f"K7, max abs score error against the plain version {err:.3g}; "
+        f"fused plan (stages, blocks, TMA) {k10.last_plan}")
     return err
 
 
@@ -1081,7 +1160,7 @@ def phase_ivf_main(smi, data, exact):
         f"build+upload {t_layout:.2f} s; lmax {lmax}, longest list "
         f"{int(lay.counts.max())}")
 
-    k6.LAUNCHES = k6.TOPK_LAUNCHES = k7.LAUNCHES = 0
+    k6.LAUNCHES = k6.TOPK_LAUNCHES = k7.LAUNCHES = k7.TOPK_LAUNCHES = 0
     out = {
         "b48": dt.faiss_search("ivf", K, data["b48"], params, catalog=cat),
         "b1024": dt.faiss_search("ivf", K, data["b1024"], params,
@@ -1092,15 +1171,16 @@ def phase_ivf_main(smi, data, exact):
                                          "id", "base", params, catalog=cat,
                                          database=db),
     }
-    launches = (k6.TOPK_LAUNCHES, k7.LAUNCHES)
+    launches = (k6.TOPK_LAUNCHES, k7.TOPK_LAUNCHES)
     calls = [(64, 1), (BIG_BATCH, 1), (64, N_BATCHES), (64, 1)]
     expected = (sum(n for nq, n in calls if not index.pairs_wanted(nq, lmax)),
                 sum(n for nq, n in calls if index.pairs_wanted(nq, lmax)))
-    check(launches == expected and k6.LAUNCHES == 0, f"ivf main path "
-          f"launched (K6 fused, K7) {launches} times, not {expected}, and "
-          f"K6's raw launch {k6.LAUNCHES} times")
+    check(launches == expected and k6.LAUNCHES == k7.LAUNCHES == 0,
+          f"ivf main path launched (K6 fused, K7 fused) {launches} times, not "
+          f"{expected}, and the raw launches (K6, K7) {k6.LAUNCHES}, "
+          f"{k7.LAUNCHES} times")
     check(index.device.type == DEVICE, "index not on the card")
-    log(f"ivf main path: (K6 fused, K7) launches {launches}")
+    log(f"ivf main path: (K6 fused, K7 fused) launches {launches}")
 
     even = ((lay.row_pos >= 0) & (lay.row_pos % 2 == 0)).to(torch.int8)
     max_err = 0.0
@@ -1172,7 +1252,7 @@ def phase_ivf_main(smi, data, exact):
             f"{ms:.3f} ms against the raw launch + exact_topk + resolve "
             f"{before_ms:.3f} ms (in turns), plain {plain_ms:.3f} ms (median "
             f"CUDA events), bound {b[0]:.3f} ms ({b[1]}); agrees with the "
-            f"plain version (max abs error {err_f:.3g}); device time a call "
+            f"plain version (max abs error {err_f:.3g}); device time a launch "
             f"(torch.profiler): {dev_ms}; faiss_search wall "
             f"{statistics.median(walls):.3f} ms (median) [{smi}]")
         if name == "b1024":
@@ -1203,7 +1283,7 @@ def phase_ivf_main(smi, data, exact):
                                           qs_t, meta, None, "L2"),
                 lambda: k6.ivf_list_scan(*args), reps=6)
             log(f"time IVF4096 {N}x{D} L2 nprobe {IVF_NPROBE} b1024, K7 "
-                f"pair tiles against K6 per query: K7 scan + top-k "
+                f"pair tiles against K6 per query: the fused K7 "
                 f"{k7_ms:.3f} vs the fused K6 {k6_ms:.3f} ms, raw scores "
                 f"only K7 {raw7_ms:.3f} vs K6's raw launch {raw6_ms:.3f} ms "
                 f"(median CUDA events) [{smi}]")
@@ -1264,11 +1344,14 @@ def phase_ivf_pairs(smi):
             dt.config.pairs_impl = "grid"
         return res
 
-    k6.LAUNCHES = k6.TOPK_LAUNCHES = k7.LAUNCHES = k10.LAUNCHES = 0
+    k6.LAUNCHES = k6.TOPK_LAUNCHES = k7.LAUNCHES = k7.TOPK_LAUNCHES = 0
+    k10.LAUNCHES = k10.TOPK_LAUNCHES = 0
     out = run_all("marco")
-    launches = (k6.TOPK_LAUNCHES, k7.LAUNCHES, k10.LAUNCHES)
-    check(launches == (1, 1, 1) and k6.LAUNCHES == 0, f"pairs path launched "
-          f"(K6 fused, K7, K10) {launches}, K6's raw launch {k6.LAUNCHES}")
+    launches = (k6.TOPK_LAUNCHES, k7.TOPK_LAUNCHES, k10.TOPK_LAUNCHES)
+    raw_launches = (k6.LAUNCHES, k7.LAUNCHES, k10.LAUNCHES)
+    check(launches == (1, 1, 1) and raw_launches == (0, 0, 0), f"pairs path "
+          f"launched (K6, K7, K10 fused) {launches}, the raw launches (K6, "
+          f"K7, K10) {raw_launches}")
     check(index._last_scan_path == "pairs-mega-flat", "mega not taken")
     for key in ("label", "distance"):
         check(np.array_equal(out["b1024-mega"][key], out["b1024"][key]),
@@ -1278,9 +1361,9 @@ def phase_ivf_pairs(smi):
         ref_d, ref_l = plain_ivf_search(index, q, K + 1, PAIRS_NPROBE)
         max_err = max(max_err, compare_results(
             f"pairs {name}", out[name], ref_d, ref_l, True))
-    log(f"ivf pairs path: b1024 through K7 and through K10 (equal) and b48 "
-        f"through the fused K6 agree with the plain path (max distance error "
-        f"{max_err:.3g})")
+    log(f"ivf pairs path: b1024 through the fused K7 and K10 (equal; the raw "
+        f"launches 0 times) and b48 through the fused K6 agree with the "
+        f"plain path (max distance error {max_err:.3g})")
     xq48 = torch.from_numpy(pad_rows(xq[:BATCH], 64)).to(DEVICE)
     probe48 = coarse_topk(xq48, lay.centroids, PAIRS_NPROBE, "INNER_PRODUCT")
     search48 = (lay.payload, lay.counts, lay.row_pos, probe48, xq48, None)
@@ -1291,12 +1374,20 @@ def phase_ivf_pairs(smi):
                                        metric="INNER_PRODUCT"), reps=6)
     dev48 = device_ms(k6.TopKLaunch(*search48, k=K,
                                     metric="INNER_PRODUCT").run)
+    # K6's bound (as phase 7's): the distinct probed lists' rows, the
+    # queries and the probe table read once, the result written once; 2·d
+    # fp32 operations a probed row.
+    _, once48, all48 = probed_rows(lay.counts, probe48)
+    b48 = bound(4 * once48 * PAIRS_D + 4 * 64 * PAIRS_D + 4 * probe48.numel()
+                + 8 * 64 * K, 2 * PAIRS_D * all48)
     max_err = max(max_err, err48)
     log(f"time IVF{PAIRS_NLIST} {PAIRS_N}x{PAIRS_D} IP nprobe {PAIRS_NPROBE} "
         f"b48 (64 rows launched): K6 fused {ms48:.3f} ms against the raw "
         f"launch + exact_topk + resolve {before48:.3f} ms (in turns, median "
-        f"CUDA events); agrees with the plain version (max abs error "
-        f"{err48:.3g}); device time a call (torch.profiler): {dev48} [{smi}]")
+        f"CUDA events), bound {b48[0]:.3f} ms ({b48[1]}; {once48} distinct "
+        f"rows, {all48} scored); agrees with the plain version (max abs "
+        f"error {err48:.3g}); device time a launch (torch.profiler): {dev48} "
+        f"[{smi}]")
 
     xq_dev = torch.from_numpy(xq[BATCH:]).to(DEVICE)
     probe = coarse_topk(xq_dev, lay.centroids, PAIRS_NPROBE, "INNER_PRODUCT")
@@ -1304,36 +1395,98 @@ def phase_ivf_pairs(smi):
     args = (lay.payload, lay.counts, xq_t, qs_t, meta, None, "INNER_PRODUCT")
     raw_err = k7_raw_error(*args)
     raw_err10 = k10_raw_error(*args)
+    raw_bytes = 4 * xq_t.shape[0] * qs_t.shape[1] * lmax
     log(f"ivf pairs path b1024 raw tiles ({int(meta[0])} of {xq_t.shape[0]} "
-        f"tiles, lmax {lmax}): K7 agrees with its plain version (max abs "
-        f"error {raw_err:.3g}); K10 bit-equal to K7 (max abs error against "
-        f"the plain version {raw_err10:.3g}); K10 plan (stages, blocks) "
-        f"{k10.last_plan}")
-    ms, plain_ms = time_pair(lambda: k7.ivf_pairs_scan(*args),
-                             lambda: k7.ivf_pairs_scan_reference(*args),
-                             reps=6)
-    ms10, ms7 = time_pair(lambda: k10.ivf_pairs_mega_scan(*args),
-                          lambda: k7.ivf_pairs_scan(*args), reps=6)
-    # The distinct probed lists' rows and the queries read once, the real
-    # tiles written once; 2·d operations a probed row.
+        f"tiles, lmax {lmax}): the raw K7 agrees with its plain version (max "
+        f"abs error {raw_err:.3g}); the raw K10 bit-equal to it (max abs "
+        f"error against the plain version {raw_err10:.3g})")
+    del xq_t, qs_t, meta, args
+    k_scan = max(4 * K, K + 32)
+    lists = (lay.payload, lay.counts, lay.row_pos, probe, xq_dev, None)
+    kw = dict(k=K, k_scan=k_scan, metric="INNER_PRODUCT")
+    err7, _ = k7_topk_error(*lists, "INNER_PRODUCT", K, k_scan)
+    k7.reset_unproven(DEVICE)
+    k7.ivf_pairs_search(*lists, **kw)
+    unproven = k7.unproven(DEVICE)
+
+    def peak_bytes(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        torch.cuda.synchronize()
+        del res
+        return torch.cuda.max_memory_allocated() - base
+
+    peak7 = peak_bytes(lambda: k7.ivf_pairs_search(*lists, **kw))
+    peak10 = peak_bytes(lambda: k7.ivf_pairs_search(*lists, **kw, mega=True))
+    peak_raw = peak_bytes(lambda: k7.ivf_pairs_search_raw(*lists, **kw))
+    check(max(peak7, peak10) < raw_bytes, "the fused search took as much "
+          "card memory as the raw tile block")
+    launch7 = k7.TopKLaunch(*lists, **kw)
+    launch10 = k7.TopKLaunch(*lists, **kw, mega=True)
+    p7 = launch7.plan
+    log(f"ivf pairs path b1024 fused search (k={K}, k_scan {k_scan}; "
+        f"{int(launch7.tables[1][1, -1])} items of up to {p7['tiles']} tiles "
+        f"x {p7['share_rows']} rows, at most {p7['items']}; K7 {p7['stages']} "
+        f"stages; K10 {launch10.plan['stages']} stages, TMA "
+        f"{launch10.plan['tma']}): agrees with the plain version (max abs "
+        f"error {err7:.3g}), K10 bit-equal to K7 (TMA and cp.async); "
+        f"{unproven} margin-unproven queries of {BIG_BATCH}; peak card "
+        f"memory of the call: K7 fused {peak7 / 2**20:.1f} MiB, K10 fused "
+        f"{peak10 / 2**20:.1f} MiB, the raw launch + epilogue "
+        f"{peak_raw / 2**20:.1f} MiB (its raw block alone "
+        f"{raw_bytes / 2**20:.1f} MiB) [{smi}]")
+    ms, before_ms = time_pair(
+        lambda: k7.ivf_pairs_search(*lists, **kw),
+        lambda: k7.ivf_pairs_search_raw(*lists, **kw), reps=6)
+    ms10, before10 = time_pair(
+        lambda: k7.ivf_pairs_search(*lists, **kw, mega=True),
+        lambda: k7.ivf_pairs_search_raw(*lists, **kw, mega=True), reps=6)
+    ms10b, ms7b = time_pair(
+        lambda: k7.ivf_pairs_search(*lists, **kw, mega=True),
+        lambda: k7.ivf_pairs_search(*lists, **kw), reps=6)
+    plain_ms = statistics.median(
+        cuda_ms(lambda: k7.ivf_pairs_search_reference(*lists, **kw))
+        for _ in range(3))
+    k7_ms, k6_ms = time_pair(
+        lambda: k7.ivf_pairs_search(*lists, **kw),
+        lambda: k6.ivf_list_search(*lists, k=K, metric="INNER_PRODUCT"),
+        reps=6)
+    dev7, dev10 = device_ms(launch7.run), device_ms(launch10.run)
+    # The distinct probed lists' rows, the queries and the probe table read
+    # once, the (nq, k) result written once; 3xTF32 takes 3 tensor-core
+    # products of 2·d operations a scored (query, row) pair, and the merge
+    # rescores k_scan rows a query in fp32 (counted at the fp32 rate).
     _, rows_once, rows_all = probed_rows(lay.counts, probe)
     b = bound(4 * rows_once * PAIRS_D + 4 * BIG_BATCH * PAIRS_D
-              + 4 * int(meta[0]) * qs_t.shape[1] * lmax,
-              2 * PAIRS_D * rows_all)
+              + 4 * probe.numel() + 8 * BIG_BATCH * K,
+              2 * PAIRS_D * rows_all + 2 * PAIRS_D * k_scan * BIG_BATCH
+              * TF32X3_OPS_S / FP32_OPS_S, TF32X3_OPS_S)
     log(f"time IVF{PAIRS_NLIST} {PAIRS_N}x{PAIRS_D} IP nprobe {PAIRS_NPROBE} "
-        f"b1024 ({int(meta[0])} of {xq_t.shape[0]} tiles): K7 {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms; K10 {ms10:.3f} ms against K7 {ms7:.3f} ms "
-        f"(median CUDA events, in turns), bound {b[0]:.3f} ms ({b[1]}) "
-        f"[{smi}]")
-    lists = (lay.payload, lay.counts, lay.row_pos, probe, xq_dev, None)
-    search = dict(k=K, metric="INNER_PRODUCT")
-    k7_ms, k6_ms = time_pair(
-        lambda: k7.ivf_pairs_search(*lists, k_scan=max(4 * K, K + 32),
-                                    **search),
-        lambda: k6.ivf_list_search(*lists, **search), reps=6)
+        f"b1024 k={K} (median CUDA events, in turns): the fused K7 {ms:.3f} "
+        f"ms against the raw K7 + epilogue {before_ms:.3f} ms; the fused K10 "
+        f"{ms10:.3f} ms against the raw K10 + epilogue {before10:.3f} ms; "
+        f"the fused K10 {ms10b:.3f} against the fused K7 {ms7b:.3f} ms; the "
+        f"fused K7 {k7_ms:.3f} against the fused K6 {k6_ms:.3f} ms; plain "
+        f"{plain_ms:.3f} ms; bound {b[0]:.3f} ms ({b[1]}; {rows_once} "
+        f"distinct rows, {rows_all} scored); device time a launch "
+        f"(torch.profiler): K7 {dev7}; K10 {dev10} [{smi}]")
+    walls = {"grid": [], "mega": []}
+    for r in range(10):
+        for impl in (("grid", "mega") if r % 2 == 0 else ("mega", "grid")):
+            dt.config.pairs_impl = impl
+            try:
+                t0 = time.perf_counter()
+                dt.faiss_search("marco", K, xq[BATCH:], params, catalog=cat)
+                walls[impl].append(1e3 * (time.perf_counter() - t0))
+            finally:
+                dt.config.pairs_impl = "grid"
     log(f"time IVF{PAIRS_NLIST} {PAIRS_N}x{PAIRS_D} IP nprobe {PAIRS_NPROBE} "
-        f"b1024 scan + top-k: K7 pair tiles {k7_ms:.3f} ms, K6 per query "
-        f"{k6_ms:.3f} ms (median CUDA events) [{smi}]")
+        f"b1024 k={K}: faiss_search wall "
+        f"{statistics.median(walls['grid']):.3f} ms under pairs_impl grid "
+        f"(K7), {statistics.median(walls['mega']):.3f} ms under mega (K10) "
+        f"(median of 10, in turns) [{smi}]")
 
     # The same trained index filled on the card: faiss_add_device of the
     # corpus as a card tensor, at the host layout's lmax.
@@ -1363,8 +1516,10 @@ def phase_ivf_pairs(smi):
         f"b1024 (K7 and K10) and b48 results equal [{smi}]")
     del dev_lay, dev_out
     dt.faiss_destroy("marco_dev", catalog=cat)
-    return ((max(max_err, raw_err), launches[1], (ms, plain_ms, b)),
-            (raw_err10, launches[2], (ms10, plain_ms, b)))
+    return ((max(max_err, raw_err, err7), launches[1], (ms, plain_ms, b),
+             before_ms),
+            (max(raw_err10, err7), launches[2], (ms10, plain_ms, b),
+             before10))
 
 def sq_rows(g, n, d, codec):
     """n random packed SQ rows, their rn / rs, ranges and a row mask."""
@@ -1784,9 +1939,10 @@ def time_k2(tag, lay, xq, probe, vmin, scale, k_scan, metric, codec, smi):
     to the plain top-k_scan and its results held against the plain search
     (``k2_topk_error``), then timed in turns against the raw launch with
     top-k_scan and the torch rerank (the design it replaced), beside its
-    plain version, with its device time a call.  Returns (ms, plain ms,
+    plain version, with its device time a launch.  Returns (ms, plain ms,
     bound, before ms), the max abs error."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
+    from duckdb_faiss_ext_tpu_torch.ops import list_topk as lt
     from duckdb_faiss_ext_tpu_torch.ops.sq_digits import (KERNEL_SHIFT,
                                                           query_digits)
 
@@ -1802,10 +1958,21 @@ def time_k2(tag, lay, xq, probe, vmin, scale, k_scan, metric, codec, smi):
         for _ in range(3))
     launch = k2.TopKLaunch(*args, **kw)
     dev = device_ms(launch.run)
+    # The partial launch alone on CUDA events, 20 back to back, beside the
+    # profiler's reading: two clocks for the time the bound is held to.
+    launch.run()
+    part_ms = cuda_ms(lambda: [launch.run(lt.PARTIAL)
+                               for _ in range(20)]) / 20
     w = lay.payload.shape[2]
     q = query_digits(xq, vmin, scale, metric, codec, w, KERNEL_SHIFT[codec])
     _, once, pairs = probed_rows(lay.counts, probe)
+    _, once_real, _ = probed_rows(lay.counts, probe[:BATCH])
     b = sq_bound(q, probe, 8 * xq.shape[0] * K, once * (w + 8), pairs)
+    log(f"{tag}: K2's partial alone {part_ms:.3f} ms a launch (CUDA events, "
+        f"20 back to back); rows it must read: {once} distinct of {pairs} "
+        f"scored ({once_real} distinct for the {BATCH} real queries), "
+        f"{once * (w + 8) / 1e9:.3f} GB, {once * (w + 8) / part_ms / 1e9:.3f}"
+        f" TB/s at that time")
     p = launch.plan
     log(f"time {tag} k={K} k_scan={k_scan} ({xq.shape[0]} rows launched; "
         f"{p['splits']} splits, chunks of {p['chunk_rows']} rows, "
@@ -1815,7 +1982,7 @@ def time_k2(tag, lay, xq, probe, vmin, scale, k_scan, metric, codec, smi):
         f"turns), plain {plain_ms:.3f} ms (median CUDA events), bound "
         f"{b[0]:.3f} ms ({b[1]}); candidates bit-equal to the plain "
         f"top-k_scan, results agree (max abs error {err:.3g}); device time a "
-        f"call (torch.profiler): {dev} [{smi}]")
+        f"launch (torch.profiler): {dev} [{smi}]")
     return (ms, plain_ms, b, before_ms), err
 
 
@@ -2637,7 +2804,7 @@ def time_k8(tag, index, lay, xq, nq_pad, search, smi):
         f"score block; faiss_search wall {statistics.median(walls):.3f} ms "
         f"(median of 10); device stages (median CUDA events): "
         f"{'; '.join(parts)}; fetch {statistics.median(fetch):.3f} ms (host "
-        f"clock); device time a call (torch.profiler): {device or 'none'} "
+        f"clock); device time a launch (torch.profiler): {device or 'none'} "
         f"[{smi}]")
     return (ms, plain_ms, b, lib_ms), err
 
@@ -2843,8 +3010,9 @@ def main():
     phase_pq_standalone(data)
     del data
     torch.cuda.empty_cache()
-    ((pairs_err, pairs_launches, pairs_timing),
-     (mega_err, mega_launches, mega_timing)) = phase_ivf_pairs(smi)
+    ((pairs_err, pairs_launches, pairs_timing, pairs_before),
+     (mega_err, mega_launches, mega_timing, mega_before)) = phase_ivf_pairs(
+        smi)
     torch.cuda.empty_cache()
     sq_errs = phase_sq_sweep()
     err9 = phase_sq_mega_sweep()
@@ -2856,9 +3024,9 @@ def main():
     # PyTorch call computes what K2-K7, K9 and K10 compute (a distance, a
     # selection and a layout walk), so their library_ms is null.
     pq_ms, pq_plain_ms, pq_bound, pq_lib_ms = pq["timings"]["b1024"]
-    # K6 and K2: the fused search's time, and beside it (before_ms) the
-    # design it replaced (raw launch, torch top-k, resolve or rerank),
-    # timed in turns with it.
+    # K6, K2, K7 and K10: the fused search's time, and beside it
+    # (before_ms) the design it replaced (raw launch, torch top-k, resolve
+    # or rerank, or the pair epilogue), timed in turns with it.
     k6_ms, k6_plain, k6_bound, k6_before_ms = ivf_timings["b1024"]
     k2_ms, k2_plain, k2_bound, k2_before_ms = sq["timings"]["k2"]
     print(json.dumps({"kernels": [
@@ -2867,7 +3035,8 @@ def main():
         kernel_entry(IVF_LIST_KERNEL, ivf_launches, max(err6, ivf_err),
                      k6_ms, k6_plain, k6_bound, before_ms=k6_before_ms),
         kernel_entry(IVF_PAIRS_KERNEL, pairs_launches,
-                     max(err7, ivf_err7, pairs_err), *pairs_timing),
+                     max(err7, ivf_err7, pairs_err), *pairs_timing,
+                     before_ms=pairs_before),
         kernel_entry(SQ_LIST_KERNEL, sq["launches"][0],
                      max(sq_errs[0], sq["err"][0], marco["k2"][1]), k2_ms,
                      k2_plain, k2_bound, before_ms=k2_before_ms),
@@ -2883,7 +3052,7 @@ def main():
         kernel_entry(SQ_MEGA_KERNEL, marco["launches"],
                      max(err9, marco["err"]), *marco["timing"]),
         kernel_entry(FLAT_MEGA_KERNEL, mega_launches, max(err10, mega_err),
-                     *mega_timing),
+                     *mega_timing, before_ms=mega_before),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

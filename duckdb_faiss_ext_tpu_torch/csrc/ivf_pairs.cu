@@ -1,39 +1,49 @@
-// Pair-tile IVF,Flat scan (K7), for Hopper (sm_90a).  Replaces the TPU
-// kernel duckdb_faiss_ext_tpu/ops/pallas_ivf_pairs.py::_pairs_flat_kernel;
-// the Python wrapper is duckdb_faiss_ext_tpu_torch/ops/ivf_pairs.py.
+// Pair-tile IVF,Flat search (K7), for Hopper (sm_90a).  Replaces the TPU
+// kernel duckdb_faiss_ext_tpu/ops/pallas_ivf_pairs.py::_pairs_flat_kernel
+// together with what its wrapper pallas_ivf_pairs_search ran around it
+// (_pairs_flat_epilogue: the pair gather, top-k_scan, the fp32 rerank and
+// the resolve); the Python wrapper is
+// duckdb_faiss_ext_tpu_torch/ops/ivf_pairs.py.
 //
-// Contract: lists (nlist, lmax, d) fp32 padded per list, counts (nlist,),
-// xq_t (t_max, 8, d) the tiles' queries, qs (t_max, 8, 4) each slot's
-// (bias, |q|^2, 0, 0) with bias -inf on empty slots, meta (1 + t_max,) =
-// n_tiles followed by each tile's list id, optional mask (nlist, lmax)
-// bytes.  For every tile t < n_tiles with list l = meta[1 + t], query slot
-// s and row r < lmax:
-//   IP: x_r . q_s + bias_s      L2: -max(|q_s|^2 - 2 x_r . q_s + |x_r|^2, 0) + bias_s
-// and -inf where r >= counts[l] or mask[l, r] == 0.  Tiles t >= n_tiles
-// return at once and are left unwritten (no pair points into them);
-// n_tiles is read on the device, so the host never waits for it.
+// Two designs, one source.
+// * The fused search (dfx_ivf_pairs_topk, k_scan <= 1024): the contract,
+//   the items and the 3xTF32 core are pairs_tf32.cuh's.  Two launches in
+//   one C call: (a) the partial, one block an item (grid = the plan's
+//   bound on the items; blocks past the item count, read on the device,
+//   return at once), 8 warps that issue each chunk's copies into a 3-stage cp.async
+//   ring (rows and queries at a padded stride of 36 floats, 16-byte copies
+//   when d % 4 == 0 and lists and queries are 16-byte aligned, else 4-byte
+//   ones; rows past the share and queries of dead slots zero-filled, never
+//   read) and compute, as K1's partial does; (b) the merge, a warp a
+//   query.  No score block is written.
+// * The raw launch (dfx_ivf_pairs, the port's first design): for every tile t
+//   < n_tiles with list l = meta[1 + t], query slot s and row r < lmax of
+//   xq_t (t_max, 8, d), qs (t_max, 8, 4) = (bias, |q|^2, 0, 0) with bias
+//   -inf on empty slots and meta (1 + t_max,) = n_tiles and the tiles'
+//   list ids:
+//     IP: x_r . q_s + bias_s      L2: -max(|q_s|^2 - 2 x_r . q_s + |x_r|^2, 0) + bias_s
+//   and -inf where r >= counts[l] or mask[l, r] == 0; tiles t >= n_tiles
+//   are left unwritten.  One block of 256 threads a tile streams the list
+//   block through shared memory in chunks of 256 rows x 32 dims, each
+//   thread owning one row and the 8 queries' fp32 FMA dot products.  The
+//   search takes it with the plain epilogue above the fused search's
+//   k_scan limit, and it is the design the fused search is timed against.
+// Offsets into the payload are 64-bit.
 //
-// Design.  The TPU kernel DMA'd one list block per tile and ran one
-// (8, d) x (lmax, d)^T product on the MXU.  Here one block of 256 threads
-// serves one tile: it streams the list block through shared memory in
-// chunks of 256 rows x 32 dims (16-byte loads when d % 4 == 0, stored with
-// a 33-float row stride so the per-thread row reads hit 32 banks), and the
-// 8 queries' matching 32 dims beside them.  Each thread owns one list row
-// and keeps the 8 dot products and the row's squared norm in registers, so
-// every list row is read from device memory once per tile for 8 queries.
-// Sums are fp32 FMAs (no TF32), in the expansion form the TPU kernel used;
-// the epilogue re-scores the selected candidates in difference form.
-// Offsets into the payload are 64-bit (lid * lmax * d passes 2^31 at
-// realistic sizes).
-// What bounds it on the H100: fp32 FMA throughput (8 x lmax x d per tile) and
-// the shared-memory reads feeding it (one row value and two 16-byte query
-// broadcasts per 9 FMAs).  Tensor cores (TF32 / 3xTF32), cp.async or TMA
-// double buffering of the chunks, and several tiles of one list per block
-// are left to later work.
+// What bounds it on the H100: the distinct probed lists' rows, each read
+// once (1.6 GB at IVF1024 262,144 x 1536, nprobe 16, b1024: 0.48 ms);
+// 3xTF32 takes three tensor-core products a term (2 d a scored (query,
+// row) pair, 0.1 ms there at the TF32 peak).  An item reads its share of
+// a list once for up to 32 queries, so a list is read about once a batch;
+// the raw launch read it once a tile and wrote, and its epilogue read
+// back, a (t_max, 8, lmax) block (352 MB there).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
+#include "pairs_tf32.cuh"
 
 namespace {
 
@@ -148,6 +158,138 @@ cudaError_t launch(const float* lists, const int* counts, const float* xq_t,
   return cudaGetLastError();
 }
 
+
+// --- the fused search --------------------------------------------------------
+
+constexpr int kMaxStages = 4;
+
+// Floats of a ring stage: kNT rows, then QT query rows, kLD apart.
+__host__ __device__ constexpr int stage_floats(int qt) { return (ptf::kNT + qt) * ptf::kLD; }
+
+template <int T>
+size_t partial_smem(int stages, int slots) {
+  return 4 * static_cast<size_t>(stages) * stage_floats(ptf::kQG * T) +
+         ptf::lists_bytes(ptf::kQG * T, slots);
+}
+
+template <int T, bool VEC4>
+__global__ void __launch_bounds__(ptf::kThreads, 2)
+pairs_topk_partial(const __grid_constant__ ptf::Args a) {
+  constexpr int QT = ptf::kQG * T;
+  constexpr int kStage = stage_floats(QT);
+  constexpr int kNT = ptf::kNT, kDK = ptf::kDK, kLD = ptf::kLD;
+  if (static_cast<int>(blockIdx.x) >= ptf::n_items(a)) return;  // block-uniform
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = a.p.stages, d = a.p.d;
+  float* ring = reinterpret_cast<float*>(smem);
+  ptf::Core<T, false, ptf::BlockSync> core(a, smem + 4 * static_cast<size_t>(S) * kStage,
+                                           threadIdx.x);
+  const ptf::Item it = ptf::item_at(a, blockIdx.x);
+  core.begin(it);
+
+  const int tid = threadIdx.x;
+  const int nc = (d + kDK - 1) / kDK;
+  const int total = it.nrt * nc;
+  const float* rows = a.lists + (static_cast<int64_t>(it.lid) * a.p.lmax + it.r0) * d;
+  // Into stage `stage`: dims [c0, c0 + kDK) of row tile rt's rows and of
+  // the item's queries.
+  auto load = [&](int stage, int rt, int c0) {
+    float* st = ring + stage * kStage;
+    const int nrows = min(kNT, it.r1 - it.r0 - rt * kNT);
+    const float* src_rows = rows + static_cast<int64_t>(rt) * kNT * d + c0;
+    if (VEC4) {
+      for (int i = tid; i < (kNT + QT) * (kDK / 4); i += ptf::kThreads) {
+        const int r = i / (kDK / 4), c4 = (i % (kDK / 4)) * 4;
+        const float* src = a.lists;
+        int bytes = 0;
+        if (r < kNT) {
+          if (r < nrows && c0 + c4 < d) {
+            src = src_rows + static_cast<int64_t>(r) * d + c4;
+            bytes = 16;
+          }
+        } else {
+          const int q = core.qid[r - kNT];
+          if (q >= 0 && c0 + c4 < d) {
+            src = a.xq + static_cast<int64_t>(q) * d + c0 + c4;
+            bytes = 16;
+          }
+        }
+        cpa::copy16(st + r * kLD + c4, src, bytes);
+      }
+    } else {
+      for (int i = tid; i < (kNT + QT) * kDK; i += ptf::kThreads) {
+        const int r = i / kDK, c = i % kDK;
+        const float* src = a.lists;
+        int bytes = 0;
+        if (r < kNT) {
+          if (r < nrows && c0 + c < d) {
+            src = src_rows + static_cast<int64_t>(r) * d + c;
+            bytes = 4;
+          }
+        } else {
+          const int q = core.qid[r - kNT];
+          if (q >= 0 && c0 + c < d) {
+            src = a.xq + static_cast<int64_t>(q) * d + c0 + c;
+            bytes = 4;
+          }
+        }
+        cpa::copy4(st + r * kLD + c, src, bytes);
+      }
+    }
+  };
+  // The copy position runs S - 1 chunks ahead of the compute one.
+  int ld_it = 0, ld_rt = 0, ld_c = 0, ld_stage = 0;
+  auto load_next = [&]() {
+    if (ld_it < total) load(ld_stage, ld_rt, ld_c * kDK);
+    cpa::commit();
+    ++ld_it;
+    if (++ld_c == nc) {
+      ld_c = 0;
+      ++ld_rt;
+    }
+    if (++ld_stage == S) ld_stage = 0;
+  };
+  for (int s = 0; s < S - 1; ++s) load_next();
+
+  int rt = 0, c = 0, stage = 0;
+  for (int i = 0; i < total; ++i) {
+    cpa::wait_pending(S - 2);
+    __syncthreads();
+    load_next();
+    if (c == 0) core.tile_begin(it, rt);
+    const float* st = ring + stage * kStage;
+    core.chunk(st, st + kNT * kLD, it.ntiles, rt == 0);
+    if (++stage == S) stage = 0;
+    if (++c < nc) continue;
+    c = 0;
+    core.tile_end(it, rt);
+    ++rt;
+  }
+  cpa::wait_pending(0);
+  core.end(it);
+  core.flush_bn();
+}
+
+__global__ void __launch_bounds__(256) pairs_topk_merge(const __grid_constant__ ptf::MergeArgs a) {
+  ptf::merge(a);
+}
+
+template <int T, bool VEC4>
+cudaError_t launch_partial(const ptf::Args& a, cudaStream_t stream) {
+  auto kernel = pairs_topk_partial<T, VEC4>;
+  if (static_cast<size_t>(a.p.smem) < partial_smem<T>(a.p.stages, a.p.slots))
+    return cudaErrorInvalidValue;
+  cudaError_t err = ltk::set_smem(reinterpret_cast<const void*>(kernel), a.p.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.p.items, ptf::kThreads, a.p.smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int T>
+cudaError_t launch_partial_vec(const ptf::Args& a, cudaStream_t stream) {
+  return a.p.vec4 ? launch_partial<T, true>(a, stream) : launch_partial<T, false>(a, stream);
+}
+
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success).  The caller sizes out
@@ -168,6 +310,47 @@ extern "C" int dfx_ivf_pairs(const float* lists, const int* counts, const float*
                                    d, out, stream)
              : launch<false, false>(lists, counts, xq_t, qs, meta, mask, t_max, nlist,
                                     lmax, d, out, stream);
+  }
+  return static_cast<int>(err);
+}
+
+// Returns the CUDA error of the launches (0 on success), or
+// cudaErrorInvalidValue for a plan the kernels do not take.  plan holds
+// ptf::Plan (ops/ivf_pairs.py::plan); order / ends / item_list / head the
+// item tables (ops/ivf_pairs.py::pair_items, head zeroed); part_s /
+// part_p (nq * nprobe * shares, k2); out_s / out_p (nq, k); unproven an
+// int the caller reads or zeroes.  stages: bit 0 the partial, bit 1 the
+// merge.  vec4 = 1 only with d % 4 == 0 and 16-byte aligned lists and xq.
+extern "C" int dfx_ivf_pairs_topk(const float* lists, const int* counts, const int* row_pos,
+                                  const int* probe_ids, const float* xq, const int8_t* mask,
+                                  const int64_t* order, const int* ends, const int* item_list,
+                                  int* head, const int* plan, float* part_s, int* part_p,
+                                  float* out_s, int* out_p, int* unproven, int stages,
+                                  void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const ptf::Plan p = ptf::plan_from(plan);
+  if (p.stages < 2 || p.stages > kMaxStages || p.k < 1 || p.k > p.k2 ||
+      p.slots < p.k2 + 64 || p.share_rows % ptf::kNT != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
+  if ((stages & 1) && p.items > 0) {
+    const ptf::Args a{lists, counts, mask, xq, order, ends, item_list, head, part_s, part_p, p};
+    switch (p.tiles) {
+      case 1: err = launch_partial_vec<1>(a, stream); break;
+      case 2: err = launch_partial_vec<2>(a, stream); break;
+      case 4: err = launch_partial_vec<4>(a, stream); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (stages & 2) {
+    const ptf::MergeArgs m{lists, counts, row_pos, probe_ids, xq, head, part_s, part_p,
+                           out_s, out_p, unproven, p};
+    err = ltk::set_smem(reinterpret_cast<const void*>(pairs_topk_merge), p.merge_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int blocks = (p.nq + p.merge_warps - 1) / p.merge_warps;
+    pairs_topk_merge<<<blocks, 32 * p.merge_warps, p.merge_smem, stream>>>(m);
+    err = cudaGetLastError();
   }
   return static_cast<int>(err);
 }

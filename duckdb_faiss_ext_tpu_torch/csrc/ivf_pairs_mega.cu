@@ -1,57 +1,53 @@
-// Pair-tile IVF,Flat scan, pipelined (K10), for Hopper (sm_90a).  Replaces
-// the TPU kernel duckdb_faiss_ext_tpu/ops/pallas_ivf_pairs.py::
-// _pairs_flat_mega_kernel; the Python wrapper is
+// Pair-tile IVF,Flat search, pipelined (K10), for Hopper (sm_90a).
+// Replaces the TPU kernel duckdb_faiss_ext_tpu/ops/pallas_ivf_pairs.py::
+// _pairs_flat_mega_kernel with its epilogue (pallas_ivf_pairs_search(...,
+// mega=True)); the Python wrapper is
 // duckdb_faiss_ext_tpu_torch/ops/ivf_pairs_mega.py.
 //
-// Contract: K7's (ivf_pairs.cu): lists (nlist, lmax, d) fp32, counts
-// (nlist,), xq_t (t_max, 8, d) the tiles' queries, qs (t_max, 8, 4) each
-// slot's (bias, |q|^2, 0, 0) with bias -inf on empty slots, meta (1 +
-// t_max,) = n_tiles and the tiles' list ids, optional mask (nlist, lmax)
-// bytes; raw (t_max, 8, lmax) scores, IP x.q + bias, L2 -max(|q|^2 - 2 x.q
-// + |x|^2, 0) + bias, -inf past the count or where the mask byte is 0;
-// tiles t >= n_tiles (read on the device) left unwritten.  lmax must be a
-// multiple of 4.  Each row's sums run over the dimensions in ascending
-// order with fmaf, as in K7, so the tiles are bit-equal to K7's.
+// Two designs, one source.
+// * The fused search (dfx_ivf_pairs_mega_topk): K7's function on K7's
+//   items with pairs_tf32.cuh's core, so its candidates and results are
+//   bit-equal to K7's (ivf_pairs.cu); what differs is how the chunks move.
+//   The TPU kernel walked tps tiles a grid step with the next tiles' list
+//   blocks in flight; here persistent blocks (the SMs times the blocks an
+//   SM holds: two where the plan's ring leaves room, as at k_scan 42 with
+//   3 stages, so that one block's top-k epilogue runs beside the other's
+//   copies and products) take items from the device counter in the item
+//   tables' head, and one producer warp keeps a ring of stages full while
+//   8 consumer warps compute (a named barrier among them; the producer
+//   never joins it).  For each (row tile, dim chunk) of its items the
+//   producer waits for the stage's `empty` mbarrier, writes the chunk's
+//   header into the stage, copies the item's query rows' 32 dims with
+//   cp.async (a lane a query row; dead slots zero-filled) and has the
+//   Tensor Memory Accelerator copy the rows below the share's end as
+//   boxes of 32 rows x 32 dims of the lists viewed as (nlist * lmax, d)
+//   fp32 (dims past d zero-filled, 128-byte swizzled), all completing on
+//   the stage's `full` mbarrier (32 arrivals: each lane's cp.async
+//   tracked by cp.async.mbarrier.arrive, lane 0's with the boxes' bytes).
+//   Each consumer warp waits on `full`, runs the chunk and arrives on
+//   `empty`; a row tile's epilogue and an item's end follow as in K7.  A
+//   stage is read by every consumer warp in order, so a barrier's phases
+//   cannot alias.  The tensor map is encoded at each launch
+//   (tma_2d.cuh).  Widths TMA does not take (d % 4 != 0, or lists or
+//   queries not 16-byte aligned) run the cp.async instance: the producer
+//   warp copies rows and queries 4 bytes at a time at K7's padded stride.
+// * The raw launch (dfx_ivf_pairs_mega, the first pipelined design): K7's raw
+//   tiles, bit-equal, through persistent blocks and a cp.async ring of
+//   256-row x 32-dim chunks; the search takes it with the plain epilogue
+//   above the fused search's k_scan limit.
+// Offsets into the payload are 64-bit.
 //
-// Design.  The TPU kernel walked tps tiles a grid step with the next
-// tiles' (lmax, d) fp32 blocks in flight.  One such block is lmax x 6 KB at
-// d = 1536, so here the unit in flight is a chunk of 256 rows x 32 dims of
-// one tile's list (37 KB with the tile's 8 query rows for those dims).
-// * Persistent blocks that fetch their tiles from a device counter
-//   (next_tile, zero before the launch), as K9: gridDim.x = the SMs times
-//   the blocks an SM holds; a block that finds no tile issues no copy.
-// * One item sequence (tile, row chunk, dim chunk) over the block's tiles,
-//   rows below the count only; a ring of `stages` shared-memory stages
-//   holds items in flight, item i + stages - 1 issued with cp.async
-//   (cp_async.cuh) before item i computes, across tile boundaries; one
-//   commit group an iteration; every issued copy is waited on, and the
-//   block drains its groups before it exits.
-// * The host takes the stage count (2 to 4) that keeps the most blocks on
-//   an SM, the deepest ring among those: 2 stages and three blocks an SM
-//   (75 KB each).  Measured on the H100 (IVF1024 x 1536, b1024): 64-dim
-//   chunks in 3 stages (one block) took 2.40 ms, 32-dim chunks in 3
-//   stages (two blocks) 2.00 ms, in 2 stages (three blocks) 1.64 ms, K7's
-//   time.
-// * A stage carries the chunk's rows (36 floats a row: 16-byte reads of 8
-//   neighbouring rows hit 32 distinct banks), the 8 query rows' dims of
-//   the chunk, and, with the last dim chunk, the row chunk's mask bytes.
-//   Rows copy in 16-byte pieces when d % 4 == 0, else float by float; the
-//   dims past d of the last chunk are zero-filled in rows and queries.
-// * Compute is K7's: a thread owns a row, keeps the 8 dot products and the
-//   row's squared norm in registers over the dim chunks, reads its row 4
-//   dims at a time and each query's 4 dims as one 16-byte broadcast.
-//   Whole row chunks past the count are written -inf without an item.
-// * Offsets into the payload are 64-bit.
-// What bounds it on the H100: fp32 FMAs (8 x lmax x d a tile) and the
-// shared-memory reads feeding them, then each tile's list block, read
-// once a tile.  Tensor cores (TF32 / 3xTF32), TMA with mbarriers and a
-// producer warp are later work.
+// What bounds it on the H100: K7's (the distinct probed rows, each read
+// once); the producer warp spends no thread of the consumers on copies.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "list_topk.cuh"
+#include "pairs_tf32.cuh"
+#include "tma_2d.cuh"
 
 namespace {
 
@@ -328,6 +324,218 @@ cudaError_t launch(Args a, float* out, int* plan, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+
+// --- the fused search --------------------------------------------------------
+
+constexpr int kBoxRows = 32;                          // TMA boxes: 32 rows x 32 dims
+constexpr int kBoxBytes = kBoxRows * ptf::kDK * 4;
+constexpr int kMaxRing = 8;
+constexpr int kMegaThreads = 32 + ptf::kThreads;      // a producer warp, 8 consumers
+
+// A stage's chunk, written by the producer before it arrives on `full`.
+struct Chunk {
+  int item;  // < 0: no more items
+  int rt, cc, pad;
+};
+
+// Bytes of a stage's rows (TMA: dense swizzled 128-byte rows) and of a
+// stage (TMA: 1024-byte aligned for the swizzle).
+__host__ __device__ constexpr int rows_bytes(bool tma) {
+  return tma ? ptf::kNT * ptf::kDK * 4 : ptf::kNT * ptf::kLD * 4;
+}
+
+__host__ __device__ constexpr int mega_stage_bytes(int qt, bool tma) {
+  return tma ? (rows_bytes(true) + qt * ptf::kLD * 4 + 1023) / 1024 * 1024
+             : rows_bytes(false) + qt * ptf::kLD * 4;
+}
+
+__host__ __device__ constexpr size_t mega_smem(int qt, bool tma, int stages, int slots) {
+  return 1024 + static_cast<size_t>(stages) * (mega_stage_bytes(qt, tma) + sizeof(Chunk) + 16) +
+         ptf::lists_bytes(qt, slots);
+}
+
+// The producer warp (all 32 lanes): every chunk of the items it takes,
+// then one end chunk.
+template <int T, bool TMA>
+__device__ inline void produce(const CUtensorMap* map, const ptf::Args& a, uint8_t* stages,
+                               Chunk* hdr, uint64_t* full, uint64_t* empty, int lane) {
+  constexpr int QT = ptf::kQG * T, kDK = ptf::kDK, kLD = ptf::kLD, kNT = ptf::kNT;
+  constexpr int stage_bytes = mega_stage_bytes(QT, TMA);
+  const int S = a.p.stages, d = a.p.d, lmax = a.p.lmax;
+  const int nc = (d + kDK - 1) / kDK;
+  const int n = ptf::n_items(a);
+  for (int i = 0;;) {
+    int idx = 0;
+    if (lane == 0) idx = atomicAdd(a.head, 1);
+    idx = __shfl_sync(ltk::kFull, idx, 0);
+    if (idx >= n) {
+      // Each block's producer takes one index past the items; the last of
+      // them zeroes the counter for the next launch on the same tables.
+      if (lane == 0 && idx == n + static_cast<int>(gridDim.x) - 1) atomicExch(a.head, 0);
+      const int s = i % S;
+      ltk::bar_wait(&empty[s], ((i / S) & 1) ^ 1);
+      if (lane == 0) hdr[s] = Chunk{-1, 0, 0, 0};
+      ltk::bar_arrive(&full[s]);
+      return;
+    }
+    const ptf::Item it = ptf::item_at(a, idx);
+    int q = -1;  // this lane's query row
+    if (lane < it.npairs) q = static_cast<int>(a.order[it.first + lane] / a.p.nprobe);
+    const float* qsrc = a.xq + static_cast<int64_t>(q < 0 ? 0 : q) * d;
+    for (int rt = 0; rt < it.nrt; ++rt) {
+      const int row0 = it.r0 + rt * kNT;
+      const int nrows = min(kNT, it.r1 - row0);
+      for (int cc = 0; cc < nc; ++cc, ++i) {
+        const int s = i % S;
+        ltk::bar_wait(&empty[s], ((i / S) & 1) ^ 1);
+        uint8_t* st = stages + static_cast<size_t>(s) * stage_bytes;
+        float* qdst = reinterpret_cast<float*>(st + rows_bytes(TMA)) + lane * kLD;
+        if (lane == 0) hdr[s] = Chunk{idx, rt, cc, 0};
+        const int c0 = cc * kDK;
+        if (lane < QT) {
+          if (TMA) {
+#pragma unroll
+            for (int e = 0; e < kDK; e += 4) {
+              const bool ok = q >= 0 && c0 + e < d;
+              cpa::copy16(qdst + e, ok ? qsrc + c0 + e : a.xq, ok ? 16 : 0);
+            }
+          } else {
+            for (int e = 0; e < kDK; ++e) {
+              const bool ok = q >= 0 && c0 + e < d;
+              cpa::copy4(qdst + e, ok ? qsrc + c0 + e : a.xq, ok ? 4 : 0);
+            }
+          }
+        }
+        if (!TMA) {
+          float* dr = reinterpret_cast<float*>(st);
+          const float* src = a.lists + (static_cast<int64_t>(it.lid) * lmax + row0) * d + c0;
+          for (int e = lane; e < nrows * kDK; e += 32) {
+            const int r = e / kDK, c = e % kDK;
+            const bool ok = c0 + c < d;
+            cpa::copy4(dr + r * kLD + c, ok ? src + static_cast<int64_t>(r) * d + c : a.lists,
+                       ok ? 4 : 0);
+          }
+        }
+        ltk::copies_arrive(&full[s]);
+        if (TMA && lane == 0) {
+          const int boxes = (nrows + kBoxRows - 1) / kBoxRows;
+          ltk::bar_expect(&full[s], boxes * kBoxBytes);
+          for (int b = 0; b < boxes; ++b)
+            tma2d::box(st + b * kBoxBytes, map, c0, it.lid * lmax + row0 + b * kBoxRows,
+                       &full[s]);
+        } else {
+          ltk::bar_arrive(&full[s]);
+        }
+      }
+    }
+  }
+}
+
+template <int T, bool TMA, int MINB>
+__global__ void __launch_bounds__(kMegaThreads, MINB)
+pairs_mega_partial(const __grid_constant__ CUtensorMap map, const __grid_constant__ ptf::Args a) {
+  constexpr int QT = ptf::kQG * T;
+  constexpr int stage_bytes = mega_stage_bytes(QT, TMA);
+  extern __shared__ int4 smem4[];
+  uint8_t* stages = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int S = a.p.stages;
+  uint8_t* lists_smem = stages + static_cast<size_t>(S) * stage_bytes;
+  Chunk* hdr = reinterpret_cast<Chunk*>(lists_smem + ptf::lists_bytes(QT, a.p.slots));
+  uint64_t* full = reinterpret_cast<uint64_t*>(hdr + S);
+  uint64_t* empty = full + S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      ltk::bar_init(&full[s], 32);
+      ltk::bar_init(&empty[s], ptf::kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0) {
+    produce<T, TMA>(&map, a, stages, hdr, full, empty, lane);
+    return;
+  }
+  ptf::Core<T, TMA, ptf::ConsumerSync> core(a, lists_smem, threadIdx.x - 32);
+  const int nc = (a.p.d + ptf::kDK - 1) / ptf::kDK;
+  ptf::Item it{};
+  for (int i = 0;; ++i) {
+    const int s = i % S;
+    ltk::bar_wait(&full[s], (i / S) & 1);
+    const Chunk ch = hdr[s];
+    if (ch.item < 0) break;  // block-uniform
+    if (ch.rt == 0 && ch.cc == 0) {
+      it = ptf::item_at(a, ch.item);
+      core.begin(it);
+    }
+    if (ch.cc == 0) core.tile_begin(it, ch.rt);
+    const uint8_t* st = stages + static_cast<size_t>(s) * stage_bytes;
+    core.chunk(reinterpret_cast<const float*>(st),
+               reinterpret_cast<const float*>(st + rows_bytes(TMA)), it.ntiles, ch.rt == 0);
+    __syncwarp();
+    if (lane == 0) ltk::bar_arrive(&empty[s]);
+    if (ch.cc == nc - 1) {
+      core.tile_end(it, ch.rt);
+      if (ch.rt == it.nrt - 1) core.end(it);
+    }
+  }
+  core.flush_bn();
+}
+
+__global__ void __launch_bounds__(256) pairs_mega_merge(const __grid_constant__ ptf::MergeArgs a) {
+  ptf::merge(a);
+}
+
+// The lists as (nlist * lmax, d) fp32, boxes of 32 dims x 32 rows,
+// 128-byte swizzled, zeros past d.
+bool encode_lists(CUtensorMap* map, const ptf::Args& a) {
+  tma2d::EncodeTiled encode = tma2d::encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t size[2] = {static_cast<cuuint64_t>(a.p.d),
+                              static_cast<cuuint64_t>(a.p.nlist) * a.p.lmax};
+  const cuuint64_t stride[1] = {static_cast<cuuint64_t>(a.p.d) * 4};
+  const cuuint32_t box[2] = {ptf::kDK, kBoxRows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(a.lists), size,
+                stride, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int T, bool TMA, int MINB>
+cudaError_t launch_mega(const ptf::Args& a, int* grid, cudaStream_t stream) {
+  if (a.p.stages > kMaxRing ||
+      static_cast<size_t>(a.p.smem) < mega_smem(ptf::kQG * T, TMA, a.p.stages, a.p.slots))
+    return cudaErrorInvalidValue;
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (TMA && !encode_lists(&map, a)) return cudaErrorInvalidValue;
+  auto kernel = pairs_mega_partial<T, TMA, MINB>;
+  int dev, nsm, blocks = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.p.smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kMegaThreads, a.p.smem);
+  if (err != cudaSuccess) return err;
+  if (blocks == 0) return cudaErrorInvalidValue;
+  *grid = min(blocks * nsm, a.p.items);
+  kernel<<<*grid, kMegaThreads, a.p.smem, stream>>>(map, a);
+  return cudaGetLastError();
+}
+
+// Two blocks an SM where two fit the SM's 228 KB (1 KB each reserved).
+template <int T>
+cudaError_t launch_mega_copy(const ptf::Args& a, int* grid, cudaStream_t stream) {
+  if (2 * (a.p.smem + 1024) <= 228 * 1024)
+    return a.p.tma ? launch_mega<T, true, 2>(a, grid, stream)
+                   : launch_mega<T, false, 2>(a, grid, stream);
+  return a.p.tma ? launch_mega<T, true, 1>(a, grid, stream)
+                 : launch_mega<T, false, 1>(a, grid, stream);
+}
+
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success).  The caller sizes
@@ -359,5 +567,47 @@ extern "C" int dfx_ivf_pairs_mega(const float* lists, const int* counts, const f
   else
     err = l2 ? launch<false, true>(a, out, plan, stream)
              : launch<false, false>(a, out, plan, stream);
+  return static_cast<int>(err);
+}
+
+// Returns the CUDA error of the launches (0 on success), or
+// cudaErrorInvalidValue for a plan the kernels do not take or a tensor map
+// cuTensorMapEncodeTiled refuses.  The arguments are dfx_ivf_pairs_topk's (K7), head
+// holding the zeroed item counter; tma = 1 in the plan only with d % 4 ==
+// 0 and 16-byte aligned lists and xq.  grid (or null) receives the
+// partial's blocks.
+extern "C" int dfx_ivf_pairs_mega_topk(const float* lists, const int* counts, const int* row_pos,
+                                       const int* probe_ids, const float* xq, const int8_t* mask,
+                                       const int64_t* order, const int* ends, const int* item_list,
+                                       int* head, const int* plan, float* part_s, int* part_p,
+                                       float* out_s, int* out_p, int* unproven, int* grid,
+                                       int stages, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const ptf::Plan p = ptf::plan_from(plan);
+  if (p.stages < 2 || p.k < 1 || p.k > p.k2 || p.slots < p.k2 + 64 ||
+      p.share_rows % ptf::kNT != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
+  int blocks = 0;
+  if ((stages & 1) && p.items > 0) {
+    const ptf::Args a{lists, counts, mask, xq, order, ends, item_list, head, part_s, part_p, p};
+    switch (p.tiles) {
+      case 1: err = launch_mega_copy<1>(a, &blocks, stream); break;
+      case 2: err = launch_mega_copy<2>(a, &blocks, stream); break;
+      case 4: err = launch_mega_copy<4>(a, &blocks, stream); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (grid != nullptr) *grid = blocks;
+  if (stages & 2) {
+    const ptf::MergeArgs m{lists, counts, row_pos, probe_ids, xq, head, part_s, part_p,
+                           out_s, out_p, unproven, p};
+    err = ltk::set_smem(reinterpret_cast<const void*>(pairs_mega_merge), p.merge_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int mblocks = (p.nq + p.merge_warps - 1) / p.merge_warps;
+    pairs_mega_merge<<<mblocks, 32 * p.merge_warps, p.merge_smem, stream>>>(m);
+    err = cudaGetLastError();
+  }
   return static_cast<int>(err);
 }

@@ -64,6 +64,7 @@
 #include <stdint.h>
 
 #include "sq_mma.cuh"
+#include "tma_2d.cuh"
 
 namespace {
 
@@ -131,15 +132,6 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
   } while (!done);
 }
 
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int x, int y,
-                                        uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
-      "{%2, %3}], [%4];\n" ::"r"(sqm::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(sqm::smem_u32(bar))
-      : "memory");
-}
-
 // The producer lane: every item of the block's tiles, then the end.  An
 // item's code boxes stop at the tile's count (rows of a box past it are
 // loaded but never scored); rows of the stage past its boxes hold an
@@ -170,13 +162,13 @@ __device__ __forceinline__ void produce(const Maps* maps, const sqm::RingArgs& a
       uint8_t* st = stages + s * stage_tma<CODEC>();
       const int y = lid * a.lmax + rc * kRows;
       for (int b = 0; b < boxes; ++b)
-        tma_box(st + b * kBoxRows * kBoxCols, &maps->codes, cc * kBoxCols, y + b * kBoxRows,
-                &full[s]);
+        tma2d::box(st + b * kBoxRows * kBoxCols, &maps->codes, cc * kBoxCols, y + b * kBoxRows,
+                   &full[s]);
       for (int j = 0; j < dims / kBoxCols; ++j) {
         uint8_t* dig = st + kCodeBytes + j * 2 * kDigitBoxRows * kBoxCols;
         const int x = cc * dims + j * kBoxCols;
-        tma_box(dig, &maps->hi, x, tile * kQG, &full[s]);
-        tma_box(dig + kDigitBoxRows * kBoxCols, &maps->lo, x, tile * kQG, &full[s]);
+        tma2d::box(dig, &maps->hi, x, tile * kQG, &full[s]);
+        tma2d::box(dig + kDigitBoxRows * kBoxCols, &maps->lo, x, tile * kQG, &full[s]);
       }
     }
     if (end) return;
@@ -253,25 +245,6 @@ __global__ void __launch_bounds__(sqm::kThreads, 1)
   sqm::ring_scan<CODEC, VEC, L2>(a, out, reinterpret_cast<uint8_t*>(smem4));
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, looked up once through the runtime.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // Shared memory the kernels lay out, which the plan's size must cover.
 template <int CODEC>
 size_t smem_needed(bool tma, bool vec, const sqm::RingArgs& a) {
@@ -299,7 +272,8 @@ cudaError_t grid_for(K kernel, int threads, int smem, int t_max, int* grid) {
 
 // A 2D uint8 tensor map: dims[0] bytes a row, dims[1] rows, rows dims[2]
 // bytes apart, boxes of dims[3] x dims[4], 128-byte swizzled.
-bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, const long long* dims) {
+bool encode_map(tma2d::EncodeTiled encode, CUtensorMap* map, const void* base,
+                const long long* dims) {
   const cuuint64_t size[2] = {static_cast<cuuint64_t>(dims[0]),
                               static_cast<cuuint64_t>(dims[1])};
   const cuuint64_t stride[1] = {static_cast<cuuint64_t>(dims[2])};
@@ -314,7 +288,7 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, const lo
 template <int CODEC, bool L2>
 cudaError_t launch_tma(const sqm::RingArgs& a, const long long* shape, int smem, float* out,
                        int* grid, cudaStream_t stream) {
-  EncodeTiled encode = encoder();
+  tma2d::EncodeTiled encode = tma2d::encoder();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   // shape: the codes' map, then the digit rows' (the lo rows' base is the
   // hi rows' plus the width)

@@ -11,7 +11,8 @@ and path selection.
   coarse top-nprobe, then the per-query list scan or, for large batches
   over long lists, the pair-tile scan, chosen by the JAX package's static
   rule (``pairs_wanted``): K6 / K7 (ops/ivf_list_scan.py,
-  ops/ivf_pairs.py) for Flat, K2 / K3 (ops/ivf_sq_scan.py,
+  ops/ivf_pairs.py; each a fused search that ends in its top-k, K7's
+  rescoring its k_scan pool in fp32) for Flat, K2 / K3 (ops/ivf_sq_scan.py,
   ops/ivf_sq_pairs.py) for SQ, whose top ``_sq_kscan`` int8 candidates are
   rescored in fp32; K8 (ops/ivf_pq_scan.py) for PQ / RQ, which has no
   pair-tile path (nor had it in the JAX package) and returns the top-k
@@ -82,12 +83,16 @@ class IVFServe:
     #: or more (tests at tiny shapes)
     PAIRS_MIN_WORK = 1 << 19
     #: device bytes a query block of the list scans may take, counted as
-    #: nprobe x (lmax + d) fp32 per query: K6's (nq, nprobe, lmax) score
-    #: block, or K7's raw tiles and the queries copied into them.  The
-    #: top-k's int64 order keys take several times the score block on
-    #: top, so 1 GiB keeps a block's temporaries near 10 GiB beside a
-    #: layout of up to LAYOUT_BUDGET_BYTES.  A larger batch is split into
-    #: power-of-two query blocks.
+    #: nprobe x (lmax + d) fp32 per query: the raw routes' temporaries (K6's
+    #: (nq, nprobe, lmax) score block, or K7's raw tiles and the queries
+    #: copied into them, whose top-k's int64 order keys take several times
+    #: the block on top), so 1 GiB keeps a block's temporaries near 10 GiB
+    #: beside a layout of up to LAYOUT_BUDGET_BYTES.  The fused searches
+    #: below the raw routes' limits allocate far less: K6 its (nq, splits,
+    #: k) candidates, K7 / K10 nprobe x ceil(lmax / 512) lists of k_scan
+    #: (score, index) pairs a query (37 MiB at IVF1024 b1024, nprobe 16,
+    #: lmax 3584, k_scan 42).  A larger batch is split into power-of-two
+    #: query blocks.
     SCAN_BLOCK_BYTES = 1 << 30
 
     def search(self, xq, k, params=EMPTY, selector=None) -> SearchResult:

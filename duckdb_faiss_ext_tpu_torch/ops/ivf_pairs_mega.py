@@ -1,30 +1,38 @@
-"""Pipelined pair-tile IVF,Flat scan (K10): the hand-written CUDA kernel
-``csrc/ivf_pairs_mega.cu`` and its wrapper.
+"""Pipelined pair-tile IVF,Flat search (K10): the hand-written CUDA kernels
+``csrc/ivf_pairs_mega.cu`` and their wrappers.
 
 Replaces the TPU kernel ``duckdb_faiss_ext_tpu/ops/pallas_ivf_pairs.py::
-_pairs_flat_mega_kernel`` (``pallas_ivf_pairs_search(..., mega=True)``),
-which the JAX package runs under ``config.pairs_impl = "mega"``.  It
-computes K7's function (ops/ivf_pairs.py) on K7's inputs
-(``pair_tile_inputs``), summing each row's dimensions in K7's order, so its
-plain version is K7's, ``ivf_pairs_scan_reference``, and its raw tiles are
-bit-equal to K7's.  What differs is how the operands move: persistent
-blocks fetch tiles from a device counter (which the wrapper allocates
-zeroed) and walk them as one sequence of 256-row x 32-dim chunks through a
-ring of shared-memory stages filled by asynchronous copies, the next chunks
-(the next tile's first one included) in flight while one computes.
-The JAX package fell back to its grid kernel when two fp32 list blocks
-overflowed its VMEM; the chunks here always fit, so there is no fallback.
+_pairs_flat_mega_kernel`` (``pallas_ivf_pairs_search(..., mega=True)``,
+its epilogue included), which the JAX package runs under
+``config.pairs_impl = "mega"``.  It computes K7's function on K7's inputs,
+so its plain versions are K7's (ops/ivf_pairs.py):
 
-The search around it is K7's (``ivf_pairs_search(..., mega=True)``):
-``pairs_flat_epilogue``.
+* the fused search, ``ivf_pairs_search(..., mega=True)``: K7's items and
+  3xTF32 core (``csrc/pairs_tf32.cuh``), candidates and results bit-equal
+  to K7's; what differs is how the chunks move: persistent blocks (two an
+  SM where the ring leaves room) take items from a device counter (in
+  the item tables' head, zeroed by the wrapper and again by the launch's
+  last block), and a producer warp fills a ring of stages, the rows as
+  TMA boxes of 32 rows x 32 dims (``ops/ivf_pairs.py::tma_ok``: d a
+  multiple of 4, lists and queries 16-byte aligned; the tensor map is
+  encoded at each launch) and the queries with cp.async, on mbarriers,
+  while 8 consumer warps compute; other widths run the kernel's cp.async
+  instance.  ``last_plan`` holds the stages, the partial's blocks and
+  whether TMA copied the rows;
+* the raw launch ``ivf_pairs_mega_scan`` (the first pipelined design):
+  K7's raw tiles, bit-equal, through persistent blocks and a cp.async
+  ring of 256-row x 32-dim chunks, summing each row's dimensions in K7's
+  order; the search takes it above the fused search's k_scan limit.  The
+  JAX package fell back to its grid kernel when two fp32 list blocks
+  overflowed its VMEM; the chunks here always fit, so there is no
+  fallback.
 
-What bounds it on the H100: K7's, fp32 FMAs (8 x lmax x d a tile) and the
-shared-memory reads feeding them, then each tile's list block.
+What bounds it on the H100: K7's, the distinct probed rows read once.
 
-``ivf_pairs_mega_scan`` launches the kernel for CUDA tensors and raises on
-what the kernel does not take (besides K7's checks: lmax a multiple of 4
-and a 4-byte aligned mask); it takes the plain version only for CPU
-tensors.
+``ivf_pairs_mega_scan`` launches the raw kernel for CUDA tensors and
+raises on what the kernel does not take (besides K7's checks: lmax a
+multiple of 4 and a 4-byte aligned mask); it takes the plain version only
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -35,11 +43,14 @@ import torch
 
 from .ivf_pairs import QG, check_pairs, ivf_pairs_scan_reference
 
-#: launches of the CUDA kernel since import (or since a caller reset it)
+#: launches of the raw CUDA kernel since import (or since a caller reset it)
 LAUNCHES = 0
+#: fused searches launched on the card through K10 since import (or since
+#: a caller reset it): one for each run of both launches
+TOPK_LAUNCHES = 0
 
-#: (shared-memory stages, blocks) of the last launch
-last_plan = (0, 0)
+#: (shared-memory stages, blocks, TMA) of the last launch
+last_plan = (0, 0, False)
 
 
 def ivf_pairs_mega_scan(lists: torch.Tensor, counts: torch.Tensor,
@@ -81,5 +92,5 @@ def ivf_pairs_mega_scan(lists: torch.Tensor, counts: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
     LAUNCHES += 1
-    last_plan = (plan[0], plan[1])
+    last_plan = (plan[0], plan[1], False)
     return out

@@ -174,6 +174,22 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i,               # l2, vec4
         p, p,               # out, stream
     ]
+    lib.dfx_ivf_pairs_topk.restype = ctypes.c_int
+    lib.dfx_ivf_pairs_topk.argtypes = [
+        p, p, p, p, p, p,   # lists, counts, row_pos, probe_ids, xq, mask
+        p, p, p, p,         # order, ends, item_list, head (the item tables)
+        plan,               # plan (pairs_tf32.cuh::Plan)
+        p, p, p, p, p,      # part_s, part_p, out_s, out_p, unproven
+        i, p,               # stages, stream
+    ]
+    lib.dfx_ivf_pairs_mega_topk.restype = ctypes.c_int
+    lib.dfx_ivf_pairs_mega_topk.argtypes = [
+        p, p, p, p, p, p,   # lists, counts, row_pos, probe_ids, xq, mask
+        p, p, p, p,         # order, ends, item_list, head (the item tables)
+        plan,               # plan (pairs_tf32.cuh::Plan)
+        p, p, p, p, p,      # part_s, part_p, out_s, out_p, unproven
+        p, i, p,            # grid, stages, stream
+    ]
     lib.dfx_ivf_pq_topk.restype = ctypes.c_int
     lib.dfx_ivf_pq_topk.argtypes = [
         p, p, p, p, p,      # lists, counts, rt, row_pos, probe_ids

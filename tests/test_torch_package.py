@@ -8,9 +8,9 @@
 * on the card (``-m gpu``), the CUDA kernels (flat top-k, IVF list scan
   and the fused IVF,Flat and IVF,SQ list searches, IVF pair tiles, the
   int8 IVF,SQ list scan, pair tiles and spill windows,
-  the IVF-PQ / IVF-RQ list search, and the pipelined pair tiles K9 / K10)
-  match their plain versions, and the IVF-PQ list search raises on inputs
-  it does not take.
+  the IVF-PQ / IVF-RQ list search, the pipelined pair tiles K9 / K10, and
+  the fused pair-tile IVF,Flat searches K7 / K10) match their plain
+  versions, and the IVF-PQ list search raises on inputs it does not take.
 """
 
 import os
@@ -643,6 +643,78 @@ def test_flat_mega_kernel_matches_plain_on_card(card, d, lmax, metric):
     ref = k7.ivf_pairs_scan_reference(*args)
     _rows_agree(raw[:n].reshape(-1, lmax), ref[:n].reshape(-1, lmax),
                 qs_t[:n, :, 1].reshape(-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("d,lmax,k,k_scan", [
+    (8, 256, 1, 33), (33, 640, 10, 42), (128, 512, 100, 400),
+    (1536, 256, 10, 42), (128, 1024, 256, 1024)])
+def test_fused_pairs_search_matches_plain_on_card(card, d, lmax, k, k_scan,
+                                                  metric):
+    """The fused pair-tile search (K7's partial and merge, and K10's
+    through TMA and through its cp.async instance) against its plain
+    version on the same card tensors: scores within 1e-5 of the batch's
+    largest, positions equal where neighbouring scores are further apart,
+    equal rows (slots 4 and 5 of every list) in flat order; K10 bit-equal
+    to K7; lists probed by more queries than an item holds and lists of
+    several shares; above the k_scan limit the raw launches serve."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs_mega as k10
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    nlist, nq, nprobe = 16, 256, 3
+    counts = torch.randint(1, lmax, (nlist,), device="cuda", generator=g,
+                           dtype=torch.int32)
+    counts[0], counts[1] = 0, lmax
+    lists = torch.randn(nlist, lmax, d, device="cuda", generator=g)
+    lists[:, 5] = lists[:, 4]
+    mask = (torch.rand(nlist, lmax, device="cuda", generator=g)
+            < 0.6).to(torch.int8)
+    mask[:, 4:6] = 1
+    xq = torch.randn(nq, d, device="cuda", generator=g)
+    probe = torch.rand(nq, nlist, device="cuda", generator=g).argsort(1)[
+        :, :nprobe].to(torch.int32).contiguous()
+    probe[2, 0] = 1
+    probe[2, 1:] = torch.where(probe[2, 1:] == 1, 2, probe[2, 1:])
+    xq[2] = lists[1, 4]
+    row_pos = _live_row_pos(counts, lmax)
+    kw = dict(k=k, k_scan=k_scan, metric=metric)
+    for m in (None, mask):
+        args = (lists, counts, row_pos, probe, xq, m)
+        before = (k7.TOPK_LAUNCHES, k10.TOPK_LAUNCHES, k7.LAUNCHES,
+                  k10.LAUNCHES)
+        s, p = k7.ivf_pairs_search(*args, **kw)
+        got = [(s, p), k7.ivf_pairs_search(*args, **kw, mega=True)]
+        if k7.tma_ok(lists, xq):
+            launch = k7.TopKLaunch(*args, **kw, mega=True, tma=False)
+            launch.run()
+            got.append((launch.scores, launch.positions))
+        torch.cuda.synchronize()
+        assert (k7.TOPK_LAUNCHES, k10.TOPK_LAUNCHES, k7.LAUNCHES,
+                k10.LAUNCHES) == (before[0] + 1, before[1] + 1, before[2],
+                                  before[3])
+        for gs, gp in got[1:]:
+            assert torch.equal(gs, s) and torch.equal(gp, p)
+        rs, rp = k7.ivf_pairs_search_reference(*args, **kw)
+        s, p, rs, rp = (t.cpu().numpy() for t in (s, p, rs, rp))
+        finite = np.isfinite(rs)
+        np.testing.assert_array_equal(np.isfinite(s), finite)
+        tol = 1e-5 * np.abs(rs[finite]).max()
+        assert (np.abs(np.where(finite, s - rs, 0)) <= tol).all()
+        gap = np.abs(np.diff(np.where(finite, rs, -1e30), axis=1)) > 2 * tol
+        sep = finite.copy()
+        sep[:, 1:] &= gap
+        sep[:, :-1] &= gap
+        np.testing.assert_array_equal(p[sep], rp[sep])
+        if metric == "L2" and k > 1:
+            assert p[2, :2].tolist() == row_pos[1, 4:6].tolist()
+    if nprobe * lmax > k7.MAX_K_SCAN:
+        before = (k7.LAUNCHES, k10.LAUNCHES)
+        for mega in (False, True):
+            k7.ivf_pairs_search(*args, k=k, k_scan=k7.MAX_K_SCAN + 1,
+                                metric=metric, mega=mega)
+        assert (k7.LAUNCHES, k10.LAUNCHES) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.gpu

@@ -15,7 +15,14 @@ Phases (any failure raises and the script exits non-zero):
    generator), plus duplicated rows that must rank by ascending position;
    each case prints its count of margin-unproven queries (the kernel's
    3xTF32 candidates whose (k + m)-th lies within twice the error bound of
-   the k-th exact score);
+   the k-th exact score); then the forced margin case, L2 and inner
+   product at k = 10, d = 1536: 65,536 ordinary rows and, for each of 8
+   queries, a cluster of 512 rows whose exact scores form a ladder three
+   compare tolerances apart (L2: far from the origin, where the expansion
+   form cancels; inner product: far along a direction orthogonal to the
+   query), so that more rows than K1's pool lie within twice its error
+   bound of the k-th score: every query must count unproven, and the
+   result must still agree with the plain version (``compare``);
 4. golden parity: the reference's test corpus (tests/data) through the
    public API on the card reproduces its 20 golden inner-product distances,
    labels and filtered results;
@@ -46,7 +53,11 @@ Phases (any failure raises and the script exits non-zero):
    then the pipelined pair tiles (K10, ops/ivf_pairs_mega.py) at the same
    shapes, the raw launch bit-equal to K7's and held against the plain
    version, also with n_tiles cut to 0 and to n_tiles - 3, and the fused
-   search bit-equal to K7's and held against the plain version;
+   search bit-equal to K7's and held against the plain version; the sweep
+   ends with phase 3's forced margin case for the fused K7 and K10 (each
+   query's cluster in one of 16 lists of 1024 rows, nprobe 4, k_scan 42),
+   each query counted unproven by both, results held against the plain
+   version with ``compare``'s per-query scale;
 7. IVF main path: IDMap,IVF4096,Flat L2 over the same corpus
    (BASELINE.json configs[2]): faiss_manual_train on its first 262,144
    rows → faiss_add of all 1M with ids → faiss_search at nprobe 64 at b48
@@ -138,7 +149,11 @@ Phases (any failure raises and the script exits non-zero):
    the shared-memory budget), lmax 256 and 1024 (counts on both sides of
    256, 512 and 768), lists of count 0 and count == lmax, duplicated rows,
    nprobe 1 / 16 / 64, k 1 / 10 / 100 / 1024; each case's count of
-   margin-unproven queries is printed;
+   margin-unproven queries is printed; then phase 3's forced margin case
+   for K8 (IVF-PQ192 x 8 bits at d = 1536, each query's cluster 512 rows
+   of one list that share their codes but in two subquantizers whose
+   entries make the ladder), each query counted unproven, results held
+   against the plain version;
 12. IVF-PQ main path: IDMap,IVF4096,PQ16 L2 over the same corpus, 16 bytes
    a vector (examples/compression_pipeline.py:8): faiss_manual_train on its
    first 262,144 rows → faiss_add of all 1M with ids → at nprobe 64
@@ -177,7 +192,27 @@ Phases (any failure raises and the script exits non-zero):
    is checked and timed at b48 as in phase 10, the spill search is checked
    and timed stage by stage at b48 and b1024 as in phase 10, and
    faiss_search's wall time and device stages are taken under both
-   pairs_impl values.
+   pairs_impl values;
+17. standalone SQ (after phase 15, on its corpus): SQ8 / SQ4 / SQ6 /
+   SQfp16 / SQbf16 L2 through the public API at b48 and b1024 and
+   filtered 'id%2==0': the parity decode path, and for the quantized
+   codecs the int8 path (fast mode): the parity path held against K1 over
+   the index's decoded corpus, the int8 path against K1's best 40 rows
+   rescored in fp64 (labels equal where the distances are apart; K1's own
+   error against fp64 printed), with wall times and peak card memory; a save → load round trip on the card
+   (SQ8, SQbf16); then SQ8 inner product over the first 1,048,576 rows of
+   phase 10's 1536-d corpus (1.5 GB of codes) the same way;
+18. SQL shell and harness (after phase 7, with its index): the golden
+   corpus through sql.dispatch.connect() gives phase 4's distances, labels
+   and filtered rows; run_filtered_bench over the 1M x 128 IDMap,Flat at
+   pass rates 0.5 / 0.1 / 0.01 with K1's launch count checked (the
+   selectors and the post-filter where its k' is within K1's limit) and
+   each strategy's qps printed; a TREC run of Flat scored against exact
+   qrels with recall 1.0; autotune_index over phase 7's IVF4096 index,
+   every search through the fused K6;
+19. port bench: ``python3 -m duckdb_faiss_ext_tpu_torch.bench`` as a
+   subprocess under a time limit; its one JSON line must parse and is
+   printed, its ivf_recall beside phase 7's.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -320,6 +355,16 @@ SQ_MEGA_SWEEP_LMAX = (256, 1024, 2560)
 #: as tools/marco_device.py:288-299 sizes it: ceil(1.15·n / (nlist·512))·512
 MARCO_N, MARCO_TOPK = 8_841_823, 4
 MARCO_LMAX = 512 * -(-int(1.15 * MARCO_N) // (SQ_NLIST * 512))
+#: the forced margin cases of phases 3, 6 and 11: each of FORCED_NQ
+#: queries sits on a cluster of FORCED_CLUSTER rows far from the origin
+#: (L2) or far along a direction orthogonal to the query (inner product),
+#: whose exact scores form a ladder FORCED_STEP compare tolerances apart,
+#: so that more rows than the kernel's pool lie within twice its error
+#: bound E of the k-th exact score while every pair of neighbours stays
+#: far enough apart for compare to see a wrong order; the rest of the
+#: corpus (FORCED_N rows, or the other slots of the lists) is ordinary
+FORCED_N, FORCED_D, FORCED_NQ, FORCED_CLUSTER = 65_536, 1536, 8, 512
+FORCED_STEP = 3.0
 #: the H100's published peaks (SXM data sheet, dense): device memory,
 #: float32 outside the tensor cores, int8, and TF32 on the tensor cores
 #: divided by the three products of a 3xTF32 term
@@ -491,6 +536,79 @@ def phase_build():
         f"(nvcc {kernels.build_seconds:.2f} s)")
 
 
+def forced_frame(seed, nq, d):
+    """2·nq orthonormal directions (v_i, w_i) of R^d, float32 on DEVICE
+    (float64 QR of a seeded Gaussian on the host)."""
+    g = np.random.default_rng(seed)
+    basis, _ = np.linalg.qr(g.standard_normal((d, 2 * nq)))
+    t = torch.from_numpy(np.ascontiguousarray(basis.T, np.float32)).to(
+        DEVICE)
+    return t[:nq], t[nq:]
+
+
+def ladder(metric, nq, tol):
+    """(FORCED_CLUSTER,) offsets t along w_i of the cluster rows: L2 rows
+    at c + t w from a query at c score -t² = -(1 + j·step); inner product
+    rows at c − t w score c·w − j·step; step FORCED_STEP·tol."""
+    j = torch.arange(FORCED_CLUSTER, device=DEVICE, dtype=torch.float32)
+    step = FORCED_STEP * tol
+    return (1.0 + j * step).sqrt() if metric == "L2" else j * step
+
+
+def forced_check(name, ref_s, k, pool, e, tol):
+    """The forced case's premise on the plain version's scores (nq, ≥ pool
+    + 1), best first: the pool's last score within 2E of the k-th for
+    every query (so a kernel cannot prove its k-th from its pool), and
+    every pair of neighbours among the best pool + 1 more than twice
+    compare's tolerance apart.  Returns the least count of rows within 2E
+    of a query's k-th score."""
+    ek = ref_s[:, k - 1:k]
+    check(bool((ref_s[:, pool - 1:pool] >= ek - 2 * e[:, None]).all()),
+          f"{name}: the case does not force the margin")
+    gaps = (ref_s[:, :pool] - ref_s[:, 1:pool + 1]).min(1).values
+    check(bool((gaps > 2 * tol).all()), f"{name}: neighbours closer than "
+          f"twice the tolerance ({float(gaps.min()):.3g})")
+    return int((ref_s >= ek - 2 * e[:, None]).sum(1).min())
+
+
+def forced_flat_case(metric):
+    """K1's forced case: FORCED_N ordinary rows (standard normal) with a
+    ladder cluster for each query at random positions; K1 against its plain
+    version (``compare``), its unproven count printed."""
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+
+    v, w = forced_frame(11 if metric == "L2" else 12, FORCED_NQ, FORCED_D)
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    xb = torch.randn(FORCED_N, FORCED_D, device=DEVICE, generator=g)
+    if metric == "L2":
+        cents, xq = 100.0 * v, 100.0 * v
+        tol = REL_TOL * (xq * xq).sum(1).max()
+    else:
+        cents, xq = 50.0 * v + 10.0 * w, w.clone()
+        tol = torch.tensor(REL_TOL * 10.0, device=DEVICE)
+    t = ladder(metric, FORCED_NQ, tol)
+    sign = 1.0 if metric == "L2" else -1.0
+    rows = cents[:, None, :] + sign * t[None, :, None] * w[:, None, :]
+    at = torch.randperm(FORCED_N, device=DEVICE, generator=g)
+    xb[at[:FORCED_NQ * FORCED_CLUSTER]] = rows.reshape(-1, FORCED_D)
+    pool = K + ft.margin(K)
+    ft.reset_unproven(DEVICE)
+    s, p = ft.flat_topk(xb, FORCED_N, xq, K, metric)
+    unproven = ft.unproven(DEVICE)
+    rs, rp = ft.flat_topk_reference(xb, FORCED_N, xq, FORCED_CLUSTER, metric)
+    e = ft.error_bound((xq * xq).sum(1), float((xb * xb).sum(1).max()),
+                       FORCED_D, metric)
+    within = forced_check(f"K1 {metric}", rs, K, pool, e, tol)
+    check(unproven == FORCED_NQ, f"K1 {metric}: {unproven} of {FORCED_NQ} "
+          f"forced queries counted unproven")
+    err = compare(s, p, rs[:, :K + 1], rp[:, :K + 1], xq)
+    log(f"forced margin K1 {metric} d={FORCED_D} k={K}: {unproven} of "
+        f"{FORCED_NQ} queries unproven, at least {within} rows within 2E "
+        f"of the k-th score (pool {pool}), result agrees with the plain "
+        f"version (max abs error {err:.3g})")
+    return err
+
+
 def phase_sweep():
     from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
     from duckdb_faiss_ext_tpu_torch.utils.config import next_capacity
@@ -534,6 +652,9 @@ def phase_sweep():
         torch.cuda.empty_cache()
     check(ft.LAUNCHES - before == n_cases, "a sweep case did not launch")
     log(f"sweep: {n_cases} cases, max abs score error {max_err:.3g}")
+    for metric in ("L2", "INNER_PRODUCT"):
+        max_err = max(max_err, forced_flat_case(metric))
+    torch.cuda.empty_cache()
     return max_err
 
 
@@ -847,7 +968,7 @@ def k7_raw_error(lists, counts, xq_t, qs_t, meta, mask, metric):
 
 
 def k7_topk_error(lists, counts, row_pos, probe, xq, mask, metric, k,
-                  k_scan):
+                  k_scan, batch=True):
     """The fused pair-tile search through K7, K10 (TMA where it takes the
     widths) and K10's cp.async instance on the same card tensors: K10's
     results bit-equal to K7's, K7's held against the plain version
@@ -872,7 +993,7 @@ def k7_topk_error(lists, counts, row_pos, probe, xq, mask, metric, k,
     ref = pad_to(*k7.ivf_pairs_search_reference(*args, k=k + 1,
                                                 k_scan=k_scan,
                                                 metric=metric), k + 1)
-    return compare(s, p, *ref, xq, batch=True), p
+    return compare(s, p, *ref, xq, batch=batch), p
 
 
 def probe_table(g, nq, nlist, nprobe):
@@ -892,6 +1013,61 @@ def check_tie(p, row_pos, k, metric):
     want = row_pos[1, 4:4 + min(k, 2)]
     check(torch.equal(p[2, :want.numel()], want), f"tie of query 2: "
           f"{p[2, :2].tolist()} not {want.tolist()}")
+
+
+def forced_pairs_case(metric):
+    """The fused K7 / K10's forced case: 16 lists of 1024 ordinary rows,
+    query i's ladder cluster in random slots of list i, each query probing
+    its list and three of lists 8-15, k_scan 42; K7 against its plain
+    version and K10 bit-equal (``k7_topk_error``), its unproven count
+    printed."""
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+
+    nlist, lmax, nprobe = 16, 1024, 4
+    k_scan = max(4 * K, K + 32)
+    v, w = forced_frame(21 if metric == "L2" else 22, FORCED_NQ, FORCED_D)
+    g = torch.Generator(device=DEVICE).manual_seed(23)
+    lists = torch.randn(nlist, lmax, FORCED_D, device=DEVICE, generator=g)
+    counts = torch.full((nlist,), lmax, dtype=torch.int32, device=DEVICE)
+    row_pos = live_row_pos(counts, lmax)
+    if metric == "L2":
+        cents, xq = 100.0 * v, 100.0 * v
+        tol = REL_TOL * float((xq * xq).sum(1).max())
+    else:
+        cents, xq = 50.0 * v + 10.0 * w, w.clone()
+        tol = REL_TOL * 10.0
+    t = ladder(metric, FORCED_NQ, torch.tensor(tol, device=DEVICE))
+    sign = 1.0 if metric == "L2" else -1.0
+    for i in range(FORCED_NQ):
+        slots = torch.randperm(lmax, device=DEVICE,
+                               generator=g)[:FORCED_CLUSTER]
+        lists[i, slots] = cents[i] + sign * t[:, None] * w[i]
+    others = torch.rand(FORCED_NQ, nlist - FORCED_NQ, device=DEVICE,
+                        generator=g).argsort(1)[:, :nprobe - 1]
+    probe = torch.cat([torch.arange(FORCED_NQ, device=DEVICE)[:, None],
+                       FORCED_NQ + others], 1).to(torch.int32).contiguous()
+    unproven = []
+    for mega in (False, True):
+        k7.reset_unproven(DEVICE)
+        k7.ivf_pairs_search(lists, counts, row_pos, probe, xq, None, k=K,
+                            k_scan=k_scan, metric=metric, mega=mega)
+        unproven.append(k7.unproven(DEVICE))
+    err, _ = k7_topk_error(lists, counts, row_pos, probe, xq, None, metric,
+                           K, k_scan, batch=False)
+    ref_s, _ = k7.ivf_pairs_search_reference(
+        lists, counts, row_pos, probe, xq, None, k=FORCED_CLUSTER,
+        k_scan=FORCED_CLUSTER, metric=metric)
+    bn_max = float((lists[probe.long()] ** 2).sum(-1).max())
+    e = ft.error_bound((xq * xq).sum(1), bn_max, FORCED_D, metric)
+    within = forced_check(f"K7 {metric}", ref_s, K, k_scan, e, tol)
+    check(unproven == [FORCED_NQ] * 2, f"K7 / K10 {metric}: {unproven} of "
+          f"{FORCED_NQ} forced queries counted unproven")
+    log(f"forced margin K7 = K10 {metric} d={FORCED_D} k={K}: {unproven[0]}"
+        f" (K7) and {unproven[1]} (K10) of {FORCED_NQ} queries unproven, at "
+        f"least {within} rows within 2E of the k-th score (pool {k_scan}), "
+        f"result agrees with the plain version (max abs error {err:.3g})")
+    return err
 
 
 def phase_ivf_sweep():
@@ -970,6 +1146,9 @@ def phase_ivf_sweep():
         f"{err6f:.3g}, K6 raw {err6:.3g}, K7 fused {err7f:.3g} (K10 fused "
         f"bit-equal, plan (stages, blocks, TMA) {k10.last_plan}), K7 raw "
         f"{err7:.3g}")
+    for metric in ("L2", "INNER_PRODUCT"):
+        err7f = max(err7f, forced_pairs_case(metric))
+    torch.cuda.empty_cache()
     return max(err6, err6f), max(err7, err7f)
 
 
@@ -1184,6 +1363,7 @@ def phase_ivf_main(smi, data, exact):
 
     even = ((lay.row_pos >= 0) & (lay.row_pos % 2 == 0)).to(torch.int8)
     max_err = 0.0
+    recalls = {}
     for name, xq, m in (("b48", data["b48"], None),
                         ("b1024", data["b1024"], None),
                         ("batched", data["batched"], None),
@@ -1205,6 +1385,7 @@ def phase_ivf_main(smi, data, exact):
         recall = (np.mean([len(set(a) & set(b)) / K for a, b in
                            zip(res["label"], exact[name])])
                   if name in exact else float("nan"))
+        recalls[name] = recall
         log(f"ivf main path {name}: {xq.shape[0]} queries agree with the "
             f"plain path (max distance error {max_err:.3g}); recall@10 vs "
             f"exact Flat {recall:.4f}")
@@ -1287,7 +1468,8 @@ def phase_ivf_main(smi, data, exact):
                 f"{k7_ms:.3f} vs the fused K6 {k6_ms:.3f} ms, raw scores "
                 f"only K7 {raw7_ms:.3f} vs K6's raw launch {raw6_ms:.3f} ms "
                 f"(median CUDA events) [{smi}]")
-    return max(max_err, raw_err6), raw_err7, launches[0], timings
+    return (max(max_err, raw_err6), raw_err7, launches[0], timings,
+            {"cat": cat, "recall": recalls["b48"]})
 
 
 def clustered_f32(n, d, nq, ncl, seed):
@@ -2612,6 +2794,95 @@ def pq_sweep_layout(g, nlist, lmax, m, nbits, counts):
     return lists, live_row_pos(counts, lmax)
 
 
+def forced_pq_case(metric):
+    """K8's forced case: IVF-PQ with d = 1536, M = 192 (dsub 8), 8 bits, 16
+    lists of 1024 rows with random codes; query i's cluster is 512 rows of
+    list i sharing codes f_i beyond their first two subquantizers, whose
+    entries make the ladder (subquantizer 0 steps of 2h over its 256
+    entries, subquantizer 1 adds 0 or h), each query probing its list and
+    three of lists 8-15; K8 against its plain version (``k8_error``), its
+    unproven count printed."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+
+    nlist, lmax, nprobe, m, ksub, dsub = 16, 1024, 4, FORCED_D // 8, 256, 8
+    gen = np.random.default_rng(31 if metric == "L2" else 32)
+    g = torch.Generator(device=DEVICE).manual_seed(33)
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(DEVICE)
+
+    cb = gen.standard_normal((m, ksub, dsub)).astype(np.float32)
+    f = gen.integers(0, ksub, (FORCED_NQ, m))
+    dec_f = cb[np.arange(m), f].reshape(FORCED_NQ, FORCED_D)  # (nq, d)
+    e0, e1 = (u / np.linalg.norm(u) for u in gen.standard_normal((2, dsub)))
+    lists = torch.randint(0, ksub, (nlist, lmax, m), device=DEVICE,
+                          generator=g, dtype=torch.uint8)
+    if metric == "L2":
+        # Query i at c_i + dec(f_i) with its first two subspaces at c_i:
+        # cluster row (j, a) scores -(s0 + (2j + a) h).
+        cents = gen.standard_normal((nlist, FORCED_D))
+        cents *= 100.0 / np.linalg.norm(cents, axis=1, keepdims=True)
+        xq = cents[:FORCED_NQ] + dec_f
+        xq[:, :2 * dsub] = cents[:FORCED_NQ, :2 * dsub]
+        h = FORCED_STEP * REL_TOL * float((xq * xq).sum(1).max())
+        cb[0] = np.sqrt(1.0 + 2 * h * np.arange(ksub))[:, None] * e0
+        cb[1, 0], cb[1, 1] = 0.0, np.sqrt(h) * e1
+    else:
+        # Query i: e0 and e1 in its first two subspaces, a random part of
+        # norm 1 beyond; centroids of norm ~50 orthogonal to the queries
+        # but for a component that lifts query i's own list to 10; the
+        # other rows of every list drop by 20 in subspace 1.
+        rest = gen.standard_normal((FORCED_NQ, FORCED_D - 2 * dsub))
+        rest /= np.linalg.norm(rest, axis=1, keepdims=True)
+        xq = np.concatenate([np.tile(np.concatenate([e0, e1]),
+                                     (FORCED_NQ, 1)), rest], 1)
+        cents = gen.standard_normal((nlist, FORCED_D))
+        qb, _ = np.linalg.qr(xq.T)
+        cents -= (cents @ qb) @ qb.T
+        cents *= 50.0 / np.linalg.norm(cents, axis=1, keepdims=True)
+        h = FORCED_STEP * REL_TOL * 10.0
+        cb[0] = -2 * h * np.arange(ksub)[:, None] * e0
+        cb[1, 0], cb[1, 1], cb[1, 2:] = 0.0, -h * e1, -20.0 * e1
+        lists[:, :, 1] = torch.randint(2, ksub, (nlist, lmax), device=DEVICE,
+                                       generator=g, dtype=torch.uint8)
+        own = (xq[:, 2 * dsub:] * dec_f[:, 2 * dsub:]).sum(1)
+        cents[:FORCED_NQ] += ((10.0 - own) / 2.0)[:, None] * xq * np.r_[
+            np.ones(2 * dsub), np.zeros(FORCED_D - 2 * dsub)][None, :]
+    cj = np.arange(FORCED_CLUSTER)
+    for i in range(FORCED_NQ):
+        slots = torch.randperm(lmax, device=DEVICE,
+                               generator=g)[:FORCED_CLUSTER]
+        codes = np.tile(f[i], (FORCED_CLUSTER, 1))
+        codes[:, 0], codes[:, 1] = cj % ksub, cj // ksub
+        lists[i, slots] = torch.from_numpy(codes.astype(np.uint8)).to(DEVICE)
+    counts = torch.full((nlist,), lmax, dtype=torch.int32, device=DEVICE)
+    row_pos = live_row_pos(counts, lmax)
+    cb_t, cents_t, xq_t = dev(cb), dev(cents), dev(xq)
+    others = torch.rand(FORCED_NQ, nlist - FORCED_NQ, device=DEVICE,
+                        generator=g).argsort(1)[:, :nprobe - 1]
+    probe = torch.cat([torch.arange(FORCED_NQ, device=DEVICE)[:, None],
+                       FORCED_NQ + others], 1).to(torch.int32).contiguous()
+    rt = k8.pq_row_terms(lists, counts, cents_t, cb_t, "pq")
+    args = [lists, counts, row_pos, cb_t, cents_t, probe, xq_t, None]
+    kw = dict(metric=metric, codec="pq", row_terms=rt)
+    err, unproven = k8_error(args, kw, K)
+    ref_s, _ = k8.ivf_pq_list_search_reference(*args, k=FORCED_CLUSTER, **kw)
+    cn = float((cents_t * cents_t).sum(1).max())
+    rho = float(k8.residual_bound(k8.codebook_norms(cb_t), "pq"))
+    e = k8.error_bound((xq_t * xq_t).sum(1), cn, rho, FORCED_D, m, metric)
+    tol = (REL_TOL * float((xq_t * xq_t).sum(1).max()) if metric == "L2"
+           else REL_TOL * 10.0)
+    pool = K + k8.margin(K)
+    within = forced_check(f"K8 {metric}", ref_s, K, pool, e, tol)
+    check(unproven == FORCED_NQ, f"K8 {metric}: {unproven} of {FORCED_NQ} "
+          f"forced queries counted unproven")
+    log(f"forced margin K8 PQ{m} {metric} d={FORCED_D} k={K}: {unproven} of "
+        f"{FORCED_NQ} queries unproven, at least {within} rows within 2E of "
+        f"the k-th score (pool {pool}), result agrees with the plain version "
+        f"(max abs error {err:.3g})")
+    return err
+
+
 def phase_pq_sweep():
     """K8 against its plain version, results and table: PQ (dsub 8 with 8
     bits, dsub 4 with 4 bits) and RQ (2 stages of 4 bits, 8 of 8), L2 / IP,
@@ -2661,6 +2932,9 @@ def phase_pq_sweep():
         torch.cuda.empty_cache()
     check(k8.LAUNCHES - before == n_cases, "a pq sweep case did not launch")
     log(f"pq sweep: {n_cases} cases, max abs score error K8 {err:.3g}")
+    for metric in ("L2", "INNER_PRODUCT"):
+        err = max(err, forced_pq_case(metric))
+    torch.cuda.empty_cache()
     return err
 
 
@@ -2986,6 +3260,343 @@ def phase_pq_standalone(data):
         f"train and add)")
     return err
 
+#: phase 17: the standalone SQ codecs over phase 5's corpus; then SQ8 inner
+#: product over the first SQ_WIDE_N rows of phase 10's 1536-d generator
+SQ_STANDALONE = ("SQ8", "SQ4", "SQ6", "SQfp16", "SQbf16")
+SQ_WIDE_N = 4 * SQ_CHUNK
+#: phase 18: the filtered bench's pass rates, the TREC run's depth
+FILTER_PASSRATES, TREC_K = (0.5, 0.1, 0.01), 100
+#: phase 17: rows K1 picks for the int8 path's fp64 reference
+SQ_EXACT_WIDTH = 4 * K
+#: phase 19: the port bench's time limit, seconds
+BENCH_TIMEOUT = 300
+
+
+def walls_ms(fn, reps=5):
+    """Median host-clock ms of ``fn`` (a public-API call that returns its
+    results on the host)."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(walls)
+
+
+def decoded_k1(decoded, n, queries, metric, mask=None, width=K + 1):
+    """K1 over a decoded corpus on the card, ``width`` wide: (distances,
+    labels) as numpy (labels are rows)."""
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import finalize_scores
+
+    xq = torch.from_numpy(queries).to(DEVICE)
+    d, p = finalize_scores(*ft.flat_topk(decoded, n, xq, width, metric, mask),
+                           metric)
+    return d.cpu().numpy(), p.cpu().numpy().astype(np.int64)
+
+
+def rows_f64(codes, vmin, scale, codec, queries, labels, metric):
+    """fp64 distances (L2 in difference form) of each query's labelled rows,
+    decoded from the codes on the card; labels -1 give NaN."""
+    from duckdb_faiss_ext_tpu_torch.ops.sq import sq_decode
+
+    rows = torch.from_numpy(np.maximum(labels, 0)).to(DEVICE).reshape(-1)
+    x = sq_decode(codes[rows], vmin, scale, codec).double().reshape(
+        *labels.shape, -1)
+    q = torch.from_numpy(queries).to(DEVICE).double()[:, None, :]
+    s = ((x - q) ** 2).sum(-1) if metric == "L2" else (x * q).sum(-1)
+    return np.where(labels >= 0, s.cpu().numpy(), np.nan)
+
+
+def exact_ref(state, codec, queries, wide, metric):
+    """K1's ``SQ_EXACT_WIDTH``-wide result over the decoded corpus rescored
+    in fp64 from the codes, re-sorted and cut to K + 1: (distances, labels,
+    K1's max abs error against the fp64 distances of its own rows)."""
+    dist, labels = wide
+    s = rows_f64(*state, codec, queries, labels, metric)
+    finite = labels >= 0
+    k1_err = float(np.abs(np.where(finite, dist - s, 0)).max())
+    key = np.where(finite, s if metric == "L2" else -s, np.inf)
+    order = np.argsort(key, axis=1, kind="stable")[:, :K + 1]
+    s = np.where(finite, s, np.inf if metric == "L2" else -np.inf)
+    return (np.take_along_axis(s, order, 1).astype(np.float32),
+            np.take_along_axis(labels, order, 1), k1_err)
+
+
+def sq_standalone_leg(dt, cat, name, n, metric, batches, smi, db=None):
+    """One standalone SQ index through the public API on the card at every
+    batch (and filtered 'id%2==0' when ``db`` is given), with wall times.
+    The parity path computes as K1 does (fp32, L2 in expansion form) and is
+    held against K1 over the decoded corpus (the plain version of the
+    decode path).  The int8 path (fast mode, quantized codecs) rescores in
+    fp32 difference form and is held against the exact reference: K1's
+    best ``SQ_EXACT_WIDTH`` rows rescored in fp64 from the codes (L2 in
+    difference form).  Both at ``compare_results``' tolerance; K1's own
+    error against fp64 is printed beside the paths'.  Returns the max
+    distance error."""
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+    from duckdb_faiss_ext_tpu_torch.ops.sq import sq_decode
+
+    index = cat.get(name).index
+    check(index.device.type == DEVICE, f"{name}: index not on the card")
+    state = index._device_state()
+    decoded = sq_decode(state[0][:n], *state[1:], index.codec).contiguous()
+    even = (torch.arange(n, device=DEVICE) % 2 == 0).to(torch.int8)
+    queries = dict(batches)
+    masks = dict.fromkeys(queries)
+    if db is not None:
+        queries["filter"], masks["filter"] = batches[0][1], even
+    ft.LAUNCHES = 0
+    wide = {b: decoded_k1(decoded, n, xq, metric, masks[b], SQ_EXACT_WIDTH)
+            for b, xq in queries.items()}
+    check(ft.LAUNCHES == len(wide), f"{name}: K1 over the decoded corpus "
+          f"launched {ft.LAUNCHES} times, not {len(wide)}")
+    del decoded
+    refs = {"parity": {b: (d[:, :K + 1], p[:, :K + 1])
+                       for b, (d, p) in wide.items()}, "fast": {}}
+    k1_err = {}
+    for b, w in wide.items():
+        *refs["fast"][b], k1_err[b] = exact_ref(state, index.codec,
+                                                queries[b], w, metric)
+    err, times, errs = 0.0, [], []
+    modes = ("parity", "fast") if index.codec.startswith("sq") else (
+        "parity",)
+    for mode in modes:
+        dt.set_precision(mode)
+        check(index.int8_serves() == (mode == "fast"), f"{name}: {mode} "
+              f"path not taken")
+        for b, xq in batches:
+            res = dt.faiss_search(name, K, xq, catalog=cat)
+            e = compare_results(f"{name} {mode} {b}", res, *refs[mode][b],
+                                metric != "L2")
+            errs.append(f"{mode} {b} {e:.3g}")
+            err = max(err, e)
+            ms = walls_ms(lambda: dt.faiss_search(name, K, xq, catalog=cat),
+                          reps=3)
+            times.append(f"{mode} {b} {ms:.3f}")
+        if db is not None:
+            res = dt.faiss_search_filter(name, K, batches[0][1], "id%2==0",
+                                         "id", "base", catalog=cat,
+                                         database=db)
+            check((res["label"] % 2 == 0).all(), f"{name}: odd label")
+            e = compare_results(f"{name} {mode} filter", res,
+                                *refs[mode]["filter"], metric != "L2")
+            errs.append(f"{mode} filter {e:.3g}")
+            err = max(err, e)
+    dt.set_precision("parity")
+    log(f"sq standalone {name} {n}x{index.d} {metric}: parity path agrees "
+        f"with K1 over the decoded corpus"
+        f"{', int8 path with its rows rescored in fp64' * (len(modes) > 1)}"
+        f" at {', '.join(queries)}; max distance error: {'; '.join(errs)}; "
+        f"K1's fp32 against fp64: "
+        f"{'; '.join(f'{b} {e:.3g}' for b, e in k1_err.items())}; "
+        f"faiss_search wall ms (median): {'; '.join(times)}; card peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    return err
+
+
+def phase_sq_standalone(smi, data):
+    """Standalone SQ8 / SQ4 / SQ6 / SQfp16 / SQbf16 L2 over phase 5's 1M x
+    128 corpus at b48 and b1024 (and filtered), a save → load round trip
+    on the card, then SQ8 inner product over 1M x 1536 (1.5 GB of codes)."""
+    import tempfile
+
+    import duckdb_faiss_ext_tpu_torch as dt
+
+    xb, ids = data["xb"], data["ids"]
+    db = dt.Database()
+    db.register("base", {"id": ids})
+    batches = (("b48", data["b48"]), ("b1024", data["b1024"]))
+    err = 0.0
+    for codec in SQ_STANDALONE:
+        cat = dt.Catalog()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dt.faiss_create(codec, D, codec, metric_type="L2", catalog=cat)
+        dt.faiss_add(xb, codec, catalog=cat)
+        log(f"sq standalone {codec}: create + train + add {N} rows "
+            f"{time.perf_counter() - t0:.2f} s, codes "
+            f"{cat.get(codec).index._codes.nbytes / 2**20:.1f} MiB")
+        err = max(err, sq_standalone_leg(dt, cat, codec, N, "L2", batches,
+                                         smi, db))
+        if codec in ("SQ8", "SQbf16"):
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "sq.dfx")
+                dt.faiss_save(codec, path, catalog=cat)
+                dt.faiss_load("reloaded", path, catalog=cat)
+            a = dt.faiss_search(codec, K, data["b48"], catalog=cat)
+            b = dt.faiss_search("reloaded", K, data["b48"], catalog=cat)
+            check(np.array_equal(a, b), f"{codec}: save → load differs")
+            check(cat.get("reloaded").index.device.type == DEVICE,
+                  f"{codec}: reloaded index not on the card")
+            log(f"sq standalone {codec}: save → load on the card, b48 "
+                f"results equal")
+        del cat
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    corpus = MarcoCorpus()
+    xq = corpus.queries(BATCH + BIG_BATCH)
+    cat = dt.Catalog()
+    t0 = time.perf_counter()
+    dt.faiss_create("wide", SQ_D, "SQ8", metric_type="INNER_PRODUCT",
+                    catalog=cat)
+    dt.faiss_manual_train(corpus.chunk(0).cpu().numpy(), "wide", catalog=cat)
+    for i, rows in corpus_chunks(SQ_WIDE_N):
+        dt.faiss_add(corpus.chunk(i, rows).cpu().numpy(), "wide",
+                     catalog=cat)
+    log(f"sq standalone SQ8 {SQ_WIDE_N}x{SQ_D} IP: train + add "
+        f"{time.perf_counter() - t0:.2f} s, codes "
+        f"{cat.get('wide').index._codes.nbytes / 1e9:.2f} GB")
+    err = max(err, sq_standalone_leg(
+        dt, cat, "wide", SQ_WIDE_N, "INNER_PRODUCT",
+        (("b48", xq[:BATCH]), ("b1024", xq[BATCH:])), smi))
+    del cat
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_sql_harness(smi, data, ivf):
+    """The SQL shell over the golden corpus, the filtered bench over 1M x
+    128 IDMap,Flat, autotune on phase 7's IVF4096 index and a TREC run of
+    Flat, all on the card."""
+    import tempfile
+
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch import harness
+    from duckdb_faiss_ext_tpu_torch.harness import trec
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+    from duckdb_faiss_ext_tpu_torch.sql.dispatch import connect
+
+    # The golden corpus through sql.dispatch: the statements phase 4 holds
+    # through the API (test/sql/faiss.test, faiss3.test of the reference).
+    raw = {name: np.loadtxt(os.path.join(HERE, "tests", "data", name),
+                            delimiter=",", dtype=np.float64)
+           for name in ("training.csv", "queries.csv")}
+    con = connect(catalog=dt.Catalog(), database=dt.Database())
+    gids = raw["training.csv"][:, 0].astype(np.int64)
+    con.register("training", {"id": gids, "column0": gids,
+                              "data": raw["training.csv"][:, 1:].astype(
+                                  np.float32)})
+    con.register("queries", {"data": raw["queries.csv"][:, 1:].astype(
+        np.float32)})
+    for stmt in ("CALL faiss_create('flat8', 8, 'Flat')",
+                 "CALL faiss_add((SELECT data FROM training), 'flat8')",
+                 "CALL faiss_create('flat82', 8, 'IDMap,Flat')",
+                 "CALL faiss_add((SELECT id, data FROM training), 'flat82')"):
+        check(con.execute(stmt) is None, f"sql: {stmt}")
+    check(catalog_device(con.catalog, "flat82") == DEVICE, "sql: index not "
+          "on the card")
+    rows = con.execute("SELECT UNNEST(faiss_search('flat8', 2, data)) FROM "
+                       "queries")
+    np.testing.assert_allclose([r["distance"] for r in rows],
+                               GOLDEN_FLAT_DISTANCES, rtol=2e-6)
+    rows = con.execute("SELECT UNNEST(faiss_search('flat82', 2, data)) FROM "
+                       "queries")
+    check([r["label"] for r in rows] == [x for pair in GOLDEN_LABELS
+                                         for x in pair], "sql: labels")
+    gl, gd = zip(*GOLDEN_FILTERED)
+    for fn in ("faiss_search_filter", "faiss_search_filter_set"):
+        rows = con.execute(f"SELECT UNNEST({fn}('flat82', 2, data, "
+                           f"'column0>100', 'column0', 'training')) FROM "
+                           f"queries")
+        check([r["label"] for r in rows] == list(gl), f"sql {fn}: labels")
+        np.testing.assert_allclose([r["distance"] for r in rows], gd,
+                                   rtol=1e-4)
+    log("sql shell: the golden corpus through sql.dispatch.connect() gives "
+        "the reference's distances, labels and filtered rows on the card")
+
+    # The filtered bench over the 1M x 128 IDMap,Flat.
+    xb, ids = data["xb"], data["ids"]
+    cat = dt.Catalog()
+    db = dt.Database()
+    db.register("base", {"id": ids})
+    dt.faiss_create("sift", D, "IDMap,Flat", metric_type="L2", catalog=cat)
+    dt.faiss_add((ids, xb), "sift", catalog=cat)
+    iters = 3
+    ft.LAUNCHES = 0
+    results = harness.run_filtered_bench(
+        "sift", data["b48"], "base", "id", passrates=FILTER_PASSRATES,
+        want=K, catalog=cat, database=db, iters=iters)
+    launches = ft.LAUNCHES
+    # Per pass rate, each strategy runs once to warm up and ``iters`` times
+    # timed: the bitmap and set selectors through K1 with a mask, the
+    # post-filter through K1 where its k' is within K1's limit.
+    expected = sum((iters + 1) * (2 + (harness.required_k(K, p) <= ft.MAX_K))
+                   for p in FILTER_PASSRATES)
+    check(launches == expected, f"filtered bench launched K1 {launches} "
+          f"times, not {expected}")
+    for r in results:
+        log(f"filtered bench {N}x{D} pass rate {r.passrate}: k' "
+            f"{r.required_k}; qps post-filter {r.qps_post:.1f}, bitmap "
+            f"selector {r.qps_sel:.1f}, id-set selector {r.qps_set:.1f} "
+            f"(b{BATCH}, host clock) [{smi}]")
+    log(f"filtered bench: {launches} K1 launches")
+
+    # TREC: a run file of the Flat index scored against exact qrels.
+    qids = list(range(BATCH))
+    qrels = trec.make_synthetic_qrels(xb, data["b48"], qids, metric="L2")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flat.run")
+        trec.write_trec_run(path, "sift", qids, data["b48"], k=TREC_K,
+                            catalog=cat)
+        scores = trec.score_trec_run(path, qrels, recall_k=TREC_K)
+    check(scores[f"recall@{TREC_K}"] == 1.0, f"trec: {scores}")
+    log(f"trec run of Flat ({BATCH} queries, k={TREC_K}): {scores}")
+    del cat
+
+    # Autotune on phase 7's IVF4096 index (b48: the fused K6 every search).
+    k6.LAUNCHES = k6.TOPK_LAUNCHES = k7.LAUNCHES = k7.TOPK_LAUNCHES = 0
+    repeat = 3
+    tune = harness.autotune_index("ivf", data["b48"], k=K, target_recall=0.95,
+                                  catalog=ivf["cat"], repeat=repeat)
+    # Each search launches the fused K6 once a query block (a b48 batch at
+    # a high nprobe runs in blocks, IVFServe.query_block); the ground truth
+    # searches at nprobe = nlist.
+    index = ivf["cat"].get("ivf").index.inner
+    lmax = index._build_device_layout().payload.shape[1]
+
+    def blocks(nprobe):
+        return 64 // index.query_block(64, min(nprobe, index.nlist), lmax)
+
+    searches = 1 + len(tune.points) * (1 + repeat)
+    expected = blocks(index.nlist) + sum(
+        (1 + repeat) * blocks(int(p.params["nprobe"])) for p in tune.points)
+    check((k6.TOPK_LAUNCHES, k6.LAUNCHES, k7.TOPK_LAUNCHES, k7.LAUNCHES)
+          == (expected, 0, 0, 0), f"autotune launched the fused K6 "
+          f"{k6.TOPK_LAUNCHES} times, not {expected}")
+    check(tune.points[-1].recall == 1.0 and tune.best is not None,
+          "autotune: exhaustive point")
+    log(f"autotune IVF4096 {N}x{D} b{BATCH} ({searches} searches, "
+        f"{expected} fused K6 launches) [{smi}]:\n{tune}")
+
+
+def phase_port_bench(ivf_recall):
+    """``python3 -m duckdb_faiss_ext_tpu_torch.bench`` in a subprocess under
+    a time limit: one JSON line with bench.py's keys."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "duckdb_faiss_ext_tpu_torch.bench"],
+                         capture_output=True, text=True, cwd=HERE,
+                         timeout=BENCH_TIMEOUT)
+    for line in out.stderr.strip().splitlines()[-12:]:
+        log(f"port bench: {line}")
+    check(out.returncode == 0, f"port bench exited {out.returncode}")
+    lines = out.stdout.strip().splitlines()
+    check(len(lines) == 1, f"port bench printed {len(lines)} lines")
+    line = json.loads(lines[0])
+    for key in ("metric", "value", "unit", "vs_baseline", "pipelined_qps",
+                "ivf_qps", "ivf_recall", "cpu_qps"):
+        check(key in line, f"port bench line lacks {key}")
+    log(f"port bench ({time.perf_counter() - t0:.1f} s): {lines[0]}")
+    log(f"port bench ivf_recall {line['ivf_recall']:.4f} beside phase 7's "
+        f"b48 recall@10 {ivf_recall:.4f}")
+    return line
+
+
 
 def main():
     smi = phase_environment()
@@ -2997,9 +3608,13 @@ def main():
     phase_time_1536(smi)
     err6, err7 = phase_ivf_sweep()
     err10 = phase_ivf_mega_sweep()
-    ivf_err, ivf_err7, ivf_launches, ivf_timings = phase_ivf_main(smi, data,
-                                                                  exact)
+    ivf_err, ivf_err7, ivf_launches, ivf_timings, ivf = phase_ivf_main(
+        smi, data, exact)
+    phase_sql_harness(smi, data, ivf)
+    ivf_recall = ivf["recall"]
+    del ivf
     torch.cuda.empty_cache()
+    phase_port_bench(ivf_recall)
     pq_sweep_err = phase_pq_sweep()
     pq = phase_pq_main(smi, data, exact)
     pq_spill_err = phase_pq_spill(pq, data)
@@ -3008,6 +3623,7 @@ def main():
     rq_err = phase_rq_leg(smi, data, exact)
     torch.cuda.empty_cache()
     phase_pq_standalone(data)
+    phase_sq_standalone(smi, data)
     del data
     torch.cuda.empty_cache()
     ((pairs_err, pairs_launches, pairs_timing, pairs_before),

@@ -5,9 +5,15 @@ SQL functions: named index create / add / search / filtered search / save /
 load / destroy), with the same error messages, result schema and checkpoint
 format, running on an NVIDIA H100.  The port covers the ``Flat`` and
 ``IDMap,Flat`` families, the ``IVFn,Flat`` / ``IDMap[2],IVFn,Flat``
-families over all nine metrics, and, under L2 and inner product (with
-IDMap), ``IVFn,SQ8`` / ``SQ4`` / ``SQ6``, the PQ / RQ codecs ``PQm[xb]`` /
-``RQMxb`` and their residual IVF forms ``IVFn,PQm[xb]`` / ``IVFn,RQMxb``.
+families and the standalone scalar quantizers ``SQ8`` / ``SQ4`` / ``SQ6``
+/ ``SQfp16`` / ``SQbf16`` over all nine metrics, and, under L2 and inner
+product (with IDMap), ``IVFn,SQ8`` / ``SQ4`` / ``SQ6`` / ``SQfp16`` /
+``SQbf16``, the PQ / RQ codecs ``PQm[xb]`` / ``RQMxb`` and their residual
+IVF forms ``IVFn,PQm[xb]`` / ``IVFn,RQMxb``.  Around it: the SQL shell
+(``python -m duckdb_faiss_ext_tpu_torch``, ``sql.dispatch``,
+``sql.logictest``), the harness (``harness``: filtered bench, datasets,
+recall, TREC, autotune) and the port bench
+(``python3 -m duckdb_faiss_ext_tpu_torch.bench``).
 L2 and inner-product search run through hand-written CUDA kernels:
 ``csrc/flat_topk.cu`` (Flat), ``csrc/ivf_list_scan.cu`` and
 ``csrc/ivf_pairs.cu`` (IVF list scans), ``csrc/ivf_sq_scan.cu``,

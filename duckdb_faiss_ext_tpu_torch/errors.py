@@ -129,3 +129,9 @@ def search_error(msg: str) -> InvalidInputError:
 def filter_query_error(msg: str) -> InvalidInputError:
     # src/faiss_extension.cpp:951,998 (typo "uable" is part of the reference API)
     return InvalidInputError(f"uable to execute filter query: {msg}")
+
+
+def not_available(what: str) -> InvalidInputError:
+    # A part of the JAX package this port does not have yet.
+    return InvalidInputError(
+        f"{what} is not yet available in duckdb_faiss_ext_tpu_torch")

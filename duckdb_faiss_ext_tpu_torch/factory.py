@@ -20,14 +20,14 @@ so the observable surface is the factory grammar itself:
     suffix      := "RFlat"  (exact re-rank wrapper, IndexRefineFlat)
 
 The whole grammar is parsed, with the same parse errors as the JAX
-package.  ``Flat``, ``PQm[xb]``, ``RQMxb``, ``IVFn[_Flat][,Flat]``,
-``IVFn[_Flat],SQ8`` / ``SQ4`` / ``SQ6`` and ``IVFn[_Flat],PQm[xb]`` /
+package.  ``Flat``, ``PQm[xb]``, ``RQMxb``, ``SQ8`` / ``SQ4`` / ``SQ6`` /
+``SQfp16`` / ``SQbf16``, ``IVFn[_Flat][,Flat]``, ``IVFn[_Flat],SQ8`` /
+``SQ4`` / ``SQ6`` / ``SQfp16`` / ``SQbf16`` and ``IVFn[_Flat],PQm[xb]`` /
 ``RQMxb`` under any number of IDMap prefixes build; every other family
-(standalone ``SQ*``, HNSW, NSG, IMI, LSH), quantizer (HNSW, the
-parenthesized form), encoding (``SQfp16``, ``SQbf16``), transform or suffix
-(``RFlat``) raises ``InvalidInputError`` naming it as not yet available in
-this package, so a description never builds something other than what it
-says.
+(HNSW, NSG, IMI, LSH), quantizer (HNSW, the parenthesized form),
+transform or suffix (``RFlat``) raises ``InvalidInputError`` naming it as
+not yet available in this package, so a description never builds
+something other than what it says.
 """
 
 from __future__ import annotations
@@ -177,7 +177,7 @@ def _check_component(parts, desc) -> str:
 
 
 def _build_ivf(d, parts, metric, metric_arg, desc) -> Index:
-    """``IVFn[_Flat][,Flat]``, ``IVFn[_Flat],SQ{8,4,6}`` and
+    """``IVFn[_Flat][,Flat]``, ``IVFn[_Flat],SQ{8,4,6,fp16,bf16}`` and
     ``IVFn[_Flat],PQm[xb]`` / ``RQMxb``: inverted lists over a Flat coarse
     quantizer (the reference's graph shape)."""
     from .models.ivf import SQ_ENCODINGS, IVFIndex
@@ -221,6 +221,10 @@ def build_index(d: int, desc: str, metric: Metric,
         m = _RQ_RE.match(parts[0])
         index = RQIndex(d, metric, metric_arg, M=int(m.group(1)),
                         nbits=int(m.group(2)))
+    elif family == "SQ":
+        from .models.sq import SQIndex
+
+        index = SQIndex(d, metric, metric_arg, qtype=parts[0])
     else:
         raise _not_available(desc, family)
     if idmap:

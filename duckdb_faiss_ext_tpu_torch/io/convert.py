@@ -3,7 +3,8 @@
 ``from_reference`` reads only plain attributes and the ``state_dict()``
 numpy arrays of a ``duckdb_faiss_ext_tpu`` index (its factory description,
 dimension, metric name and argument, and its state: the corpus or, for
-IVF,SQ, the packed codes and their trained ranges, for PQ / RQ and IVF-PQ /
+standalone SQ and IVF,SQ, the packed codes and their trained ranges (the
+float codecs' fp16 / bf16 row bytes as they are), for PQ / RQ and IVF-PQ /
 IVF-RQ the byte codes as they are and the trained codebooks, IDMap's
 labels, IVF's ids, list assignments and trained centroids, and the
 ``assign_topk`` create parameter of device-resident ingest) and rebuilds

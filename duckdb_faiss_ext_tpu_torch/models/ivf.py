@@ -1,12 +1,13 @@
-"""IVF index with Flat, SQ8 / SQ4 / SQ6, PQ or RQ storage: k-means-trained
-inverted lists.
+"""IVF index with Flat, SQ8 / SQ4 / SQ6 / SQfp16 / SQbf16, PQ or RQ
+storage: k-means-trained inverted lists.
 
 The counterpart of ``duckdb_faiss_ext_tpu/models/ivf.py`` for the ``Flat``
 encoding (faiss::IndexIVFFlat), the quantized scalar encodings
 (faiss::IndexIVFScalarQuantizer, by_residual = false as index_factory
 builds it) and the residual byte codecs (faiss::IndexIVFPQ and
 IndexIVFResidualQuantizer, by_residual) as the reference exercises them:
-``IVFn[,Flat]``, ``IVFn,SQ{8,4,6}``, ``IVFn,PQm[xb]`` and ``IVFn,RQMxb``
+``IVFn[,Flat]``, ``IVFn,SQ{8,4,6,fp16,bf16}``, ``IVFn,PQm[xb]`` and
+``IVFn,RQMxb``
 factory strings, deferred training through faiss_add, nprobe +
 ``quantiser.``-scoped search params (src/faiss_extension.cpp:675-689), and
 native add_with_ids (ids stored beside the lists).  Flat and SQ storage
@@ -14,7 +15,9 @@ also ingest rows already on the card (``train_device`` / ``add_device``,
 models/ivf_device.py), building the padded layout there.
 
 State (the checkpoint both packages share): vectors (Flat) or codes (SQ,
-with the trained per-dimension ranges ``sq_vmin`` / ``sq_scale``; PQ / RQ,
+with the trained per-dimension ranges ``sq_vmin`` / ``sq_scale``, none for
+the float codecs, whose codes are the bytes of their half-width rows; PQ /
+RQ,
 with the trained ``pq_codebooks`` and the create parameters ``aniso_eta`` /
 ``rq_beam``), ids and list assignments in insertion order on the host, plus
 the centroid table.  The SQ ranges are trained on the same subsample as the
@@ -30,10 +33,11 @@ shape: it holds the centroids and answers ``quantiser.``-scoped params;
 assignment itself is one fused fp32 distance tile.
 
 The create parameter ``assign_topk`` (capped assignment of
-device-resident ingest) is accepted and stored as in the JAX package.  Not
-yet ported (each raises "… is not yet available in
-duckdb_faiss_ext_tpu_torch"): SQfp16 / SQbf16 storage and the create
-parameter ``soar_lambda``.
+device-resident ingest) is accepted and stored as in the JAX package; as
+there, device-resident ingest refuses the float codecs, which have no
+padded layout and search through the sorted+gather decode scan.  Not yet
+ported (raises "… is not yet available in duckdb_faiss_ext_tpu_torch"):
+the create parameter ``soar_lambda``.
 """
 
 from __future__ import annotations
@@ -51,8 +55,9 @@ from ..ops.kmeans import (DEFAULT_NITER, DEFAULT_SEED, kmeans_fit,
                           subsample_for_training)
 from ..ops.pq import (codec_decode, codec_encode, codec_train,
                       pq_encode_anisotropic, pq_train_anisotropic)
-from ..ops.sq import (SQ_LEVELS, sq_code_width, sq_decode, sq_pack,
-                      sq_quantize, sq_train)
+from ..ops.sq import (FLOAT_CODECS, SQ_LEVELS, float_encode,
+                      sq_code_width, sq_decode, sq_pack, sq_quantize,
+                      sq_ranges, sq_train)
 from ..utils.config import full_fp32, resolve_device
 from .base import Index, as_matrix
 from .ivf_device import IVFDevice
@@ -63,18 +68,13 @@ from .ivf_serve import IVFServe
 _UNPORTED_PARAMS = ("soar_lambda",)
 
 #: scalar-quantizer encodings built here
-SQ_ENCODINGS = ("SQ8", "SQ4", "SQ6")
+SQ_ENCODINGS = ("SQ8", "SQ4", "SQ6", "SQfp16", "SQbf16")
 
 #: rows a chunk of the device-side assignment and encoding takes
 _INGEST_CHUNK = 1 << 18
 
 _PQ_RE = re.compile(r"^PQ(\d+)(?:x(\d+))?$")
 _RQ_RE = re.compile(r"^RQ(\d+)x(\d+)$")
-
-
-def not_available(what: str) -> errors.InvalidInputError:
-    return errors.InvalidInputError(
-        f"{what} is not yet available in duckdb_faiss_ext_tpu_torch")
 
 
 class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
@@ -85,7 +85,7 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
         #: bits per code, None otherwise; the codec "pq" or "rq"
         self.pq_m = self.pq_nbits = None
         self.pq_codec = "pq"
-        #: "sq8" | "sq4" | "sq6", or None
+        #: "sq8" | "sq4" | "sq6" | "fp16" | "bf16", or None
         self.sq_type = None
         mpq, mrq = _PQ_RE.match(encoding), _RQ_RE.match(encoding)
         if mpq:
@@ -104,9 +104,10 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
                     f"RQ supports 1-8 bits per stage (uint8 code "
                     f"storage), got {self.pq_nbits}")
         elif encoding in SQ_ENCODINGS:
-            self.sq_type = encoding.lower()
+            self.sq_type = (encoding[2:] if encoding[2:] in FLOAT_CODECS
+                            else encoding.lower())
         elif encoding != "Flat":
-            raise not_available(f"IVF encoding {encoding}")
+            raise errors.not_available(f"IVF encoding {encoding}")
         if encoding != "Flat" and metric.name not in ("L2", "INNER_PRODUCT"):
             raise errors.InvalidInputError(
                 f"{encoding} indexes support only L2 and INNER_PRODUCT "
@@ -151,7 +152,7 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
 
     @property
     def is_trained(self) -> bool:
-        if self.sq_type is not None and self._sq_vmin is None:
+        if self.sq_type in SQ_LEVELS and self._sq_vmin is None:
             return False
         if self.pq_m is not None and self._pq_codebooks is None:
             return False
@@ -182,7 +183,7 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
                 self._centroids = None
                 raise errors.TrainingTooSmallError(x.shape[0], ksub)
             self._pq_codebooks = self._train_codebooks(x)
-        if self.sq_type is not None:
+        if self.sq_type in SQ_LEVELS:
             vmin, scale = sq_train(self._on_device(x),
                                    SQ_LEVELS[self.sq_type])
             self._sq_vmin = vmin.cpu().numpy()
@@ -295,9 +296,7 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
             return resid + self._centroids[self._assign[key]]
         if self.sq_type is not None:
             return sq_decode(torch.from_numpy(self._codes[key:key + 1]),
-                             torch.from_numpy(self._sq_vmin),
-                             torch.from_numpy(self._sq_scale),
-                             self.sq_type)[0].numpy()
+                             *self._sq_ranges("cpu"), self.sq_type)[0].numpy()
         return self._xb[key]
 
     def _pq_encode(self, x: np.ndarray, assign: np.ndarray) -> np.ndarray:
@@ -321,7 +320,9 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
 
     def _sq_encode(self, x: np.ndarray) -> np.ndarray:
         """Quantize rows on the index's device (in chunks), pack them on
-        the host."""
+        the host; the float codecs' rows cast on the host."""
+        if self.sq_type in FLOAT_CODECS:
+            return float_encode(torch.from_numpy(x), self.sq_type).numpy()
         vmin, scale = self._sq_ranges()
         levels = SQ_LEVELS[self.sq_type]
         q = np.concatenate([
@@ -330,10 +331,10 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
             for i in range(0, x.shape[0], _INGEST_CHUNK)])
         return sq_pack(q, self.sq_type)
 
-    def _sq_ranges(self):
-        """(vmin, scale) (d,) fp32 on the index's device."""
-        return (torch.from_numpy(self._sq_vmin).to(self.device),
-                torch.from_numpy(self._sq_scale).to(self.device))
+    def _sq_ranges(self, device=None):
+        """(vmin, scale) (d,) fp32 on ``device`` (the index's by default)."""
+        return sq_ranges(self._sq_vmin, self._sq_scale, self.d,
+                         self.device if device is None else device)
 
     def _assign_lists(self, x) -> np.ndarray:
         """Best list of each new vector (host rows or a tensor on the
@@ -376,7 +377,7 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
         # reproducibility, kmeans_balance for skew-aware list sizing.
         for key in _UNPORTED_PARAMS:
             if params.get_str(key) is not None:
-                raise not_available(f"create parameter {key}")
+                raise errors.not_available(f"create parameter {key}")
         self.train_seed = params.get_int("train_seed", self.train_seed)
         self.train_niter = params.get_int("train_niter", self.train_niter)
         self.train_balance = params.get_float("kmeans_balance", 0.0)
@@ -442,7 +443,7 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
             known |= {"codes", "pq_codebooks", "aniso_eta", "rq_beam"}
         unported = sorted(set(state) - known)
         if unported:
-            raise not_available(f"IVF state {unported[0]}")
+            raise errors.not_available(f"IVF state {unported[0]}")
         self._xb = np.asarray(state["xb"], np.float32).reshape(-1, self.d)
         self._ids = np.asarray(state["ids"], np.int64).reshape(-1)
         self._assign = np.asarray(state["assign"], np.int32).reshape(-1)

@@ -49,7 +49,8 @@ import numpy as np
 import torch
 
 from .. import errors
-from ..ops.sq import SQ_LEVELS, sq_decode, sq_pack_t, sq_quantize
+from ..ops.sq import (FLOAT_CODECS, SQ_LEVELS, sq_decode, sq_pack_t,
+                      sq_quantize)
 from ..ops.sq_spill import spill_offsets
 from ..utils.config import full_fp32, next_pow2, pad_rows
 from .ivf_layout import ListLayout, Spill, choose_lmax
@@ -156,6 +157,10 @@ class IVFDevice:
             raise errors.InvalidInputError(
                 "device-resident ingest supports Flat, SQ8, SQ6 and SQ4 "
                 "storage (PQ/RQ encoding needs the host path)")
+        if self.sq_type in FLOAT_CODECS:
+            raise errors.InvalidInputError(
+                f"device-resident ingest supports Flat, SQ8, SQ6 and SQ4 "
+                f"storage, not SQ codec {self.sq_type}")
         if self.metric.name not in ("L2", "INNER_PRODUCT"):
             raise errors.InvalidInputError(
                 "device-resident ingest supports only L2 and INNER_PRODUCT")

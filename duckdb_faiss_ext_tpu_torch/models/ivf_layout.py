@@ -19,8 +19,9 @@ the selector masks aligned with each.
   most ``SPILL_FRACTION_MAX`` of the rows; for SQ with its rows' rn / rs,
   scanned by K5; PQ / RQ codes decoded with their list's centroid), else
   there is no layout plan.  SQ indexes have a plan only while the int8
-  path is active (``utils.config.sq_int8_active``), as in the JAX package;
-  PQ / RQ in both precision modes.  sq6 stays in packed rows: the JAX
+  path is active (``utils.config.sq_int8_active``), and the float codecs
+  (SQfp16 / SQbf16) never, as in the JAX package; PQ / RQ in both
+  precision modes.  sq6 stays in packed rows: the JAX
   package's plane-major (nlist, 3·lmax, ceil(d/4)) fold was a Mosaic tiling
   workaround.
 * The sorted+gather layout: rows (or codes) sorted by list in one buffer,
@@ -50,7 +51,7 @@ import numpy as np
 import torch
 
 from ..ops.ivf_pq_scan import pq_row_terms
-from ..ops.sq import sq_row_norms, sq_row_sums
+from ..ops.sq import FLOAT_CODECS, sq_row_norms, sq_row_sums
 from ..ops.sq_spill import spill_offsets
 from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
                             sq_int8_active)
@@ -153,7 +154,8 @@ class IVFLayout:
             return ("device", self._dr.lmax)
         if self.metric.name not in ("L2", "INNER_PRODUCT"):
             return None
-        if self.sq_type is not None and not sq_int8_active():
+        if self.sq_type is not None and (self.sq_type in FLOAT_CODECS
+                                         or not sq_int8_active()):
             return None
         if self._plan_cache is not None:
             return self._plan_cache[0]

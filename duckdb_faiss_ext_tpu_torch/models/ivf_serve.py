@@ -2,7 +2,8 @@
 
 The counterpart of ``duckdb_faiss_ext_tpu/models/ivf_serve.py`` (``search``,
 ``search_dispatch``, ``_dispatch_inner``, ``_coarse_topk``, ``_sq_kscan``)
-for Flat, SQ8 / SQ4 / SQ6 and PQ / RQ storage: parameter resolution
+for Flat, SQ8 / SQ4 / SQ6 / SQfp16 / SQbf16 and PQ / RQ storage:
+parameter resolution
 (nprobe + ``quantiser.``-scoped recursion, src/faiss_extension.cpp:675-689)
 and path selection.
 
@@ -29,10 +30,12 @@ and path selection.
   batch whose scan temporaries would pass ``SCAN_BLOCK_BYTES`` runs in
   query blocks.  On a CUDA index these are the hand-written kernels; on a
   CPU index their plain versions.
-* Without one (elementwise metrics, SQ in parity mode, or a layout over
-  budget): the sorted+gather scan (ops/ivf_scan.py), as in the JAX
-  package; for SQ the fp32 decode scan, or the int8 gather scan when the
-  int8 path is active and d ≥ 16; for PQ / RQ the residual decode scan.
+* Without one (elementwise metrics, SQ in parity mode, the float SQ
+  codecs, or a layout over budget): the sorted+gather scan
+  (ops/ivf_scan.py), as in the JAX package; for SQ the fp32 decode scan,
+  or for SQ8 / SQ4 / SQ6 the int8 gather scan when the int8 path is active
+  and d ≥ 16; for PQ / RQ the residual decode scan.  The float codecs
+  never reach the int8 kernels (K2 / K3 / K5 / K9).
 
 The stages run one after another.  The JAX package's single-jit
 ``_fused_sq_pairs_serve`` joined the same stages into one XLA program
@@ -58,6 +61,7 @@ from ..ops.ivf_scan import (choose_q_chunk, coarse_topk, ivf_pq_search,
                             ivf_sq_search, merge_topk)
 from ..ops.ivf_sq_pairs import ivf_sq_pairs_search
 from ..ops.ivf_sq_scan import ivf_sq_list_search
+from ..ops.sq import SQ_LEVELS
 from ..ops.sq_spill import CODECS as SPILL_KERNEL_CODECS
 from ..ops.sq_spill import sq_spill_search
 from ..params import EMPTY
@@ -179,7 +183,7 @@ class IVFServe:
         mask = (self._selector_mask(selector, sl.order)
                 if selector is not None else None)
         q_chunk = choose_q_chunk(nq_pad, nprobe_eff * sl.lmax, self.d)
-        if self.sq_type is not None and sq_int8_active() and self.d >= 16:
+        if self.sq_type in SQ_LEVELS and sq_int8_active() and self.d >= 16:
             # (tiny-d margins sit at the int8 noise floor: decode below 16)
             self._last_scan_path = "gather-int8"
             vmin, scale = self._sq_ranges()

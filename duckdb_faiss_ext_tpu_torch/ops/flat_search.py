@@ -81,39 +81,45 @@ def exact_topk(scores: torch.Tensor, k: int):
     return topk_ordered(scores, idx.expand_as(scores), k)
 
 
-def search_scan(xb, nvalid, xq, k, metric, metric_arg=0.0, mask=None):
-    """Blocked scan over rows [0, nvalid) of a (cap, d) corpus buffer;
+def search_scan(xb, nvalid, xq, k, metric, metric_arg=0.0, mask=None,
+                tile=None, blocks=None):
+    """Blocked scan over rows [0, nvalid) of a (cap, ...) corpus buffer;
     returns (scores (nq, k), positions (nq, k) int32).  Scores are
     max-oriented (negated distances for min metrics); missing slots are
-    (-inf, -1)."""
-    cap, d = xb.shape
-    nq = xq.shape[0]
-    q_block, c_block = choose_blocks(cap, nq, d, metric, k)
-    # Blocks wholly at or beyond nvalid hold no candidate: not scanned.
-    n_scan = max(0, min(cap, int(nvalid)))
+    (-inf, -1).  ``tile(q0, q1, c0, c1)``, where given, returns the
+    max-oriented (q1 - q0, c1 - c0) scores of queries [q0, q1) against
+    buffer rows [c0, c1) in place of ``pairwise_tile`` over xb's fp32 rows
+    (the SQ scans decode or dot codes there), and ``blocks`` the (q_block,
+    c_block) in place of ``choose_blocks``'s."""
+    cap = xb.shape[0]
+    nq, d = xq.shape
     sim = metric in SIMILARITY_METRICS
-    dev = xb.device
+    if tile is None:
+        def tile(q0, q1, c0, c1):
+            dist = pairwise_tile(xq[q0:q1], xb[c0:c1], metric, metric_arg)
+            return dist if sim else -dist
+    q_block, c_block = blocks or choose_blocks(cap, nq, d, metric, k)
+    # Rows at or beyond nvalid hold no candidate: not scanned.
+    n_scan = max(0, min(cap, int(nvalid)))
+    dev = xq.device
     out_s = torch.full((nq, k), _NEG_INF, dtype=torch.float32, device=dev)
     out_p = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
     for q0 in range(0, nq, q_block):
-        xqc = xq[q0:q0 + q_block]
-        best_s = out_s[q0:q0 + q_block]
-        best_p = out_p[q0:q0 + q_block]
+        q1 = min(q0 + q_block, nq)
+        best_s = out_s[q0:q1]
+        best_p = out_p[q0:q1]
         for c0 in range(0, n_scan, c_block):
-            xc = xb[c0:c0 + c_block]
-            dist = pairwise_tile(xqc, xc, metric, metric_arg)
-            rowid = c0 + torch.arange(
-                xc.shape[0], dtype=torch.int32, device=dev)
-            valid = rowid < nvalid
+            c1 = min(c0 + c_block, n_scan)
+            score = tile(q0, q1, c0, c1)
             if mask is not None:
-                valid = valid & mask[c0:c0 + c_block].to(torch.bool)
-            score = dist if sim else -dist
-            score = torch.where(valid[None, :], score, _NEG_INF)
+                score = torch.where(mask[c0:c1].to(torch.bool)[None, :],
+                                    score, _NEG_INF)
+            rowid = torch.arange(c0, c1, dtype=torch.int32, device=dev)
             best_s, best_p = topk_ordered(
                 torch.cat([best_s, score], 1),
                 torch.cat([best_p, rowid.expand_as(score)], 1), k)
-        out_s[q0:q0 + q_block] = best_s
-        out_p[q0:q0 + q_block] = best_p
+        out_s[q0:q1] = best_s
+        out_p[q0:q1] = best_p
     # A -inf slot may hold an invalid row's position (fewer than k valid).
     return out_s, out_p.masked_fill(torch.isneginf(out_s), -1)
 

@@ -16,19 +16,60 @@ Packing (host numpy at ingest, as in the JAX package):
 (``torch.round``), as ``jnp.round`` does, so the codes are byte-equal to
 the JAX package's from the same rows and ranges.
 
+The float codecs ``fp16`` / ``bf16`` (``SQfp16`` / ``SQbf16``) need no
+training: a row is stored as its half-width floats, rounded to nearest
+even by ``torch``'s casts as numpy's and ml_dtypes' casts round them, and
+kept as their little-endian bytes, (n, 2·d) uint8 — the checkpoint's form
+(``float_encode`` / ``sq_decode``), byte-equal to the JAX package's.
+
 The int8 scans score a query against codes with two int8 digits of the
 query (``sq_query_digits``) and exact integer dots; ``SQ_INT8_SHIFT``
-recentres the codes into int8 range.  The float codecs (``SQfp16``,
-``SQbf16``) are not ported.
+recentres the codes into int8 range.
+
+``sq_search`` and ``sq_int8_search`` are the standalone SQ index's scans
+(``duckdb_faiss_ext_tpu/ops/sq.py``, XLA with no Pallas kernel there, plain
+torch here): a chunked decode + distance + running top-k, and the int8
+digit-dot scan with its exact fp32 rerank.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from .distance import pairwise_tile
+from .flat_search import SIMILARITY_METRICS, exact_topk, search_scan
 
 #: quantization levels per codec (code range [0, levels])
 SQ_LEVELS = {"sq8": 255, "sq4": 15, "sq6": 63}
+
+#: training-free float codecs, stored as the bytes of half-width rows
+FLOAT_CODECS = ("fp16", "bf16")
+
+_NEG_INF = float("-inf")
+
+
+def float_codec_dtype(codec: str) -> torch.dtype:
+    """torch dtype of a float codec ('fp16' | 'bf16')."""
+    return torch.bfloat16 if codec == "bf16" else torch.float16
+
+
+def sq_ranges(vmin, scale, d: int, device):
+    """Trained (vmin, scale) host arrays as (d,) fp32 tensors on ``device``;
+    zeros when untrained (the float codecs, which do not read them)."""
+    if vmin is None:
+        z = torch.zeros(d, dtype=torch.float32, device=device)
+        return z, z
+    return (torch.from_numpy(vmin).to(device),
+            torch.from_numpy(scale).to(device))
+
+
+def float_encode(x: torch.Tensor, codec: str) -> torch.Tensor:
+    """(n, d) fp32 → (n, 2·d) uint8: the rows cast to the codec's dtype
+    (round to nearest even), as little-endian bytes."""
+    return x.to(torch.float32).to(float_codec_dtype(codec)).contiguous() \
+        .view(torch.uint8)
 
 #: code shift per codec: c' = c − shift keeps codes in int8 range
 SQ_INT8_SHIFT = {"sq8": 128, "sq4": 8, "sq6": 32}
@@ -56,6 +97,8 @@ def sq_code_width(d: int, codec: str) -> int:
         return (d + 1) // 2
     if codec == "sq6":
         return 3 * ((d + 3) // 4)
+    if codec in FLOAT_CODECS:
+        return 2 * d
     return d
 
 
@@ -192,7 +235,11 @@ def sq_unpack(packed: torch.Tensor, codec: str) -> torch.Tensor:
 
 def sq_decode(codes: torch.Tensor, vmin: torch.Tensor, scale: torch.Tensor,
               codec: str) -> torch.Tensor:
-    """Packed codes (n, w) → (n, d) fp32 ``c·scale + vmin``."""
+    """Packed codes (n, w) → (n, d) fp32 ``c·scale + vmin``; a float
+    codec's (n, 2·d) bytes → its rows (``vmin`` / ``scale`` unused)."""
+    if codec in FLOAT_CODECS:
+        return codes.contiguous().view(float_codec_dtype(codec)).to(
+            torch.float32)
     d = vmin.shape[0]
     c = sq_unpack(codes, codec)[:, :d]
     return c.to(torch.float32) * scale[None, :] + vmin[None, :]
@@ -220,3 +267,89 @@ def sq_query_digits(u: torch.Tensor):
     hi = torch.round(q15 / 128.0).clamp(-127, 127)
     lo = q15 - 128.0 * hi
     return (hi.to(torch.int8), lo.to(torch.int8), su2, mu, ut.sum(1))
+
+
+# --- the standalone index's scans ------------------------------------------
+
+def _scan_blocks(nq: int, d: int) -> tuple[int, int]:
+    """(q_block, c_block) of the SQ scans: every query at once, so a chunk
+    is decoded once, and as many corpus rows as keep the (nq, c) score
+    tile and the (c, d) decoded rows near 2^26 floats, a multiple of
+    128."""
+    return max(nq, 1), max(128, ((1 << 26) // max(nq, d, 1)) // 128 * 128)
+
+
+def sq_search(codes, nvalid, vmin, scale, xq, mask, metric_arg=0.0, *, k,
+              metric, codec):
+    """Decode + distance + running top-k over rows [0, nvalid) of a (cap,
+    w) code buffer (``duckdb_faiss_ext_tpu/ops/sq.py::sq_search``): the
+    Flat scan ``search_scan`` with each chunk decoded to fp32 and scored by
+    ``pairwise_tile`` (TF32 only in fast mode, as every plain matmul of the
+    package).  Returns (max-oriented scores (nq, k), positions (nq, k)
+    int32): equal scores to the lower row, -inf / -1 where fewer than k
+    rows are valid."""
+    sim = metric in SIMILARITY_METRICS
+
+    def tile(q0, q1, c0, c1):
+        xc = sq_decode(codes[c0:c1], vmin, scale, codec)
+        dist = pairwise_tile(xq[q0:q1], xc, metric, metric_arg)
+        return dist if sim else -dist
+
+    return search_scan(codes, nvalid, xq, k, metric, mask=mask, tile=tile,
+                       blocks=_scan_blocks(xq.shape[0], vmin.shape[0]))
+
+
+def int8_dots(a: torch.Tensor, codes: torch.Tensor, d: int, codec: str):
+    """Exact (m, n) int32 dots of int8 rows ``a`` (m, d) with the shifted
+    codes c − SQ_INT8_SHIFT of packed rows (n, w), by ``torch._int_mm``
+    (int32 accumulation; on a card it takes m > 16 and d, n multiples of
+    8, so both sides are zero-padded to that)."""
+    c = sq_unpack_i8(codes, d, codec)
+    m, n = a.shape[0], c.shape[0]
+    dp = -(-d // 8) * 8
+    a = F.pad(a, (0, dp - d, 0, max(32, -(-m // 8) * 8) - m))
+    c = F.pad(c, (0, dp - d, 0, -(-n // 8) * 8 - n))
+    return torch._int_mm(a, c.T)[:m, :n]
+
+
+def sq_int8_search(codes, row_norm, row_sum, nvalid, vmin, scale, xq, mask,
+                   *, k, k_scan, metric, codec):
+    """Int8 scan of the quantized codecs for L2 / inner product
+    (``duckdb_faiss_ext_tpu/ops/sq.py::sq_int8_search``): the query in two
+    int8 digits of ũ = u − μ (``sq_query_digits``), exact int32 dots of
+    each digit with the shifted codes, the JAX package's fp32 epilogue
+
+        L2: −max(‖t‖² − 2·u·c + Σ(scale·c)², 0)    IP: q·vmin + u·c
+        u·c = su2·(128·(hi·c') + lo·c') + shift·Σũ + μ·Σc
+
+    and a running top ``k_scan``, whose rows are then decoded and rescored
+    in fp32 (L2 in difference form) for the best k, equal scores to the
+    pool's order.  ``row_norm`` / ``row_sum``: each row's Σ(scale·c)² and
+    Σc.  Returns the ``sq_search`` convention."""
+    from .sq_digits import int8_scores, query_digits
+
+    nq, d = xq.shape
+    w = codes.shape[1]
+    q = query_digits(xq, vmin, scale, metric, codec, w, SQ_INT8_SHIFT[codec])
+    digits = q.digits[:, :, :d].reshape(2 * nq, d)
+
+    def tile(q0, q1, c0, c1):
+        dots = int8_dots(digits[2 * q0:2 * q1], codes[c0:c1], d,
+                         codec).reshape(q1 - q0, 2, -1)
+        return int8_scores(dots[:, 0], dots[:, 1],
+                           q.scalars[q0:q1, None, :], row_sum[None, c0:c1],
+                           row_norm[None, c0:c1], metric)
+
+    best_s, best_p = search_scan(codes, nvalid, xq, k_scan, metric,
+                                 mask=mask, tile=tile,
+                                 blocks=_scan_blocks(nq, d))
+    xs = sq_decode(codes[best_p.clamp(min=0).reshape(-1).long()], vmin,
+                   scale, codec).reshape(nq, k_scan, d)
+    if metric == "INNER_PRODUCT":
+        s2 = (xs * xq[:, None, :]).sum(-1)
+    else:
+        diff = xs - xq[:, None, :]
+        s2 = -(diff * diff).sum(-1)
+    s2 = torch.where(best_p >= 0, s2, _NEG_INF)
+    s, sel = exact_topk(s2, k)
+    return s, best_p.gather(1, sel).masked_fill(torch.isneginf(s), -1)

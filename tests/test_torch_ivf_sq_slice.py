@@ -487,11 +487,14 @@ def test_reconstruct_decodes(pcat):
 
 
 @pytest.mark.parametrize("factory,what", [
-    ("IVF4,SQfp16", "IVF encoding SQfp16"),
-    ("IVF4,SQbf16", "IVF encoding SQbf16"),
-    ("SQ8", "SQ"),
-    ("IDMap,SQ4", "SQ")])
+    ("IVF4_HNSW8,SQbf16", "IVF quantizer HNSW8"),
+    ("HNSW16,SQ8", "HNSW"),
+    ("PCA8,SQ8", "transform PCA8"),
+    ("IDMap,SQ4,RFlat", "RFlat")])
 def test_unported_sq_forms_refused(pcat, factory, what):
+    """SQ storage under a family, quantizer, transform or suffix the port
+    does not have yet (standalone SQ and the float codecs are built:
+    tests/test_torch_sq_standalone.py)."""
     with pytest.raises(dt.InvalidInputError,
                        match=f"{what} is not yet available in "
                              f"duckdb_faiss_ext_tpu_torch"):

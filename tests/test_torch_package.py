@@ -10,7 +10,9 @@
   int8 IVF,SQ list scan, pair tiles and spill windows,
   the IVF-PQ / IVF-RQ list search, the pipelined pair tiles K9 / K10, and
   the fused pair-tile IVF,Flat searches K7 / K10) match their plain
-  versions, and the IVF-PQ list search raises on inputs it does not take.
+  versions, and the IVF-PQ list search raises on inputs it does not take;
+  the standalone SQ index's int8 scan (plain torch, its integer dots by
+  ``torch._int_mm``) gives on card tensors what it gives on CPU tensors.
 """
 
 import os
@@ -24,6 +26,7 @@ import torch
 
 import duckdb_faiss_ext_tpu_torch as dt
 from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+from duckdb_faiss_ext_tpu_torch.ops import sq as psq
 from duckdb_faiss_ext_tpu_torch.utils import kernels
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -808,3 +811,51 @@ def test_flat_kernel_proves_its_margin_on_card(card, metric):
     tol = 1e-5 * float(rs.abs().max())
     np.testing.assert_allclose(s.cpu().numpy(), rs.cpu().numpy(), rtol=0,
                                atol=tol)
+
+
+def _clustered_rows(seed, n, d):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((24, d)).astype(np.float32) * 3
+    return (centers[rng.integers(0, 24, n)]
+            + rng.standard_normal((n, d)).astype(np.float32) * 0.4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("codec", ["sq8", "sq4", "sq6"])
+def test_int8_scan_on_card_matches_cpu(card, codec, metric):
+    """The int8 scan on card tensors (``torch._int_mm``'s shape rules met by
+    padding: 8 queries, odd d, a capacity tail) against the same scan on
+    CPU tensors: integer dots exact on both, so labels equal where the
+    distances are apart."""
+    n, d, nq = 5000, 45, 8
+    xb = torch.from_numpy(_clustered_rows(23, n, d))
+    xq = torch.from_numpy(_clustered_rows(24, nq, d))
+    vmin, scale = psq.sq_train(xb, psq.SQ_LEVELS[codec])
+    q = psq.sq_quantize(xb, vmin, scale, psq.SQ_LEVELS[codec]).numpy()
+    codes = psq.sq_pack(q, codec)
+    cap = 8192
+    pad = np.zeros((cap - n, codes.shape[1]), np.uint8)
+    codes = torch.from_numpy(np.concatenate([codes, pad]))
+    rn = torch.from_numpy(np.concatenate([psq.sq_row_norms(
+        codes.numpy()[:n], scale.numpy(), d, codec), np.zeros(cap - n,
+                                                             np.float32)]))
+    rs = torch.from_numpy(np.concatenate([psq.sq_row_sums(
+        codes.numpy()[:n], d, codec), np.zeros(cap - n, np.float32)]))
+    kw = dict(k=10, k_scan=42, metric=metric, codec=codec)
+    args = (codes, rn, rs, n, vmin, scale, xq, None)
+    s_cpu, p_cpu = psq.sq_int8_search(*args, **kw)
+    s_gpu, p_gpu = psq.sq_int8_search(
+        *(a.to(card) if torch.is_tensor(a) else a for a in args), **kw)
+    s_gpu, p_gpu = s_gpu.cpu(), p_gpu.cpu()
+    tol = 1e-5 * max(float(s_cpu.abs().max()), float((xq * xq).sum(1).max()))
+    np.testing.assert_allclose(s_gpu.numpy(), s_cpu.numpy(), rtol=0,
+                               atol=tol)
+    gap = (s_cpu[:, :-1] - s_cpu[:, 1:]).abs() > 2 * tol
+    sep = torch.ones_like(p_cpu, dtype=torch.bool)
+    sep[:, 1:] &= gap
+    sep[:, :-1] &= gap
+    assert torch.equal(p_gpu[sep], p_cpu[sep])
+    a = torch.randint(-127, 128, (3, d), dtype=torch.int8)
+    got = psq.int8_dots(a.to(card), codes[:40].to(card), d, codec).cpu()
+    assert torch.equal(got, psq.int8_dots(a, codes[:40], d, codec))

@@ -212,7 +212,41 @@ Phases (any failure raises and the script exits non-zero):
    every search through the fused K6;
 19. port bench: ``python3 -m duckdb_faiss_ext_tpu_torch.bench`` as a
    subprocess under a time limit; its one JSON line must parse and is
-   printed, its ivf_recall beside phase 7's.
+   printed, its ivf_recall beside phase 7's;
+20. refine pipeline (after phase 17, on phase 7's corpus):
+   OPQ16,IVF4096,PQ16,RFlat L2 (examples/compression_pipeline.py:42 at phase
+   12's size), trained on the first 262,144 rows, nprobe 64, k_factor 8
+   (k_base 80), b48 and b1024: K8's launch count and path checked, results
+   held against the same index with K8's plain version one wider at the
+   same k_base, recall@10 against phase 5's exact labels printed; then
+   PCA64,Flat L2 and L2norm,Flat IP, K1's launches counted and results
+   held against K1's plain version on the transformed corpus (recall 1.0);
+21. MS MARCO refine tier (after phase 10): IVF4096,SQ8,RFlat IP over phase
+   10's 2,097,152 x 1536 corpus, the base loaded with phase 10's trained
+   centroids and SQ ranges through load_state (no second k-means), the raw
+   store 12.9 GB beside 3.2 GB of codes, fast mode, nprobe 16, k_factor 4:
+   b48 through the fused K2 and b1024 through K3 (the base's scan path
+   printed), K5 on the spill rows, launch counts checked, results held
+   against the plain K2 / K3 / K5 path, recall@10 against phase 10's exact
+   labels beside phase 10's;
+22. IMI and SOAR (on phase 7's corpus): IMI2x7,Flat L2 (16,384 cells,
+   lists capped at 1024 slots, the overflow spilled) at nprobe 256, and
+   IVF4096,Flat with soar_lambda 1.0 on phase 7's centroids (2M storage
+   rows, lists capped where more than a tenth of the rows would overflow)
+   at nprobe 16 and 64, b48 and b1024: the fused K6 / K7 launch counts as
+   the static rule and query blocks predict, results held against the
+   plain K6 / K7 path one wider, no label twice in a query, the layout's
+   lmax, padded bytes and spill printed, recall@10 beside phase 7's;
+23. LSH: LSHrt (128 bits) and ITQ64,LSH over phase 7's corpus, b48 and
+   b1024: the Hamming distances equal exactly to a plain bit count on the
+   card (packed codes, XOR, popcount), labels tie-aware;
+24. range search at b48, the radius the median of the plain path's 10th
+   distance: phase 5's IDMap,Flat (also with the id%2==0 selector), phase
+   7's IVF4096 and phase 12's IVF4096,PQ16 at nprobe 64, phase 17's SQ8 and
+   phase 22's SOAR index; each CSR held per query against a plain dense
+   scan on the card (rows within the tolerance of the radius left out),
+   the result count and wall time printed; one statement through
+   sql.dispatch.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -805,6 +839,7 @@ def phase_main_path(smi, data):
             f"({b_fma[1]}, fp32 FMA); faiss_search wall "
             f"{statistics.median(walls):.3f} ms (median) [{smi}]")
     exact = {name: out[name]["label"] for name in ("b48", "b1024")}
+    data["flat_cat"] = cat   # phase 24's IDMap,Flat
     return max_err, launches, timings, exact
 
 
@@ -2530,7 +2565,11 @@ def phase_sq_main(smi):
         f"{statistics.median(walls):.3f} ms (median of 10) [{smi}]")
     dt.set_precision("parity")
     return {"launches": launches, "err": (max(max_err, raw2), raw3, raw5),
-            "timings": timings}
+            "timings": timings, "exact": exact,
+            "recall": {"b48": r48, "b1024": r1024},
+            "state": {"centroids": index._centroids,
+                      "sq_vmin": index._sq_vmin,
+                      "sq_scale": index._sq_scale}}
 
 
 def phase_marco_device(smi):
@@ -3433,6 +3472,8 @@ def phase_sq_standalone(smi, data):
                   f"{codec}: reloaded index not on the card")
             log(f"sq standalone {codec}: save → load on the card, b48 "
                 f"results equal")
+        if codec == "SQ8":
+            data["sq8_cat"] = cat   # phase 24's standalone SQ8
         del cat
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3598,6 +3639,674 @@ def phase_port_bench(ivf_recall):
 
 
 
+#: phase 20: the compressed pipeline of examples/compression_pipeline.py:42
+#: at phase 12's IVF4096 size, reranked over k_factor x k candidates
+OPQ_FACTORY, REFINE_KF = "OPQ16,IVF4096,PQ16,RFlat", 8
+#: phase 21: tools/marco_refine.py's refine tier at phase 10's row cut
+MARCO_REFINE_KF = 4
+#: phase 22: 16,384 IMI cells probed 256 at a time (about the rows IVF4096
+#: probes at 64, BASELINE.md:69), lists capped at 1024 slots (the full
+#: layout of the skewed cells would be 34 GB); SOAR over phase 7's centroids
+IMI_FACTORY, IMI_NPROBE, IMI_LMAX_CAP = "IMI2x7,Flat", 256, 1024
+SOAR_LAMBDA, SOAR_NPROBES = "1.0", (16, 64)
+#: phase 23: 128-bit LSH with a rotation and trained thresholds, and ITQ to
+#: 64 bits
+LSH_FACTORIES = ("LSHrt", "ITQ64,LSH")
+
+
+@contextlib.contextmanager
+def plain_list_kernels():
+    """Run the IVF,Flat path with the plain versions of K6 and K7 / K10 (the
+    fused searches) in place of their wrappers (same inputs)."""
+    from duckdb_faiss_ext_tpu_torch.models import ivf_serve
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+
+    saved = (ivf_serve.ivf_list_search, ivf_serve.ivf_pairs_search)
+    ivf_serve.ivf_list_search = k6.ivf_list_search_reference
+
+    def pairs_plain(*args, mega=False, **kw):
+        return k7.ivf_pairs_search_reference(*args, **kw)
+
+    ivf_serve.ivf_pairs_search = pairs_plain
+    try:
+        yield
+    finally:
+        ivf_serve.ivf_list_search, ivf_serve.ivf_pairs_search = saved
+
+
+@contextlib.contextmanager
+def plain_k1():
+    """Run Flat searches with K1's plain version in place of its wrapper."""
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import finalize_scores
+
+    saved = ft.kernel_flat_search
+
+    def plain(xb, nvalid, xq, k, metric, mask=None):
+        return finalize_scores(*ft.flat_topk_reference(xb, nvalid, xq, k,
+                                                       metric, mask), metric)
+
+    ft.kernel_flat_search = plain
+    try:
+        yield
+    finally:
+        ft.kernel_flat_search = saved
+
+
+def wider(params, k_factor):
+    """``params`` for the plain path one wider (k + 1) at the same k_base =
+    round(k·k_factor) of the refine wrapper."""
+    return dict(params, k_factor=repr(k_factor * K / (K + 1)))
+
+
+def soar_lmax_cap(counts, n_rows):
+    """The smallest list cap from 1024 up (powers of two) whose overflow
+    rows are at most a tenth of the rows: SOAR's second lists are skewed,
+    and the full padded layout of phase 22's index is 38 GiB (its longest
+    list holds 19,184 rows)."""
+    cap = 1024
+    while int(np.maximum(counts - cap, 0).sum()) > 0.1 * n_rows:
+        cap *= 2
+    return cap
+
+
+def peak_gib():
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def expected_list_launches(index, nq, nprobe, lmax):
+    """(per-query launches, pair-tile launches) of one search of nq queries:
+    one a query block, each block sent to K6 or K7 by the static rule."""
+    from duckdb_faiss_ext_tpu_torch.utils.config import config, next_pow2
+
+    nq_pad = max(config.min_query_bucket, next_pow2(nq))
+    blk = index.query_block(nq_pad, nprobe, lmax)
+    n = nq_pad // blk
+    return (0, n) if index.pairs_wanted(blk, lmax) else (n, 0)
+
+
+def phase_refine_pipeline(smi, data, exact):
+    """Phase 20: OPQ16,IVF4096,PQ16,RFlat L2 over phase 7's corpus, then
+    PCA64,Flat L2 and L2norm,Flat IP."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import finalize_scores
+
+    xb = data["xb"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cat = dt.Catalog()
+    params = {"nprobe": str(IVF_NPROBE), "k_factor": str(REFINE_KF)}
+    t0 = time.perf_counter()
+    dt.faiss_create("opq", D, OPQ_FACTORY, metric_type="L2", catalog=cat)
+    dt.faiss_manual_train(xb[:IVF_TRAIN], "opq", catalog=cat)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dt.faiss_add(xb, "opq", catalog=cat)
+    t_add = time.perf_counter() - t0
+    rf = cat.get("opq").index
+    ivf = rf.base.inner
+    t0 = time.perf_counter()
+    lay = ivf._build_device_layout()
+    t_layout = time.perf_counter() - t0
+    check(ivf.device.type == DEVICE and rf.refine.device.type == DEVICE,
+          "refine pipeline not on the card")
+    log(f"refine {OPQ_FACTORY} {N}x{D} L2: OPQ + IVF-PQ train "
+        f"{t_train:.2f} s, add {t_add:.2f} s (codes "
+        f"{ivf._codes.nbytes / 1e6:.0f} MB, raw store "
+        f"{rf.refine.vectors().nbytes / 1e6:.0f} MB), layout build+upload "
+        f"{t_layout:.2f} s; lmax {lay.payload.shape[1]}")
+    k8.LAUNCHES = 0
+    out, paths = {}, {}
+    for b in ("b48", "b1024"):
+        out[b] = dt.faiss_search("opq", K, data[b], params, catalog=cat)
+        paths[b] = ivf._last_scan_path
+    check(k8.LAUNCHES == 2, f"refine pipeline launched K8 {k8.LAUNCHES} "
+          f"times, not 2")
+    check(set(paths.values()) == {"per-query"}, f"base off K8: {paths}")
+    with plain_k8():
+        ref = {b: dt.faiss_search("opq", K + 1, data[b],
+                                  wider(params, REFINE_KF), catalog=cat)
+               for b in out}
+    check(k8.LAUNCHES == 2, "the plain path launched K8")
+    err, parts = 0.0, []
+    for b, res in out.items():
+        check(np.isfinite(res["distance"]).all(), f"refine {b}: non-finite")
+        err = max(err, compare_results(f"refine {b}", res, ref[b]["distance"],
+                                       ref[b]["label"], False))
+        parts.append(
+            f"{b}: base path {paths[b]} (k_base {REFINE_KF * K}), recall@10 "
+            f"vs exact Flat {recall(res['label'], exact[b]):.4f}, "
+            f"faiss_search wall "
+            f"{walls_ms(lambda: dt.faiss_search('opq', K, data[b], params, catalog=cat)):.3f} ms")  # noqa: E501
+    log(f"refine {OPQ_FACTORY} nprobe {IVF_NPROBE} k_factor {REFINE_KF}: "
+        f"agrees with the plain K8 path (max distance error {err:.3g}); "
+        f"{'; '.join(parts)}; K8 launches 2; card peak {peak_gib():.2f} GiB "
+        f"[{smi}]")
+    del cat, rf, ivf, lay
+    for desc, metric in (("PCA64,Flat", "L2"),
+                         ("L2norm,Flat", "INNER_PRODUCT")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cat = dt.Catalog()
+        t0 = time.perf_counter()
+        dt.faiss_create("t", D, desc, metric_type=metric, catalog=cat)
+        dt.faiss_add(xb, "t", catalog=cat)
+        t_add = time.perf_counter() - t0
+        pre = cat.get("t").index
+        corpus = pre.inner.device_vectors()
+        ft.LAUNCHES = 0
+        res = {b: dt.faiss_search("t", K, data[b], catalog=cat)
+               for b in ("b48", "b1024")}
+        check(ft.LAUNCHES == 2, f"{desc}: K1 launched {ft.LAUNCHES} times, "
+              f"not 2")
+        parts = []
+        for b, r in res.items():
+            xt = torch.from_numpy(pre.apply_chain(data[b])).to(DEVICE)
+            rd, rp = finalize_scores(*ft.flat_topk_reference(
+                corpus, N, xt, K + 1, metric), metric)
+            e = compare_results(f"{desc} {b}", r, rd.cpu().numpy(),
+                                rp.cpu().numpy().astype(np.int64),
+                                metric != "L2")
+            rec = recall(r["label"], rp[:, :K].cpu().numpy())
+            check(rec == 1.0, f"{desc} {b}: recall {rec} in transform space")
+            parts.append(f"{b} max distance error {e:.3g}, faiss_search wall "
+                         f"{walls_ms(lambda: dt.faiss_search('t', K, data[b], catalog=cat)):.3f} ms")  # noqa: E501
+        log(f"transform {desc} {N}x{D} {metric}: train + add {t_add:.2f} s; "
+            f"K1 launches 2, recall@10 1.0 against K1's plain version on the "
+            f"transformed corpus; {'; '.join(parts)}; card peak "
+            f"{peak_gib():.2f} GiB [{smi}]")
+        del cat, pre, corpus
+
+
+def phase_marco_refine(smi, sq):
+    """Phase 21: IVF4096,SQ8,RFlat IP over phase 10's 2,097,152 x 1536
+    corpus, its base loaded with phase 10's trained centroids and SQ
+    ranges, in fast mode."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
+    from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    corpus = MarcoCorpus()
+    xq_all = corpus.queries(BATCH * N_BATCHES + BIG_BATCH)
+    queries = {"b48": xq_all[:BATCH], "b1024": xq_all[-BIG_BATCH:]}
+    cat = dt.Catalog()
+    params = {"nprobe": str(SQ_NPROBE), "k_factor": str(MARCO_REFINE_KF)}
+    dt.faiss_create("mrf", SQ_D, f"IVF{SQ_NLIST},SQ8,RFlat",
+                    metric_type="INNER_PRODUCT", catalog=cat)
+    rf = cat.get("mrf").index
+    base = rf.base
+    base.LAYOUT_BUDGET_BYTES = SQ_NLIST * SQ_LMAX_CAP * SQ_D
+    base.load_state(dict(
+        sq["state"], xb=np.empty((0, SQ_D), np.float32),
+        ids=np.empty((0,), np.int64), assign=np.empty((0,), np.int32),
+        codes=np.empty((0, SQ_D), np.uint8)))
+    check(base.is_trained, "marco refine: base not trained by load_state")
+    t0 = time.perf_counter()
+    rows = np.empty((SQ_N, SQ_D), np.float32)
+    for i, n in corpus_chunks(SQ_N):
+        rows[i * SQ_CHUNK:i * SQ_CHUNK + n] = corpus.chunk(i, n).cpu().numpy()
+    t_make = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dt.faiss_add(rows, "mrf", catalog=cat)
+    t_add = time.perf_counter() - t0
+    del rows
+    dt.set_precision("fast")
+    t0 = time.perf_counter()
+    lay = base._build_device_layout()
+    rf.refine.device_vectors()
+    t_layout = time.perf_counter() - t0
+    check(base._layout_plan() == ("spill", SQ_LMAX_CAP), "no capped plan")
+    log(f"marco refine: corpus to the host {t_make:.2f} s, add {t_add:.2f} s "
+        f"(codes {base._codes.nbytes / 1e9:.2f} GB, raw store "
+        f"{rf.refine.vectors().nbytes / 1e9:.2f} GB), layout + raw store "
+        f"upload {t_layout:.2f} s; spill {base._spill.n} rows")
+    k2.LAUNCHES = k2.TOPK_LAUNCHES = k3.LAUNCHES = k5.LAUNCHES = 0
+    out, paths = {}, {}
+    for b, xq in queries.items():
+        out[b] = dt.faiss_search("mrf", K, xq, params, catalog=cat)
+        paths[b] = base._last_scan_path
+    launches = (k2.TOPK_LAUNCHES, k3.LAUNCHES, k5.LAUNCHES)
+    lmax = lay.payload.shape[1]
+    want = (int(not base.pairs_wanted(64, lmax))
+            + int(not base.pairs_wanted(BIG_BATCH, lmax)),
+            int(base.pairs_wanted(64, lmax))
+            + int(base.pairs_wanted(BIG_BATCH, lmax)), 2)
+    check(launches == want and k2.LAUNCHES == 0, f"marco refine launched "
+          f"(K2 fused, K3, K5) {launches} times, not {want}")
+    check(paths == {"b48": "per-query", "b1024": "pairs-sq8"},
+          f"marco refine base paths {paths}")
+    with plain_sq_kernels():
+        ref = {b: dt.faiss_search("mrf", K + 1, xq,
+                                  wider(params, MARCO_REFINE_KF), catalog=cat)
+               for b, xq in queries.items()}
+    err, parts = 0.0, []
+    for b, res in out.items():
+        check(np.isfinite(res["distance"]).all(), f"marco refine {b}: "
+              f"non-finite")
+        err = max(err, compare_results(f"marco refine {b}", res,
+                                       ref[b]["distance"], ref[b]["label"],
+                                       True))
+        walls = walls_ms(lambda: dt.faiss_search("mrf", K, queries[b], params,
+                                                 catalog=cat), reps=3)
+        parts.append(f"{b}: base path {paths[b]} (k_base "
+                     f"{MARCO_REFINE_KF * K}), recall@10 vs exact fp32 "
+                     f"{recall(res['label'], sq['exact'][b]):.4f} (phase 10 "
+                     f"without refine {sq['recall'][b]:.4f}), faiss_search "
+                     f"wall {walls:.3f} ms")
+    dt.set_precision("parity")
+    log(f"marco refine IVF{SQ_NLIST},SQ8,RFlat {SQ_N}x{SQ_D} IP nprobe "
+        f"{SQ_NPROBE} k_factor {MARCO_REFINE_KF} fast mode: (K2 fused, K3, "
+        f"K5) launches {launches}; agrees with the plain K2 / K3 / K5 path "
+        f"(max distance error {err:.3g}); {'; '.join(parts)}; card peak "
+        f"{peak_gib():.2f} GiB [{smi}]")
+
+
+def list_path_check(tag, dt, cat, name, index, queries, params, exact,
+                    similarity=False):
+    """The IVF,Flat searches of ``queries`` through the public API: K6 / K7
+    launch counts as the static rule and the query blocks predict, results
+    held against the plain K6 / K7 path one wider (``compare_results``; with
+    SOAR the plain path fetches 2(k + 1) candidates, whose first k distinct
+    rows are the kernel path's 2k candidates' when they are apart), no
+    label repeated within a query,
+    recall@10 against exact Flat and wall times.  Returns (recalls, max
+    distance error, log text)."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+
+    lmax = index._build_device_layout().payload.shape[1]
+    nprobe = int(params["nprobe"])
+    k6.LAUNCHES = k6.TOPK_LAUNCHES = k7.LAUNCHES = k7.TOPK_LAUNCHES = 0
+    out = {b: dt.faiss_search(name, K, xq, params, catalog=cat)
+           for b, xq in queries.items()}
+    want = tuple(map(sum, zip(*(expected_list_launches(index, xq.shape[0],
+                                                       nprobe, lmax)
+                                for xq in queries.values()))))
+    got = (k6.TOPK_LAUNCHES, k7.TOPK_LAUNCHES)
+    check(got == want and k6.LAUNCHES == k7.LAUNCHES == 0, f"{tag}: (K6, K7) "
+          f"fused launches {got}, not {want}, raw {k6.LAUNCHES}, "
+          f"{k7.LAUNCHES}")
+    with plain_list_kernels():
+        ref = {b: dt.faiss_search(name, K + 1, xq, params, catalog=cat)
+               for b, xq in queries.items()}
+    err, recs, parts = 0.0, {}, []
+    for b, res in out.items():
+        check(np.isfinite(res["distance"]).all(), f"{tag} {b}: non-finite")
+        err = max(err, compare_results(f"{tag} {b}", res, ref[b]["distance"],
+                                       ref[b]["label"], similarity))
+        for row in res["label"]:
+            check(len(set(row.tolist())) == len(row), f"{tag} {b}: a label "
+                  f"repeats within a query")
+        recs[b] = recall(res["label"], exact[b])
+        parts.append(f"{b} recall@10 {recs[b]:.4f}, faiss_search wall "
+                     f"{walls_ms(lambda: dt.faiss_search(name, K, queries[b], params, catalog=cat), reps=3):.3f} ms")  # noqa: E501
+    return recs, err, (f"(K6, K7) fused launches {got}; agrees with the plain "
+                       f"K6 / K7 path (max distance error {err:.3g}); "
+                       f"{'; '.join(parts)}")
+
+
+def phase_imi_soar(smi, data, exact, ivf):
+    """Phase 22: IMI2x7,Flat L2 and IVF4096,Flat with SOAR over phase 7's
+    corpus (SOAR on phase 7's trained centroids).  Returns the SOAR
+    catalog."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.models.ivf_layout import choose_lmax
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
+
+    xb = data["xb"]
+    queries = {b: data[b] for b in ("b48", "b1024")}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cat = dt.Catalog()
+    t0 = time.perf_counter()
+    dt.faiss_create("imi", D, IMI_FACTORY, metric_type="L2", catalog=cat)
+    index = cat.get("imi").index
+    index.LAYOUT_BUDGET_BYTES = index.nlist * IMI_LMAX_CAP * D * 4
+    dt.faiss_manual_train(xb[:IVF_TRAIN], "imi", catalog=cat)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dt.faiss_add(xb, "imi", catalog=cat)
+    t_add = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lay = index._build_device_layout()
+    t_layout = time.perf_counter() - t0
+    counts = index._counts()
+    spill = index._spill
+    check(index._layout_plan() == ("spill", IMI_LMAX_CAP), "imi: no capped "
+          f"plan ({index._layout_plan()})")
+    probe = coarse_topk(torch.from_numpy(data["b48"]).to(DEVICE),
+                        lay.centroids, IMI_NPROBE, "L2")
+    _, _, rows_all = probed_rows(lay.counts, probe)
+    log(f"imi {IMI_FACTORY} {N}x{D} L2: train {t_train:.2f} s (two "
+        f"{1 << index.imi_nbits}-centroid k-means on the halves), add {t_add:.2f} s, layout "
+        f"build+upload {t_layout:.2f} s; {index.nlist} cells, "
+        f"{int((counts > 0).sum())} non-empty, longest {int(counts.max())}, "
+        f"full lmax would be {choose_lmax(int(counts.max()))}; capped lmax "
+        f"{lay.payload.shape[1]}, padded layout "
+        f"{lay.payload.numel() * 4 / 2**30:.2f} GiB, spill "
+        f"{spill.n if spill else 0} rows; b48 probes {rows_all / BATCH:.0f} "
+        f"layout rows a query at nprobe {IMI_NPROBE}")
+    _, err, text = list_path_check(f"imi nprobe {IMI_NPROBE}", dt, cat, "imi",
+                                   index, queries,
+                                   {"nprobe": str(IMI_NPROBE)}, exact)
+    log(f"imi {IMI_FACTORY} nprobe {IMI_NPROBE}: {text}; card peak "
+        f"{peak_gib():.2f} GiB [{smi}]")
+    del cat, index, lay, spill
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    ref_ivf = ivf["cat"].get("ivf").index.inner
+    scat = dt.Catalog()
+    dt.faiss_create_params("soar", D, f"IVF{ref_ivf.nlist},Flat",
+                           {"soar_lambda": SOAR_LAMBDA}, metric_type="L2",
+                           catalog=scat)
+    soar = scat.get("soar").index
+    soar.load_state({"xb": np.empty((0, D), np.float32),
+                     "ids": np.empty((0,), np.int64),
+                     "assign": np.empty((0,), np.int32),
+                     "centroids": ref_ivf._centroids})
+    t0 = time.perf_counter()
+    dt.faiss_add(xb, "soar", catalog=scat)
+    t_add = time.perf_counter() - t0
+    counts = soar._counts()
+    cap = soar_lmax_cap(counts, soar._nstored)
+    soar.LAYOUT_BUDGET_BYTES = soar.nlist * cap * D * 4
+    t0 = time.perf_counter()
+    lay = soar._build_device_layout()
+    t_layout = time.perf_counter() - t0
+    check(soar.ntotal == N and soar._nstored == 2 * N, "soar: row counts")
+    check(soar._layout_plan()[1] in (None, cap), "soar: layout plan")
+    moved = float(np.mean(soar._assign[N:] != soar._assign[:N]))
+    check(moved == 1.0, "soar: a second list equals the first")
+    log(f"soar IVF{soar.nlist},Flat lambda {SOAR_LAMBDA} {N}x{D} L2 on phase "
+        f"7's centroids: add {t_add:.2f} s (both assignments), layout "
+        f"build+upload {t_layout:.2f} s; {soar._nstored} storage rows "
+        f"({soar._xb.nbytes / 2**30:.2f} GiB), longest list "
+        f"{int(counts.max())} (full lmax {choose_lmax(int(counts.max()))}), "
+        f"lmax {lay.payload.shape[1]}, padded layout "
+        f"{lay.payload.numel() * 4 / 2**30:.2f} GiB, spill "
+        f"{soar._spill.n if soar._spill else 0} rows")
+    for nprobe in SOAR_NPROBES:
+        params = {"nprobe": str(nprobe)}
+        recs, err, text = list_path_check(f"soar nprobe {nprobe}", dt, scat,
+                                          "soar", soar, queries, params,
+                                          exact)
+        plain = {b: recall(dt.faiss_search("ivf", K, data[b], params,
+                                           catalog=ivf["cat"])["label"],
+                           exact[b]) for b in queries}
+        log(f"soar nprobe {nprobe}: {text}; phase 7's IVF{ref_ivf.nlist} at "
+            f"the same nprobe: recall@10 b48 {plain['b48']:.4f}, b1024 "
+            f"{plain['b1024']:.4f}; card peak {peak_gib():.2f} GiB [{smi}]")
+    return scat
+
+
+def pack_words(signs):
+    """(n, nbits) ±1 int8 codes on the card → (n, ceil(nbits / 32)) int64
+    words of 32 bits each."""
+    n, nbits = signs.shape
+    w = -(-nbits // 32)
+    bits = torch.zeros((n, 32 * w), dtype=torch.int64, device=signs.device)
+    bits[:, :nbits] = (signs > 0).to(torch.int64)
+    shifts = torch.arange(32, device=signs.device, dtype=torch.int64)
+    return (bits.reshape(n, w, 32) << shifts).sum(-1)
+
+
+def popcount32(x):
+    """Set bits of each 32-bit value held in an int64 (SWAR)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def hamming_topk(qwords, words, k, chunk=16_384):
+    """Plain bit count on the card: the k smallest Hamming distances of each
+    query over all rows (XOR, popcount), equal distances by the lower row;
+    returns (distances (nq, k) float32, rows (nq, k) int64)."""
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import topk_ordered
+
+    nq = qwords.shape[0]
+    best_s = torch.full((nq, k), float("-inf"), device=DEVICE)
+    best_p = torch.full((nq, k), -1, dtype=torch.int64, device=DEVICE)
+    for c0 in range(0, words.shape[0], chunk):
+        w = words[c0:c0 + chunk]
+        ham = popcount32(qwords[:, None, :] ^ w[None, :, :]).sum(-1)
+        pos = torch.arange(c0, c0 + w.shape[0], device=DEVICE)
+        best_s, best_p = topk_ordered(
+            torch.cat([best_s, -ham.to(torch.float32)], 1),
+            torch.cat([best_p, pos.expand(nq, -1)], 1), k)
+    return -best_s, best_p
+
+
+def phase_lsh(smi, data):
+    """Phase 23: LSHrt (128 bits) and ITQ64,LSH over phase 7's corpus,
+    Hamming distances held exactly against a plain bit count on the card,
+    labels tie-aware."""
+    import duckdb_faiss_ext_tpu_torch as dt
+
+    xb = data["xb"]
+    for desc in LSH_FACTORIES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cat = dt.Catalog()
+        t0 = time.perf_counter()
+        dt.faiss_create("lsh", D, desc, metric_type="L2", catalog=cat)
+        dt.faiss_add(xb, "lsh", catalog=cat)
+        t_add = time.perf_counter() - t0
+        top = cat.get("lsh").index
+        lsh = getattr(top, "inner", top)
+        codes = lsh._codes.device_vectors()
+        check(codes.device.type == DEVICE and codes.dtype == torch.int8,
+              f"{desc}: codes not int8 on the card")
+        words = pack_words(codes[:N])
+        parts = []
+        for b in ("b48", "b1024"):
+            res = dt.faiss_search("lsh", K, data[b], catalog=cat)
+            xt = (top.apply_chain(data[b]) if top is not lsh else data[b])
+            qw = pack_words(torch.from_numpy(lsh.encode(xt)).to(DEVICE))
+            pd, pp = hamming_topk(qw, words, K)
+            pd, pp = pd.cpu().numpy(), pp.cpu().numpy()
+            check(np.array_equal(res["distance"], pd), f"{desc} {b}: Hamming "
+                  f"distances differ from the plain bit count")
+            # Tie-aware: each returned label has its reported distance, and
+            # below the k-th distance both hold the same labels.
+            own = popcount32(qw[:, None, :] ^ words[torch.from_numpy(
+                res["label"]).to(DEVICE)]).sum(-1).cpu().numpy()
+            check(np.array_equal(own, res["distance"]), f"{desc} {b}: a "
+                  f"label's distance is not its Hamming distance")
+            kth = pd[:, -1:]
+            for q in range(pd.shape[0]):
+                check(set(res["label"][q][res["distance"][q] < kth[q]])
+                      == set(pp[q][pd[q] < kth[q]]), f"{desc} {b}: labels "
+                      f"below the k-th distance differ at query {q}")
+            parts.append(f"{b} faiss_search wall "
+                         f"{walls_ms(lambda: dt.faiss_search('lsh', K, data[b], catalog=cat), reps=3):.3f} ms")  # noqa: E501
+        log(f"lsh {desc} {N}x{D} ({lsh.nbits} bits, "
+            f"{lsh._codes.vectors().nbytes / 2**20:.0f} MiB of int8 codes): "
+            f"train + encode + add {t_add:.2f} s; Hamming distances equal to "
+            f"the plain bit count, labels equal tie-aware at b48 and b1024; "
+            f"{'; '.join(parts)}; card peak {peak_gib():.2f} GiB [{smi}]")
+        del cat, top, lsh, codes, words
+
+
+def range_reference(rows, labels, xq, radius, metric, probes=None,
+                    assign=None, keep=None, chunk=1 << 15):
+    """Plain dense range scan on the card: every stored row (fp32, storage
+    order) against every query in full fp32, L2 in difference form, kept
+    where it passes the radius (and the selector's ``keep``) and, for IVF,
+    where its list ``assign`` is among the query's ``probes``.  Returns one
+    {label: best distance} a query."""
+    from duckdb_faiss_ext_tpu_torch.utils.config import full_fp32
+
+    sim = metric == "INNER_PRODUCT"
+    q = torch.from_numpy(xq).to(DEVICE)
+    out = [dict() for _ in range(xq.shape[0])]
+    hits = []
+    with full_fp32():
+        for c0 in range(0, rows.shape[0], chunk):
+            r = rows[c0:c0 + chunk]
+            dist = (q @ r.T if sim
+                    else ((q[:, None, :] - r[None, :, :]) ** 2).sum(-1))
+            hit = dist > radius if sim else dist < radius
+            if keep is not None:
+                hit &= keep[None, c0:c0 + r.shape[0]]
+            if probes is not None:
+                a = assign[c0:c0 + r.shape[0]].long()
+                hit &= (probes[:, :, None] == a[None, None, :]).any(1)
+            qi, ri = torch.nonzero(hit, as_tuple=True)
+            hits.append((qi.cpu().numpy(), (ri + c0).cpu().numpy(),
+                         dist[qi, ri].cpu().numpy()))
+    for qi, ri, di in hits:
+        for a, lab, d in zip(qi, labels[ri], di):
+            best = out[a].get(lab)
+            if best is None or (d > best if sim else d < best):
+                out[a][lab] = float(d)
+    return out
+
+
+def check_csr(tag, res, ref, radius, xq, metric):
+    """Per query the same labels, leaving out rows whose reference distance
+    lies within compare's tolerance of the radius; shared labels' distances
+    within that tolerance; no label twice in a query.  Returns the max
+    distance error."""
+    lims = res["lims"]
+    qn = (xq.astype(np.float64) ** 2).sum(1)
+    err = 0.0
+    for q, want in enumerate(ref):
+        e = 0.0
+        seg = slice(lims[q], lims[q + 1])
+        got = dict(zip(res["label"][seg].tolist(),
+                       res["distance"][seg].tolist()))
+        check(len(got) == lims[q + 1] - lims[q], f"{tag}: a label repeats "
+              f"in query {q}")
+        tol = REL_TOL * max([abs(radius), qn[q] if metric == "L2" else 0.0]
+                            + [abs(v) for v in want.values()])
+        near = {lab for lab, d in want.items() if abs(d - radius) <= tol}
+        check(set(got) - near == set(want) - near, f"{tag}: query {q} labels "
+              f"differ from the plain dense scan")
+        for lab in set(got) & set(want):
+            e = max(e, abs(got[lab] - want[lab]))
+        check(e <= tol, f"{tag}: query {q} distance error {e} above {tol}")
+        err = max(err, e)
+    return err
+
+
+def phase_range(smi, data, ivf, pq, soar_cat):
+    """Phase 24: faiss_range_search at b48 on phase 5's IDMap,Flat (with
+    and without the id%2==0 selector), phase 7's IVF4096, phase 12's
+    IVF4096,PQ16, phase 17's SQ8 and phase 22's SOAR index, each CSR held
+    against a plain dense scan on the card; one statement through
+    sql.dispatch."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
+    from duckdb_faiss_ext_tpu_torch.ops.pq import codec_decode
+    from duckdb_faiss_ext_tpu_torch.ops.sq import sq_decode
+    from duckdb_faiss_ext_tpu_torch.sql.dispatch import connect
+
+    xq = data["b48"]
+    xq_dev = torch.from_numpy(xq).to(DEVICE)
+    flat = data["flat_cat"].get("sift").index
+    sq8 = data["sq8_cat"].get("SQ8").index
+    ivf_top = ivf["cat"].get("ivf").index
+    pq_top = pq["cat"].get("pq").index
+    soar = soar_cat.get("soar").index
+
+    def ivf_rows(top):
+        """Storage-order fp32 rows, labels, list assignments of an IVF."""
+        inner = getattr(top, "inner", top)
+        labels = inner._ids if top is inner else top._labels[inner._ids]
+        if inner.pq_m is not None:
+            cents = torch.from_numpy(inner._centroids).to(DEVICE)
+            a = torch.from_numpy(inner._assign).to(DEVICE).long()
+            cb = torch.from_numpy(inner._pq_codebooks).to(DEVICE)
+            step = 1 << 18
+            rows = torch.cat([
+                codec_decode(torch.from_numpy(inner._codes[i:i + step]).to(
+                    DEVICE), cb, inner.pq_codec) + cents[a[i:i + step]]
+                for i in range(0, inner._nstored, step)])
+        else:
+            rows = torch.from_numpy(inner._xb).to(DEVICE)
+        return inner, rows, labels, torch.from_numpy(inner._assign).to(DEVICE)
+
+    even = flat.row_labels() % 2 == 0
+    codes, vmin, scale = sq8._device_state()
+    cases = [
+        ("IDMap,Flat", data["flat_cat"], "sift", None, None, plain_k1),
+        ("IDMap,Flat id%2==0", data["flat_cat"], "sift", None,
+         dt.SetSelector(flat.row_labels()[even]), plain_k1),
+        (f"IDMap,IVF4096,Flat nprobe {IVF_NPROBE}", ivf["cat"], "ivf",
+         {"nprobe": str(IVF_NPROBE)}, None, plain_list_kernels),
+        (f"IDMap,IVF4096,PQ16 nprobe {IVF_NPROBE}", pq["cat"], "pq",
+         {"nprobe": str(IVF_NPROBE)}, None, plain_k8),
+        ("SQ8", data["sq8_cat"], "SQ8", None, None, contextlib.nullcontext),
+        (f"IVF4096,Flat SOAR nprobe {IVF_NPROBE}", soar_cat, "soar",
+         {"nprobe": str(IVF_NPROBE)}, None, plain_list_kernels),
+    ]
+    refs = {
+        "IDMap,Flat": (flat.inner.device_vectors()[:N], flat.row_labels()),
+        "SQ8": (sq_decode(codes[:N], vmin, scale, "sq8"),
+                np.arange(N, dtype=np.int64)),
+    }
+    for tag, cat, name, params, sel, plain in cases:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with plain():
+            d10 = dt.faiss_search(name, K, xq, params,
+                                  catalog=cat)["distance"][:, K - 1]
+        radius = float(np.median(d10))
+        t0 = time.perf_counter()
+        res = dt.faiss_range_search(name, radius, xq, params, catalog=cat,
+                                    selector=sel)
+        wall = 1e3 * (time.perf_counter() - t0)
+        peak = peak_gib()
+        probes = assign = keep = None
+        if tag.startswith("IDMap,Flat"):
+            rows, labels = refs["IDMap,Flat"]
+            if sel is not None:
+                keep = torch.from_numpy(even).to(DEVICE)
+        elif tag == "SQ8":
+            rows, labels = refs["SQ8"]
+        else:
+            top = {"ivf": ivf_top, "pq": pq_top, "soar": soar}[name]
+            inner, rows, labels, assign = ivf_rows(top)
+            probes = coarse_topk(xq_dev, torch.from_numpy(
+                inner._centroids).to(DEVICE), IVF_NPROBE, "L2")
+        ref = range_reference(rows, labels, xq, radius, "L2", probes, assign,
+                              keep)
+        err = check_csr(f"range {tag}", res, ref, radius, xq, "L2")
+        if sel is not None:
+            check((res["label"] % 2 == 0).all(), "range: odd label")
+        per_q = np.diff(res["lims"])
+        log(f"range {tag} b48 radius {radius:.4f} (median plain 10th "
+            f"distance): {int(res['lims'][-1])} results, "
+            f"{int((per_q >= K).sum())} of {BATCH} queries with >= {K}; "
+            f"agrees with the plain dense scan (max distance error "
+            f"{err:.3g}); faiss_range_search wall {wall:.1f} ms, card peak "
+            f"{peak:.2f} GiB [{smi}]")
+    con = connect(catalog=data["flat_cat"], database=dt.Database())
+    con.register("queries", {"data": xq[:4]})
+    radius = float(np.median(dt.faiss_search("sift", K, xq[:4],
+                                             catalog=data["flat_cat"])
+                             ["distance"][:, K - 1]))
+    rows = con.execute(f"SELECT faiss_range_search('sift', {radius}, data) "
+                       f"FROM queries")
+    api = dt.faiss_range_search("sift", radius, xq[:4],
+                                catalog=data["flat_cat"])
+    check([(r["query"], r["label"]) for r in rows]
+          == [(q, int(lab)) for q in range(4)
+              for lab in api["label"][api["lims"][q]:api["lims"][q + 1]]],
+          "the SQL range route differs from the API")
+    log(f"range through sql.dispatch: SELECT faiss_range_search('sift', "
+        f"{radius:.4f}, data) FROM queries gives {len(rows)} rows, those of "
+        f"the API")
+
+
 def main():
     smi = phase_environment()
     phase_build()
@@ -3611,20 +4320,21 @@ def main():
     ivf_err, ivf_err7, ivf_launches, ivf_timings, ivf = phase_ivf_main(
         smi, data, exact)
     phase_sql_harness(smi, data, ivf)
-    ivf_recall = ivf["recall"]
-    del ivf
     torch.cuda.empty_cache()
-    phase_port_bench(ivf_recall)
+    phase_port_bench(ivf["recall"])
     pq_sweep_err = phase_pq_sweep()
     pq = phase_pq_main(smi, data, exact)
     pq_spill_err = phase_pq_spill(pq, data)
-    del pq["cat"], pq["index"]
     torch.cuda.empty_cache()
     rq_err = phase_rq_leg(smi, data, exact)
     torch.cuda.empty_cache()
     phase_pq_standalone(data)
     phase_sq_standalone(smi, data)
-    del data
+    phase_refine_pipeline(smi, data, exact)
+    soar_cat = phase_imi_soar(smi, data, exact, ivf)
+    phase_lsh(smi, data)
+    phase_range(smi, data, ivf, pq, soar_cat)
+    del data, ivf, soar_cat, pq["cat"], pq["index"]
     torch.cuda.empty_cache()
     ((pairs_err, pairs_launches, pairs_timing, pairs_before),
      (mega_err, mega_launches, mega_timing, mega_before)) = phase_ivf_pairs(
@@ -3633,6 +4343,8 @@ def main():
     sq_errs = phase_sq_sweep()
     err9 = phase_sq_mega_sweep()
     sq = phase_sq_main(smi)
+    torch.cuda.empty_cache()
+    phase_marco_refine(smi, sq)
     torch.cuda.empty_cache()
     marco = phase_marco_device(smi)
     log(smi)

@@ -9,7 +9,11 @@ families and the standalone scalar quantizers ``SQ8`` / ``SQ4`` / ``SQ6``
 / ``SQfp16`` / ``SQbf16`` over all nine metrics, and, under L2 and inner
 product (with IDMap), ``IVFn,SQ8`` / ``SQ4`` / ``SQ6`` / ``SQfp16`` /
 ``SQbf16``, the PQ / RQ codecs ``PQm[xb]`` / ``RQMxb`` and their residual
-IVF forms ``IVFn,PQm[xb]`` / ``IVFn,RQMxb``.  Around it: the SQL shell
+IVF forms ``IVFn,PQm[xb]`` / ``IVFn,RQMxb``, the IMI coarse quantizer
+(``IMI2xn,...``), SOAR (``soar_lambda``), LSH (``LSH[n][r][t]``), the
+transform prefixes (PCA / PCAR / PCAW, OPQ, RR, ITQ, Pad, L2norm) and the
+``RFlat`` refine suffix; ``faiss_range_search`` answers on Flat, SQ, PQ /
+RQ, IVF and the wrappers over them.  Around it: the SQL shell
 (``python -m duckdb_faiss_ext_tpu_torch``, ``sql.dispatch``,
 ``sql.logictest``), the harness (``harness``: filtered bench, datasets,
 recall, TREC, autotune) and the port bench
@@ -39,6 +43,7 @@ from .api import (
     faiss_destroy,
     faiss_load,
     faiss_manual_train,
+    faiss_range_search,
     faiss_save,
     faiss_search,
     faiss_search_batched,
@@ -69,6 +74,7 @@ __all__ = [
     "faiss_destroy",
     "faiss_load",
     "faiss_manual_train",
+    "faiss_range_search",
     "faiss_save",
     "faiss_search",
     "faiss_search_batched",

@@ -8,9 +8,9 @@ One function per SQL function registered by LoadInternal
     (__faiss_create_mask analogue), faiss_search, faiss_search_filter,
     faiss_search_filter_set
 
-and the JAX package's extensions faiss_search_batched, faiss_stats and
-the device-resident ingest of rows already on the card,
-faiss_train_device and faiss_add_device.
+and the JAX package's extensions faiss_search_batched, faiss_stats,
+faiss_range_search and the device-resident ingest of rows already on the
+card, faiss_train_device and faiss_add_device.
 
 faiss_to_gpu (the JAX package's faiss_to_device) is not ported yet: an index
 lives on ``config.device`` from its creation.
@@ -413,6 +413,23 @@ def faiss_load(name: str, path: str, catalog: Catalog | None = None) -> None:
     cat.put_new(name, entry)
 
 
+@_timed_op("faiss_range_search")
+def faiss_range_search(name: str, radius: float, queries,
+                       parameters: Mapping[str, object] | None = None,
+                       catalog: Catalog | None = None,
+                       selector=None) -> dict:
+    """All neighbors within ``radius`` (faiss::Index::range_search, part
+    of the FAISS surface behind the reference, though not in its SQL
+    function set).  Returns {"lims": (nq+1,), "label": (nres,),
+    "distance": (nres,)}: query q's matches are rows lims[q]:lims[q+1], as
+    in faiss::RangeSearchResult."""
+    entry = _cat(catalog).get(name)
+    params = as_params(parameters)
+    res = entry.index.range_search(
+        as_matrix(queries, entry.index.d), float(radius), params, selector)
+    return {"lims": res.lims, "label": res.labels, "distance": res.distances}
+
+
 # --------------------------------------------------------------------------
 # Observability (no reference equivalent — SURVEY.md §5 green field)
 # --------------------------------------------------------------------------
@@ -477,11 +494,16 @@ def faiss_search_batched(name: str, k: int, queries,
         return _format_results(entry.index.search(queries, k, params,
                                                   selector), k)
     index = entry.index
-    disps = [index.search_dispatch(queries[s:s + batch_size], k, params,
-                                   selector)
+    dispatch = getattr(index, "search_dispatch", None)
+    if dispatch is None:
+        # RefineFlat has no device dispatch: the sequential path.
+        return _format_results(index.search(queries, k, params, selector),
+                               k)
+    disps = [dispatch(queries[s:s + batch_size], k, params, selector)
              for s in range(0, nq, batch_size)]
     if any(d is None for d in disps):
-        # No device work (an empty IVF index): the sequential path pads.
+        # No device work (an empty IVF index) or an inner index without a
+        # dispatch (IDMap over RefineFlat): the sequential path pads.
         return _format_results(index.search(queries, k, params, selector),
                                k)
     big_d, big_p = fetch_results(torch.cat([d[0][:d[2]] for d in disps]),

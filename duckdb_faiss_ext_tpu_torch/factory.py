@@ -20,14 +20,16 @@ so the observable surface is the factory grammar itself:
     suffix      := "RFlat"  (exact re-rank wrapper, IndexRefineFlat)
 
 The whole grammar is parsed, with the same parse errors as the JAX
-package.  ``Flat``, ``PQm[xb]``, ``RQMxb``, ``SQ8`` / ``SQ4`` / ``SQ6`` /
-``SQfp16`` / ``SQbf16``, ``IVFn[_Flat][,Flat]``, ``IVFn[_Flat],SQ8`` /
-``SQ4`` / ``SQ6`` / ``SQfp16`` / ``SQbf16`` and ``IVFn[_Flat],PQm[xb]`` /
-``RQMxb`` under any number of IDMap prefixes build; every other family
-(HNSW, NSG, IMI, LSH), quantizer (HNSW, the parenthesized form),
-transform or suffix (``RFlat``) raises ``InvalidInputError`` naming it as
-not yet available in this package, so a description never builds
-something other than what it says.
+package.  Built: ``Flat``, ``PQm[xb]``, ``RQMxb``, ``SQ8`` / ``SQ4`` /
+``SQ6`` / ``SQfp16`` / ``SQbf16``, ``LSH[n][r][t]``, ``IVFn[_Flat]`` and
+``IMI2xn`` with a Flat, SQ, PQ or RQ encoding, every transform prefix
+(models/pretransform.py over transforms.py) and the ``RFlat`` suffix
+(models/refine.py), under any number of IDMap prefixes, as the graph
+IDMap → RFlat → PreTransform → component (the JAX package's order).  The
+graph families (HNSW, NSG) and every IVF coarse quantizer other than Flat
+(``IVFn_HNSWm``, ``IVFn_PQm``, the parenthesized form) raise
+``InvalidInputError`` naming them as not yet available in this package,
+so a description never builds something other than what it says.
 """
 
 from __future__ import annotations
@@ -62,6 +64,33 @@ _SQ_TYPES = ("SQ8", "SQ4", "SQ6", "SQfp16", "SQbf16")
 def _is_transform(tok: str) -> bool:
     """Transform-prefix tokens (faiss VectorTransform grammar subset)."""
     return tok == "L2norm" or any(r.match(tok) for r in _TRANSFORM_RES)
+
+
+def _build_transform(tok: str, d: int):
+    """The transform of a prefix token at input dimension d: PCAn / PCARn /
+    PCAWn, OPQm[_dout], RR[n], ITQ[n], Padn, L2norm."""
+    from .transforms import (ITQTransform, L2NormTransform, OPQMatrix,
+                             PadTransform, PCAMatrix, RandomRotationMatrix)
+
+    if tok == "L2norm":
+        return L2NormTransform(d)
+    m = _PCA_RE.match(tok)
+    if m:
+        return PCAMatrix(d, int(m.group(2)),
+                         random_rotation=m.group(1) == "R",
+                         whiten=m.group(1) == "W")
+    m = _OPQ_RE.match(tok)
+    if m:
+        return OPQMatrix(d, int(m.group(1)),
+                         int(m.group(2)) if m.group(2) else None)
+    m = _RR_RE.match(tok)
+    if m:
+        return RandomRotationMatrix(d, int(m.group(1)) if m.group(1)
+                                    else None)
+    m = _ITQ_RE.match(tok)
+    if m:
+        return ITQTransform(d, int(m.group(1)) if m.group(1) else None)
+    return PadTransform(d, int(_PAD_RE.match(tok).group(1)))
 
 
 def _parse_error(desc: str, detail: str = "") -> InvalidInputError:
@@ -176,39 +205,61 @@ def _check_component(parts, desc) -> str:
     raise _parse_error(desc, f"unknown component {head}")
 
 
-def _build_ivf(d, parts, metric, metric_arg, desc) -> Index:
-    """``IVFn[_Flat][,Flat]``, ``IVFn[_Flat],SQ{8,4,6,fp16,bf16}`` and
-    ``IVFn[_Flat],PQm[xb]`` / ``RQMxb``: inverted lists over a Flat coarse
-    quantizer (the reference's graph shape)."""
+def _build_ivf(d, parts, metric, metric_arg, desc, family) -> Index:
+    """``IVFn[_Flat]`` or ``IMI2xn`` heads with a Flat, SQ{8,4,6,fp16,bf16},
+    PQm[xb] or RQMxb encoding: inverted lists over a Flat coarse quantizer
+    (the reference's graph shape), or over the product quantizer."""
     from .models.ivf import SQ_ENCODINGS, IVFIndex
 
     if _IVF_PAREN_RE.match(parts[0]):
         raise _not_available(desc, "the parenthesized IVF quantizer")
-    m = _IVF_RE.match(parts[0])
-    if m.group(2) not in (None, "Flat"):
-        raise _not_available(desc, f"IVF quantizer {m.group(2)}")
     encoding = parts[1] if len(parts) > 1 else "Flat"
     if (encoding != "Flat" and encoding not in SQ_ENCODINGS
             and not _PQ_RE.match(encoding) and not _RQ_RE.match(encoding)):
         raise _not_available(desc, f"IVF encoding {encoding}")
+    quantizer = FlatIndex(d, metric, metric_arg)
+    if family == "IMI":
+        from .models.imi import IMIIndex
+
+        return IMIIndex(d, metric, metric_arg,
+                        nbits=int(_IMI_RE.match(parts[0]).group(1)),
+                        quantizer=quantizer, encoding=encoding)
+    m = _IVF_RE.match(parts[0])
+    if m.group(2) not in (None, "Flat"):
+        raise _not_available(desc, f"IVF quantizer {m.group(2)}")
     return IVFIndex(d, metric, metric_arg, nlist=int(m.group(1)),
-                    quantizer=FlatIndex(d, metric, metric_arg),
-                    encoding=encoding)
+                    quantizer=quantizer, encoding=encoding)
 
 
 def build_index(d: int, desc: str, metric: Metric,
                 metric_arg: float = 0.0) -> Index:
     """Build the index graph for a factory description."""
-    idmap, transforms, refine, parts = _parse(desc)
-    if transforms:
-        raise _not_available(desc, f"transform {transforms[0]}")
-    if refine:
-        raise _not_available(desc, "RFlat")
+    idmap, tokens, refine, parts = _parse(desc)
     family = _check_component(parts, desc)
+    transforms, d_cur = [], d
+    for tok in tokens:
+        transforms.append(_build_transform(tok, d_cur))
+        d_cur = transforms[-1].d_out
+    index = _build_component(d_cur, parts, metric, metric_arg, desc, family)
+    if transforms:
+        from .models.pretransform import PreTransformIndex
+
+        index = PreTransformIndex(transforms, index)
+    if refine:
+        from .models.refine import RefineFlatIndex
+
+        index = RefineFlatIndex(index)
+    if idmap:
+        index = IDMapIndex(index)
+    index.factory_desc = desc
+    return index
+
+
+def _build_component(d, parts, metric, metric_arg, desc, family) -> Index:
     if family == "Flat":
         index: Index = FlatIndex(d, metric, metric_arg)
-    elif family == "IVF":
-        index = _build_ivf(d, parts, metric, metric_arg, desc)
+    elif family in ("IVF", "IMI"):
+        index = _build_ivf(d, parts, metric, metric_arg, desc, family)
     elif family == "PQ":
         from .models.pq import PQIndex
 
@@ -225,9 +276,14 @@ def build_index(d: int, desc: str, metric: Metric,
         from .models.sq import SQIndex
 
         index = SQIndex(d, metric, metric_arg, qtype=parts[0])
+    elif family == "LSH":
+        from .models.lsh import LSHIndex
+
+        m = _LSH_RE.match(parts[0])
+        index = LSHIndex(d, metric, metric_arg,
+                         nbits=int(m.group(1)) if m.group(1) else None,
+                         rotate=bool(m.group(2)),
+                         train_thresholds=bool(m.group(3)))
     else:
         raise _not_available(desc, family)
-    if idmap:
-        index = IDMapIndex(index)
-    index.factory_desc = desc
     return index

@@ -6,8 +6,10 @@ dimension, metric name and argument, and its state: the corpus or, for
 standalone SQ and IVF,SQ, the packed codes and their trained ranges (the
 float codecs' fp16 / bf16 row bytes as they are), for PQ / RQ and IVF-PQ /
 IVF-RQ the byte codes as they are and the trained codebooks, IDMap's
-labels, IVF's ids, list assignments and trained centroids, and the
-``assign_topk`` create parameter of device-resident ingest) and rebuilds
+labels, IVF's ids, list assignments and trained centroids (with SOAR's
+bookkeeping), the transforms' trained matrices, RFlat's raw rows, LSH's
+packed bits, and the ``assign_topk`` create parameter of device-resident
+ingest, found through the wrapper chain) and rebuilds
 the index through this package's factory and ``load_state`` — the
 in-memory form of the checkpoint format (io/serialize.py) the two packages
 share.  A JAX index trained for device ingest (``faiss_train_device``)
@@ -32,6 +34,16 @@ def _as_numpy(tree: dict) -> dict:
             for k, v in tree.items()}
 
 
+def component(index):
+    """The component index under a wrapper chain (IDMap ``inner`` → RFlat
+    ``base`` → PreTransform ``inner``), in either package."""
+    while True:
+        nxt = getattr(index, "inner", None) or getattr(index, "base", None)
+        if nxt is None:
+            return index
+        index = nxt
+
+
 def from_reference(index_or_entry) -> IndexEntry:
     """Catalog entry holding this package's copy of a JAX-package ``Index``
     or ``IndexEntry``.  An entry's lifecycle flags (training latch,
@@ -43,7 +55,7 @@ def from_reference(index_or_entry) -> IndexEntry:
                         float(ref.metric_arg))
     state = _as_numpy(ref.state_dict())
     index.load_state(state)
-    ivf, ref_ivf = getattr(index, "inner", index), getattr(ref, "inner", ref)
+    ivf, ref_ivf = component(index), component(ref)
     if hasattr(ivf, "assign_topk"):
         ivf.assign_topk = int(getattr(ref_ivf, "assign_topk", 0) or 0)
     if index_or_entry is not ref:

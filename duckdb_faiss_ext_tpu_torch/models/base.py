@@ -86,6 +86,15 @@ class Index(abc.ABC):
     ) -> SearchResult:
         ...
 
+    def range_search(self, xq, radius: float, params: ParamMap = EMPTY,
+                     selector: "Selector | None" = None):
+        """All neighbors within ``radius`` (faiss::Index::range_search) as a
+        CSR ``ops.range.RangeSearchResult``.  Beyond the reference's SQL
+        surface; served by the dense-scan families (Flat / SQ / PQ / RQ /
+        IVF) and the wrappers over them."""
+        raise errors.InvalidInputError(
+            f"range search is not supported for {type(self).__name__}")
+
     # --- selector plumbing ------------------------------------------------
     def row_labels(self) -> np.ndarray:
         """int64 label of every stored row, in storage order — the ids a
@@ -180,6 +189,30 @@ def as_matrix(x, d: int, *, name: str = "vectors") -> np.ndarray:
     if arr.shape[1] != d:
         raise errors.bad_vector_length(d, arr.shape[1], 0)
     return np.ascontiguousarray(arr)
+
+
+def dedup_by_key(dist, labels, keys, k: int, sentinel: float):
+    """Keep the best-ranked entry per key and repack to width k.
+
+    SOAR stores every datapoint in two inverted lists, so a 2k-candidate
+    fetch can hold a source row twice.  ``keys`` identifies duplicates (the
+    logical source row where the mapper provides one, else the label).
+    Rows arrive best-first; the first occurrence stays, the rest become
+    (sentinel, -1), and the survivors are stably compacted left (the JAX
+    package's ``dedup_by_key``, host numpy)."""
+    nq, w = labels.shape
+    order = np.argsort(keys, axis=1, kind="stable")
+    k_sorted = np.take_along_axis(keys, order, 1)
+    dup_sorted = np.zeros((nq, w), bool)
+    dup_sorted[:, 1:] = (k_sorted[:, 1:] == k_sorted[:, :-1]) \
+        & (k_sorted[:, 1:] >= 0)
+    dup = np.zeros((nq, w), bool)
+    np.put_along_axis(dup, order, dup_sorted, 1)
+    dist = np.where(dup, sentinel, dist).astype(np.float32)
+    labels = np.where(dup, -1, labels)
+    compact = np.argsort(dup, axis=1, kind="stable")[:, :k]
+    return (np.take_along_axis(dist, compact, 1),
+            np.take_along_axis(labels, compact, 1))
 
 
 def fetch_results(dist: torch.Tensor, pos: torch.Tensor):

@@ -7,6 +7,12 @@ re-uploaded only when the bucket grows; adds that fit are copied into it
 in place.  On the card, L2 and inner product search through the
 hand-written fused distance + top-k kernel (ops/flat_topk.py); the seven
 elementwise metrics and k > 1024 take the plain scan (ops/flat_search.py).
+
+With ``storage="pm1_i8"`` (the code corpus of LSHIndex) the rows are ±1
+sign codes stored int8 and queries are cast the same way; their dots are
+exact int32 products (``ops.flat_search.pm1_search``: ``torch._int_mm``
+on the card, an int32 matmul on the CPU), never K1, as the JAX package
+kept int8 codes out of its Pallas kernel.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import torch
 
 from ..metrics import Metric
 from ..ops import flat_topk
-from ..ops.flat_search import SIMILARITY_METRICS, flat_search, topk_ordered
+from ..ops.flat_search import finalize_scores, flat_search, pm1_search
 from ..ops.selectors import Selector
 from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
                             resolve_device)
@@ -24,12 +30,17 @@ from .base import Index, SearchResult, as_matrix
 
 
 class FlatIndex(Index):
-    def __init__(self, d: int, metric: Metric, metric_arg: float = 0.0):
+    def __init__(self, d: int, metric: Metric, metric_arg: float = 0.0,
+                 storage: str = "f32"):
         super().__init__(d, metric, metric_arg)
         #: where the corpus buffer lives and searches run; raises here when
         #: CUDA is asked for without a card.
         self.device = resolve_device()
-        self._xb = np.empty((0, d), dtype=np.float32)
+        #: "f32", or "pm1_i8": ±1 sign codes stored int8 (only inner
+        #: product ordering is meaningful for them)
+        self.storage = storage
+        self._dtype = np.int8 if storage == "pm1_i8" else np.float32
+        self._xb = np.empty((0, d), dtype=self._dtype)
         self._version = 0
         self._device_xb: torch.Tensor | None = None  # (cap, d)
         self._mask_cache: dict = {}
@@ -43,6 +54,8 @@ class FlatIndex(Index):
         x = as_matrix(x, self.d)
         if x.shape[0] == 0:
             return
+        if self.storage == "pm1_i8":
+            x = np.where(x > 0, 1, -1).astype(np.int8)
         start = self.ntotal
         self._xb = np.concatenate([self._xb, x], axis=0) if start else x
         self._version += 1
@@ -66,8 +79,9 @@ class FlatIndex(Index):
         the capacity bucket grew or the data was reloaded."""
         cap = self._capacity()
         if self._device_xb is None or self._device_xb.shape[0] < cap:
-            buf = torch.zeros((cap, self.d), dtype=torch.float32,
-                              device=self.device)
+            buf = torch.zeros((cap, self.d), dtype=(
+                torch.int8 if self.storage == "pm1_i8" else torch.float32),
+                device=self.device)
             buf[:self.ntotal].copy_(torch.from_numpy(self._xb))
             self._device_xb = buf
         return self._device_xb
@@ -107,6 +121,14 @@ class FlatIndex(Index):
         nq_pad = max(config.min_query_bucket, next_pow2(nq))
         xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(self.device)
         mask = self._selector_mask(selector) if selector is not None else None
+        if self.storage == "pm1_i8":
+            # Queries are sign codes too; the int8 dot is exact, so no
+            # rerank ever applies.
+            xq_i8 = torch.where(xq_pad > 0, 1, -1).to(torch.int8)
+            scores, pos = pm1_search(self.device_vectors(), self.ntotal,
+                                     xq_i8, k_eff, mask)
+            dist, pos = finalize_scores(scores, pos, self.metric.name)
+            return dist, pos, nq, k_eff
         # Opt-in exact rerank for fast mode ({"rerank": "true"}): scan a
         # wider top-k, then re-score those rows in fp32.  Queries go up as
         # fp32, so the rescore is exact.
@@ -119,8 +141,10 @@ class FlatIndex(Index):
         k_scan = min(cap, max(2 * k_eff, k_eff + 16)) if rerank else k_eff
         dist, pos = self._dispatch_search(xq_pad, k_scan, mask)
         if rerank and k_scan > k_eff:
-            dist, pos = _rerank(self.device_vectors(), pos, xq_pad, k_eff,
-                                self.metric.name)
+            from .refine import rerank as exact_rerank
+
+            dist, pos = exact_rerank(self.device_vectors(), pos, xq_pad,
+                                     k_eff, self.metric.name)
         return dist, pos, nq, k_eff
 
     def _dispatch_search(self, xq_pad, k_eff, mask):
@@ -133,31 +157,31 @@ class FlatIndex(Index):
         return flat_search(xb, self.ntotal, xq_pad, k_eff, self.metric.name,
                            self.metric_arg, mask=mask)
 
+    def vectors(self) -> np.ndarray:
+        """Host view of the stored rows (n, d)."""
+        return self._xb
+
+    def reconstruct(self, key: int) -> np.ndarray:
+        return self._xb[key]
+
+    # --- range search -----------------------------------------------------
+    def range_search(self, xq, radius, params=None, selector=None):
+        """Dense tiles over the padded buffer, thresholded on the device
+        (ops/range.py); int8 sign codes are scored as fp32."""
+        from ..ops.range import dense_range_search
+
+        return dense_range_search(self, xq, radius, selector,
+                                  self.device_vectors(),
+                                  lambda c: c.to(torch.float32))
+
     # --- serialization ----------------------------------------------------
     def state_dict(self) -> dict:
         return {"xb": self._xb}
 
     def load_state(self, state: dict) -> None:
-        self._xb = np.asarray(state["xb"], dtype=np.float32).reshape(-1, self.d)
+        self._xb = np.asarray(state["xb"], dtype=self._dtype).reshape(
+            -1, self.d)
         self._version += 1
         self._device_xb = None
         self._mask_cache.clear()
 
-
-def _rerank(xb, pos, xq, k, metric):
-    """Exact fp32 re-score of the candidate rows ``pos`` (-1 = missing
-    stays missing); returns best-first (distances, positions) of width k."""
-    safe = pos.clamp(min=0).long()
-    xc = xb[safe]                                        # (nq, ks, d)
-    if metric == "INNER_PRODUCT":
-        s = (xc * xq[:, None, :]).sum(-1)  # elementwise: no TF32 matmul
-    else:
-        diff = xc - xq[:, None, :]
-        s = -(diff * diff).sum(-1)
-    s = torch.where(pos >= 0, s, float("-inf"))
-    best, pos = topk_ordered(s, pos, k)
-    missing = torch.isneginf(best)
-    sim = metric in SIMILARITY_METRICS
-    dist = best if sim else -best
-    dist = torch.where(missing, float("-inf") if sim else float("inf"), dist)
-    return dist, torch.where(missing, -1, pos)

@@ -1,6 +1,6 @@
 """IDMap wrapper: custom int64 labels over an inner index.
 
-Equivalent of faiss::IndexIDMap (over Flat or IVF) as the reference uses it
+Equivalent of faiss::IndexIDMap (over any inner index) as the reference uses it
 (src/faiss_extension.cpp:127-131,671-674): add_with_ids records a label per
 stored row; search results are translated position→label after top-k; create
 and search parameters recurse to the inner index unchanged.
@@ -68,16 +68,27 @@ class IDMapIndex(Index):
                                       len(self._labels)))
 
     def search(self, xq, k, params=EMPTY, selector=None) -> SearchResult:
+        if getattr(self.inner, "search_dispatch", None) is None:
+            # An inner index without a device dispatch (RefineFlat): its
+            # own search, positions mapped to labels after it.
+            if selector is not None:
+                selector = self._position_selector(selector)
+            dist, pos = self.inner.search(xq, k, params, selector)
+            return SearchResult(dist, self._positions_to_labels(pos))
         return self._finish_dispatch(
             self.search_dispatch(xq, k, params, selector), xq, k)
 
     def search_dispatch(self, xq, k, params=EMPTY, selector=None):
         """The inner index's device dispatch with the selector translated to
         position space; positions map back to labels in
-        ``_positions_to_labels`` after the fetch."""
+        ``_positions_to_labels`` after the fetch.  None where the inner
+        index has no dispatch (the batched search then searches)."""
+        inner = getattr(self.inner, "search_dispatch", None)
+        if inner is None:
+            return None
         if selector is not None:
             selector = self._position_selector(selector)
-        disp = self.inner.search_dispatch(xq, k, params, selector)
+        disp = inner(xq, k, params, selector)
         if disp is None or len(disp) <= 4:
             return disp
         # The inner dispatch carries its own positions → ids mapper (IVF);
@@ -104,6 +115,17 @@ class IDMapIndex(Index):
             raise errors.InvalidInputError(
                 f"reconstruct is not supported by {type(self.inner).__name__}")
         return inner_rec(int(matches[0]))
+
+    def range_search(self, xq, radius, params=EMPTY, selector=None):
+        """The inner index's range search with the selector translated to
+        position space and its positions translated to labels."""
+        from ..ops.range import RangeSearchResult
+
+        if selector is not None:
+            selector = self._position_selector(selector)
+        res = self.inner.range_search(xq, radius, params, selector)
+        labels = self._labels[res.labels] if self._labels.size else res.labels
+        return RangeSearchResult(res.lims, labels, res.distances)
 
     def apply_create_params(self, params) -> None:
         # setIndexParameters unwraps IDMap and recurses

@@ -35,9 +35,19 @@ assignment itself is one fused fp32 distance tile.
 The create parameter ``assign_topk`` (capped assignment of
 device-resident ingest) is accepted and stored as in the JAX package; as
 there, device-resident ingest refuses the float codecs, which have no
-padded layout and search through the sorted+gather decode scan.  Not yet
-ported (raises "… is not yet available in duckdb_faiss_ext_tpu_torch"):
-the create parameter ``soar_lambda``.
+padded layout and search through the sorted+gather decode scan.
+
+SOAR (create parameter ``soar_lambda`` > 0, Sun et al. 2023): every row
+also joins a second list chosen so that its residual there is
+near-orthogonal to the primary one (``_assign_soar``, fp32 on the index's
+device).  The copies are stored as duplicated rows, so every layout and
+scan works unchanged; ``ntotal`` counts logical rows and ``_nstored``
+storage rows, ``_srcrow`` maps each storage row to its logical row and
+``_logical_rows`` each logical row to its first storage row.  A search
+fetches 2k candidates and drops same-source duplicates on the host
+(models/ivf_serve.py); the state keys ``soar_lambda``, ``soar_srcrow`` and
+``soar_rows`` carry it.  The IMI coarse quantizer is the subclass in
+models/imi.py.
 """
 
 from __future__ import annotations
@@ -63,9 +73,6 @@ from .base import Index, as_matrix
 from .ivf_device import IVFDevice
 from .ivf_layout import IVFLayout
 from .ivf_serve import IVFServe
-
-#: create parameters of the JAX package this slice does not build yet
-_UNPORTED_PARAMS = ("soar_lambda",)
 
 #: scalar-quantizer encodings built here
 SQ_ENCODINGS = ("SQ8", "SQ4", "SQ6", "SQfp16", "SQbf16")
@@ -126,6 +133,11 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
         self.train_balance = 0.0
         #: capped device-ingest assignment: top-T candidate lists (0 = off)
         self.assign_topk = 0
+        #: SOAR dual assignment weight (0 = off) and its bookkeeping: storage
+        #: row → logical row, logical row → first storage row (None when off)
+        self.soar_lambda = 0.0
+        self._srcrow: np.ndarray | None = None
+        self._logical_rows: np.ndarray | None = None
         #: device-resident state (models/ivf_device.py), or None
         self._dr = None
         self._centroids: np.ndarray | None = None
@@ -148,6 +160,14 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
     # --- lifecycle -------------------------------------------------------
     @property
     def ntotal(self) -> int:
+        """Logical rows (the user's view); with SOAR each is stored twice."""
+        n = self._ids.shape[0]
+        return n // 2 if self.soar_lambda > 0.0 else n
+
+    @property
+    def _nstored(self) -> int:
+        """Storage rows (inverted-list entries), which layouts, masks and
+        scans count."""
         return self._ids.shape[0]
 
     @property
@@ -190,10 +210,14 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
             self._sq_scale = scale.cpu().numpy()
         self._invalidate()
 
+    #: IMIIndex sets this False: its quantizer is never consulted, and
+    #: copying the materialized cell table into it would double memory.
+    _mirror_quantizer = True
+
     def _populate_quantizer(self) -> None:
         """Mirror the centroid table into the quantizer index (faiss graph
         shape; again after load_state rebuilds the quantizer empty)."""
-        if self.quantizer.ntotal == 0:
+        if self._mirror_quantizer and self.quantizer.ntotal == 0:
             self.quantizer.add(self._centroids)
 
     def _subsample_train(self, x, k: int):
@@ -269,6 +293,20 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
         if x.shape[0] == 0:
             return
         assign = self._assign_lists(x)
+        if self.soar_lambda > 0.0:
+            # Each row also joins its SOAR list, as a duplicated storage row.
+            nb, start = x.shape[0], self._nstored
+            logical = np.arange(self.ntotal, self.ntotal + nb, dtype=np.int64)
+            if self._srcrow is None:
+                self._srcrow = np.empty((0,), np.int64)
+                self._logical_rows = np.empty((0,), np.int64)
+            self._srcrow = np.concatenate([self._srcrow, logical, logical])
+            self._logical_rows = np.concatenate(
+                [self._logical_rows,
+                 np.arange(start, start + nb, dtype=np.int64)])
+            assign = np.concatenate([assign, self._assign_soar(x, assign)])
+            x = np.concatenate([x, x])
+            ids = np.concatenate([ids, ids])
         if self.pq_m is not None:
             self._codes = np.concatenate([self._codes,
                                           self._pq_encode(x, assign)])
@@ -289,6 +327,9 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
                 f"Position {key} is out of range (ntotal={self.ntotal})")
         if self._dr is not None:
             return self._device_reconstruct(key)
+        if self._logical_rows is not None:
+            # SOAR: a logical row indirects to its first storage row.
+            key = int(self._logical_rows[key])
         if self.pq_m is not None:
             resid = codec_decode(torch.from_numpy(self._codes[key:key + 1]),
                                  torch.from_numpy(self._pq_codebooks),
@@ -345,6 +386,33 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
             x, 1, lambda tile: (tile.argmax(1) if sim
                                 else tile.argmin(1))[:, None])[:, 0]
 
+    def _assign_soar(self, x: np.ndarray, assign: np.ndarray) -> np.ndarray:
+        """SOAR's second list of each row: the argmin over lists l ≠ primary
+        of ‖x − c_l‖² + λ·((x − c_l)·r̂)², r̂ the unit primary residual
+        (L2 geometry, SOAR's derivation), in fp32 chunks on the index's
+        device; first list on ties."""
+        lam = float(self.soar_lambda)
+        cents = torch.from_numpy(self._centroids).to(self.device)
+        cn = (cents * cents).sum(1)[None, :]
+        chunk = max(1024, min(65536, (1 << 27) // max(self.nlist, 1)))
+        out = []
+        with full_fp32():
+            for i in range(0, x.shape[0], chunk):
+                xc = torch.from_numpy(x[i:i + chunk]).to(self.device)
+                a1 = torch.from_numpy(assign[i:i + chunk]).to(
+                    self.device).long()
+                r1 = xc - cents[a1]
+                r1h = r1 / (r1 * r1).sum(1, keepdim=True).clamp(
+                    min=1e-20).sqrt()
+                sqdist = (xc * xc).sum(1, keepdim=True) - 2.0 * (
+                    xc @ cents.T) + cn
+                proj = (xc * r1h).sum(1, keepdim=True) - r1h @ cents.T
+                cost = sqdist + lam * proj * proj
+                cost[torch.arange(a1.shape[0], device=self.device), a1] = \
+                    float("inf")
+                out.append(cost.argmin(1).to(torch.int32).cpu().numpy())
+        return np.concatenate(out) if out else np.empty((0,), np.int32)
+
     def _assign_candidates(self, x, t: int) -> np.ndarray:
         """(n, t) int32 nearest lists of each vector, nearest first (lower
         list on ties), from the same distance tiles."""
@@ -375,9 +443,6 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
     def apply_create_params(self, params) -> None:
         # Training knobs beyond the reference's surface: seed/niter for
         # reproducibility, kmeans_balance for skew-aware list sizing.
-        for key in _UNPORTED_PARAMS:
-            if params.get_str(key) is not None:
-                raise errors.not_available(f"create parameter {key}")
         self.train_seed = params.get_int("train_seed", self.train_seed)
         self.train_niter = params.get_int("train_niter", self.train_niter)
         self.train_balance = params.get_float("kmeans_balance", 0.0)
@@ -391,6 +456,17 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
                 raise errors.InvalidInputError(
                     "beam applies to RQ storage (IVFn,RQMxb)")
             self.rq_beam = max(1, beam)
+        lam = params.get_float("soar_lambda")
+        if lam is not None:
+            # SOAR dual assignment (see add_with_ids); lambda weights the
+            # orthogonality term, ~1.0 is the paper's sweet spot.
+            if lam < 0.0:
+                raise errors.InvalidInputError(
+                    f"soar_lambda must be >= 0, got {lam}")
+            if self.nlist < 2 and lam > 0.0:
+                raise errors.InvalidInputError(
+                    "SOAR needs at least 2 inverted lists")
+            self.soar_lambda = lam
         eta = params.get_float("anisotropic_eta")
         if eta is not None:
             # Score-aware residual quantization (PQ storage only); the
@@ -418,6 +494,12 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
                              sq_scale=self._sq_scale)
             return state
         state = {"xb": self._xb, "ids": self._ids, "assign": self._assign}
+        if self.soar_lambda > 0.0:
+            # Search must keep fetching 2k and dropping duplicates.
+            state["soar_lambda"] = np.float32(self.soar_lambda)
+            if self._srcrow is not None:
+                state["soar_srcrow"] = self._srcrow
+                state["soar_rows"] = self._logical_rows
         if self.aniso_eta > 1.0:
             state["aniso_eta"] = np.float32(self.aniso_eta)
         if self.rq_beam is not None:
@@ -436,7 +518,8 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
         return state
 
     def load_state(self, state: dict) -> None:
-        known = {"xb", "ids", "assign", "centroids"}
+        known = {"xb", "ids", "assign", "centroids", "soar_lambda",
+                 "soar_srcrow", "soar_rows"}
         if self.sq_type is not None:
             known |= {"codes", "sq_vmin", "sq_scale"}
         if self.pq_m is not None:
@@ -444,6 +527,13 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
         unported = sorted(set(state) - known)
         if unported:
             raise errors.not_available(f"IVF state {unported[0]}")
+        if state.get("soar_lambda") is not None:
+            self.soar_lambda = float(state["soar_lambda"])
+        if state.get("soar_srcrow") is not None:
+            self._srcrow = np.asarray(state["soar_srcrow"],
+                                      np.int64).reshape(-1)
+            self._logical_rows = np.asarray(state["soar_rows"],
+                                            np.int64).reshape(-1)
         self._xb = np.asarray(state["xb"], np.float32).reshape(-1, self.d)
         self._ids = np.asarray(state["ids"], np.int64).reshape(-1)
         self._assign = np.asarray(state["assign"], np.int32).reshape(-1)

@@ -149,6 +149,9 @@ class IVFDevice:
     #: gives it back to the card (a class attribute, so a test can set it
     #: small)
     SPILL_SLACK_BYTES = 256 << 20
+    #: IMIIndex sets this False: its coarse assignment is factored, not one
+    #: top-k over the centroid table
+    _supports_device_ingest = True
 
     def _device_ingest_codec(self) -> str | None:
         """The storage codec (None for Flat), or raise with the JAX
@@ -164,6 +167,14 @@ class IVFDevice:
         if self.metric.name not in ("L2", "INNER_PRODUCT"):
             raise errors.InvalidInputError(
                 "device-resident ingest supports only L2 and INNER_PRODUCT")
+        if self.soar_lambda > 0.0:
+            raise errors.InvalidInputError(
+                "device-resident ingest is incompatible with SOAR "
+                "(duplicated storage rows)")
+        if not self._supports_device_ingest:
+            raise errors.InvalidInputError(
+                f"{type(self).__name__} does not support device-resident "
+                f"ingest")
         return self.sq_type
 
     def _device_rows(self, x, what: str) -> torch.Tensor:
@@ -238,7 +249,7 @@ class IVFDevice:
             self._scatter_chunk(x[i:i + _CHUNK], codec, keep[i:i + _CHUNK],
                                 flat[i:i + _CHUNK], spill_at[i:i + _CHUNK])
 
-        row_base = self.ntotal
+        row_base = self._nstored
         kidx = np.nonzero(keep)[0]
         dr.row_pos[assign[kidx], slot[kidx]] = (row_base + kidx).astype(
             np.int32)
@@ -257,7 +268,7 @@ class IVFDevice:
 
     def _new_device_state(self, codec, expected_total, lmax,
                           spill_capacity) -> DeviceResidentState:
-        if self.ntotal:
+        if self._nstored:
             raise errors.InvalidInputError(
                 "device-resident ingest cannot be mixed with host-path adds "
                 "on the same index")
@@ -386,7 +397,7 @@ class IVFDevice:
         the card and fetched once (O(corpus bytes): for checkpoints)."""
         dr = self._dr
         w = dr.payload.shape[2]
-        out = dr.payload.new_empty((self.ntotal, w))
+        out = dr.payload.new_empty((self._nstored, w))
         kept = dr.slot >= 0
         if kept.any():
             rows = torch.from_numpy(np.nonzero(kept)[0]).to(self.device)

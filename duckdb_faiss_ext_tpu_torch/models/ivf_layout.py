@@ -162,7 +162,7 @@ class IVFLayout:
         width = (self._codes.shape[1] if self._codes is not None
                  else self.d * 4)
         counts = self._counts()
-        full = choose_lmax(int(counts.max()) if self.ntotal else 1)
+        full = choose_lmax(int(counts.max()) if self._nstored else 1)
         budget = self.LAYOUT_BUDGET_BYTES
         if self.nlist * full * width <= budget:
             plan = ("full", None)
@@ -174,7 +174,7 @@ class IVFLayout:
             nspill = int(np.maximum(counts - lmax, 0).sum())
             plan = (("spill", lmax)
                     if budget_lmax >= 128
-                    and nspill <= self.SPILL_FRACTION_MAX * self.ntotal
+                    and nspill <= self.SPILL_FRACTION_MAX * self._nstored
                     else None)
         self._plan_cache = (plan,)
         return plan
@@ -186,7 +186,7 @@ class IVFLayout:
         keep their first cap members; the overflow rows come back in
         ``spill`` = (payload (s, w), assign (s,), pos (s,) storage rows),
         else spill is None."""
-        n = self.ntotal
+        n = self._nstored
         counts = self._counts()
         if lmax_cap is None and n and \
                 counts.max() > max(32 * n / self.nlist, 4096):
@@ -283,7 +283,7 @@ class IVFLayout:
         """The sorted+gather layout on the device."""
         if self._sorted is not None:
             return self._sorted
-        n = self.ntotal
+        n = self._nstored
         order = np.argsort(self._assign, kind="stable").astype(np.int64)
         counts = self._counts()
         # Scan window: the longest list, pow2-bucketed.  Padding rows past

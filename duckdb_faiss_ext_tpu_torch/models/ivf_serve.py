@@ -43,7 +43,21 @@ against the relay's dispatch gaps (its results are identical to the staged
 path's); its spill gates ``spill_chunk_ok`` (a Mosaic block rule) and
 ``spill_pallas_min`` (a crossover measured on the TPU) are not ported.
 
-Not ported here: range search, the sharded placement, SOAR.
+With SOAR (``soar_lambda`` > 0) every row is stored twice, so
+``search_dispatch`` fetches 2k candidates and a host post-process drops
+same-source duplicates (``models.base.dedup_by_key`` keyed on the source
+row, so genuinely repeated user labels stay) before padding back to k.
+
+``range_search`` scans the probed lists of the sorted+gather layout on the
+device (ops/range.py::ivf_range_scan; faiss::IndexIVF::range_search's
+contract, exact within the probed lists), decoding SQ / PQ / RQ codes
+window by window.  The JAX package decoded the whole sorted corpus on
+every call (12.9 GB at 2M x 1536); the port decodes only the probed
+lists, with the same result.  SOAR's duplicates are dropped per (query,
+label), keeping the best.  A device-resident index has no sorted layout
+and refuses range search with the JAX package's text.
+
+Not ported here: the sharded placement.
 """
 
 from __future__ import annotations
@@ -51,7 +65,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.flat_search import finalize_scores
+from .. import errors
+from ..ops.flat_search import SIMILARITY_METRICS, finalize_scores
 from ..ops.ivf_list_scan import ivf_list_search
 from ..ops.ivf_pairs import ivf_pairs_search
 from ..ops.ivf_pq_scan import MAX_K as PQ_MAX_K
@@ -66,7 +81,7 @@ from ..ops.sq_spill import CODECS as SPILL_KERNEL_CODECS
 from ..ops.sq_spill import sq_spill_search
 from ..params import EMPTY
 from ..utils.config import config, next_pow2, pad_rows, sq_int8_active
-from .base import SearchResult, as_matrix
+from .base import SearchResult, as_matrix, dedup_by_key
 
 
 def _labels_through(table: np.ndarray):
@@ -136,10 +151,40 @@ class IVFServe:
         return (self._layout_plan() is not None
                 and (self.pq_m is None or k <= PQ_MAX_K))
 
+    def _mapper(self, order=None):
+        """Positions → labels through the ids (storage order, or the sorted
+        layout's ``order``); with SOAR it carries ``src_of``, positions →
+        logical source rows, the duplicates' key."""
+        to_labels = _labels_through(
+            self._ids if order is None else self._sorted_ids(order))
+        if self._srcrow is not None:
+            to_labels.src_of = _labels_through(
+                self._srcrow if order is None else self._srcrow[order])
+        return to_labels
+
     def search_dispatch(self, xq, k, params=EMPTY, selector=None):
         """Device dispatch without the host fetch: (dist, pos, nq, k_eff,
-        positions→labels) or None when no device work applies (empty
-        queries, k ≤ 0, empty index)."""
+        positions→labels[, post]) or None when no device work applies
+        (empty queries, k ≤ 0, empty index).  With SOAR: 2k candidates and
+        the duplicate-dropping ``post``."""
+        k = int(k)
+        if self.soar_lambda <= 0.0 or k <= 0:
+            return self._dispatch_inner(xq, k, params, selector)
+        disp = self._dispatch_inner(xq, 2 * k, params, selector)
+        if disp is None:
+            return None
+        dist, pos, nq, _, to_labels = disp
+        sentinel = (float("-inf") if self.metric.name in SIMILARITY_METRICS
+                    else float("inf"))
+        src_of = getattr(to_labels, "src_of", None)
+
+        def post(d, labels, pos_host):
+            keys = src_of(pos_host) if src_of is not None else labels
+            return dedup_by_key(d, labels, keys, k, sentinel)
+
+        return dist, pos, nq, k, to_labels, post
+
+    def _dispatch_inner(self, xq, k, params=EMPTY, selector=None):
         self._require_trained()
         xq = as_matrix(xq, self.d)
         nq = xq.shape[0]
@@ -174,7 +219,7 @@ class IVFServe:
             scores, pos = (parts[0] if len(parts) == 1 else
                            (torch.cat(t) for t in zip(*parts)))
             dist, pos = finalize_scores(scores, pos, metric)
-            return dist, pos, nq, k_eff, _labels_through(self._ids)
+            return dist, pos, nq, k_eff, self._mapper()
 
         self._last_scan_path = "gather"
         sl = self._build_device()
@@ -211,8 +256,56 @@ class IVFServe:
                 self.metric_arg, k=k_eff, nprobe=nprobe_eff, metric=metric,
                 q_chunk=q_chunk, lmax=sl.lmax)
         dist, pos = finalize_scores(scores, pos, metric)
-        return dist, pos, nq, k_eff, _labels_through(
-            self._sorted_ids(sl.order))
+        return dist, pos, nq, k_eff, self._mapper(sl.order)
+
+    def range_search(self, xq, radius, params=EMPTY, selector=None):
+        """All rows within ``radius`` in the probed lists (nprobe as in
+        search), as a CSR ``RangeSearchResult`` of labels."""
+        from ..ops.pq import codec_decode
+        from ..ops.range import (dedup_range_labels, empty_range_result,
+                                 ivf_range_scan)
+        from ..ops.sq import sq_decode
+
+        self._require_trained()
+        xq = as_matrix(xq, self.d)
+        nq = xq.shape[0]
+        if nq == 0 or self.ntotal == 0:
+            return empty_range_result(nq)
+        if self._dr is not None:
+            # The JAX package's text (its sorted layout refuses such an
+            # index the same way).
+            raise errors.InvalidInputError(
+                "this device-resident index serves only through the "
+                "list-scan kernel (range search and nprobe beyond the "
+                "SMEM probe budget need a host-path index)")
+        nprobe = params.get_int("nprobe", self.nprobe_default)
+        nprobe_eff = max(1, min(int(nprobe), self.nlist))
+        metric = self.metric.name
+        sl = self._build_device()
+        offs, cnts = self._sorted_list_meta()
+        xq_dev = torch.from_numpy(xq).to(self.device)
+        probe_ids = coarse_topk(xq_dev, sl.centroids, nprobe_eff, metric,
+                                self.metric_arg)
+        labels_sorted = self._sorted_ids(sl.order)
+        decode = centroids = None
+        if self.pq_m is not None:
+            def decode(c):
+                return codec_decode(c, sl.codebooks, self.pq_codec)
+            centroids = sl.centroids
+        elif self.sq_type is not None:
+            vmin, scale = self._sq_ranges()
+
+            def decode(c):
+                return sq_decode(c, vmin, scale, self.sq_type)
+        res = ivf_range_scan(
+            sl.xb, offs, cnts, probe_ids, xq_dev, nq, float(radius), metric,
+            self.metric_arg, lmax=sl.lmax, labels_sorted=labels_sorted,
+            passing=(selector.contains(labels_sorted)
+                     if selector is not None else None),
+            decode=decode, centroids=centroids)
+        if self.soar_lambda > 0.0:
+            res = dedup_range_labels(res, metric in SIMILARITY_METRICS)
+        return res
 
     def _scan_lists(self, lay, xq, nprobe, k_kernel, k_eff, mask, sp_mask):
         """One query block through the padded layout: coarse top-nprobe,

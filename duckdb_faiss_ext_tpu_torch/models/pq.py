@@ -14,7 +14,9 @@ go to the device once per mutation (codes padded to a capacity bucket), and
 a search is ``ops/pq.pq_search`` over them (plain torch: the JAX package
 ran it as XLA, with no Pallas kernel).
 
-Not ported here: ``shard_over`` (faiss_to_gpu placement) and range search.
+``range_search`` thresholds dense tiles of decoded code chunks on the
+device (ops/range.py).  Not ported here: ``shard_over`` (faiss_to_gpu
+placement).
 """
 
 from __future__ import annotations
@@ -193,6 +195,18 @@ class PQIndex(Index):
                                 codec=self.codec)
         dist, pos = finalize_scores(scores, pos, self.metric.name)
         return dist, pos, nq, k_eff
+
+    def range_search(self, xq, radius, params=None, selector=None):
+        """Dense tiles of decoded code chunks, thresholded on the device
+        (ops/range.py); RQIndex inherits it with its additive decoder."""
+        from ..ops.range import dense_range_search
+
+        if not self.is_trained:
+            raise not_trained()
+        codes_dev, cb_dev = self._device_state()
+        return dense_range_search(
+            self, xq, radius, selector, codes_dev,
+            lambda c: codec_decode(c, cb_dev, self.codec))
 
     # --- serialization -------------------------------------------------------
     def state_dict(self) -> dict:

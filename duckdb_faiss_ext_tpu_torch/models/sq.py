@@ -19,8 +19,9 @@ path is active (``utils.config.sq_int8_active``: fast mode, or
 the best ``k_scan`` rows in fp32 (``ops/sq.sq_int8_search``).  Both are
 plain torch: the JAX package ran them as XLA, with no Pallas kernel.
 
-Not ported here: ``range_search`` (raises "not yet available") and
-``shard_over`` (faiss_to_gpu placement).
+``range_search`` decodes chunks of the codes into dense tiles thresholded
+on the device (ops/range.py).  Not ported here: ``shard_over``
+(faiss_to_gpu placement).
 """
 
 from __future__ import annotations
@@ -117,7 +118,16 @@ class SQIndex(Index):
                          scale, self.codec)[0].numpy()
 
     def range_search(self, xq, radius, params=None, selector=None):
-        raise errors.not_available("range search")
+        """Dense tiles of decoded code chunks, thresholded on the device
+        (ops/range.py)."""
+        from ..ops.range import dense_range_search
+
+        if not self.is_trained:
+            raise not_trained()
+        codes, vmin, scale = self._device_state()
+        return dense_range_search(
+            self, xq, radius, selector, codes,
+            lambda c: sq_decode(c, vmin, scale, self.codec))
 
     # --- device state ---------------------------------------------------------
     def _invalidate(self) -> None:

@@ -146,3 +146,28 @@ def flat_search(xb_pad: torch.Tensor, nvalid: int, xq_pad: torch.Tensor,
         raise ValueError(f"k={k} exceeds padded capacity {cap}; caller must clamp")
     return finalize_scores(*search_scan(xb_pad, nvalid, xq_pad, k, metric,
                                         metric_arg, mask), metric)
+
+
+def pm1_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact (m, n) int32 dots of int8 rows a (m, d) and b (n, d): on the
+    card ``torch._int_mm`` (which takes m > 16 and d, n multiples of 8, so
+    both sides are zero-padded to that), on the CPU an int32 matmul."""
+    if a.device.type != "cuda":
+        return a.to(torch.int32) @ b.to(torch.int32).T
+    m, n, d = a.shape[0], b.shape[0], a.shape[1]
+    dp = -(-d // 8) * 8
+    a = torch.nn.functional.pad(a, (0, dp - d, 0, max(32, -(-m // 8) * 8) - m))
+    b = torch.nn.functional.pad(b, (0, dp - d, 0, -(-n // 8) * 8 - n))
+    return torch._int_mm(a, b.T)[:m, :n]
+
+
+def pm1_search(xb_i8, nvalid: int, xq_i8, k: int, mask=None):
+    """Inner-product top-k of ±1 int8 sign-code queries over ±1 int8 rows
+    (LSH's code corpus): exact int32 dots, the plain blocked scan's top-k
+    (equal dots rank by ascending position).  Returns max-oriented
+    (scores, positions) as ``search_scan`` does."""
+    def tile(q0, q1, c0, c1):
+        return pm1_dots(xq_i8[q0:q1], xb_i8[c0:c1]).to(torch.float32)
+
+    return search_scan(xb_i8, nvalid, xq_i8, k, "INNER_PRODUCT", mask=mask,
+                       tile=tile)

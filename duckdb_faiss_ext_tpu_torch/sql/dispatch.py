@@ -27,10 +27,13 @@ Search results come back as a pandas-free list of row dicts with the
 reference's result schema: rank INT, label BIGINT, distance FLOAT
 (src/faiss_extension.cpp:640-662), flattened when UNNEST is used.
 
-A copy of ``duckdb_faiss_ext_tpu/sql/dispatch.py``.  Two routes of the JAX
-package wait for parts of the port: ``faiss_to_gpu`` / ``faiss_to_device``
-(device placement) and ``faiss_range_search`` raise "… is not yet
-available in duckdb_faiss_ext_tpu_torch".
+``SELECT faiss_range_search('name', radius, emb[, params]) FROM q`` returns
+one row per (query, label, distance).
+
+A copy of ``duckdb_faiss_ext_tpu/sql/dispatch.py``.  One route of the JAX
+package waits for a part of the port: ``faiss_to_gpu`` / ``faiss_to_device``
+(device placement) raise "… is not yet available in
+duckdb_faiss_ext_tpu_torch".
 """
 
 from __future__ import annotations
@@ -242,7 +245,25 @@ class Connection:
         tab = self.database._table(table)
         name = _parse_literal(toks[0])
         if fn == "faiss_range_search":
-            raise not_available(fn)
+            # Engine extension (no reference SQL equivalent): one row per
+            # (query, match) pair: query index, label, distance.
+            radius = float(_parse_literal(toks[1]))
+            qcol = toks[2].strip()
+            if qcol not in tab:
+                raise InvalidInputError(
+                    f"unknown column {qcol} in table {table}")
+            queries = np.asarray(tab[qcol], dtype=np.float32)
+            params = _parse_literal(toks[3]) if len(toks) > 3 else None
+            rs = api.faiss_range_search(name, radius, queries, params,
+                                        catalog=self.catalog)
+            out = []
+            lims = rs["lims"]
+            for qi in range(len(lims) - 1):
+                for j in range(lims[qi], lims[qi + 1]):
+                    out.append({"query": qi,
+                                "label": int(rs["label"][j]),
+                                "distance": float(rs["distance"][j])})
+            return out
         k = int(_parse_literal(toks[1]))
         qcol = toks[2].strip()
         literal_rows = None

@@ -441,12 +441,12 @@ def test_too_few_training_points_message(catalog, pcat, factory):
 
 
 @pytest.mark.parametrize("factory,what", [
-    ("IVF4,PQ4,RFlat", "RFlat"),
-    ("IMI2x2,PQ4", "IMI"),
+    ("NSG16,PQ4", "NSG"),
+    ("IVF4_PQ2,PQ4", "IVF quantizer PQ2"),
     ("HNSW8,PQ4", "HNSW"),
     ("IVF4_HNSW8,PQ4", "IVF quantizer HNSW8"),
     ("IVF4(IVF2,Flat),PQ4", "parenthesized IVF quantizer"),
-    ("OPQ4,IVF4,PQ4", "transform OPQ4")])
+    ("OPQ4,IVF4_HNSW8,PQ4", "IVF quantizer HNSW8")])
 def test_forms_that_still_wait_are_refused(pcat, factory, what):
     with pytest.raises(dt.InvalidInputError,
                        match=f"{what} is not yet available in "

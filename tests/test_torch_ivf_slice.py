@@ -423,8 +423,8 @@ def test_quantiser_params_accepted(pcat):
     ("IVF4_HNSW8,Flat", "IVF quantizer HNSW8"),
     ("IVF4(IVF2,Flat),Flat", "parenthesized IVF quantizer"),
     ("IVF4_HNSW8,SQfp16", "IVF quantizer HNSW8"),
-    ("IVF4,PQ4,RFlat", "RFlat"),
-    ("IMI2x2,Flat", "IMI")])
+    ("IVF4_PQ2,Flat", "IVF quantizer PQ2"),
+    ("NSG16", "NSG")])
 def test_unported_ivf_forms_refused(pcat, factory, what):
     with pytest.raises(dt.InvalidInputError,
                        match=f"{what} is not yet available in "
@@ -436,25 +436,22 @@ def test_unported_ivf_forms_refused(pcat, factory, what):
 @pytest.mark.parametrize("key", ["soar_lambda", "anisotropic_eta", "beam",
                                  "assign_topk"])
 def test_unported_create_params_refused(catalog, pcat, key):
-    """soar_lambda is not yet available; anisotropic_eta and beam are
-    ported and refused on Flat storage with the JAX package's own messages;
-    assign_topk (capped device-ingest assignment) is ported and accepted
-    and stored, as in the JAX package."""
-    if key == "assign_topk":
+    """anisotropic_eta and beam are ported and refused on Flat storage with
+    the JAX package's own messages; assign_topk (capped device-ingest
+    assignment) and soar_lambda (SOAR) are ported and accepted and stored,
+    as in the JAX package."""
+    if key in ("assign_topk", "soar_lambda"):
         dfx.faiss_create_params("e", 8, "IVF4,Flat", {key: "4"},
                                 catalog=catalog)
         dt.faiss_create_params("e", 8, "IVF4,Flat", {key: "4"}, catalog=pcat)
-        assert (pcat.get("e").index.assign_topk
-                == catalog.get("e").index.assign_topk == 4)
+        assert (getattr(pcat.get("e").index, key)
+                == getattr(catalog.get("e").index, key) == 4)
         return
-    if key in ("anisotropic_eta", "beam"):
-        with pytest.raises(dfx.InvalidInputError) as want:
-            dfx.faiss_create_params("e", 8, "IVF4,Flat", {key: "1"},
-                                    catalog=catalog)
-        assert "applies to" in str(want.value)
-        match = f"^{re.escape(str(want.value))}$"
-    else:
-        match = "not yet available"
+    with pytest.raises(dfx.InvalidInputError) as want:
+        dfx.faiss_create_params("e", 8, "IVF4,Flat", {key: "1"},
+                                catalog=catalog)
+    assert "applies to" in str(want.value)
+    match = f"^{re.escape(str(want.value))}$"
     with pytest.raises(dt.InvalidInputError, match=match):
         dt.faiss_create_params("e", 8, "IVF4,Flat", {key: "1"}, catalog=pcat)
     assert pcat.names() == []

@@ -489,12 +489,14 @@ def test_reconstruct_decodes(pcat):
 @pytest.mark.parametrize("factory,what", [
     ("IVF4_HNSW8,SQbf16", "IVF quantizer HNSW8"),
     ("HNSW16,SQ8", "HNSW"),
-    ("PCA8,SQ8", "transform PCA8"),
-    ("IDMap,SQ4,RFlat", "RFlat")])
+    ("PCA8,IVF4_HNSW8,SQ8", "IVF quantizer HNSW8"),
+    ("IDMap,NSG16,SQ4,RFlat", "NSG")])
 def test_unported_sq_forms_refused(pcat, factory, what):
-    """SQ storage under a family, quantizer, transform or suffix the port
-    does not have yet (standalone SQ and the float codecs are built:
-    tests/test_torch_sq_standalone.py)."""
+    """SQ storage under a family or coarse quantizer the port does not
+    have yet, also behind a transform or the RFlat suffix (standalone SQ,
+    the float codecs, transforms and RFlat are built:
+    tests/test_torch_sq_standalone.py, tests/test_torch_transforms.py,
+    tests/test_torch_refine_lsh.py)."""
     with pytest.raises(dt.InvalidInputError,
                        match=f"{what} is not yet available in "
                              f"duckdb_faiss_ext_tpu_torch"):

@@ -387,13 +387,30 @@ def test_property_factories_build_and_roundtrip(pcat, tmp_path, desc):
     np.testing.assert_array_equal(a["distance"], b["distance"])
 
 
-def test_range_search_not_yet_available(pcat):
-    dt.faiss_create("r", D, "SQ8", catalog=pcat)
-    dt.faiss_add(_clustered(21, 100), "r", catalog=pcat)
-    with pytest.raises(dt.InvalidInputError,
-                       match="range search is not yet available in "
-                             "duckdb_faiss_ext_tpu_torch"):
-        _inner(pcat, "r").range_search(_clustered(22, 2), 1.0)
+def test_range_search_not_yet_available(catalog, pcat):
+    """Range search on SQ8 (no longer refused): the same CSR as the JAX
+    package's on the same codes, rows away from the radius compared, and
+    each query finds itself."""
+    xb = _clustered(21, 100)
+    dfx.faiss_create("r", D, "SQ8", metric_type="L2", catalog=catalog)
+    dfx.faiss_add(xb, "r", catalog=catalog)
+    pcat.put("r", from_reference(catalog.get("r")))
+    xq = xb[:3]
+    # Between query 0's 10th and 11th distance: no row sits on it.
+    radius = float(dfx.faiss_search("r", 11, xq[:1], catalog=catalog)
+                   ["distance"][0, 9:].mean())
+    want = dfx.faiss_range_search("r", radius, xq, catalog=catalog)
+    got = dt.faiss_range_search("r", radius, xq, catalog=pcat)
+    np.testing.assert_array_equal(got["lims"], want["lims"])
+    for q in range(3):
+        seg = slice(want["lims"][q], want["lims"][q + 1])
+        order = np.argsort(want["label"][seg])
+        np.testing.assert_array_equal(np.sort(got["label"][seg]),
+                                      want["label"][seg][order])
+        assert q in got["label"][seg]
+    np.testing.assert_allclose(np.sort(got["distance"]),
+                               np.sort(want["distance"]), rtol=1e-5,
+                               atol=1e-5 * radius)
 
 
 def test_int8_dots_are_exact():

@@ -8,8 +8,9 @@
   (HNSW waits for Queue 1 item 8), and an IVF searched at nprobe = nlist is
   exhaustive, so its rows do not depend on the packages' centroids;
 * the routes that wait for later parts of the port (``faiss_to_gpu`` /
-  ``faiss_to_device`` / ``faiss_move_gpu``, ``faiss_range_search``) raise
-  "… is not yet available in duckdb_faiss_ext_tpu_torch";
+  ``faiss_to_device`` / ``faiss_move_gpu``) raise "… is not yet available
+  in duckdb_faiss_ext_tpu_torch" (``faiss_range_search`` answers:
+  tests/test_torch_range_search.py);
 * ``python -m duckdb_faiss_ext_tpu_torch`` driven through stdin
   reproduces the reference's golden distances, and without ``--cpu`` on a
   machine with no card reports the device error and keeps running;
@@ -210,8 +211,7 @@ def test_errors_match_jax(sql, match):
     ("CALL faiss_to_gpu('f')", "faiss_to_gpu"),
     ("CALL faiss_to_device('f', 0)", "faiss_to_device"),
     ("CALL faiss_move_gpu('f')", "faiss_move_gpu"),
-    ("SELECT faiss_range_search('f', 4.0, data) FROM queries",
-     "faiss_range_search"),
+    ("CALL faiss_to_device('f')", "faiss_to_device"),
 ])
 def test_unported_routes_not_yet_available(sql, what):
     (_, con), _ = _connections()
@@ -242,7 +242,8 @@ def test_shell_through_stdin():
         "CALL faiss_create('g', 8, 'IDMap,Flat')",
         "CALL faiss_add((SELECT id, data FROM training), 'g')",
         "SELECT UNNEST(faiss_search('g', 2, data)) FROM queries",
-        "SELECT faiss_range_search('g', 1.0, data) FROM queries",
+        "SELECT faiss_range_search('g', 4.5, data) FROM queries",
+        "CALL faiss_to_gpu('g')",
         ".tables", ".indexes", ".stats", ".nonsense", ".quit"]) + "\n",
         "--cpu")
     assert out.returncode == 0, out.stderr
@@ -255,7 +256,23 @@ def test_shell_through_stdin():
                                GOLDEN_DISTANCES, rtol=2e-6)
     text = out.stdout
     assert "registered table training: 1000 rows, vector dim 8" in text
-    assert ("Invalid Input Error: faiss_range_search is not yet available "
+    # The range route prints one row per (query, label, distance): those of
+    # the API on the same corpus.
+    ranged = [eval(ln.removeprefix("D ")) for ln in lines
+              if "'query'" in ln]
+    raw = np.loadtxt(f"{DATA}/training.csv", delimiter=",")
+    qs = np.loadtxt(f"{DATA}/queries.csv", delimiter=",")[:, 1:]
+    pcat = dt.Catalog()
+    dt.faiss_create("g", 8, "IDMap,Flat", catalog=pcat)
+    dt.faiss_add((raw[:, 0].astype(np.int64), raw[:, 1:].astype(np.float32)),
+                 "g", catalog=pcat)
+    want = dt.faiss_range_search("g", 4.5, qs.astype(np.float32),
+                                 catalog=pcat)
+    assert 0 < len(ranged) == want["lims"][-1]
+    assert [(r["query"], r["label"]) for r in ranged] == [
+        (q, int(lab)) for q in range(10)
+        for lab in want["label"][want["lims"][q]:want["lims"][q + 1]]]
+    assert ("Invalid Input Error: faiss_to_gpu is not yet available "
             "in duckdb_faiss_ext_tpu_torch") in text
     assert "['queries', 'training']" in text and "['g']" in text
     assert '"faiss_search"' in text and "unknown command .nonsense" in text

@@ -246,7 +246,33 @@ Phases (any failure raises and the script exits non-zero):
    phase 22's SOAR index; each CSR held per query against a plain dense
    scan on the card (rows within the tolerance of the radius left out),
    the result count and wall time printed; one statement through
-   sql.dispatch.
+   sql.dispatch;
+25. graph (after phase 24, on phase 5's corpus and exact labels): the
+   reference's benchmark config IDMap,HNSW128,Flat L2 (efConstruction
+   128, BASELINE.md:14) through faiss_create_params → faiss_add with ids
+   → the first faiss_search, which builds the graph (degree 128 from an
+   intermediate 192, the exact k-NN scan on K1: its launches counted,
+   build seconds and adjacency bytes printed); walks at efSearch 16 / 64 /
+   128, b48 and b1024 (no K1 launch; every distance the fp32 distance of
+   its row, no label twice; recall@10 against phase 5's exact labels, at
+   least 0.90 at efSearch 64; pool, width, iterations, wall and device
+   time an iteration printed); faiss_search_batched 16 x b48 bit-equal
+   to the sequential calls; faiss_search_filter('id%2==0') all even;
+   {"exact": "true"} one K1 launch with phase 5's labels; 10,000 rows
+   added, then a search merges them through one K1 launch without a
+   rebuild; a faiss_save / faiss_load round trip with equal results and
+   no rebuild.  Then the same graph code (HNSW32's degree) over the first
+   65,536 rows on the card and on the CPU: the k-NN graphs equal where
+   the neighbouring distances are apart, augment_graph byte-equal, and
+   the walk over the card's adjacency equal on both.  Then
+   IVF2048_HNSW128,Flat L2 (the reference's other benchmark config:
+   nprobe 15, quantiser.efSearch 64) trained on the first 262,144 rows:
+   K6 / K7 launch counts as the static rule predicts, results held
+   against the plain path one wider, recall@10.  Then NSG32 inner product
+   over phase 8's 262,144 x 1536 corpus (search_L 64; its build on K1)
+   and HNSW32 with accel=ivf on it (an internal IVF512, K6 launched), at
+   b48 and b1024, recall@10 against K1's exact labels, walls, device
+   time an iteration, build seconds and card peaks printed.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -4307,6 +4333,432 @@ def phase_range(smi, data, ivf, pq, soar_cat):
         f"the API")
 
 
+#: phase 25: the reference's own benchmark index configs (BASELINE.md:14,
+#: from Makefile:93 and go/benches_c.go:128-187): efConstruction 128,
+#: efSearch 64, nprobe 15, k 10
+HNSW_FACTORY, HNSW_EFC, HNSW_EFS = "IDMap,HNSW128,Flat", 128, 64
+HNSW_EF_SWEEP, HNSW_RECALL_MIN = (16, 64, 128), 0.90
+#: rows added after the build (a tail merged through K1, below the 20%
+#: that rebuilds), and the rows of the card-against-CPU build (HNSW32)
+HNSW_TAIL, HNSW_CPU_N, HNSW_CPU_M = 10_000, 65_536, 32
+IVFH_FACTORY, IVFH_NPROBE = "IVF2048_HNSW128,Flat", 15
+IVFH_PARAMS = {"nprobe": str(IVFH_NPROBE), "quantiser.efSearch": "64"}
+#: the graph at the ada-002 width over phase 8's corpus
+NSG_FACTORY, NSG_SEARCH_L = "NSG32", 64
+
+
+def graph_result_check(tag, res, rows, xq, metric):
+    """Every returned distance equals the fp32 distance of its row (taken
+    in difference form for L2) within REL_TOL of the larger of the query's
+    largest |distance| and |q|^2; no label twice in a query.  ``rows``
+    maps labels to (nq, k, d) rows on the card."""
+    labels = res["label"]
+    check(np.isfinite(res["distance"]).all() and (labels >= 0).all(),
+          f"{tag}: missing results")
+    for row in labels:
+        check(len(set(row.tolist())) == len(row),
+              f"{tag}: a label repeats within a query")
+    q = torch.from_numpy(xq).to(DEVICE)
+    r = rows(labels)
+    if metric == "L2":
+        ref = ((r - q[:, None, :]) ** 2).sum(-1)
+    else:
+        ref = (r * q[:, None, :]).sum(-1)
+    ref = ref.cpu().numpy()
+    tol = REL_TOL * np.maximum(np.abs(ref).max(1),
+                               (xq.astype(np.float64) ** 2).sum(1))
+    err = np.abs(res["distance"] - ref)
+    check((err <= tol[:, None]).all(), f"{tag}: distance error "
+          f"{err.max()} above tolerance")
+    return float(err.max())
+
+
+def walk_shape(index, params, k=K):
+    """(pool, width, iterations) of the index's walk under ``params``."""
+    from duckdb_faiss_ext_tpu_torch.ops.graph import default_iters
+    from duckdb_faiss_ext_tpu_torch.params import ParamMap
+
+    p = ParamMap(params)
+    index._latch(p)
+    pool, width, iters = index._walk_knobs(k, p, None)
+    pool = max(pool, k)
+    return pool, width, iters or default_iters(pool, width,
+                                               index._graph_degree())
+
+
+def device_total_ms(fn, reps=3):
+    """Summed device time of every kernel of ``fn`` a call
+    (torch.profiler, after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / (
+        1e3 * reps)
+
+
+def graph_build_seconds():
+    from duckdb_faiss_ext_tpu_torch.utils.profiling import stats
+
+    return stats().get("hnsw_graph_build", {}).get("total_s", 0.0)
+
+
+def phase_graph(smi, data, exact):
+    """Phase 25: IDMap,HNSW128,Flat over the 1M x 128 corpus (the graph
+    built at the first search, walks at three efSearch values, batched,
+    filtered, exact, a tail, save / load), the same graph code on the card
+    and on the CPU over 65,536 rows, IVF2048_HNSW128,Flat, and NSG32 and
+    HNSW32 accel=ivf at 262,144 x 1536.  Returns the K1 and K6 / K7
+    launches of the searches."""
+    import tempfile
+
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+    from duckdb_faiss_ext_tpu_torch.ops import graph as graph_ops
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import finalize_scores
+    from duckdb_faiss_ext_tpu_torch.utils.config import next_pow2, pad_rows
+
+    xb, ids = data["xb"], data["ids"]
+    queries = {b: data[b] for b in ("b48", "b1024")}
+    launches = {"k1": 0, "k6": 0, "k7": 0}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. IDMap,HNSW128,Flat: the graph is built by the first search.
+    cat = dt.Catalog()
+    dt.faiss_create_params("hnsw", D, HNSW_FACTORY,
+                           {"efConstruction": str(HNSW_EFC)},
+                           metric_type="L2", catalog=cat)
+    index = cat.get("hnsw").index.inner
+    t0 = time.perf_counter()
+    dt.faiss_add((ids, xb), "hnsw", catalog=cat)
+    t_add = time.perf_counter() - t0
+    ft.LAUNCHES = 0
+    built0 = graph_build_seconds()
+    params = {"efSearch": str(HNSW_EFS)}
+    t0 = time.perf_counter()
+    first = dt.faiss_search("hnsw", K, queries["b48"], params, catalog=cat)
+    t_first = time.perf_counter() - t0
+    t_build = graph_build_seconds() - built0
+    deg = index._graph_degree()
+    inter = min(max(2 * deg, index.ef_construction), N - 1, 192)
+    build_k1 = -(-N // graph_ops._KNN_BLOCK)
+    check(index._effective_mode() == "graph" and index._graph[1] == N,
+          "hnsw: no graph over the corpus")
+    check((deg, inter) == (128, 192), f"hnsw: degree {deg}, intermediate "
+          f"{inter}")
+    check(ft.LAUNCHES == build_k1, f"hnsw build: {ft.LAUNCHES} K1 "
+          f"launches, not {build_k1}")
+    launches["k1"] += ft.LAUNCHES
+    adj = index._graph[0]
+    log(f"hnsw {HNSW_FACTORY} {N}x{D} L2 efConstruction {HNSW_EFC}: add "
+        f"{t_add:.2f} s; graph built by the first faiss_search in "
+        f"{t_build:.2f} s (the call {t_first:.2f} s; {build_k1} K1 "
+        f"launches at k = {inter + 1}): degree {deg}, intermediate degree "
+        f"{inter}, adjacency {adj.nbytes / 2**20:.1f} MiB on the host and "
+        f"{index._graph_dev[1].numel() * 4 / 2**20:.1f} MiB on the card; "
+        f"card peak {peak_gib():.2f} GiB [{smi}]")
+
+    corpus = index.device_vectors()
+
+    def rows(labels):
+        return corpus[torch.from_numpy(labels).to(DEVICE)]
+
+    err, recs, parts = 0.0, {}, []
+    ft.LAUNCHES = 0
+    for ef in HNSW_EF_SWEEP:
+        p = {"efSearch": str(ef)}
+        for b, xq in queries.items():
+            res = dt.faiss_search("hnsw", K, xq, p, catalog=cat)
+            err = max(err, graph_result_check(f"hnsw ef{ef} {b}", res, rows,
+                                              xq, "L2"))
+            recs[(ef, b)] = recall(res["label"], exact[b])
+            if ef == HNSW_EFS:
+                check(recs[(ef, b)] >= HNSW_RECALL_MIN, f"hnsw ef{ef} {b}: "
+                      f"recall@10 {recs[(ef, b)]:.4f} below "
+                      f"{HNSW_RECALL_MIN}")
+            pool, width, iters = walk_shape(index, p)
+            wall = walls_ms(lambda: dt.faiss_search("hnsw", K, xq, p,
+                                                    catalog=cat), reps=3)
+            dev = device_total_ms(lambda: dt.faiss_search("hnsw", K, xq, p,
+                                                          catalog=cat))
+            parts.append(f"ef{ef} {b}: recall@10 {recs[(ef, b)]:.4f}, pool "
+                         f"{pool} width {width} {iters} iterations, "
+                         f"faiss_search wall {wall:.3f} ms, device "
+                         f"{dev:.3f} ms ({dev / iters:.3f} ms an iteration)")
+    check(ft.LAUNCHES == 0, f"hnsw walks launched K1 {ft.LAUNCHES} times")
+    check(np.array_equal(first["label"], dt.faiss_search(
+        "hnsw", K, queries["b48"], params, catalog=cat)["label"]),
+        "hnsw: the first search differs from a later one")
+    log(f"hnsw walks (max distance error {err:.3g}, no K1 launch): "
+        f"{'; '.join(parts)} [{smi}]")
+
+    xq_b = data["batched"]
+    bat = dt.faiss_search_batched("hnsw", K, xq_b, params, batch_size=BATCH,
+                                  catalog=cat)
+    seq = [dt.faiss_search("hnsw", K, xq_b[s:s + BATCH], params, catalog=cat)
+           for s in range(0, xq_b.shape[0], BATCH)]
+    for key in ("label", "distance"):
+        check(np.array_equal(bat[key], np.concatenate([s[key] for s in seq])),
+              f"hnsw batched: {key}s differ from the sequential calls")
+    db = dt.Database()
+    db.register("base", {"id": ids})
+    filt = dt.faiss_search_filter("hnsw", K, queries["b48"], "id%2==0", "id",
+                                  "base", params, catalog=cat, database=db)
+    check((filt["label"] % 2 == 0).all(), "hnsw filter: an odd label")
+    graph_result_check("hnsw filter", filt, rows, queries["b48"], "L2")
+    ft.LAUNCHES = 0
+    ex = dt.faiss_search("hnsw", K, queries["b48"], {"exact": "true"},
+                         catalog=cat)
+    check(ft.LAUNCHES == 1, f"hnsw exact: {ft.LAUNCHES} K1 launches")
+    check(np.array_equal(ex["label"], exact["b48"]),
+          "hnsw exact: labels differ from phase 5's")
+    launches["k1"] += 1
+    filt_exact = dt.faiss_search("hnsw", K, queries["b48"], {"exact": "true"},
+                                 catalog=cat,
+                                 selector=dt.SetSelector(ids[::2]))["label"]
+    log(f"hnsw: faiss_search_batched {xq_b.shape[0] // BATCH} x b{BATCH} "
+        f"equal to the sequential calls bit for bit; filter id%2==0 "
+        f"recall@10 against the filtered exact scan "
+        f"{recall(filt['label'], filt_exact):.4f}; exact: one K1 launch, "
+        f"phase 5's labels")
+
+    # A tail below the rebuild fraction: merged through K1, no rebuild.
+    rng = np.random.default_rng(43)
+    tail = (xb[rng.integers(0, N, HNSW_TAIL)]
+            + rng.standard_normal((HNSW_TAIL, D), dtype=np.float32) * 0.5)
+    tail_ids = np.arange(N, N + HNSW_TAIL, dtype=np.int64)
+    graph_before = index._graph
+    dt.faiss_add((tail_ids, tail), "hnsw", catalog=cat)
+    corpus = index.device_vectors()
+    ft.LAUNCHES = 0
+    built0 = graph_build_seconds()
+    tq = tail[:BATCH]
+    res_t = dt.faiss_search("hnsw", K, tq, params, catalog=cat)
+    check(ft.LAUNCHES == 1 and index._graph is graph_before
+          and graph_build_seconds() == built0,
+          f"hnsw tail: {ft.LAUNCHES} K1 launches, rebuilt "
+          f"{index._graph is not graph_before}")
+    check((res_t["label"][:, 0] == tail_ids[:BATCH]).all(),
+          "hnsw tail: a tail row does not find itself")
+    graph_result_check("hnsw tail", res_t, rows, tq, "L2")
+    launches["k1"] += 1
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hnsw.idx")
+        t0 = time.perf_counter()
+        dt.faiss_save("hnsw", path, catalog=cat)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dt.faiss_load("hnsw2", path, catalog=cat)
+        t_load = time.perf_counter() - t0
+    loaded = cat.get("hnsw2").index.inner
+    ft.LAUNCHES = 0
+    again = dt.faiss_search("hnsw2", K, tq, params, catalog=cat)
+    check(ft.LAUNCHES == 1 and graph_build_seconds() == built0
+          and loaded._graph[1] == N, "hnsw load: rebuilt or no tail merge")
+    launches["k1"] += 1
+    for key in ("label", "distance"):
+        check(np.array_equal(again[key], res_t[key]),
+              f"hnsw load: {key}s differ")
+    log(f"hnsw tail of {HNSW_TAIL} rows: b{BATCH} of tail rows merged "
+        f"through one K1 launch, no rebuild, each finds itself; save "
+        f"{t_save:.2f} s, load {t_load:.2f} s, equal results, no rebuild; "
+        f"card peak {peak_gib():.2f} GiB [{smi}]")
+    del cat, index, loaded, corpus
+    torch.cuda.empty_cache()
+
+    # 2. The same graph code on the card and on the CPU (HNSW32's degree).
+    n_small = HNSW_CPU_N
+    deg_s = min(128, max(16, 2 * HNSW_CPU_M))
+    inter_s = min(max(2 * deg_s, 40), n_small - 1, 192)
+    cpu_rows = torch.from_numpy(np.ascontiguousarray(xb[:n_small]))
+    card_rows = cpu_rows.to(DEVICE)
+    t0 = time.perf_counter()
+    knn_card = graph_ops.build_knn_graph(card_rows, n_small, inter_s, "L2")
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    knn_cpu = graph_ops.build_knn_graph(cpu_rows, n_small, inter_s, "L2")
+    t_cpu = time.perf_counter() - t0
+    kc, kp = knn_card.cpu().numpy(), knn_cpu.numpy()
+    d_nb = ((card_rows[knn_card.long()] - card_rows[:, None, :]) ** 2).sum(
+        -1).cpu().numpy()
+    beyond = graph_ops.build_knn_graph(card_rows, n_small, inter_s + 1,
+                                       "L2")[:, -1:].long()
+    d_next = ((card_rows[beyond] - card_rows[:, None, :]) ** 2).sum(
+        -1).cpu().numpy()
+    key = np.concatenate([d_nb, d_next], 1)
+    tol = REL_TOL * np.maximum(key.max(1), (xb[:n_small].astype(np.float64)
+                                            ** 2).sum(1))
+    gap = np.abs(np.diff(key, axis=1)) > 2 * tol[:, None]
+    sep = gap.copy()
+    sep[:, 1:] &= gap[:, :-1]
+    bad = np.argwhere(sep & (kc != kp))
+    check(not bad.size, f"card / CPU k-NN graphs differ at {bad[:5].tolist()}")
+    adj_card = graph_ops.augment_graph(knn_card, deg_s)
+    check(torch.equal(adj_card.cpu(), graph_ops.augment_graph(knn_card.cpu(),
+                                                              deg_s)),
+          "augment_graph differs between the card and the CPU")
+    same_rows = float((graph_ops.augment_graph(knn_cpu, deg_s).numpy()
+                       == adj_card.cpu().numpy()).all(1).mean())
+    cap_s = next_pow2(n_small)
+    pad = torch.full((cap_s - n_small, deg_s), -1, dtype=torch.int32)
+    g_card = torch.cat([adj_card, pad.to(DEVICE)])
+    xq48 = pad_rows(queries["b48"], 64)
+    width_s = max(4, 512 // deg_s)
+    walk = {}
+    for dev, rows_t, g in ((DEVICE, card_rows, g_card),
+                           ("cpu", cpu_rows, g_card.cpu())):
+        s, p = graph_ops.graph_search(
+            rows_t, g, torch.from_numpy(xq48).to(dev), n_small, K, "L2",
+            pool=next_pow2(HNSW_EFS), width=width_s)
+        walk[dev] = [t.cpu().numpy()[:BATCH]
+                     for t in finalize_scores(s, p, "L2")]
+    wd, wl = walk["cpu"]
+    check(np.abs(walk[DEVICE][0] - wd).max()
+          <= REL_TOL * max(np.abs(wd).max(),
+                           float((xq48 ** 2).sum(1).max())),
+          "card / CPU walks: distances differ")
+    wgap = np.abs(np.diff(wd, axis=1)) > 2 * REL_TOL * max(
+        np.abs(wd).max(), float((xq48 ** 2).sum(1).max()))
+    wsep = np.ones_like(wl, dtype=bool)
+    wsep[:, 1:] &= wgap
+    wsep[:, :-1] &= wgap
+    check(np.array_equal(walk[DEVICE][1][wsep], wl[wsep]),
+          "card / CPU walks: labels differ")
+    log(f"graph code card against CPU, {n_small}x{D} L2 degree {deg_s} "
+        f"(intermediate {inter_s}): k-NN graphs equal wherever the "
+        f"neighbouring distances are apart ({sep.mean():.4f} of the "
+        f"entries), augment_graph byte-equal on the same input, "
+        f"{same_rows:.4f} of the augmented rows equal from each side's own "
+        f"k-NN graph; k-NN build card {t_card:.2f} s, CPU {t_cpu:.2f} s; "
+        f"the walk at b{BATCH} pool {next_pow2(HNSW_EFS)} over the card's "
+        f"adjacency equal on both [{smi}]")
+    del cpu_rows, card_rows, knn_card, knn_cpu, adj_card, g_card, beyond
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 3. IVF2048_HNSW128,Flat: an HNSW coarse quantizer.
+    cat = dt.Catalog()
+    dt.faiss_create("ivfh", D, IVFH_FACTORY, metric_type="L2", catalog=cat)
+    t0 = time.perf_counter()
+    dt.faiss_manual_train(xb[:IVF_TRAIN], "ivfh", catalog=cat)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dt.faiss_add(xb, "ivfh", catalog=cat)
+    t_add = time.perf_counter() - t0
+    ivfh = cat.get("ivfh").index
+    quant = ivfh.quantizer
+    check(type(quant).__name__ == "HNSWIndex" and quant.ntotal == ivfh.nlist
+          and quant.M == 128, "ivfh: the quantizer is not an HNSW128 "
+          "holding the centroids")
+    recs_i, err_i, text = list_path_check(
+        f"ivfh nprobe {IVFH_NPROBE}", dt, cat, "ivfh", ivfh, queries,
+        IVFH_PARAMS, exact)
+    lmax = ivfh._build_device_layout().payload.shape[1]
+    k6w, k7w = map(sum, zip(*(expected_list_launches(ivfh, q.shape[0],
+                                                     IVFH_NPROBE, lmax)
+                              for q in queries.values())))
+    launches["k6"] += k6w
+    launches["k7"] += k7w
+    log(f"ivfh {IVFH_FACTORY} {N}x{D} L2: train {t_train:.2f} s on "
+        f"{IVF_TRAIN} rows (the HNSW128 quantizer holds the {ivfh.nlist} "
+        f"centroids), add {t_add:.2f} s, lmax {lmax}; {IVFH_PARAMS}: {text}; "
+        f"card peak {peak_gib():.2f} GiB [{smi}]")
+    del cat, ivfh, quant
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 4. NSG32 and HNSW32 accel=ivf at the ada-002 width (phase 8's corpus).
+    xb8, xq8 = clustered_f32(PAIRS_N, PAIRS_D, BATCH + BIG_BATCH, PAIRS_NLIST,
+                             seed=7)
+    q8 = {"b48": xq8[:BATCH], "b1024": xq8[BATCH:]}
+    rows8 = torch.from_numpy(xb8).to(DEVICE)
+    exact8 = {b: decoded_k1(rows8, PAIRS_N, q, "INNER_PRODUCT", width=K)[1]
+              for b, q in q8.items()}
+    cat = dt.Catalog()
+    dt.faiss_create("nsg", PAIRS_D, NSG_FACTORY,
+                    metric_type="INNER_PRODUCT", catalog=cat)
+    dt.faiss_add(xb8, "nsg", catalog=cat)
+    nsg = cat.get("nsg").index
+    p_nsg = {"search_L": str(NSG_SEARCH_L)}
+    ft.LAUNCHES = 0
+    built0 = graph_build_seconds()
+    t0 = time.perf_counter()
+    dt.faiss_search("nsg", K, q8["b48"], p_nsg, catalog=cat)
+    t_first = time.perf_counter() - t0
+    t_build = graph_build_seconds() - built0
+    nsg_k1 = -(-PAIRS_N // graph_ops._KNN_BLOCK)
+    check(ft.LAUNCHES == nsg_k1 and nsg._graph is not None,
+          f"nsg build: {ft.LAUNCHES} K1 launches, not {nsg_k1}")
+    launches["k1"] += ft.LAUNCHES
+    parts = []
+
+    def rows8_of(labels):
+        return rows8[torch.from_numpy(labels).to(DEVICE)]
+
+    for b, q in q8.items():
+        res = dt.faiss_search("nsg", K, q, p_nsg, catalog=cat)
+        graph_result_check(f"nsg {b}", res, rows8_of, q, "INNER_PRODUCT")
+        pool, width, iters = walk_shape(nsg, p_nsg)
+        wall = walls_ms(lambda: dt.faiss_search("nsg", K, q, p_nsg,
+                                                catalog=cat), reps=3)
+        dev = device_total_ms(lambda: dt.faiss_search("nsg", K, q, p_nsg,
+                                                      catalog=cat))
+        parts.append(f"{b}: recall@10 {recall(res['label'], exact8[b]):.4f},"
+                     f" pool {pool} width {width} {iters} iterations, "
+                     f"faiss_search wall {wall:.3f} ms, device {dev:.3f} ms "
+                     f"({dev / iters:.3f} ms an iteration)")
+    log(f"nsg {NSG_FACTORY} {PAIRS_N}x{PAIRS_D} IP search_L {NSG_SEARCH_L}: "
+        f"graph built by the first faiss_search in {t_build:.2f} s (the "
+        f"call {t_first:.2f} s; {nsg_k1} K1 launches): degree "
+        f"{nsg._graph_degree()}; {'; '.join(parts)}; card peak "
+        f"{peak_gib():.2f} GiB [{smi}]")
+    del nsg, cat
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    cat = dt.Catalog()
+    dt.faiss_create_params("hacc", PAIRS_D, "HNSW32", {"accel": "ivf"},
+                           metric_type="INNER_PRODUCT", catalog=cat)
+    dt.faiss_add(xb8, "hacc", catalog=cat)
+    hacc = cat.get("hacc").index
+    p_acc = {"efSearch": str(HNSW_EFS)}
+    k6.LAUNCHES = k6.TOPK_LAUNCHES = k7.LAUNCHES = k7.TOPK_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = {b: dt.faiss_search("hacc", K, q, p_acc, catalog=cat)
+           for b, q in q8.items()}
+    t_first = time.perf_counter() - t0
+    accel = hacc._accel[0]
+    fused = (k6.TOPK_LAUNCHES, k7.TOPK_LAUNCHES)
+    check(hacc._graph is None and accel.nlist == next_pow2(
+        int(np.ceil(np.sqrt(PAIRS_N)))) and fused[0] >= 1
+          and k6.LAUNCHES == k7.LAUNCHES == 0, f"hacc: nlist {accel.nlist}, "
+          f"(K6, K7) fused launches {fused}")
+    launches["k6"] += fused[0]
+    launches["k7"] += fused[1]
+    parts = []
+    for b, q in q8.items():
+        graph_result_check(f"hacc {b}", out[b], rows8_of, q, "INNER_PRODUCT")
+        wall = walls_ms(lambda: dt.faiss_search("hacc", K, q, p_acc,
+                                                catalog=cat), reps=3)
+        parts.append(f"{b}: recall@10 {recall(out[b]['label'], exact8[b]):.4f}"
+                     f", faiss_search wall {wall:.3f} ms")
+    log(f"hacc HNSW32 accel=ivf {PAIRS_N}x{PAIRS_D} IP efSearch {HNSW_EFS} "
+        f"(nprobe {max(1, round(HNSW_EFS / 4))} of IVF{accel.nlist}, k-means "
+        f"{accel.train_niter} iterations): partition built by the first "
+        f"searches in {t_first:.2f} s; (K6, K7) fused launches {fused}; "
+        f"{'; '.join(parts)}; card peak {peak_gib():.2f} GiB [{smi}]")
+    del cat, hacc, accel, rows8
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     smi = phase_environment()
     phase_build()
@@ -4334,7 +4786,9 @@ def main():
     soar_cat = phase_imi_soar(smi, data, exact, ivf)
     phase_lsh(smi, data)
     phase_range(smi, data, ivf, pq, soar_cat)
-    del data, ivf, soar_cat, pq["cat"], pq["index"]
+    del ivf, soar_cat, pq["cat"], pq["index"]
+    graph_launches = phase_graph(smi, data, exact)
+    del data
     torch.cuda.empty_cache()
     ((pairs_err, pairs_launches, pairs_timing, pairs_before),
      (mega_err, mega_launches, mega_timing, mega_before)) = phase_ivf_pairs(
@@ -4358,11 +4812,12 @@ def main():
     k6_ms, k6_plain, k6_bound, k6_before_ms = ivf_timings["b1024"]
     k2_ms, k2_plain, k2_bound, k2_before_ms = sq["timings"]["k2"]
     print(json.dumps({"kernels": [
-        kernel_entry(KERNEL, launches, max(sweep_err, golden_err, main_err),
-                     *timings["b1024"]),
-        kernel_entry(IVF_LIST_KERNEL, ivf_launches, max(err6, ivf_err),
-                     k6_ms, k6_plain, k6_bound, before_ms=k6_before_ms),
-        kernel_entry(IVF_PAIRS_KERNEL, pairs_launches,
+        kernel_entry(KERNEL, launches + graph_launches["k1"],
+                     max(sweep_err, golden_err, main_err), *timings["b1024"]),
+        kernel_entry(IVF_LIST_KERNEL, ivf_launches + graph_launches["k6"],
+                     max(err6, ivf_err), k6_ms, k6_plain, k6_bound,
+                     before_ms=k6_before_ms),
+        kernel_entry(IVF_PAIRS_KERNEL, pairs_launches + graph_launches["k7"],
                      max(err7, ivf_err7, pairs_err), *pairs_timing,
                      before_ms=pairs_before),
         kernel_entry(SQ_LIST_KERNEL, sq["launches"][0],

@@ -19,17 +19,16 @@ so the observable surface is the factory grammar itself:
                    | "SQ4" | "SQ6" | "SQfp16" | "SQbf16"
     suffix      := "RFlat"  (exact re-rank wrapper, IndexRefineFlat)
 
-The whole grammar is parsed, with the same parse errors as the JAX
-package.  Built: ``Flat``, ``PQm[xb]``, ``RQMxb``, ``SQ8`` / ``SQ4`` /
-``SQ6`` / ``SQfp16`` / ``SQbf16``, ``LSH[n][r][t]``, ``IVFn[_Flat]`` and
-``IMI2xn`` with a Flat, SQ, PQ or RQ encoding, every transform prefix
-(models/pretransform.py over transforms.py) and the ``RFlat`` suffix
-(models/refine.py), under any number of IDMap prefixes, as the graph
-IDMap → RFlat → PreTransform → component (the JAX package's order).  The
-graph families (HNSW, NSG) and every IVF coarse quantizer other than Flat
-(``IVFn_HNSWm``, ``IVFn_PQm``, the parenthesized form) raise
-``InvalidInputError`` naming them as not yet available in this package,
-so a description never builds something other than what it says.
+The whole grammar is parsed and built, with the same parse errors as the
+JAX package: ``Flat``, ``HNSW[M]`` and ``NSG[R]`` with their storage label
+(models/hnsw.py), ``PQm[xb]``, ``RQMxb``, ``SQ8`` / ``SQ4`` / ``SQ6`` /
+``SQfp16`` / ``SQbf16``, ``LSH[n][r][t]``, ``IVFn`` with any coarse
+quantizer (``IVFn_HNSWm``, ``IVFn_PQm`` and the parenthesized form build
+the quantizer through ``build_index``) and ``IMI2xn``, each with a Flat,
+SQ, PQ or RQ encoding, every transform prefix (models/pretransform.py over
+transforms.py) and the ``RFlat`` suffix (models/refine.py), under any
+number of IDMap prefixes, as the graph IDMap → RFlat → PreTransform →
+component (the JAX package's order).
 """
 
 from __future__ import annotations
@@ -96,12 +95,6 @@ def _build_transform(tok: str, d: int):
 def _parse_error(desc: str, detail: str = "") -> InvalidInputError:
     extra = f" ({detail})" if detail else ""
     return InvalidInputError(f"could not parse index string {desc}{extra}")
-
-
-def _not_available(desc: str, what: str) -> InvalidInputError:
-    return InvalidInputError(
-        f"index string {desc}: {what} is not yet available in "
-        f"duckdb_faiss_ext_tpu_torch")
 
 
 def _split_components(desc: str) -> list[str]:
@@ -205,28 +198,23 @@ def _check_component(parts, desc) -> str:
     raise _parse_error(desc, f"unknown component {head}")
 
 
-def _build_ivf(d, parts, metric, metric_arg, desc, family) -> Index:
-    """``IVFn[_Flat]`` or ``IMI2xn`` heads with a Flat, SQ{8,4,6,fp16,bf16},
-    PQm[xb] or RQMxb encoding: inverted lists over a Flat coarse quantizer
-    (the reference's graph shape), or over the product quantizer."""
-    from .models.ivf import SQ_ENCODINGS, IVFIndex
+def _build_ivf(d, parts, metric, metric_arg, family) -> Index:
+    """``IVFn[_quantizer]``, ``IVFn(quantizer-desc)`` or ``IMI2xn`` heads
+    with a Flat, SQ{8,4,6,fp16,bf16}, PQm[xb] or RQMxb encoding: inverted
+    lists over the coarse quantizer the description names (a Flat one by
+    default), or over the product quantizer."""
+    from .models.ivf import IVFIndex
 
-    if _IVF_PAREN_RE.match(parts[0]):
-        raise _not_available(desc, "the parenthesized IVF quantizer")
     encoding = parts[1] if len(parts) > 1 else "Flat"
-    if (encoding != "Flat" and encoding not in SQ_ENCODINGS
-            and not _PQ_RE.match(encoding) and not _RQ_RE.match(encoding)):
-        raise _not_available(desc, f"IVF encoding {encoding}")
-    quantizer = FlatIndex(d, metric, metric_arg)
     if family == "IMI":
         from .models.imi import IMIIndex
 
         return IMIIndex(d, metric, metric_arg,
                         nbits=int(_IMI_RE.match(parts[0]).group(1)),
-                        quantizer=quantizer, encoding=encoding)
-    m = _IVF_RE.match(parts[0])
-    if m.group(2) not in (None, "Flat"):
-        raise _not_available(desc, f"IVF quantizer {m.group(2)}")
+                        quantizer=FlatIndex(d, metric, metric_arg),
+                        encoding=encoding)
+    m = _IVF_PAREN_RE.match(parts[0]) or _IVF_RE.match(parts[0])
+    quantizer = build_index(d, m.group(2) or "Flat", metric, metric_arg)
     return IVFIndex(d, metric, metric_arg, nlist=int(m.group(1)),
                     quantizer=quantizer, encoding=encoding)
 
@@ -240,7 +228,7 @@ def build_index(d: int, desc: str, metric: Metric,
     for tok in tokens:
         transforms.append(_build_transform(tok, d_cur))
         d_cur = transforms[-1].d_out
-    index = _build_component(d_cur, parts, metric, metric_arg, desc, family)
+    index = _build_component(d_cur, parts, metric, metric_arg, family)
     if transforms:
         from .models.pretransform import PreTransformIndex
 
@@ -255,11 +243,18 @@ def build_index(d: int, desc: str, metric: Metric,
     return index
 
 
-def _build_component(d, parts, metric, metric_arg, desc, family) -> Index:
+def _build_component(d, parts, metric, metric_arg, family) -> Index:
     if family == "Flat":
         index: Index = FlatIndex(d, metric, metric_arg)
     elif family in ("IVF", "IMI"):
-        index = _build_ivf(d, parts, metric, metric_arg, desc, family)
+        index = _build_ivf(d, parts, metric, metric_arg, family)
+    elif family in ("HNSW", "NSG"):
+        from .models.hnsw import HNSWIndex, NSGIndex
+
+        m = (_HNSW_RE if family == "HNSW" else _NSG_RE).match(parts[0])
+        index = (HNSWIndex if family == "HNSW" else NSGIndex)(
+            d, metric, metric_arg, M=int(m.group(1) or 32),
+            storage_label=parts[1] if len(parts) > 1 else "Flat")
     elif family == "PQ":
         from .models.pq import PQIndex
 
@@ -276,7 +271,7 @@ def _build_component(d, parts, metric, metric_arg, desc, family) -> Index:
         from .models.sq import SQIndex
 
         index = SQIndex(d, metric, metric_arg, qtype=parts[0])
-    elif family == "LSH":
+    else:
         from .models.lsh import LSHIndex
 
         m = _LSH_RE.match(parts[0])
@@ -284,6 +279,4 @@ def _build_component(d, parts, metric, metric_arg, desc, family) -> Index:
                          nbits=int(m.group(1)) if m.group(1) else None,
                          rotate=bool(m.group(2)),
                          train_thresholds=bool(m.group(3)))
-    else:
-        raise _not_available(desc, family)
     return index

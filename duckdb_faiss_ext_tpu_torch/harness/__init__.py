@@ -5,10 +5,8 @@ cgo benchmark tier): the three filtered-search strategies (post-filter /
 bitmap selector / id-set selector) with the binomial required-k
 computation, dataset loaders (synthetic, fvecs / ivecs / bvecs), recall
 measurement, TREC run-file emission and scoring, and search-parameter
-auto-tuning.  The modules are copies, with two changes: the CPU baseline
-of the filtered bench scales with the corpus rows, not the query count,
-and the auto-tuner has no graph (efSearch) sweep until the port has
-HNSW / NSG.
+auto-tuning.  The modules are copies, with one change: the CPU baseline
+of the filtered bench scales with the corpus rows, not the query count.
 """
 
 from .autotune import AutotuneResult, OperatingPoint, autotune_index

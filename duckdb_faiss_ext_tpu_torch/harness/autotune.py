@@ -8,9 +8,6 @@ search knob, measure (recall@k, QPS) per setting against the index's own
 exhaustive search, keep the Pareto frontier, and report the cheapest
 setting that reaches a target recall.  The output is a parameter MAP that
 the existing ``faiss_search`` accepts verbatim — no new SQL surface.
-
-A copy of ``duckdb_faiss_ext_tpu/harness/autotune.py`` without its graph
-(efSearch) sweep, which waits for the port's HNSW / NSG.
 """
 
 from __future__ import annotations
@@ -62,8 +59,8 @@ def _unwrap(index):
 
 def _default_grid(index) -> tuple[list[dict[str, str]], dict[str, str]]:
     """(settings to sweep, exhaustive ground-truth params) for the index's
-    main search knob.  Knobless families (Flat/PQ/SQ/RQ) scan exhaustively
-    already — one empty setting."""
+    main search knob.  Knobless families (Flat/PQ/SQ/LSH/RQ) scan
+    exhaustively already — one empty setting."""
     inner = _unwrap(index)
     nlist = getattr(inner, "nlist", None)
     if nlist:
@@ -74,6 +71,9 @@ def _default_grid(index) -> tuple[list[dict[str, str]], dict[str, str]]:
         vals.append(nlist)
         return ([{"nprobe": str(x)} for x in vals],
                 {"nprobe": str(nlist)})
+    if hasattr(inner, "ef_search"):
+        vals = (16, 32, 64, 128, 256, 512, 1024)
+        return ([{"efSearch": str(x)} for x in vals], {"exact": "true"})
     return [{}], {}
 
 
@@ -85,8 +85,9 @@ def autotune_index(name: str, xq, k: int = 10, target_recall: float = 0.9,
 
     ``grid`` overrides the default single-knob sweep with explicit
     parameter maps.  Ground truth is the index's own exhaustive search
-    (``nprobe=nlist`` for IVF — FAISS AutoTune's convention), so recall
-    measures the knob's pruning loss, not the codec's quantization loss."""
+    (``nprobe=nlist`` for IVF — FAISS AutoTune's convention; the graph
+    regime's ``exact`` scan for HNSW/NSG), so recall measures the knob's
+    pruning loss, not the codec's quantization loss."""
     xq = np.asarray(xq, dtype=np.float32)
     cat = catalog if catalog is not None else api.GLOBAL_CATALOG
     entry = cat.get(name)

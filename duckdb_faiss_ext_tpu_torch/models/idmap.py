@@ -68,15 +68,16 @@ class IDMapIndex(Index):
                                       len(self._labels)))
 
     def search(self, xq, k, params=EMPTY, selector=None) -> SearchResult:
-        if getattr(self.inner, "search_dispatch", None) is None:
-            # An inner index without a device dispatch (RefineFlat): its
-            # own search, positions mapped to labels after it.
-            if selector is not None:
-                selector = self._position_selector(selector)
-            dist, pos = self.inner.search(xq, k, params, selector)
-            return SearchResult(dist, self._positions_to_labels(pos))
-        return self._finish_dispatch(
-            self.search_dispatch(xq, k, params, selector), xq, k)
+        disp = self.search_dispatch(xq, k, params, selector)
+        if disp is not None:
+            return self._finish_dispatch(disp, xq, k)
+        # No device dispatch (RefineFlat, an HNSW index with a tail to
+        # merge or in its IVF regime, no queries): the inner index's own
+        # search, positions mapped to labels after it.
+        if selector is not None:
+            selector = self._position_selector(selector)
+        dist, pos = self.inner.search(xq, k, params, selector)
+        return SearchResult(dist, self._positions_to_labels(pos))
 
     def search_dispatch(self, xq, k, params=EMPTY, selector=None):
         """The inner index's device dispatch with the selector translated to

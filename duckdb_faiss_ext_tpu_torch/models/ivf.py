@@ -28,9 +28,12 @@ assigned and encoded on the index's device, in chunks; only their codes are
 kept.  The device layouts are rebuilt lazily after each mutation
 (models/ivf_layout.py) and searched by models/ivf_serve.py.
 
-The coarse quantizer (``quantizer``, a Flat index) mirrors FAISS's graph
-shape: it holds the centroids and answers ``quantiser.``-scoped params;
-assignment itself is one fused fp32 distance tile.
+The coarse quantizer (``quantizer``: Flat, HNSW, PQ or a nested IVF, as the
+description names it) mirrors FAISS's graph shape: it holds the centroids
+(trained on them first where it needs training), takes ``ivf.``-scoped
+create params, and ``quantiser.``-scoped search params parse; assignment
+and probing never search through it (one fused fp32 distance tile each),
+as in the JAX package.
 
 The create parameter ``assign_topk`` (capped assignment of
 device-resident ingest) is accepted and stored as in the JAX package; as
@@ -114,7 +117,9 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
             self.sq_type = (encoding[2:] if encoding[2:] in FLOAT_CODECS
                             else encoding.lower())
         elif encoding != "Flat":
-            raise errors.not_available(f"IVF encoding {encoding}")
+            raise errors.InvalidInputError(
+                f"IVF encoding {encoding} is not supported (use Flat, PQm, "
+                f"RQMxb, SQ8, SQ4, SQ6, SQfp16 or SQbf16)")
         if encoding != "Flat" and metric.name not in ("L2", "INNER_PRODUCT"):
             raise errors.InvalidInputError(
                 f"{encoding} indexes support only L2 and INNER_PRODUCT "
@@ -216,9 +221,15 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
 
     def _populate_quantizer(self) -> None:
         """Mirror the centroid table into the quantizer index (faiss graph
-        shape; again after load_state rebuilds the quantizer empty)."""
-        if self._mirror_quantizer and self.quantizer.ntotal == 0:
-            self.quantizer.add(self._centroids)
+        shape; again after load_state rebuilds the quantizer empty).  A
+        quantizer that needs training (a nested ``IVFn(IVFm,...)``, a
+        ``PQm``) is trained on the table first, as faiss
+        Level1Quantizer::train_q1 does."""
+        if not self._mirror_quantizer or self.quantizer.ntotal != 0:
+            return
+        if not self.quantizer.is_trained:
+            self.quantizer.train(self._centroids)
+        self.quantizer.add(self._centroids)
 
     def _subsample_train(self, x, k: int):
         """Too-few-points check + FAISS's seeded per-centroid subsample

@@ -19,6 +19,7 @@ import duckdb_faiss_ext_tpu_torch as dt
 from duckdb_faiss_ext_tpu_torch.io.convert import from_reference
 from test_flat_parity import (GOLDEN_FILTERED, GOLDEN_FLAT_DISTANCES,
                               GOLDEN_LABELS)
+from test_torch_hnsw import check_form_matches_jax
 
 
 @pytest.fixture(autouse=True)
@@ -261,12 +262,12 @@ def test_lifecycle_error_messages(catalog, pcat, tmp_path, case, training_data):
     assert msgs[0] == msgs[1]
 
 
-def test_unported_family_is_refused(pcat):
-    with pytest.raises(dt.InvalidInputError,
-                       match="HNSW is not yet available in "
-                             "duckdb_faiss_ext_tpu_torch"):
-        dt.faiss_create("e", 8, "IDMap,HNSW32", catalog=pcat)
-    assert pcat.names() == []
+def test_unported_family_is_refused(catalog, pcat):
+    """IDMap,HNSW32, refused until the graph families were ported, now
+    builds and answers as the JAX package does (the exact regime at this
+    size; the graph regime: tests/test_torch_hnsw.py)."""
+    check_form_matches_jax(catalog, pcat, "IDMap,HNSW32", d=8)
+    assert sorted(pcat.names()) == ["carried", "form"]
 
 
 # --- carrying state across ---------------------------------------------------

@@ -27,6 +27,7 @@ tests/test_harness.py::test_cpu_filtered_baseline_column).
 
 import numpy as np
 import pytest
+import torch
 
 import duckdb_faiss_ext_tpu as dfx
 import duckdb_faiss_ext_tpu.harness as jh
@@ -225,6 +226,39 @@ def test_autotune_recall_matches_jax(catalog, pcat, metric):
     assert got.best is not None and got.best.recall >= 0.95
     assert all(p.qps > 0 for p in got.points)
     assert "nprobe" in str(got)
+
+
+def test_autotune_graph_sweep_matches_jax(catalog, pcat):
+    """The efSearch sweep of an HNSW index in its graph regime (the JAX
+    package's adjacency carried across, its walk unpacked) against the
+    exact scan: the same settings and the same recall at each."""
+    rng = np.random.default_rng(5)
+    # 20,000 rows: past 8,192 graph rows the walk's seeds are a strided
+    # sample, not the whole corpus.
+    xb = rng.standard_normal((20_000, 16)).astype(np.float32)
+    dfx.faiss_create("g", 16, "HNSW16", metric_type="L2", catalog=catalog)
+    index = catalog.get("g").index
+    index.ann_threshold = 1000
+    index._graph_pack = lambda *a: None
+    dfx.faiss_add(xb, "g", catalog=catalog)
+    dfx.faiss_search("g", 1, xb[:1], catalog=catalog)      # builds the graph
+    pcat.put("g", from_reference(catalog.get("g")))
+    xq = xb[:64] + rng.standard_normal((64, 16)).astype(np.float32)
+    want = jh.autotune_index("g", xq, k=10, target_recall=0.99,
+                             catalog=catalog, repeat=1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)    # many small ops: see tests/test_torch_hnsw.py
+    try:
+        got = ph.autotune_index("g", xq, k=10, target_recall=0.99,
+                                catalog=pcat, repeat=1)
+    finally:
+        torch.set_num_threads(threads)
+    assert [p.params for p in got.points] == [p.params for p in want.points]
+    assert [p.params["efSearch"] for p in got.points] == [
+        "16", "32", "64", "128", "256", "512", "1024"]
+    assert [p.recall for p in got.points] == [p.recall for p in want.points]
+    assert got.points[0].recall < got.points[-1].recall
+    assert pcat.get("g").index._graph is not None
 
 
 @pytest.mark.parametrize("factory", ["Flat", "SQ8", "IDMap,SQfp16"])

@@ -33,6 +33,7 @@ from duckdb_faiss_ext_tpu_torch.io.convert import from_reference
 from duckdb_faiss_ext_tpu_torch.models import ivf_serve
 from duckdb_faiss_ext_tpu_torch.models.ivf import IVFIndex
 from duckdb_faiss_ext_tpu_torch.utils import config as pconfig
+from test_torch_hnsw import check_form_matches_jax
 
 D = 24
 
@@ -491,17 +492,15 @@ def test_reconstruct_decodes(pcat):
     ("HNSW16,SQ8", "HNSW"),
     ("PCA8,IVF4_HNSW8,SQ8", "IVF quantizer HNSW8"),
     ("IDMap,NSG16,SQ4,RFlat", "NSG")])
-def test_unported_sq_forms_refused(pcat, factory, what):
-    """SQ storage under a family or coarse quantizer the port does not
-    have yet, also behind a transform or the RFlat suffix (standalone SQ,
-    the float codecs, transforms and RFlat are built:
-    tests/test_torch_sq_standalone.py, tests/test_torch_transforms.py,
-    tests/test_torch_refine_lsh.py)."""
-    with pytest.raises(dt.InvalidInputError,
-                       match=f"{what} is not yet available in "
-                             f"duckdb_faiss_ext_tpu_torch"):
-        dt.faiss_create("e", 8, factory, catalog=pcat)
-    assert pcat.names() == []
+def test_unported_sq_forms_refused(catalog, pcat, factory, what):
+    """SQ storage under the forms that waited for the graph families and
+    the coarse quantizers (``what``), also behind a transform or the RFlat
+    suffix: each now builds and answers as the JAX package does, with its
+    trained state carried across and, where no transform is trained, from
+    the port's own training with every list probed."""
+    check_form_matches_jax(catalog, pcat, factory, d=8,
+                           params={"nprobe": "2"},
+                           own_exact=not factory.startswith("PCA"))
 
 
 def test_sq_refuses_elementwise_metrics(catalog, pcat):

@@ -262,7 +262,7 @@ Phases (any failure raises and the script exits non-zero):
    added, then a search merges them through one K1 launch without a
    rebuild; a faiss_save / faiss_load round trip with equal results and
    no rebuild.  Then the same graph code (HNSW32's degree) over the first
-   65,536 rows on the card and on the CPU: the k-NN graphs equal where
+   32,768 rows on the card and on the CPU: the k-NN graphs equal where
    the neighbouring distances are apart, augment_graph byte-equal, and
    the walk over the card's adjacency equal on both.  Then
    IVF2048_HNSW128,Flat L2 (the reference's other benchmark config:
@@ -272,7 +272,28 @@ Phases (any failure raises and the script exits non-zero):
    over phase 8's 262,144 x 1536 corpus (search_L 64; its build on K1)
    and HNSW32 with accel=ivf on it (an internal IVF512, K6 launched), at
    b48 and b1024, recall@10 against K1's exact labels, walls, device
-   time an iteration, build seconds and card peaks printed.
+   time an iteration, build seconds and card peaks printed;
+26. placement (faiss_to_device; after phase 24, on the main paths'
+   indexes, and, for its SQ leg, after phase 21): phase 5's IDMap,Flat
+   under faiss_to_device(name) (one shard on the card), a 4 x 1 and a 2 x
+   2 mesh of cuda:0 (K1 on every block; launches a search and walls
+   beside the unplaced search's), phase 7's IDMap,IVF4096,Flat and phase
+   12's IDMap,IVF4096,PQ16 placed 4 ways with LPT (per-shard Σcounts and
+   max/mean printed; b48, b1024 and a 50% BitmapSelector filter built by
+   create_mask through the native bitmapper; K6 / K7 and K8 launches),
+   every result held against the same index unplaced (labels equal where
+   the distances are apart); IDMap,HNSW128,Flat over the same corpus in
+   graph_sharded over 4 shards (four per-shard builds on K1: build
+   seconds, launches, recall@10 against exact and walk walls at b48 and
+   b1024); multichip_dryrun(4) on cuda:0 repeated; the two-process
+   multihost demo as a subprocess (each rank its hash_partition half of
+   a 1M x 128 corpus, gloo, MULTIHOST OK); IVF1024,SQ8 IP over the first
+   1,048,576 rows of phase 10's generator placed 4 ways in fast mode (K2
+   at b48, K3 at b1024 on every shard; no rank worse than unplaced,
+   equal wherever the distances agree); and in phase 16 the MS MARCO
+   device index filtered by id%2==0 with its layout and spill masks built
+   on the card and on the host (both timed, first call and again; results
+   equal).
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -284,7 +305,8 @@ block: their bounds count the distinct probed lists' bytes, the queries,
 the probe table and the (nq, k) result (K7 / K10 also the merge's fp32
 rescore of k_scan rows a query, at the fp32 rate).  At K2's b48 shapes
 its partial launch is also timed alone on CUDA events beside the
-profiler's reading.  The last two lines of standard output are a JSON
+profiler's reading.  Phase 26's placed paths add their launches to K1,
+K6 / K7, K2 / K3 and K8.  The last two lines of standard output are a JSON
 object describing each kernel (K6's, K2's, K7's and K10's with before_ms,
 the time of the design they replaced, taken in turns with them) and the
 JSON result line {"ok": true, "device": {...}}.
@@ -2809,6 +2831,7 @@ def phase_marco_device(smi):
             f"k={K} {name} pairs_impl {impl}: faiss_search wall "
             f"{walls[f'{name} {impl}']:.3f} ms (median of 10); device stages "
             f"(median CUDA events): {'; '.join(parts)} [{smi}]")
+    marco_masks(smi, cat, index, data, params, db)
     dt.set_precision("parity")
     return {"launches": launches[2], "err": max(max_err, raw9),
             "timing": (ms9, plain_ms, b9), "k5": k5_timing,
@@ -4339,8 +4362,9 @@ def phase_range(smi, data, ivf, pq, soar_cat):
 HNSW_FACTORY, HNSW_EFC, HNSW_EFS = "IDMap,HNSW128,Flat", 128, 64
 HNSW_EF_SWEEP, HNSW_RECALL_MIN = (16, 64, 128), 0.90
 #: rows added after the build (a tail merged through K1, below the 20%
-#: that rebuilds), and the rows of the card-against-CPU build (HNSW32)
-HNSW_TAIL, HNSW_CPU_N, HNSW_CPU_M = 10_000, 65_536, 32
+#: that rebuilds), and the rows of the card-against-CPU build (HNSW32;
+#: the CPU's k-NN build is quadratic in them, ~23 s here)
+HNSW_TAIL, HNSW_CPU_N, HNSW_CPU_M = 10_000, 32_768, 32
 IVFH_FACTORY, IVFH_NPROBE = "IVF2048_HNSW128,Flat", 15
 IVFH_PARAMS = {"nprobe": str(IVFH_NPROBE), "quantiser.efSearch": "64"}
 #: the graph at the ada-002 width over phase 8's corpus
@@ -4410,7 +4434,7 @@ def phase_graph(smi, data, exact):
     """Phase 25: IDMap,HNSW128,Flat over the 1M x 128 corpus (the graph
     built at the first search, walks at three efSearch values, batched,
     filtered, exact, a tail, save / load), the same graph code on the card
-    and on the CPU over 65,536 rows, IVF2048_HNSW128,Flat, and NSG32 and
+    and on the CPU over 32,768 rows, IVF2048_HNSW128,Flat, and NSG32 and
     HNSW32 accel=ivf at 262,144 x 1536.  Returns the K1 and K6 / K7
     launches of the searches."""
     import tempfile
@@ -4759,6 +4783,380 @@ def phase_graph(smi, data, exact):
     return launches
 
 
+#: phase 26: the placement tier on one card, every mesh a grid of cuda:0
+#: repeated; the IVF,SQ8 leg at the ada-002 width over the first
+#: SQ_PLACE_N rows of phase 10's generator (IVF1024: the sharded layout
+#: has no list cap, and IVF4096's longest lists would pad it past 20 GB)
+PLACE_SHARDS, SQ_PLACE_N, SQ_PLACE_NLIST = 4, 1_048_576, 1024
+DEMO_TIMEOUT = 300
+
+
+def placed_meshes():
+    """(label, devices argument) of phase 26's Flat placements:
+    faiss_to_device's default (every card: one shard here), a 4 x 1 and a
+    2 x 2 mesh of cuda:0."""
+    from duckdb_faiss_ext_tpu_torch.parallel.sharded import make_mesh
+
+    return (("faiss_to_device(name)", None),
+            ("4x1 mesh", make_mesh(PLACE_SHARDS)),
+            ("2x2 mesh", make_mesh(PLACE_SHARDS, batch_axis=2)))
+
+
+def shard_loads(index):
+    """Per-shard Σcounts of a placed IVF index under its LPT perm."""
+    counts = index._counts()
+    perm = index._shard_perm
+    npl = counts.shape[0] // index._shard_mesh.shape["shard"]
+    return [int(counts[perm[s * npl:(s + 1) * npl]].sum())
+            for s in range(index._shard_mesh.shape["shard"])]
+
+
+def placed_ivf_leg(tag, dt, cat, name, queries, params, sel, counter, smi):
+    """Search an IVF index unplaced (b48, b1024, filtered b48), place it 4
+    ways, search again: every placed result held against the unplaced one
+    (labels equal where distances are apart).  Returns (launches, error)."""
+    from duckdb_faiss_ext_tpu_torch.parallel.sharded import make_mesh
+
+    def run():
+        out = {b: dt.faiss_search(name, K, xq, params, catalog=cat)
+               for b, xq in queries.items()}
+        out["filter"] = dt.faiss_search(name, K, queries["b48"], params,
+                                        catalog=cat, selector=sel)
+        return out
+
+    ref = run()
+    ref_walls = {b: walls_ms(lambda: dt.faiss_search(name, K, xq, params,
+                                                     catalog=cat), reps=3)
+                 for b, xq in queries.items()}
+    t0 = time.perf_counter()
+    dt.faiss_to_device(name, make_mesh(PLACE_SHARDS), catalog=cat)
+    index = cat.get(name).index
+    index = getattr(index, "inner", index)
+    index._build_sharded()
+    t_place = time.perf_counter() - t0
+    counter.reset()
+    out = run()
+    n = counter.read()
+    err = max(compare_same_k(f"{tag} placed {b}", out[b], ref[b], False)
+              for b in out)
+    check((out["filter"]["label"] % 2 == 0).all(), f"{tag}: odd label")
+    loads = shard_loads(index)
+    w = {b: walls_ms(lambda: dt.faiss_search(name, K, xq, params,
+                                             catalog=cat), reps=3)
+         for b, xq in queries.items()}
+    log(f"phase 26 {tag} placed {PLACE_SHARDS} ways (LPT, sharded layout "
+        f"{t_place:.2f} s, lmax {index._sharded_cache[2]}): per-shard "
+        f"Σcounts {loads}, max/mean {max(loads) / np.mean(loads):.4f}; "
+        f"{counter.label} launches {n} for b48 + b1024 + filtered b48; "
+        f"equal to the unplaced index (max distance error {err:.3g}); "
+        f"faiss_search wall b48 {w['b48']:.3f} ms (unplaced "
+        f"{ref_walls['b48']:.3f}), b1024 {w['b1024']:.3f} ms (unplaced "
+        f"{ref_walls['b1024']:.3f}) [{smi}]")
+    return n, err
+
+
+class LaunchCounter:
+    """The summed launch counters of some kernels' modules."""
+
+    def __init__(self, label, *counters):
+        self.label, self.counters = label, counters
+
+    def reset(self):
+        for mod, attr in self.counters:
+            setattr(mod, attr, 0)
+
+    def read(self):
+        return tuple(getattr(mod, attr) for mod, attr in self.counters)
+
+
+def phase_placement(smi, data, exact, ivf, pq):
+    """Phase 26, the 1M x 128 legs: faiss_to_device of phase 5's
+    IDMap,Flat (one shard, 4 x 1, 2 x 2), phase 7's IDMap,IVF4096,Flat and
+    phase 12's IDMap,IVF4096,PQ16 (4 ways, LPT), a sharded
+    IDMap,HNSW128,Flat (graph_sharded, four builds on K1),
+    multichip_dryrun(4) and the two-process demo.  Returns the K1 / K6 /
+    K7 / K8 launches of the placed paths."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
+    from duckdb_faiss_ext_tpu_torch.parallel.sharded import (
+        make_mesh, multichip_dryrun)
+
+    t_phase = time.perf_counter()
+    queries = {b: data[b] for b in ("b48", "b1024")}
+    launches = {"k1": 0, "k6": 0, "k7": 0, "k8": 0}
+    err = 0.0
+
+    # Flat: phase 5's IDMap,Flat under three placements.
+    cat = data["flat_cat"]
+    ref = {b: dt.faiss_search("sift", K, xq, catalog=cat)
+           for b, xq in queries.items()}
+    ref_walls = {b: walls_ms(lambda: dt.faiss_search("sift", K, xq,
+                                                     catalog=cat))
+                 for b, xq in queries.items()}
+    for label, devices in placed_meshes():
+        dt.faiss_to_device("sift", devices, catalog=cat)
+        blocks = cat.get("sift").index.inner.device_vectors()
+        # K1 on every block that holds rows, for every part of the batch
+        per_search = blocks.mesh.shape["batch"] * sum(
+            blocks.nvalid(s, N) > 0 for s in range(blocks.nshards))
+        ft.LAUNCHES = 0
+        out = {b: dt.faiss_search("sift", K, xq, catalog=cat)
+               for b, xq in queries.items()}
+        n = ft.LAUNCHES
+        check(n == 2 * per_search, f"placed flat {label}: K1 launched {n} "
+              f"times, not {2 * per_search}")
+        launches["k1"] += n
+        for b in out:
+            err = max(err, compare_same_k(f"placed flat {label} {b}",
+                                          out[b], ref[b], False))
+        w = {b: walls_ms(lambda: dt.faiss_search("sift", K, xq,
+                                                 catalog=cat))
+             for b, xq in queries.items()}
+        log(f"phase 26 flat {N}x{D} L2 k={K} {label}: K1 {per_search} "
+            f"launches a search, equal to the unplaced search; faiss_search "
+            f"wall b48 {w['b48']:.3f} ms (unplaced {ref_walls['b48']:.3f}), "
+            f"b1024 {w['b1024']:.3f} ms (unplaced "
+            f"{ref_walls['b1024']:.3f}) (medians of 5) [{smi}]")
+
+    # IVF4096,Flat and IVF4096,PQ16 4 ways, a 50% bitmap filter built by
+    # create_mask through the native bitmapper.
+    ids = data["ids"]
+    sel = dt.create_mask((ids % 2 == 0).astype(np.uint8), ids)
+    params = {"nprobe": str(IVF_NPROBE)}
+    n, e = placed_ivf_leg(
+        f"IDMap,IVF4096,Flat {N}x{D} L2 nprobe {IVF_NPROBE}", dt,
+        ivf["cat"], "ivf", queries, params, sel,
+        LaunchCounter("(K6 fused, K7 fused)", (k6, "TOPK_LAUNCHES"),
+                      (k7, "TOPK_LAUNCHES")), smi)
+    check(n[0] + n[1] == 3 * PLACE_SHARDS, f"placed IVF: (K6, K7) {n}")
+    launches["k6"] += n[0]
+    launches["k7"] += n[1]
+    err = max(err, e)
+    pq_index = pq["index"]
+    for attr in ("LAYOUT_BUDGET_BYTES", "SPILL_FRACTION_MAX"):
+        pq_index.__dict__.pop(attr, None)   # phase 13's cap off again
+    pq_index._invalidate()
+    n, e = placed_ivf_leg(
+        f"{PQ_FACTORY} {N}x{D} L2 nprobe {IVF_NPROBE}", dt, pq["cat"], "pq",
+        queries, params, sel, LaunchCounter("K8", (k8, "LAUNCHES")), smi)
+    check(n[0] == 3 * PLACE_SHARDS, f"placed PQ: K8 {n}")
+    launches["k8"] += n[0]
+    err = max(err, e)
+
+    # IDMap,HNSW128,Flat in graph_sharded: four per-shard builds on K1.
+    hcat = dt.Catalog()
+    dt.faiss_create_params("hs", D, HNSW_FACTORY,
+                           {"efConstruction": str(HNSW_EFC)},
+                           metric_type="L2", catalog=hcat)
+    dt.faiss_add((ids, data["xb"]), "hs", catalog=hcat)
+    dt.faiss_to_device("hs", make_mesh(PLACE_SHARDS), catalog=hcat)
+    hix = hcat.get("hs").index.inner
+    check(hix._effective_mode() == "graph_sharded", "hnsw: not sharded")
+    hparams = {"efSearch": str(HNSW_EFS)}
+    ft.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = dt.faiss_search("hs", K, queries["b48"], hparams, catalog=hcat)
+    t_build = time.perf_counter() - t0
+    n_build = ft.LAUNCHES
+    out = {"b48": first, "b1024": dt.faiss_search(
+        "hs", K, queries["b1024"], hparams, catalog=hcat)}
+    check(ft.LAUNCHES == n_build and n_build > 0,
+          f"hnsw sharded: K1 {n_build} build launches, walks launched it")
+    launches["k1"] += n_build
+    parts = []
+    for b, res in out.items():
+        check(np.isfinite(res["distance"]).all(), f"hnsw sharded {b}")
+        r = recall(res["label"], exact[b])
+        check(r >= HNSW_RECALL_MIN, f"hnsw sharded {b}: recall {r}")
+        w = walls_ms(lambda: dt.faiss_search("hs", K, queries[b], hparams,
+                                             catalog=hcat))
+        parts.append(f"{b} recall@10 {r:.4f}, walk wall {w:.3f} ms")
+    log(f"phase 26 {HNSW_FACTORY} {N}x{D} L2 graph_sharded over "
+        f"{PLACE_SHARDS} shards (valid rows {hix._graph_sharded[2]}): the "
+        f"first search built the per-shard graphs in {t_build:.2f} s with "
+        f"{n_build} K1 launches; efSearch {HNSW_EFS}: {'; '.join(parts)} "
+        f"[{smi}]")
+    del hcat, hix
+
+    t0 = time.perf_counter()
+    multichip_dryrun(PLACE_SHARDS)
+    log(f"phase 26 multichip_dryrun({PLACE_SHARDS}) on cuda:0 repeated: "
+        f"every sharded path agrees with its numpy oracle "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    demo = subprocess.run(
+        [sys.executable, "-m",
+         "duckdb_faiss_ext_tpu_torch.parallel.multihost_demo", "--n", str(N),
+         "--d", str(D), "--timeout", str(DEMO_TIMEOUT - 20),
+         *(["--cpu"] if DEVICE == "cpu" else [])],
+        capture_output=True, text=True, cwd=HERE, timeout=DEMO_TIMEOUT,
+        env=dict(os.environ, DFX_DEMO_PORT=str(port)))
+    ok = [ln for ln in demo.stdout.splitlines() if "MULTIHOST OK" in ln]
+    check(demo.returncode == 0 and ok, f"multihost demo exited "
+          f"{demo.returncode}: {demo.stdout[-1500:]} {demo.stderr[-1500:]}")
+    log(f"phase 26 multihost demo ({time.perf_counter() - t0:.1f} s): "
+        f"{ok[0]} [{smi}]")
+    log(f"phase 26 (1M x 128 legs) {time.perf_counter() - t_phase:.1f} s; "
+        f"max distance error against the unplaced indexes {err:.3g}")
+    return launches, err
+
+
+def phase_placement_sq(smi):
+    """Phase 26, the IVF,SQ8 leg: IVF1024,SQ8 inner product over the first
+    1,048,576 rows of phase 10's 1536-d generator, fast mode, nprobe 16,
+    placed 4 ways: b48 through K2 and b1024 through K3 on every shard.
+    The int8 pools differ per shard, so a placed result is held to be at
+    least as good as the unplaced one at every rank (within the tolerance)
+    and equal to it wherever their distances agree.  Returns ((K2, K3)
+    launches, error)."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
+    from duckdb_faiss_ext_tpu_torch.parallel.sharded import make_mesh
+
+    t_phase = time.perf_counter()
+    corpus = MarcoCorpus()
+    xq_all = corpus.queries(BATCH + BIG_BATCH)
+    queries = {"b48": xq_all[:BATCH], "b1024": xq_all[BATCH:]}
+    cat = dt.Catalog()
+    params = {"nprobe": str(SQ_NPROBE)}
+    dt.faiss_create("sqp", SQ_D, f"IVF{SQ_PLACE_NLIST},SQ8",
+                    metric_type="INNER_PRODUCT", catalog=cat)
+    dt.faiss_manual_train(corpus.chunk(0).cpu().numpy(), "sqp", catalog=cat)
+    for i, n in corpus_chunks(SQ_PLACE_N):
+        dt.faiss_add(corpus.chunk(i, n).cpu().numpy(), "sqp", catalog=cat)
+    index = cat.get("sqp").index
+    dt.set_precision("fast")
+    lay = index._build_device_layout()
+    check(index._layout_plan() == ("full", None), "sq placed: no full plan")
+    t_setup = time.perf_counter() - t_phase
+    ref = {b: dt.faiss_search("sqp", K, xq, params, catalog=cat)
+           for b, xq in queries.items()}
+    ref_walls = {b: walls_ms(lambda: dt.faiss_search("sqp", K, xq, params,
+                                                     catalog=cat), reps=3)
+                 for b, xq in queries.items()}
+    del lay
+    t0 = time.perf_counter()
+    dt.faiss_to_device("sqp", make_mesh(PLACE_SHARDS), catalog=cat)
+    index._build_sharded()
+    t_place = time.perf_counter() - t0
+    k2.TOPK_LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = 0
+    out, paths = {}, {}
+    for b, xq in queries.items():
+        out[b] = dt.faiss_search("sqp", K, xq, params, catalog=cat)
+        paths[b] = index._last_scan_path
+    n = (k2.TOPK_LAUNCHES, k3.LAUNCHES)
+    check(n == (PLACE_SHARDS, PLACE_SHARDS) and k2.LAUNCHES == 0,
+          f"sq placed: (K2 fused, K3) launched {n} times")
+    check(paths == {"b48": "per-query", "b1024": "pairs-sq8"},
+          f"sq placed paths {paths}")
+    err, differ = 0.0, 0
+    for b, res in out.items():
+        r, g = ref[b]["distance"], res["distance"]
+        check(np.isfinite(g).all(), f"sq placed {b}: non-finite")
+        tol = REL_TOL * float(np.abs(r).max())
+        check((g >= r - tol).all(), f"sq placed {b}: a placed rank worse "
+              f"than the unplaced one")
+        same = (np.abs(g - r) <= tol).all(1)
+        differ += int((~same).sum())
+        check(same.any(), f"sq placed {b}: no query equal to unplaced")
+        err = max(err, compare_same_k(f"sq placed {b}", res[same],
+                                      ref[b][same], True))
+    w = {b: walls_ms(lambda: dt.faiss_search("sqp", K, xq, params,
+                                             catalog=cat), reps=3)
+         for b, xq in queries.items()}
+    loads = shard_loads(index)
+    dt.set_precision("parity")
+    log(f"phase 26 IVF{SQ_PLACE_NLIST},SQ8 {SQ_PLACE_N}x{SQ_D} IP nprobe "
+        f"{SQ_NPROBE} fast mode placed {PLACE_SHARDS} ways (setup "
+        f"{t_setup:.1f} s, sharded layout {t_place:.2f} s, lmax "
+        f"{index._sharded_cache[2]}; per-shard Σcounts {loads}, max/mean "
+        f"{max(loads) / np.mean(loads):.4f}): (K2 fused, K3) launches {n}; "
+        f"no rank worse than unplaced, {differ} of "
+        f"{BATCH + BIG_BATCH} queries better (wider int8 pools), the rest "
+        f"equal (max distance error {err:.3g}); faiss_search wall b48 "
+        f"{w['b48']:.3f} ms (unplaced {ref_walls['b48']:.3f}), b1024 "
+        f"{w['b1024']:.3f} ms (unplaced {ref_walls['b1024']:.3f}) "
+        f"({time.perf_counter() - t_phase:.1f} s) [{smi}]")
+    return n, err
+
+
+def marco_masks(smi, cat, index, data, params, db):
+    """Phase 26, the device masks at the MS MARCO shape: phase 16's
+    device-resident index filtered by id%2==0, its layout and spill masks
+    built on the card (first call: the bitmap uploaded; again with the
+    bitmap already there) and on the host (``host_row_mask`` and the
+    upload); the searches equal both ways."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.models import ivf_layout
+    from duckdb_faiss_ext_tpu_torch.ops.selectors import host_row_mask
+
+    ids = np.arange(MARCO_N, dtype=np.int64)
+    sel = dt.create_mask((ids % 2 == 0).astype(np.uint8), ids)
+    lay, sp = index._build_device_layout(), index._spill
+
+    def build(device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if device:
+            masks = [index._row_mask(sel, lay.row_pos, lay.row_pos_host)]
+            if sp is not None:
+                masks.append(index._row_mask(sel, sp.pos, sp.pos_host))
+        else:
+            masks = [torch.from_numpy(host_row_mask(
+                sel, index._ids, lay.row_pos_host)).to(DEVICE)]
+            if sp is not None:
+                masks.append(torch.from_numpy(host_row_mask(
+                    sel, index._ids, sp.pos_host)).to(DEVICE))
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), masks
+
+    dev_first, dmasks = build(True)
+    dev_again, _ = build(True)
+    host_first, hmasks = build(False)
+    host_again, _ = build(False)
+    for a, b in zip(dmasks, hmasks):
+        check(torch.equal(a, b), "marco masks: device and host masks differ")
+    index._mask_cache.clear()
+    got = {b: dt.faiss_search("marco", K, data[b], params, catalog=cat,
+                              selector=sel) for b in ("b48", "b1024")}
+    t0 = time.perf_counter()
+    dt.faiss_search("marco", K, data["b48"], params, catalog=cat,
+                    selector=sel)
+    cached_ms = 1e3 * (time.perf_counter() - t0)
+    saved = ivf_layout.device_row_mask
+    ivf_layout.device_row_mask = lambda *a: None
+    try:
+        index._mask_cache.clear()
+        want = {b: dt.faiss_search("marco", K, data[b], params, catalog=cat,
+                                   selector=sel) for b in ("b48", "b1024")}
+    finally:
+        ivf_layout.device_row_mask = saved
+    for b in got:
+        for key in ("label", "distance"):
+            check(np.array_equal(got[b][key], want[b][key]),
+                  f"marco masks {b}: {key}s differ")
+        check((got[b]["label"] % 2 == 0).all(), "marco masks: odd label")
+    log(f"phase 26 device masks at {MARCO_N}x{SQ_D} (layout {SQ_NLIST} x "
+        f"{lay.payload.shape[1]} slots, spill {sp.n if sp else 0} rows, "
+        f"50% BitmapSelector of {sel.bitmap.nbytes} bytes): built on the "
+        f"card {dev_first:.3f} ms at the first call (bitmap uploaded), "
+        f"{dev_again:.3f} ms again; on the host (host_row_mask + upload) "
+        f"{host_first:.3f} / {host_again:.3f} ms; filtered b48 with the "
+        f"mask cached {cached_ms:.3f} ms wall; b48 and b1024 filtered "
+        f"results equal with either mask [{smi}]")
+
+
 def main():
     smi = phase_environment()
     phase_build()
@@ -4786,6 +5184,7 @@ def main():
     soar_cat = phase_imi_soar(smi, data, exact, ivf)
     phase_lsh(smi, data)
     phase_range(smi, data, ivf, pq, soar_cat)
+    place, place_err = phase_placement(smi, data, exact, ivf, pq)
     del ivf, soar_cat, pq["cat"], pq["index"]
     graph_launches = phase_graph(smi, data, exact)
     del data
@@ -4800,6 +5199,8 @@ def main():
     torch.cuda.empty_cache()
     phase_marco_refine(smi, sq)
     torch.cuda.empty_cache()
+    sq_place, sq_place_err = phase_placement_sq(smi)
+    torch.cuda.empty_cache()
     marco = phase_marco_device(smi)
     log(smi)
     # Flat, K6 and the SQ kernels at the shapes timed above; no single
@@ -4811,25 +5212,32 @@ def main():
     # or rerank, or the pair epilogue), timed in turns with it.
     k6_ms, k6_plain, k6_bound, k6_before_ms = ivf_timings["b1024"]
     k2_ms, k2_plain, k2_bound, k2_before_ms = sq["timings"]["k2"]
+    # Phase 26's placed paths add their launches: K1, K6 / K7, K8 (1M x
+    # 128) and K2 / K3 (IVF1024,SQ8 at d = 1536).
     print(json.dumps({"kernels": [
-        kernel_entry(KERNEL, launches + graph_launches["k1"],
-                     max(sweep_err, golden_err, main_err), *timings["b1024"]),
-        kernel_entry(IVF_LIST_KERNEL, ivf_launches + graph_launches["k6"],
+        kernel_entry(KERNEL, launches + graph_launches["k1"] + place["k1"],
+                     max(sweep_err, golden_err, main_err, place_err),
+                     *timings["b1024"]),
+        kernel_entry(IVF_LIST_KERNEL,
+                     ivf_launches + graph_launches["k6"] + place["k6"],
                      max(err6, ivf_err), k6_ms, k6_plain, k6_bound,
                      before_ms=k6_before_ms),
-        kernel_entry(IVF_PAIRS_KERNEL, pairs_launches + graph_launches["k7"],
+        kernel_entry(IVF_PAIRS_KERNEL,
+                     pairs_launches + graph_launches["k7"] + place["k7"],
                      max(err7, ivf_err7, pairs_err), *pairs_timing,
                      before_ms=pairs_before),
-        kernel_entry(SQ_LIST_KERNEL, sq["launches"][0],
-                     max(sq_errs[0], sq["err"][0], marco["k2"][1]), k2_ms,
+        kernel_entry(SQ_LIST_KERNEL, sq["launches"][0] + sq_place[0],
+                     max(sq_errs[0], sq["err"][0], marco["k2"][1],
+                         sq_place_err), k2_ms,
                      k2_plain, k2_bound, before_ms=k2_before_ms),
     ] + [
-        kernel_entry(kernel, sq["launches"][i],
+        kernel_entry(kernel, sq["launches"][i] + extra,
                      max(sq_errs[i], sq["err"][i]), *sq["timings"][key])
-        for i, (kernel, key) in ((1, (SQ_PAIRS_KERNEL, "k3")),
-                                 (2, (SQ_SPILL_KERNEL, "k5")))
+        for i, (kernel, key), extra in (
+            (1, (SQ_PAIRS_KERNEL, "k3"), sq_place[1]),
+            (2, (SQ_SPILL_KERNEL, "k5"), 0))
     ] + [
-        kernel_entry(PQ_KERNEL, pq["launches"],
+        kernel_entry(PQ_KERNEL, pq["launches"] + place["k8"],
                      max(pq_sweep_err, pq["err"], pq_spill_err, rq_err),
                      pq_ms, pq_plain_ms, pq_bound, pq_lib_ms),
         kernel_entry(SQ_MEGA_KERNEL, marco["launches"],

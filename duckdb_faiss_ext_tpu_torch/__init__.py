@@ -27,7 +27,10 @@ gather-decode-score scan); large IVF batches take the pipelined pair-tile
 kernels ``csrc/ivf_pairs_mega.cu`` / ``csrc/ivf_sq_pairs_mega.cu`` under
 ``config.pairs_impl = "mega"``.  ``faiss_train_device`` /
 ``faiss_add_device`` build an IVF,Flat or IVF,SQ layout on the card from
-rows already there.
+rows already there.  ``faiss_to_device`` (the reference's ``faiss_to_gpu``)
+places an index over a mesh of devices (``parallel``): each shard runs the
+same kernels on its part and the shards' top-k lists merge;
+``parallel.multihost`` drives one index partitioned over processes.
 
 Every index keeps its corpus on ``config.device`` (``"cuda"`` by default;
 ``set_device("cpu")`` runs the plain torch paths on the CPU).
@@ -50,6 +53,7 @@ from .api import (
     faiss_search_filter,
     faiss_search_filter_set,
     faiss_stats,
+    faiss_to_device,
     faiss_train_device,
     register_create_parameter,
 )
@@ -81,6 +85,7 @@ __all__ = [
     "faiss_search_filter",
     "faiss_search_filter_set",
     "faiss_stats",
+    "faiss_to_device",
     "faiss_train_device",
     "GLOBAL_CATALOG",
     "Catalog",

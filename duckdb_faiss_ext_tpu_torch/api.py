@@ -9,11 +9,11 @@ One function per SQL function registered by LoadInternal
     faiss_search_filter_set
 
 and the JAX package's extensions faiss_search_batched, faiss_stats,
-faiss_range_search and the device-resident ingest of rows already on the
-card, faiss_train_device and faiss_add_device.
-
-faiss_to_gpu (the JAX package's faiss_to_device) is not ported yet: an index
-lives on ``config.device`` from its creation.
+faiss_range_search, the device-resident ingest of rows already on the
+card, faiss_train_device and faiss_add_device, and faiss_to_device (the
+reference's faiss_to_gpu: an index lives on ``config.device`` from its
+creation, and faiss_to_device places its storage over a mesh of devices,
+parallel/placement.py).
 
 Semantics (lifecycle errors, label latching, deferred training, immutability
 of loaded indexes, result schema padded to k with label −1) follow the
@@ -428,6 +428,20 @@ def faiss_range_search(name: str, radius: float, queries,
     res = entry.index.range_search(
         as_matrix(queries, entry.index.d), float(radius), params, selector)
     return {"lims": res.lims, "label": res.labels, "distance": res.distances}
+
+
+def faiss_to_device(name: str, devices=None,
+                    catalog: Catalog | None = None) -> None:
+    """faiss_to_gpu analogue (MoveToGPUFunction, src/gpu/gpu.cpp:34-63):
+    place the index's storage over a device mesh, rows (or IVF lists)
+    partitioned over its 'shard' axis.  ``devices``: None (every local
+    device), an int device index, a device, an iterable of devices, or a
+    ``parallel.placement.Mesh``."""
+    from .parallel.placement import shard_entry
+
+    entry = _cat(catalog).get(name)
+    with entry.lock:
+        shard_entry(entry, devices)
 
 
 # --------------------------------------------------------------------------

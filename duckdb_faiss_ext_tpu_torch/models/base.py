@@ -215,6 +215,24 @@ def dedup_by_key(dist, labels, keys, k: int, sentinel: float):
             np.take_along_axis(labels, compact, 1))
 
 
+def row_placement(mesh):
+    """Row placement of padded storage over ``mesh``'s 'shard' axis (shared
+    by every codec family's shard_over); checks the mesh's axes once."""
+    from ..parallel.placement import RowPlacement
+
+    if "shard" not in mesh.shape:
+        raise errors.InvalidInputError(
+            "sharding needs a mesh with a 'shard' axis "
+            "(parallel.placement.default_mesh builds one)")
+    return RowPlacement(mesh)
+
+
+def placement_capacity(cap: int, placement) -> int:
+    """A capacity bucket rounded up to a multiple of the placement's device
+    count (row blocks of equal rows)."""
+    return cap if placement is None else placement.capacity(cap)
+
+
 def fetch_results(dist: torch.Tensor, pos: torch.Tensor):
     """(nq, k) f32 distances + (nq, k) i32 positions → numpy with a single
     device→host copy: the distance bits ride in the int32 buffer."""

@@ -13,6 +13,13 @@ sign codes stored int8 and queries are cast the same way; their dots are
 exact int32 products (``ops.flat_search.pm1_search``: ``torch._int_mm``
 on the card, an int32 matmul on the CPU), never K1, as the JAX package
 kept int8 codes out of its Pallas kernel.
+
+``set_placement`` (faiss_to_device, parallel/placement.py) puts the buffer
+on a mesh as S row blocks (``RowBlocks``), the capacity rounded to a
+multiple of the mesh's device count; a search then runs K1 (or the int8
+sign-code scan) on every block and merges the shards' top-k
+(parallel/sharded.py).  The placement is sticky: adds write into the
+blocks, and a grown buffer is placed again the same way.
 """
 
 from __future__ import annotations
@@ -24,9 +31,10 @@ from ..metrics import Metric
 from ..ops import flat_topk
 from ..ops.flat_search import finalize_scores, flat_search, pm1_search
 from ..ops.selectors import Selector
+from ..parallel.sharded import sharded_flat_search, sharded_rows_search
 from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
                             resolve_device)
-from .base import Index, SearchResult, as_matrix
+from .base import Index, SearchResult, as_matrix, placement_capacity
 
 
 class FlatIndex(Index):
@@ -44,6 +52,9 @@ class FlatIndex(Index):
         self._version = 0
         self._device_xb: torch.Tensor | None = None  # (cap, d)
         self._mask_cache: dict = {}
+        #: sticky row placement set by faiss_to_device (RowPlacement), or
+        #: None: the buffer on ``device``
+        self._placement = None
 
     # --- storage ---------------------------------------------------------
     @property
@@ -66,25 +77,42 @@ class FlatIndex(Index):
         # capacity on the next search.
         if (self._device_xb is not None
                 and self.ntotal <= self._device_xb.shape[0]):
-            self._device_xb[start:self.ntotal].copy_(torch.from_numpy(x))
+            if self._placement is not None:
+                self._device_xb.write(start, x)
+            else:
+                self._device_xb[start:self.ntotal].copy_(torch.from_numpy(x))
         else:
             self._device_xb = None
         self._mask_cache.clear()
 
     def _capacity(self) -> int:
-        return max(config.min_capacity, next_capacity(max(self.ntotal, 1)))
+        return placement_capacity(
+            max(config.min_capacity, next_capacity(max(self.ntotal, 1))),
+            self._placement)
 
-    def device_vectors(self) -> torch.Tensor:
-        """Padded (cap, d) buffer on the index's device; uploaded only when
-        the capacity bucket grew or the data was reloaded."""
+    def device_vectors(self):
+        """Padded (cap, d) buffer on the index's device, or its RowBlocks
+        under a placement; uploaded only when the capacity bucket grew or
+        the data was reloaded."""
         cap = self._capacity()
         if self._device_xb is None or self._device_xb.shape[0] < cap:
+            if self._placement is not None:
+                self._device_xb = self._placement.place(
+                    pad_rows(self._xb, cap), self.device)
+                return self._device_xb
             buf = torch.zeros((cap, self.d), dtype=(
                 torch.int8 if self.storage == "pm1_i8" else torch.float32),
                 device=self.device)
             buf[:self.ntotal].copy_(torch.from_numpy(self._xb))
             self._device_xb = buf
         return self._device_xb
+
+    def set_placement(self, placement) -> None:
+        """Place the buffer over a mesh (a ``RowPlacement``; faiss_to_gpu
+        analogue); None puts it back on ``device``."""
+        self._placement = placement
+        self._device_xb = None
+        self._mask_cache.clear()
 
     # --- selector masks ---------------------------------------------------
     def _selector_mask(self, selector: Selector) -> torch.Tensor:
@@ -125,8 +153,14 @@ class FlatIndex(Index):
             # Queries are sign codes too; the int8 dot is exact, so no
             # rerank ever applies.
             xq_i8 = torch.where(xq_pad > 0, 1, -1).to(torch.int8)
-            scores, pos = pm1_search(self.device_vectors(), self.ntotal,
-                                     xq_i8, k_eff, mask)
+            xb = self.device_vectors()
+            if self._placement is not None:
+                scores, pos = sharded_rows_search(
+                    xb, self.ntotal, xq_i8, k_eff,
+                    lambda s, dev, blk, n, q, kk, m: pm1_search(blk, n, q, kk,
+                                                                m), mask)
+            else:
+                scores, pos = pm1_search(xb, self.ntotal, xq_i8, k_eff, mask)
             dist, pos = finalize_scores(scores, pos, self.metric.name)
             return dist, pos, nq, k_eff
         # Opt-in exact rerank for fast mode ({"rerank": "true"}): scan a
@@ -149,8 +183,13 @@ class FlatIndex(Index):
 
     def _dispatch_search(self, xq_pad, k_eff, mask):
         """L2 / inner product with k ≤ 1024 go to the fused kernel (on a CPU
-        tensor its plain version); everything else to the plain scan."""
+        tensor its plain version); everything else to the plain scan.  Under
+        a placement each shard's block does, and the shards merge."""
         xb = self.device_vectors()
+        if self._placement is not None:
+            return finalize_scores(*sharded_flat_search(
+                xb, self.ntotal, xq_pad, k_eff, self.metric.name,
+                self.metric_arg, mask), self.metric.name)
         if flat_topk.supports(self.metric.name, k_eff, self.d):
             return flat_topk.kernel_flat_search(
                 xb, self.ntotal, xq_pad, k_eff, self.metric.name, mask=mask)

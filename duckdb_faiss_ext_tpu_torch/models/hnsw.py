@@ -18,10 +18,18 @@ package), and a search takes one of three regimes:
   a partition and no graph: an internal IVF,Flat partition (nlist ≈ √n,
   capped at 65,536) searched at nprobe = efSearch / 4 through K6 / K7.
 
+Under a placement (faiss_to_device: the rows as S blocks over a mesh,
+models/flat.py) the graph regime is ``graph_sharded``: each shard builds a
+graph over its own row block (``build_graph`` on K1, local row indices,
+padded with -1 to the block's rows) and a search walks every shard's
+subgraph and merges the shards' top-k (parallel/sharded.py); a filtered
+search, ``exact`` and the IVF regime's cases take the sharded exact scan
+(K1 on every block).  The per-shard graphs are not saved (placements are
+not), and the host adjacency of an earlier single-device build is kept.
+
 Rows added after a build are scanned exactly (K1) and merged until they
 pass ``tail_rebuild_fraction`` of the corpus, which triggers a rebuild.
-Not ported: the JAX package's sharded graph regime (device placement) and
-the pack-budget degree backoff (a v5e allocation cap).
+Not ported: the pack-budget degree backoff (a v5e allocation cap).
 """
 
 from __future__ import annotations
@@ -69,6 +77,10 @@ class HNSWIndex(FlatIndex):
         self._graph_dev = None
         #: (IVFIndex over the first `indexed` rows, indexed), or None
         self._accel = None
+        #: per-shard graphs under a placement: (cap, per shard {device:
+        #: (rows, deg) int32 adjacency in local indices}, per-shard valid
+        #: rows, indexed), or None
+        self._graph_sharded = None
         self._tail_cache = None
         #: one lazy build (graph or partition) under concurrent searches
         self._build_lock = threading.Lock()
@@ -95,13 +107,27 @@ class HNSWIndex(FlatIndex):
 
     # --- regime selection ---------------------------------------------------
     def _effective_mode(self) -> str:
-        """'exact', 'graph' or 'ivf' for the current corpus and knobs."""
+        """'exact', 'graph', 'graph_sharded' or 'ivf' for the current corpus
+        and knobs; under a placement the graph regime is per-shard and the
+        IVF regime's cases take the exact scan."""
         if (self.ntotal < self.ann_threshold
                 or self.metric.name not in ("L2", "INNER_PRODUCT")):
             return "exact"
         wants_ivf = (self.accel_mode == "ivf" or self.soar_lambda > 0.0
-                     or (self._graph is None and self._accel is not None))
+                     or (self._graph is None and self._graph_sharded is None
+                         and self._accel is not None))
+        if self._placement is not None:
+            return "exact" if wants_ivf else "graph_sharded"
         return "ivf" if wants_ivf else "graph"
+
+    def set_placement(self, placement) -> None:
+        """Re-placement moves the row blocks: the per-shard graphs (local
+        indices) no longer align, and the single-device walk's padded
+        adjacency is unreachable under a placement; the host adjacency
+        stays (cheap, saved, reused if the placement is dropped)."""
+        super().set_placement(placement)
+        self._graph_sharded = None
+        self._graph_dev = None
 
     def _stale(self, built) -> bool:
         n = self.ntotal
@@ -188,6 +214,66 @@ class HNSWIndex(FlatIndex):
         dist, pos = finalize_scores(scores, pos, self.metric.name)
         return dist, pos, nq, k_eff
 
+    # --- sharded graph regime ---------------------------------------------
+    def _graph_ready_sharded(self):
+        """Per-shard graphs over the placed row blocks, rebuilt when the
+        exactly scanned tail outgrows the rebuild fraction or the capacity
+        (hence the blocks) moved."""
+        def fresh():
+            g = self._graph_sharded
+            if g is None or g[0] != self.device_vectors().shape[0]:
+                return None
+            n = self.ntotal
+            return g if n - g[3] <= self.tail_rebuild_fraction * n else None
+
+        if fresh() is not None:
+            return self._graph_sharded
+        with self._build_lock:
+            if fresh() is not None:
+                return self._graph_sharded
+            n = self.ntotal
+            blocks = self.device_vectors()
+            deg = self._graph_degree()
+            inter = min(max(2 * deg, self.ef_construction), max(1, n - 1),
+                        192)
+            rounds = 2 + max(0, (self.ef_construction - 64) // 64)
+            graphs, nvalid = [], []
+            with timed("hnsw_graph_build"):
+                for s in range(blocks.nshards):
+                    n_s = blocks.nvalid(s, n)
+                    devs = blocks.mesh.shard_devices(s)
+                    adj = (graph_ops.build_graph(
+                        blocks.block(s, devs[0]), n_s, deg, self.metric.name,
+                        intermediate=min(inter, max(1, n_s - 1)),
+                        exact_max=self.graph_max, refine_rounds=rounds)
+                        if n_s else torch.empty((0, deg), dtype=torch.int32,
+                                                device=devs[0]))
+                    adj = _pad_graph(adj, blocks.rows)
+                    graphs.append({dev: adj.to(dev) for dev in devs})
+                    nvalid.append(n_s)
+            self._graph_sharded = (blocks.shape[0], graphs, nvalid, n)
+            return self._graph_sharded
+
+    def _sharded_graph_dispatch(self, xq, k, params, gstate):
+        """The per-shard walks and their merge as a dispatch tuple."""
+        from ..parallel.sharded import sharded_graph_search
+
+        _, graphs, nvalid, indexed = gstate
+        xq = as_matrix(xq, self.d)
+        nq = xq.shape[0]
+        if nq == 0 or k <= 0 or indexed == 0:
+            return None
+        nq_pad = max(config.min_query_bucket, next_pow2(nq))
+        xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(self.device)
+        pool, width, iters = self._walk_knobs(k, params, None)
+        k_eff = min(k, indexed)
+        scores, pos = sharded_graph_search(
+            self.device_vectors(), graphs, nvalid, xq_pad, k_eff,
+            self.metric.name, pool=max(pool, k_eff), width=width,
+            iters=iters, rerank=config.precision_mode != "parity")
+        dist, pos = finalize_scores(scores, pos, self.metric.name)
+        return dist, pos, nq, k_eff
+
     # --- ivf regime ---------------------------------------------------------
     def _accel_ready(self):
         """(IVFIndex, indexed) over a prefix of the corpus."""
@@ -228,9 +314,17 @@ class HNSWIndex(FlatIndex):
         params = params if params is not None else EMPTY
         self._latch(params)
         mode = self._effective_mode()
-        if _exact_requested(params) or mode == "exact":
+        if (_exact_requested(params) or mode == "exact"
+                or (mode == "graph_sharded" and selector is not None)):
+            # A filtered search under a placement takes the sharded exact
+            # scan (the mask fused into K1 on every block).
             return self._exact_search(xq, k, params, selector)
-        if mode == "graph":
+        if mode == "graph_sharded":
+            gstate = self._graph_ready_sharded()
+            res = self._finish_dispatch(
+                self._sharded_graph_dispatch(xq, k, params, gstate), xq, k)
+            indexed = gstate[3]
+        elif mode == "graph":
             gstate = self._graph_ready()
             res = self._finish_dispatch(
                 self._graph_dispatch(xq, k, params, selector, gstate), xq, k)
@@ -317,6 +411,7 @@ class HNSWIndex(FlatIndex):
         ameta = state.pop("accel_meta", None)
         super().load_state(state)
         self._graph = self._graph_dev = self._accel = self._tail_cache = None
+        self._graph_sharded = None
         if gadj is not None and gmeta is not None:
             self._graph = (np.array(gadj, np.int32), int(gmeta[0]))
         if cents is not None and ameta is not None:

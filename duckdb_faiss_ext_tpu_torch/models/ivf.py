@@ -50,7 +50,8 @@ storage rows, ``_srcrow`` maps each storage row to its logical row and
 fetches 2k candidates and drops same-source duplicates on the host
 (models/ivf_serve.py); the state keys ``soar_lambda``, ``soar_srcrow`` and
 ``soar_rows`` carry it.  The IMI coarse quantizer is the subclass in
-models/imi.py.
+models/imi.py.  ``shard_over`` (faiss_to_device) places the lists over a
+device mesh (models/ivf_sharded.py).
 """
 
 from __future__ import annotations
@@ -76,6 +77,7 @@ from .base import Index, as_matrix
 from .ivf_device import IVFDevice
 from .ivf_layout import IVFLayout
 from .ivf_serve import IVFServe
+from .ivf_sharded import IVFSharded
 
 #: scalar-quantizer encodings built here
 SQ_ENCODINGS = ("SQ8", "SQ4", "SQ6", "SQfp16", "SQbf16")
@@ -87,7 +89,7 @@ _PQ_RE = re.compile(r"^PQ(\d+)(?:x(\d+))?$")
 _RQ_RE = re.compile(r"^RQ(\d+)x(\d+)$")
 
 
-class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
+class IVFIndex(IVFLayout, IVFServe, IVFDevice, IVFSharded, Index):
     def __init__(self, d: int, metric: Metric, metric_arg: float,
                  nlist: int, quantizer: Index, encoding: str = "Flat"):
         super().__init__(d, metric, metric_arg)
@@ -145,6 +147,9 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, Index):
         self._logical_rows: np.ndarray | None = None
         #: device-resident state (models/ivf_device.py), or None
         self._dr = None
+        #: the mesh the lists are placed over by faiss_to_device
+        #: (models/ivf_sharded.py), or None
+        self._shard_mesh = None
         self._centroids: np.ndarray | None = None
         self._sq_vmin: np.ndarray | None = None
         self._sq_scale: np.ndarray | None = None

@@ -36,8 +36,10 @@ to the index's device once per mutation, and cached until the next one.
 A device-resident index (models/ivf_device.py) already holds its padded
 layout on the card: its plan is ``("device", lmax)`` whatever the metric
 or precision mode, and the layout is its resident tensors.
-Selector masks are built on the host from ``selector.contains(ids)``
-through each layout's row positions.  The TPU-only limits of the JAX
+The padded layout's and the spill's selector masks are built on the
+device from their row positions (``ops.selectors.device_row_mask``; the
+host row positions serve only the plain version, ``host_row_mask``); the
+sorted layout's mask is built on the host from ``selector.contains``.  The TPU-only limits of the JAX
 package (the SMEM probe-table blocking, the VMEM gate of the pair tiles)
 have no counterpart here.
 """
@@ -51,6 +53,8 @@ import numpy as np
 import torch
 
 from ..ops.ivf_pq_scan import pq_row_terms
+from ..ops.selectors import (device_row_mask, host_row_mask,
+                             labels_for_device_mask)
 from ..ops.sq import FLOAT_CODECS, sq_row_norms, sq_row_sums
 from ..ops.sq_spill import spill_offsets
 from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
@@ -75,7 +79,7 @@ class ListLayout(NamedTuple):
     counts: torch.Tensor       # (nlist,) int32 rows kept per list
     row_pos: torch.Tensor      # (nlist, lmax) int32 storage row, -1 padding
     centroids: torch.Tensor    # (nlist, d) fp32
-    row_pos_host: np.ndarray   # host copy of row_pos (selector masks)
+    row_pos_host: np.ndarray   # host copy of row_pos (host_row_mask)
     rn: torch.Tensor | None = None   # SQ: (nlist, lmax) fp32 Σ(scale·c)²
     rs: torch.Tensor | None = None   # SQ: (nlist, lmax) fp32 Σc
     codebooks: torch.Tensor | None = None   # PQ / RQ codebooks
@@ -132,6 +136,8 @@ class IVFLayout:
         self._list_meta_cache = None
         self._ids_sorted = None
         self._mask_cache: dict = {}
+        self._mask_labels_cache: dict = {}
+        self._sharded_cache = None
 
     def _counts(self) -> np.ndarray:
         if self._counts_cache is None:
@@ -341,28 +347,41 @@ class IVFLayout:
             hit = self._mask_cache[key] = build()
         return hit
 
+    def _mask_labels(self, device) -> torch.Tensor | None:
+        """The ids as the device mask path reads them
+        (``labels_for_device_mask``: None where they are the storage
+        positions), on ``device``, cached per index version."""
+        if device not in self._mask_labels_cache:
+            self._mask_labels_cache[device] = labels_for_device_mask(
+                self._ids, device)
+        return self._mask_labels_cache[device]
+
+    def _row_mask(self, selector, row_pos: torch.Tensor,
+                  row_pos_host: np.ndarray) -> torch.Tensor:
+        """int8 pass mask over a layout's row positions, built on their
+        device (``device_row_mask``); ``host_row_mask`` over the host copy
+        only for a selector the device path does not take."""
+        mask = device_row_mask(selector, row_pos,
+                               self._mask_labels(row_pos.device))
+        if mask is None:
+            mask = torch.from_numpy(host_row_mask(
+                selector, self._ids, row_pos_host)).to(row_pos.device)
+        return mask
+
     def _layout_mask(self, selector) -> torch.Tensor:
         """(nlist, lmax) int8 mask over the padded layout (``_pallas_mask``
-        in the JAX package), from the host row positions."""
+        in the JAX package), built on the device from its row positions."""
         def build():
-            rp = self._build_device_layout().row_pos_host
-            passing = selector.contains(self._ids)
-            mask = np.zeros(rp.shape, np.int8)
-            valid = rp >= 0
-            mask[valid] = passing[rp[valid]]
-            return torch.from_numpy(mask).to(self.device)
+            lay = self._build_device_layout()
+            return self._row_mask(selector, lay.row_pos, lay.row_pos_host)
 
         return self._cached_mask(("layout", selector.cache_key()), build)
 
     def _spill_mask(self, selector) -> torch.Tensor:
-        """(s_pad,) bool mask over the spill rows."""
+        """(s_pad,) bool mask over the spill rows, built on the device."""
         def build():
-            sp_pos = self._spill.pos_host
-            passing = selector.contains(self._ids)
-            mask = np.zeros(sp_pos.shape, bool)
-            valid = sp_pos >= 0
-            mask[valid] = passing[sp_pos[valid]]
-            return torch.from_numpy(mask).to(self.device)
+            sp = self._spill
+            return self._row_mask(selector, sp.pos, sp.pos_host).bool()
 
         return self._cached_mask(("spill", selector.cache_key()), build)
 

@@ -57,7 +57,11 @@ lists, with the same result.  SOAR's duplicates are dropped per (query,
 label), keeping the best.  A device-resident index has no sorted layout
 and refuses range search with the JAX package's text.
 
-Not ported here: the sharded placement.
+Under a placement (faiss_to_device, models/ivf_sharded.py) the lists are
+cut into one sub-layout a shard and every shard runs the same list search
+on its own lists (``_list_search``; the plain decode scan where the
+single-device index would take the sorted+gather path), then the shards
+merge.
 """
 
 from __future__ import annotations
@@ -201,6 +205,10 @@ class IVFServe:
         xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(self.device)
         metric = self.metric.name
 
+        if self._shard_mesh is not None:
+            # Placed over a mesh (faiss_to_device): lists partitioned over
+            # the shards, the k·S merge.
+            return self._search_sharded(xq_pad, nq, k, nprobe_eff, selector)
         if self._layout_serves(k):
             lay = self._build_device_layout()
             lmax = lay.payload.shape[1]
@@ -309,80 +317,80 @@ class IVFServe:
 
     def _scan_lists(self, lay, xq, nprobe, k_kernel, k_eff, mask, sp_mask):
         """One query block through the padded layout: coarse top-nprobe,
-        the list scan (K6 / K2, or K7 / K3 by pairs_wanted; K8 for PQ / RQ),
-        and the spill region merged in.  Returns max-oriented (scores,
-        positions) (nq, k_eff)."""
+        the list search (``_list_search``), and the spill region merged in.
+        Returns max-oriented (scores, positions) (nq, k_eff)."""
+        probe_ids = coarse_topk(xq, lay.centroids, nprobe, self.metric.name,
+                                self.metric_arg)
+        scores, pos = self._list_search(lay, xq, probe_ids, k_kernel, mask)
+        if self._spill is None:
+            return scores, pos
+        sp_scores, sp_pos = self._spill_search(lay, xq, probe_ids, k_eff,
+                                               sp_mask)
+        return merge_topk(scores, pos, sp_scores, sp_pos, k_eff)
+
+    def _list_search(self, lay, xq, probe_ids, k, mask):
+        """The list kernels over a padded layout for given probes: K8 for
+        PQ / RQ, K2 or K3 / K9 (by pairs_wanted) with the exact rerank for
+        SQ, K6 or K7 / K10 for Flat.  Returns max-oriented (scores,
+        storage positions) (nq, k)."""
         metric = self.metric.name
         lmax = lay.payload.shape[1]
-        probe_ids = coarse_topk(xq, lay.centroids, nprobe, metric,
-                                self.metric_arg)
         if self.sq_type is not None:
-            return self._scan_sq_lists(lay, xq, probe_ids, k_kernel, k_eff,
-                                       mask, sp_mask)
+            nprobe = probe_ids.shape[1]
+            vmin, scale = self._sq_ranges(lay.payload.device)
+            args = (lay.payload, lay.rn, lay.rs, lay.counts, lay.row_pos,
+                    probe_ids, xq, mask, vmin, scale)
+            search = dict(k=k, k_scan=self._sq_kscan(k, nprobe * lmax),
+                          metric=metric, codec=self.sq_type)
+            if self.pairs_wanted(xq.shape[0], lmax):
+                mega = config.pairs_impl == "mega"
+                self._last_scan_path = (("pairs-mega-" if mega else "pairs-")
+                                        + self.sq_type)
+                return ivf_sq_pairs_search(*args, **search, mega=mega)
+            self._last_scan_path = "per-query"
+            return ivf_sq_list_search(*args, **search)
         if self.pq_m is not None:
             self._last_scan_path = "per-query"
-            scores, pos = ivf_pq_list_search(
+            return ivf_pq_list_search(
                 lay.payload, lay.counts, lay.row_pos, lay.codebooks,
-                lay.centroids, probe_ids, xq, mask, k=k_kernel,
-                metric=metric, codec=self.pq_codec, row_terms=lay.rt)
-        elif self.pairs_wanted(xq.shape[0], lmax):
-            mega = config.pairs_impl == "mega"
-            self._last_scan_path = "pairs-mega-flat" if mega else "pairs-flat"
-            k_scan = min(nprobe * lmax, max(4 * k_kernel, k_kernel + 32))
-            scores, pos = ivf_pairs_search(
-                lay.payload, lay.counts, lay.row_pos, probe_ids, xq, mask,
-                k=k_kernel, k_scan=k_scan, metric=metric, mega=mega)
-        else:
-            self._last_scan_path = "per-query"
-            scores, pos = ivf_list_search(
-                lay.payload, lay.counts, lay.row_pos, probe_ids, xq, mask,
-                k=k_kernel, metric=metric)
-        spill = self._spill
-        if spill is not None:
-            codec = dict(codec=self.pq_codec, codebooks=lay.codebooks,
-                         centroids=lay.centroids) if self.pq_m else {}
-            sp_scores, sp_pos = ivf_spill_scan(
-                spill.payload, spill.assign, spill.pos, probe_ids, xq,
-                sp_mask, self.metric_arg, k=k_eff, metric=metric,
-                nlist=self.nlist, **codec)
-            scores, pos = merge_topk(scores, pos, sp_scores, sp_pos, k_eff)
-        return scores, pos
-
-    def _scan_sq_lists(self, lay, xq, probe_ids, k_kernel, k_eff, mask,
-                       sp_mask):
-        """``_scan_lists`` for SQ codes: K2, K3 or K9 and the exact rerank,
-        then the spill region through K5 or the plain SQ spill scan."""
-        metric, codec = self.metric.name, self.sq_type
-        int8 = sq_int8_active() or self._dr is not None
-        nprobe = probe_ids.shape[1]
-        lmax = lay.payload.shape[1]
-        vmin, scale = self._sq_ranges()
-        args = (lay.payload, lay.rn, lay.rs, lay.counts, lay.row_pos,
-                probe_ids, xq, mask, vmin, scale)
-        search = dict(k=k_kernel, k_scan=self._sq_kscan(k_kernel,
-                                                        nprobe * lmax),
-                      metric=metric, codec=codec)
+                lay.centroids, probe_ids, xq, mask, k=k, metric=metric,
+                codec=self.pq_codec, row_terms=lay.rt)
         if self.pairs_wanted(xq.shape[0], lmax):
             mega = config.pairs_impl == "mega"
-            self._last_scan_path = ("pairs-mega-" if mega else "pairs-") + codec
-            scores, pos = ivf_sq_pairs_search(*args, **search, mega=mega)
-        else:
-            self._last_scan_path = "per-query"
-            scores, pos = ivf_sq_list_search(*args, **search)
+            self._last_scan_path = "pairs-mega-flat" if mega else "pairs-flat"
+            k_scan = min(probe_ids.shape[1] * lmax, max(4 * k, k + 32))
+            return ivf_pairs_search(
+                lay.payload, lay.counts, lay.row_pos, probe_ids, xq, mask,
+                k=k, k_scan=k_scan, metric=metric, mega=mega)
+        self._last_scan_path = "per-query"
+        return ivf_list_search(lay.payload, lay.counts, lay.row_pos,
+                               probe_ids, xq, mask, k=k, metric=metric)
+
+    def _spill_search(self, lay, xq, probe_ids, k_eff, sp_mask):
+        """The spill region's best rows for the probes: K5 for sq8 / sq4 at
+        d ≥ 16 and k ≤ 128 on the int8 path, else the plain spill scan (SQ
+        rows decoded or int8-scored, PQ / RQ codes decoded with their
+        list's centroid).  Returns max-oriented (scores, positions)."""
+        metric, codec = self.metric.name, self.sq_type
         sp = self._spill
-        if sp is None:
-            return scores, pos
+        if codec is None:
+            extra = dict(codec=self.pq_codec, codebooks=lay.codebooks,
+                         centroids=lay.centroids) if self.pq_m else {}
+            return ivf_spill_scan(
+                sp.payload, sp.assign, sp.pos, probe_ids, xq, sp_mask,
+                self.metric_arg, k=k_eff, metric=metric, nlist=self.nlist,
+                **extra)
+        int8 = sq_int8_active() or self._dr is not None
+        vmin, scale = self._sq_ranges()
         k_sp = min(k_eff, sp.payload.shape[0])
         if (codec in SPILL_KERNEL_CODECS and int8 and self.d >= 16
                 and k_eff <= 128 and sp.n > 0):
-            sp_scores, sp_pos = sq_spill_search(
+            return sq_spill_search(
                 sp.payload, sp.assign, sp.pos, sp.rs, sp.rn, sp.n, probe_ids,
                 xq, sp_mask, vmin, scale, k=k_sp, metric=metric, codec=codec,
                 offsets=sp.offsets)
-        else:
-            sp_scores, sp_pos = ivf_spill_scan(
-                sp.payload, sp.assign, sp.pos, probe_ids, xq, sp_mask,
-                self.metric_arg, k=k_sp, metric=metric, nlist=self.nlist,
-                sq=codec, sq_vmin=vmin, sq_scale=scale, spill_rn=sp.rn,
-                spill_rs=sp.rs, int8_dot=self.d >= 16 and int8)
-        return merge_topk(scores, pos, sp_scores, sp_pos, k_eff)
+        return ivf_spill_scan(
+            sp.payload, sp.assign, sp.pos, probe_ids, xq, sp_mask,
+            self.metric_arg, k=k_sp, metric=metric, nlist=self.nlist,
+            sq=codec, sq_vmin=vmin, sq_scale=scale, spill_rn=sp.rn,
+            spill_rs=sp.rs, int8_dot=self.d >= 16 and int8)

@@ -27,7 +27,7 @@ import numpy as np
 from .. import errors
 from ..metrics import Metric, resolve_metric
 from ..params import EMPTY
-from .base import Index, SearchResult, as_matrix
+from .base import Index, SearchResult, as_matrix, row_placement
 from .flat import FlatIndex
 
 #: seed of the random rotation (deterministic per (d, nbits), so factory
@@ -64,6 +64,12 @@ class LSHIndex(Index):
         else:
             self._rot = None
         self._codes = self._code_store()
+
+    def shard_over(self, mesh) -> None:
+        """faiss_to_gpu analogue: the ±1 code corpus (an inner-product Flat
+        index) row-placed like any Flat placement."""
+        self._codes.set_placement(row_placement(mesh))
+        self._codes.device_vectors()
 
     def _code_store(self) -> FlatIndex:
         return FlatIndex(self.nbits, resolve_metric("INNER_PRODUCT"),

@@ -15,8 +15,10 @@ a search is ``ops/pq.pq_search`` over them (plain torch: the JAX package
 ran it as XLA, with no Pallas kernel).
 
 ``range_search`` thresholds dense tiles of decoded code chunks on the
-device (ops/range.py).  Not ported here: ``shard_over`` (faiss_to_gpu
-placement).
+device (ops/range.py).  ``shard_over`` (faiss_to_device) places the codes
+over a mesh as row blocks (parallel/placement.py; sticky across train and
+add, so it may come before training): each shard runs ``pq_search`` on its
+block and the shards merge (parallel/sharded.py).  RQIndex inherits it.
 """
 
 from __future__ import annotations
@@ -31,9 +33,11 @@ from ..ops.kmeans import DEFAULT_SEED
 from ..ops.pq import (codec_decode, pq_encode, pq_encode_anisotropic,
                       pq_search, pq_train, pq_train_anisotropic)
 from ..params import EMPTY
+from ..parallel.sharded import sharded_rows_search
 from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
                             resolve_device)
-from .base import Index, SearchResult, as_matrix
+from .base import (Index, SearchResult, as_matrix, placement_capacity,
+                   row_placement)
 
 #: rows a chunk of the device-side encoding takes
 ENCODE_CHUNK = 1 << 18
@@ -77,6 +81,8 @@ class PQIndex(Index):
         self._codebooks: np.ndarray | None = None
         self._codes = np.empty((0, self.M), dtype=np.uint8)
         self._version = 0
+        #: sticky row placement set by faiss_to_device, or None
+        self._placement = None
         self._invalidate()
 
     @property
@@ -148,13 +154,28 @@ class PQIndex(Index):
 
     def _device_state(self):
         """(codes (cap, M) uint8, codebooks) on the index's device, the codes
-        padded to a capacity bucket; uploaded once per mutation."""
+        padded to a capacity bucket (RowBlocks under a placement); uploaded
+        once per mutation."""
         if self._device_state_cache is None:
-            cap = max(config.min_capacity, next_capacity(max(self.ntotal, 1)))
+            cap = placement_capacity(
+                max(config.min_capacity, next_capacity(max(self.ntotal, 1))),
+                self._placement)
+            codes = pad_rows(self._codes, cap)
             self._device_state_cache = (
-                torch.from_numpy(pad_rows(self._codes, cap)).to(self.device),
+                self._placement.place(codes, self.device)
+                if self._placement is not None
+                else torch.from_numpy(codes).to(self.device),
                 torch.from_numpy(self._codebooks).to(self.device))
         return self._device_state_cache
+
+    def shard_over(self, mesh) -> None:
+        """faiss_to_gpu analogue: the codes row-placed over the mesh, the
+        codebooks on every shard's device; an untrained index keeps the
+        placement until its codes exist."""
+        self._placement = row_placement(mesh)
+        self._invalidate()
+        if self.is_trained:
+            self._device_state()
 
     # --- search --------------------------------------------------------------
     def search(self, xq, k, params=EMPTY, selector=None) -> SearchResult:
@@ -187,12 +208,23 @@ class PQIndex(Index):
                 self._mask_cache = {key: mask}
         # The (nq, chunk) score tile and the (chunk, d) decoded rows stay
         # under 2^26 values; results do not depend on the chunk.
-        chunk = min(cap, next_pow2(max(1024, (1 << 26) // max(nq_pad,
-                                                               self.d))))
-        scores, pos = pq_search(codes_dev, self.ntotal, cb_dev, xq_pad, mask,
-                                self.metric_arg, k=k_eff,
-                                metric=self.metric.name, chunk=chunk,
-                                codec=self.codec)
+        chunk = next_pow2(max(1024, (1 << 26) // max(nq_pad, self.d)))
+
+        def search(codes, n, xq, k, mask, cb):
+            return pq_search(codes, n, cb, xq, mask, self.metric_arg, k=k,
+                             metric=self.metric.name,
+                             chunk=min(codes.shape[0], chunk),
+                             codec=self.codec)
+
+        if self._placement is not None:
+            scores, pos = sharded_rows_search(
+                codes_dev, self.ntotal, xq_pad, k_eff,
+                lambda s, dev, blk, n, q, kk, m: search(blk, n, q, kk, m,
+                                                        cb_dev.to(dev)),
+                mask)
+        else:
+            scores, pos = search(codes_dev, self.ntotal, xq_pad, k_eff, mask,
+                                 cb_dev)
         dist, pos = finalize_scores(scores, pos, self.metric.name)
         return dist, pos, nq, k_eff
 

@@ -20,8 +20,10 @@ the best ``k_scan`` rows in fp32 (``ops/sq.sq_int8_search``).  Both are
 plain torch: the JAX package ran them as XLA, with no Pallas kernel.
 
 ``range_search`` decodes chunks of the codes into dense tiles thresholded
-on the device (ops/range.py).  Not ported here: ``shard_over``
-(faiss_to_gpu placement).
+on the device (ops/range.py).  ``shard_over`` (faiss_to_device) places the
+codes (and the int8 path's per-row sums) over a mesh as row blocks
+(parallel/placement.py; sticky across train and add): each shard runs the
+same scan on its block and the shards merge (parallel/sharded.py).
 """
 
 from __future__ import annotations
@@ -37,9 +39,11 @@ from ..ops.sq import (FLOAT_CODECS, SQ_LEVELS, float_encode, sq_code_width,
                       sq_ranges, sq_row_norms, sq_row_sums, sq_search,
                       sq_train)
 from ..params import EMPTY
+from ..parallel.sharded import sharded_rows_search
 from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
                             resolve_device, sq_int8_active)
-from .base import Index, SearchResult, as_matrix
+from .base import (Index, SearchResult, as_matrix, placement_capacity,
+                   row_placement)
 from .pq import not_trained
 
 #: the factory's scalar-quantizer types
@@ -59,6 +63,8 @@ class SQIndex(Index):
                 f"(use SQ8, SQ4, SQ6, SQfp16 or SQbf16)")
         #: where the codes live and searches run
         self.device = resolve_device()
+        #: sticky row placement set by faiss_to_device, or None
+        self._placement = None
         self.qtype = qtype
         #: "sq8" | "sq4" | "sq6" | "fp16" | "bf16"
         self.codec = qtype[2:] if qtype[2:] in FLOAT_CODECS else qtype.lower()
@@ -137,7 +143,25 @@ class SQIndex(Index):
         self._mask_cache: dict = {}
 
     def _capacity(self) -> int:
-        return max(config.min_capacity, next_capacity(max(self.ntotal, 1)))
+        return placement_capacity(
+            max(config.min_capacity, next_capacity(max(self.ntotal, 1))),
+            self._placement)
+
+    def _upload(self, host: np.ndarray):
+        """A padded host array on the index's device, or as RowBlocks under
+        a placement."""
+        if self._placement is not None:
+            return self._placement.place(host, self.device)
+        return torch.from_numpy(host).to(self.device)
+
+    def shard_over(self, mesh) -> None:
+        """faiss_to_gpu analogue: the codes row-placed over the mesh, the
+        ranges on every shard's device; an untrained index keeps the
+        placement until its codes exist."""
+        self._placement = row_placement(mesh)
+        self._invalidate()
+        if self.is_trained:
+            self._device_state()
 
     def _ranges(self, device=None):
         """(vmin, scale) (d,) fp32 on ``device`` (the index's by default)."""
@@ -148,9 +172,9 @@ class SQIndex(Index):
         """(codes (cap, w) uint8, vmin, scale) on the index's device, the
         codes padded to a capacity bucket; uploaded once per mutation."""
         if self._device_state_cache is None:
-            codes = torch.from_numpy(pad_rows(self._codes, self._capacity()))
-            self._device_state_cache = (codes.to(self.device),
-                                        *self._ranges())
+            self._device_state_cache = (
+                self._upload(pad_rows(self._codes, self._capacity())),
+                *self._ranges())
         return self._device_state_cache
 
     def _int8_rows(self):
@@ -160,7 +184,7 @@ class SQIndex(Index):
         if self._int8_rows_cache is None:
             cap = self._capacity()
             self._int8_rows_cache = tuple(
-                torch.from_numpy(pad_rows(a, cap)).to(self.device)
+                self._upload(pad_rows(a, cap))
                 for a in (sq_row_norms(self._codes, self._scale, self.d,
                                        self.codec),
                           sq_row_sums(self._codes, self.d, self.codec)))
@@ -203,17 +227,30 @@ class SQIndex(Index):
                 mask = torch.from_numpy(pad_rows(rows, cap, fill=False)).to(
                     self.device)
                 self._mask_cache = {key: mask}
-        if self.int8_serves():
-            rn, rs = self._int8_rows()
-            scores, pos = sq_int8_search(
-                codes, rn, rs, self.ntotal, vmin, scale, xq_pad, mask,
-                k=k_eff, k_scan=min(cap, max(4 * k_eff, k_eff + 32)),
-                metric=self.metric.name, codec=self.codec)
+        int8 = self.int8_serves()
+        rn, rs = self._int8_rows() if int8 else (None, None)
+
+        def search(codes, rn, rs, n, xq, k, mask, vmin, scale):
+            if int8:
+                return sq_int8_search(
+                    codes, rn, rs, n, vmin, scale, xq, mask, k=k,
+                    k_scan=min(codes.shape[0], max(4 * k, k + 32)),
+                    metric=self.metric.name, codec=self.codec)
+            return sq_search(codes, n, vmin, scale, xq, mask,
+                             self.metric_arg, k=k, metric=self.metric.name,
+                             codec=self.codec)
+
+        if self._placement is not None:
+            def block(s, dev, blk, n, q, kk, m):
+                return search(blk, None if rn is None else rn.block(s, dev),
+                              None if rs is None else rs.block(s, dev), n, q,
+                              kk, m, vmin.to(dev), scale.to(dev))
+
+            scores, pos = sharded_rows_search(codes, self.ntotal, xq_pad,
+                                              k_eff, block, mask)
         else:
-            scores, pos = sq_search(
-                codes, self.ntotal, vmin, scale, xq_pad, mask,
-                self.metric_arg, k=k_eff, metric=self.metric.name,
-                codec=self.codec)
+            scores, pos = search(codes, rn, rs, self.ntotal, xq_pad, k_eff,
+                                 mask, vmin, scale)
         dist, pos = finalize_scores(scores, pos, self.metric.name)
         return dist, pos, nq, k_eff
 

@@ -5,14 +5,16 @@ Equivalent of ProcessSelectionvector (src/faiss_extension.cpp:729-804): turn
 sequential-id fast path (the reference's aligned 8-lane bit-pack loop,
 :789-796) and a scatter fallback for arbitrary ids (:770-778).
 
-This is the numpy path; its output is identical to the JAX package's native
-bitmap builder, which is not ported yet.
+The bitmap is built by the native library (native/bitmapper.cpp, the JAX
+package's C++ source, built with g++ at first use); a failed build raises.
+``native.build_bitmap_reference`` is its plain numpy version.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..native import load_native
 from .selectors import BitmapSelector
 
 
@@ -23,23 +25,12 @@ def build_bitmap(flags: np.ndarray, ids: np.ndarray) -> BitmapSelector:
     ids = np.asarray(ids, dtype=np.int64)
     if flags.shape != ids.shape:
         raise ValueError("flags and ids must have the same length")
-    n = ids.size
-    if n == 0:
+    if ids.size == 0:
         return BitmapSelector(0, np.zeros(0, np.uint8))
-
+    if int(ids.min()) < 0:
+        # The native scatter writes byte id >> 3: a negative id would land
+        # outside the bitmap.
+        raise ValueError("mask ids must be non-negative")
     size = int(ids.max()) + 1
-    nbytes = (size + 7) // 8
-
-    # Sequential fast path: ids are 0..n-1 in order → one packbits call.
-    if size == n and ids[0] == 0 and ids[-1] == n - 1 \
-            and np.array_equal(ids, np.arange(n, dtype=np.int64)):
-        bitmap = np.packbits(flags.astype(bool), bitorder="little")
-        bitmap = np.pad(bitmap, (0, nbytes - bitmap.size))
-        return BitmapSelector(size, bitmap)
-
-    # Scatter fallback.
-    dense = np.zeros(size, dtype=bool)
-    dense[ids[flags != 0]] = True
-    bitmap = np.packbits(dense, bitorder="little")
-    bitmap = np.pad(bitmap, (0, nbytes - bitmap.size))
-    return BitmapSelector(size, bitmap)
+    return BitmapSelector(size, load_native().build_bitmap(
+        flags.reshape(-1), ids.reshape(-1), (size + 7) // 8))

@@ -101,17 +101,19 @@ def _candidate_distances(xq_c, xc, metric, metric_arg):
 
 def ivf_search(xb_sorted, offsets, counts, centroids, xq, mask, metric_arg,
                *, k, nprobe, metric, q_chunk, lmax, decode=None,
-               by_residual=False):
+               by_residual=False, probe_ids=None):
     """Sorted+gather IVF scan.  Returns (scores (nq, k) max-oriented with
     -inf missing, sorted-row positions (nq, k) int32 with -1 missing).
     ``decode`` maps (r, w) stored rows to (r, d) fp32 (None: fp32 rows);
     with ``by_residual`` each probed window's decoded rows are residuals of
     its list and get the list's centroid added (every valid row of the
-    window belongs to that list)."""
+    window belongs to that list).  ``probe_ids`` (nq, nprobe) replaces the
+    coarse top-nprobe (the sharded search probes for every shard)."""
     nq, d = xq.shape
-    nprobe = min(nprobe, centroids.shape[0])
     sim = metric in SIMILARITY_METRICS
-    probe_ids = coarse_topk(xq, centroids, nprobe, metric, metric_arg)
+    if probe_ids is None:
+        nprobe = min(nprobe, centroids.shape[0])
+        probe_ids = coarse_topk(xq, centroids, nprobe, metric, metric_arg)
     dev = xq.device
     best_s = torch.full((nq, k), _NEG_INF, dtype=torch.float32, device=dev)
     best_p = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
@@ -216,7 +218,7 @@ def ivf_spill_scan(spill_payload, spill_assign, spill_pos, probe_ids, xq,
 
 def ivf_sq_search(codes_sorted, vmin, scale, offsets, counts, centroids, xq,
                   mask, metric_arg, *, k, nprobe, metric, q_chunk, codec,
-                  lmax):
+                  lmax, probe_ids=None):
     """IVF,SQ decode scan (``duckdb_faiss_ext_tpu/ops/ivf_scan.py::
     ivf_sq_search``, faiss IndexIVFScalarQuantizer): the probed code
     windows of the sorted buffer decoded to fp32 per query chunk and
@@ -224,12 +226,13 @@ def ivf_sq_search(codes_sorted, vmin, scale, offsets, counts, centroids, xq,
     return ivf_search(
         codes_sorted, offsets, counts, centroids, xq, mask, metric_arg, k=k,
         nprobe=nprobe, metric=metric, q_chunk=q_chunk, lmax=lmax,
-        decode=lambda c: sq_decode(c, vmin, scale, codec))
+        decode=lambda c: sq_decode(c, vmin, scale, codec),
+        probe_ids=probe_ids)
 
 
 def ivf_pq_search(codes_sorted, codebooks, offsets, counts, centroids, xq,
                   mask, metric_arg, *, k, nprobe, metric, q_chunk, codec,
-                  lmax):
+                  lmax, probe_ids=None):
     """IVF-PQ / IVF-RQ gather scan (``duckdb_faiss_ext_tpu/ops/ivf_scan.py::
     ivf_pq_search``, faiss IndexIVFPQ / IndexIVFResidualQuantizer,
     by_residual): the probed code windows of the sorted buffer decoded per
@@ -238,7 +241,8 @@ def ivf_pq_search(codes_sorted, codebooks, offsets, counts, centroids, xq,
     return ivf_search(
         codes_sorted, offsets, counts, centroids, xq, mask, metric_arg, k=k,
         nprobe=nprobe, metric=metric, q_chunk=q_chunk, lmax=lmax,
-        decode=lambda c: codec_decode(c, codebooks, codec), by_residual=True)
+        decode=lambda c: codec_decode(c, codebooks, codec), by_residual=True,
+        probe_ids=probe_ids)
 
 
 def _spill_rerank(spill_payload, best_s, best_i, xq, vmin, scale, codec, k,

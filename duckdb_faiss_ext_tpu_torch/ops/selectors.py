@@ -13,6 +13,19 @@ filtering costs zero extra memory traffic.
 
 Masks are resolved against an index's ``row_labels()`` (custom labels for
 IDMap, positions otherwise) and cached per (selector, index version).
+
+The IVF layouts' per-(list, slot) masks are built on the device
+(``device_row_mask``, the JAX package's ``labels_for_device_mask`` /
+``device_row_mask``): the packed bitmap (n/8 bytes) or the sorted id set
+is uploaded once per selector and device, the label table once per index
+version, and the mask is a gather and a bit test (or a sorted search) over
+the layout's row positions, which already live on the device.  Labels stay
+int64 throughout: the JAX package cast the bit index to int32 (x64 off),
+which truncated ids of 2^31 and above, and fell back to the host for label
+tables past 2^31 and bitmaps of 2^31 bits or more; neither limit exists
+here, so neither does that fallback.  ``host_row_mask`` is the plain
+version (``selector.contains`` over every label on the host, scattered
+through the host row positions).
 """
 
 from __future__ import annotations
@@ -20,6 +33,7 @@ from __future__ import annotations
 import itertools
 
 import numpy as np
+import torch
 
 # Process-unique selector ids: mask caches key on these.  (id(self) is NOT
 # usable — CPython reuses addresses after GC, which would silently serve a
@@ -82,3 +96,72 @@ class SetSelector(Selector):
         pos = np.searchsorted(self.ids, labels)
         pos = np.clip(pos, 0, self.ids.size - 1)
         return self.ids[pos] == labels
+
+
+# --- layout masks -----------------------------------------------------------
+
+def host_row_mask(selector: Selector, labels: np.ndarray,
+                  row_pos: np.ndarray) -> np.ndarray:
+    """Plain version of ``device_row_mask``: int8 pass mask of the shape of
+    ``row_pos`` (storage rows, -1 where empty), from
+    ``selector.contains(labels)`` on the host."""
+    passing = selector.contains(labels)
+    mask = np.zeros(row_pos.shape, np.int8)
+    valid = row_pos >= 0
+    mask[valid] = passing[row_pos[valid]]
+    return mask
+
+
+def labels_for_device_mask(ids: np.ndarray, device) -> torch.Tensor | None:
+    """The label table of the device mask path: None where the labels are
+    the storage positions themselves (no upload, no gather), else the ids
+    as an int64 tensor on ``device``.  Callers cache it per index version:
+    uploading the label table on every filtered call would cost more than
+    the host mask it replaces."""
+    n = ids.shape[0]
+    if not n or (ids[0] == 0 and ids[-1] == n - 1
+                 and np.array_equal(ids, np.arange(n, dtype=ids.dtype))):
+        return None
+    return torch.from_numpy(np.ascontiguousarray(ids, np.int64)).to(device)
+
+
+def _uploaded(selector: Selector, device: torch.device) -> torch.Tensor:
+    """The selector's bitmap (uint8) or sorted id set (int64) on
+    ``device``, uploaded once per selector and device."""
+    cache = selector.__dict__.setdefault("_device_copies", {})
+    hit = cache.get(device)
+    if hit is None:
+        host = (selector.bitmap if isinstance(selector, BitmapSelector)
+                else selector.ids)
+        hit = cache[device] = torch.tensor(host, device=device)
+    return hit
+
+
+def device_row_mask(selector: Selector, row_pos: torch.Tensor,
+                    labels: torch.Tensor | None) -> torch.Tensor | None:
+    """int8 pass mask of the shape of ``row_pos`` (int32 storage rows on the
+    device, -1 where empty), built on row_pos's device: each row's label
+    (``labels[row]``, or the row itself where ``labels`` is None) tested
+    against the selector's bitmap or id set.  Returns None for a selector
+    that is neither a ``BitmapSelector`` nor a ``SetSelector`` (the caller
+    builds ``host_row_mask`` then)."""
+    if not isinstance(selector, (BitmapSelector, SetSelector)):
+        return None
+    dev = row_pos.device
+    rp = row_pos.long()
+    valid = rp >= 0
+    safe_rp = rp.clamp(min=0)
+    lab = labels[safe_rp] if labels is not None else safe_rp
+    if isinstance(selector, SetSelector):
+        if selector.ids.size == 0:
+            return torch.zeros(row_pos.shape, dtype=torch.int8, device=dev)
+        ids = _uploaded(selector, dev)
+        at = torch.searchsorted(ids, lab).clamp(max=ids.shape[0] - 1)
+        return ((ids[at] == lab) & valid).to(torch.int8)
+    if selector.nbits == 0:
+        return torch.zeros(row_pos.shape, dtype=torch.int8, device=dev)
+    bits = _uploaded(selector, dev)
+    in_range = valid & (lab >= 0) & (lab < selector.nbits)
+    safe = torch.where(in_range, lab, 0)
+    bit = (bits[safe >> 3].long() >> (safe & 7)) & 1
+    return ((bit != 0) & in_range).to(torch.int8)

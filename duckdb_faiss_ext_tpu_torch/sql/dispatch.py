@@ -30,10 +30,11 @@ reference's result schema: rank INT, label BIGINT, distance FLOAT
 ``SELECT faiss_range_search('name', radius, emb[, params]) FROM q`` returns
 one row per (query, label, distance).
 
-A copy of ``duckdb_faiss_ext_tpu/sql/dispatch.py``.  One route of the JAX
-package waits for a part of the port: ``faiss_to_gpu`` / ``faiss_to_device``
-(device placement) raise "… is not yet available in
-duckdb_faiss_ext_tpu_torch".
+``CALL faiss_to_gpu('name'[, device])`` (also ``faiss_move_gpu`` and
+``faiss_to_device``) places an index over the devices (api.faiss_to_device).
+
+A copy of ``duckdb_faiss_ext_tpu/sql/dispatch.py``; every route of the JAX
+package is served.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ import numpy as np
 
 from .. import api
 from ..catalog import Catalog
-from ..errors import InvalidInputError, not_available
+from ..errors import InvalidInputError
 from .engine import Database, default_database
 
 _CALL_RE = re.compile(r"^\s*CALL\s+(\w+)\s*\((.*)\)\s*;?\s*$",
@@ -215,7 +216,12 @@ class Connection:
             return api.faiss_destroy(_parse_literal(pos[0]),
                                      catalog=self.catalog)
         if fn in ("faiss_to_gpu", "faiss_move_gpu", "faiss_to_device"):
-            raise not_available(fn)
+            # Optional 2nd arg: device index (faiss_to_gpu(name, device),
+            # src/faiss_extension.cpp:1042-1048).
+            devices = _parse_literal(pos[1]) if len(pos) > 1 else None
+            return api.faiss_to_device(_parse_literal(pos[0]),
+                                       devices=devices,
+                                       catalog=self.catalog)
         if fn == "__faiss_create_mask":
             # CALL __faiss_create_mask((SELECT flag, id FROM t), 'key')
             # (SelBind..SelFinalise, src/faiss_extension.cpp:822-901).

@@ -7,10 +7,10 @@
   JAX package's HNSW statements as they are (1,000 rows: the exact
   regime); an IVF searched at nprobe = nlist is exhaustive, so its rows do
   not depend on the packages' centroids;
-* the routes that wait for later parts of the port (``faiss_to_gpu`` /
-  ``faiss_to_device`` / ``faiss_move_gpu``) raise "… is not yet available
-  in duckdb_faiss_ext_tpu_torch" (``faiss_range_search`` answers:
-  tests/test_torch_range_search.py);
+* the placement routes (``faiss_to_gpu`` / ``faiss_to_device`` /
+  ``faiss_move_gpu``, with and without a device index) place the index in
+  both packages and leave its search rows as they were
+  (``faiss_range_search`` answers: tests/test_torch_range_search.py);
 * ``python -m duckdb_faiss_ext_tpu_torch`` driven through stdin
   reproduces the reference's golden distances, and without ``--cpu`` on a
   machine with no card reports the device error and keeps running;
@@ -215,13 +215,22 @@ def test_errors_match_jax(sql, match):
     ("CALL faiss_to_device('f')", "faiss_to_device"),
 ])
 def test_unported_routes_not_yet_available(sql, what):
-    (_, con), _ = _connections()
-    con.execute("CALL faiss_create('f', 8, 'Flat', metric_type='L2')")
-    con.execute("CALL faiss_add((SELECT data FROM input), 'f')")
-    with pytest.raises(dt.InvalidInputError,
-                       match=f"{what} is not yet available in "
-                             f"duckdb_faiss_ext_tpu_torch"):
-        con.execute(sql)
+    """The placement routes, once waiting for a later part of the port,
+    now place the index in both packages: the port's Flat buffer becomes
+    row blocks over one device, and the search rows stay equal to the JAX
+    package's."""
+    conns, xq = _connections()
+    rows = []
+    search = "SELECT faiss_search('f', 3, data) FROM queries"
+    for con in conns:
+        con.execute("CALL faiss_create('f', 8, 'Flat', metric_type='L2')")
+        con.execute("CALL faiss_add((SELECT data FROM input), 'f')")
+        before = con.execute(search)
+        assert con.execute(sql) is None, what
+        rows.append(con.execute(search))
+        _assert_rows_agree(rows[-1], before, xq)
+    assert conns[1].catalog.get("f").index._placement is not None
+    _assert_rows_agree(rows[1], rows[0], xq)
 
 
 def _shell(stdin, *args):
@@ -242,9 +251,9 @@ def test_shell_through_stdin():
         f".read_csv queries {DATA}/queries.csv",
         "CALL faiss_create('g', 8, 'IDMap,Flat')",
         "CALL faiss_add((SELECT id, data FROM training), 'g')",
+        "CALL faiss_to_gpu('g')",
         "SELECT UNNEST(faiss_search('g', 2, data)) FROM queries",
         "SELECT faiss_range_search('g', 4.5, data) FROM queries",
-        "CALL faiss_to_gpu('g')",
         ".tables", ".indexes", ".stats", ".nonsense", ".quit"]) + "\n",
         "--cpu")
     assert out.returncode == 0, out.stderr
@@ -273,8 +282,8 @@ def test_shell_through_stdin():
     assert [(r["query"], r["label"]) for r in ranged] == [
         (q, int(lab)) for q in range(10)
         for lab in want["label"][want["lims"][q]:want["lims"][q + 1]]]
-    assert ("Invalid Input Error: faiss_to_gpu is not yet available "
-            "in duckdb_faiss_ext_tpu_torch") in text
+    # faiss_to_gpu placed the index before the searches above.
+    assert "Invalid Input Error: faiss_to_gpu" not in text
     assert "['queries', 'training']" in text and "['g']" in text
     assert '"faiss_search"' in text and "unknown command .nonsense" in text
     assert "python -m duckdb_faiss_ext_tpu_torch" in text

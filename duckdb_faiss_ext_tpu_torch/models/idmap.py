@@ -6,8 +6,11 @@ stored row; search results are translated position→label after top-k; create
 and search parameters recurse to the inner index unchanged.
 
 Selectors filter on *labels* (FAISS translates its IDSelector through the id
-map): a selector is resolved against the label table and handed to the
-inner index as a position mask.  ``reconstruct`` takes a label (IDMap2).
+map): the inner index gets the selector with the label table
+(``ops.selectors.LabelMapSelector``), so an IVF inner index tests the labels
+on the device from a table uploaded once per device and label version, and
+any other inner index tests them where its own mask is built.
+``reconstruct`` takes a label (IDMap2).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import errors
+from ..ops.selectors import LabelMapSelector, labels_for_device_mask
 from ..params import EMPTY
 from .base import Index, SearchResult, as_matrix
 
@@ -24,6 +28,7 @@ class IDMapIndex(Index):
         super().__init__(inner.d, inner.metric, inner.metric_arg)
         self.inner = inner
         self._labels = np.empty((0,), dtype=np.int64)
+        self._labels_dev: dict = {}
 
     @property
     def ntotal(self) -> int:
@@ -56,16 +61,23 @@ class IDMapIndex(Index):
                 f"vectors ({x.shape[0]})")
         self.inner.add(x)
         self._labels = np.concatenate([self._labels, ids])
+        self._labels_dev = {}
 
     def row_labels(self) -> np.ndarray:
         return self._labels
 
-    def _position_selector(self, selector):
+    def _position_selector(self, selector) -> LabelMapSelector:
         """Label-space selector → position-space selector for the inner
         index: positions whose label passes."""
-        return _PositionMaskSelector(selector.contains(self._labels),
-                                     (selector.cache_key(),
-                                      len(self._labels)))
+        return LabelMapSelector(selector, self._labels, self._device_labels)
+
+    def _device_labels(self, device):
+        """The label table as device masks read it, cached per device until
+        the labels change."""
+        if device not in self._labels_dev:
+            self._labels_dev[device] = labels_for_device_mask(self._labels,
+                                                              device)
+        return self._labels_dev[device]
 
     def search(self, xq, k, params=EMPTY, selector=None) -> SearchResult:
         disp = self.search_dispatch(xq, k, params, selector)
@@ -138,25 +150,6 @@ class IDMapIndex(Index):
 
     def load_state(self, state: dict) -> None:
         self._labels = np.asarray(state["labels"], dtype=np.int64).reshape(-1)
+        self._labels_dev = {}
         self.inner.load_state(state["inner"])
 
-
-class _PositionMaskSelector:
-    """Adapter: a precomputed row mask presented through the Selector
-    interface (position-space, already label-resolved).  The cache key
-    derives from the originating selector's unique id, so it stays valid
-    exactly as long as that selector's own cached masks."""
-
-    def __init__(self, mask: np.ndarray, key):
-        self._mask = np.asarray(mask, dtype=bool)
-        self._key = ("posmask", key)
-
-    def contains(self, labels: np.ndarray) -> np.ndarray:
-        labels = np.asarray(labels, dtype=np.int64)
-        out = np.zeros(labels.shape, dtype=bool)
-        in_range = (labels >= 0) & (labels < self._mask.size)
-        out[in_range] = self._mask[labels[in_range]]
-        return out
-
-    def cache_key(self):
-        return self._key

@@ -53,8 +53,7 @@ import numpy as np
 import torch
 
 from ..ops.ivf_pq_scan import pq_row_terms
-from ..ops.selectors import (device_row_mask, host_row_mask,
-                             labels_for_device_mask)
+from ..ops.selectors import device_row_mask, labels_for_device_mask
 from ..ops.sq import FLOAT_CODECS, sq_row_norms, sq_row_sums
 from ..ops.sq_spill import spill_offsets
 from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
@@ -356,24 +355,18 @@ class IVFLayout:
                 self._ids, device)
         return self._mask_labels_cache[device]
 
-    def _row_mask(self, selector, row_pos: torch.Tensor,
-                  row_pos_host: np.ndarray) -> torch.Tensor:
+    def _row_mask(self, selector, row_pos: torch.Tensor) -> torch.Tensor:
         """int8 pass mask over a layout's row positions, built on their
-        device (``device_row_mask``); ``host_row_mask`` over the host copy
-        only for a selector the device path does not take."""
-        mask = device_row_mask(selector, row_pos,
+        device (``device_row_mask``)."""
+        return device_row_mask(selector, row_pos,
                                self._mask_labels(row_pos.device))
-        if mask is None:
-            mask = torch.from_numpy(host_row_mask(
-                selector, self._ids, row_pos_host)).to(row_pos.device)
-        return mask
 
     def _layout_mask(self, selector) -> torch.Tensor:
         """(nlist, lmax) int8 mask over the padded layout (``_pallas_mask``
         in the JAX package), built on the device from its row positions."""
         def build():
             lay = self._build_device_layout()
-            return self._row_mask(selector, lay.row_pos, lay.row_pos_host)
+            return self._row_mask(selector, lay.row_pos)
 
         return self._cached_mask(("layout", selector.cache_key()), build)
 
@@ -381,7 +374,7 @@ class IVFLayout:
         """(s_pad,) bool mask over the spill rows, built on the device."""
         def build():
             sp = self._spill
-            return self._row_mask(selector, sp.pos, sp.pos_host).bool()
+            return self._row_mask(selector, sp.pos).bool()
 
         return self._cached_mask(("spill", selector.cache_key()), build)
 

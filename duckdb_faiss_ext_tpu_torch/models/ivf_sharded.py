@@ -102,8 +102,7 @@ class IVFSharded:
         """Per shard {device: (npl + 1, lmax) int8 mask} over the shard's
         sub-layout, built on its device."""
         def build():
-            return [{dev: self._row_mask(selector, lay.row_pos,
-                                         lay.row_pos_host)
+            return [{dev: self._row_mask(selector, lay.row_pos)
                      for dev, lay in per_dev.items()}
                     for per_dev in self._build_sharded()[1]]
 

@@ -19,7 +19,10 @@ The IVF layouts' per-(list, slot) masks are built on the device
 ``device_row_mask``): the packed bitmap (n/8 bytes) or the sorted id set
 is uploaded once per selector and device, the label table once per index
 version, and the mask is a gather and a bit test (or a sorted search) over
-the layout's row positions, which already live on the device.  Labels stay
+the layout's row positions, which already live on the device.  An IDMap
+wrapper hands its inner index a ``LabelMapSelector``: the label-space
+selector with the wrapper's position → label table, which the device mask
+gathers through as well, so no label is tested on the host.  Labels stay
 int64 throughout: the JAX package cast the bit index to int32 (x64 off),
 which truncated ids of 2^31 and above, and fell back to the host for label
 tables past 2^31 and bitmaps of 2^31 bits or more; neither limit exists
@@ -98,6 +101,32 @@ class SetSelector(Selector):
         return self.ids[pos] == labels
 
 
+class LabelMapSelector(Selector):
+    """A label-space selector seen from storage positions through a
+    position → label table (an IDMap wrapper's): position p passes iff
+    ``base`` passes ``table[p]``.  ``device_table(device)`` gives the table
+    as ``device_row_mask`` reads it (``labels_for_device_mask``: None where
+    the labels are the positions), uploaded once per device by its owner."""
+
+    def __init__(self, base: Selector, table: np.ndarray, device_table):
+        super().__init__()
+        self.base = base
+        self.table = table
+        self.device_table = device_table
+
+    def contains(self, positions: np.ndarray) -> np.ndarray:
+        positions = np.asarray(positions, dtype=np.int64)
+        out = np.zeros(positions.shape, dtype=bool)
+        ok = (positions >= 0) & (positions < self.table.size)
+        out[ok] = self.base.contains(self.table[positions[ok]])
+        return out
+
+    def cache_key(self):
+        # The table only grows between the owner's resets, so its length
+        # tells its versions apart.
+        return ("labelmap", self.base.cache_key(), self.table.size)
+
+
 # --- layout masks -----------------------------------------------------------
 
 def host_row_mask(selector: Selector, labels: np.ndarray,
@@ -138,20 +167,29 @@ def _uploaded(selector: Selector, device: torch.device) -> torch.Tensor:
 
 
 def device_row_mask(selector: Selector, row_pos: torch.Tensor,
-                    labels: torch.Tensor | None) -> torch.Tensor | None:
+                    labels: torch.Tensor | None) -> torch.Tensor:
     """int8 pass mask of the shape of ``row_pos`` (int32 storage rows on the
     device, -1 where empty), built on row_pos's device: each row's label
-    (``labels[row]``, or the row itself where ``labels`` is None) tested
-    against the selector's bitmap or id set.  Returns None for a selector
-    that is neither a ``BitmapSelector`` nor a ``SetSelector`` (the caller
-    builds ``host_row_mask`` then)."""
-    if not isinstance(selector, (BitmapSelector, SetSelector)):
-        return None
+    (``labels[row]``, or the row itself where ``labels`` is None; through a
+    ``LabelMapSelector``'s table after that) tested against the selector's
+    bitmap or id set.  Raises TypeError for any other selector: filtered
+    IVF search takes the selectors ``create_mask`` and ``SetSelector``
+    make."""
     dev = row_pos.device
+    table = None
+    if isinstance(selector, LabelMapSelector):
+        table = selector.device_table(dev)
+        selector = selector.base
+    if not isinstance(selector, (BitmapSelector, SetSelector)):
+        raise TypeError(
+            f"filtered IVF search takes a BitmapSelector or a SetSelector, "
+            f"not {type(selector).__name__}")
     rp = row_pos.long()
     valid = rp >= 0
     safe_rp = rp.clamp(min=0)
     lab = labels[safe_rp] if labels is not None else safe_rp
+    if table is not None:
+        lab = table[lab]
     if isinstance(selector, SetSelector):
         if selector.ids.size == 0:
             return torch.zeros(row_pos.shape, dtype=torch.int8, device=dev)

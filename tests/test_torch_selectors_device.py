@@ -8,8 +8,11 @@ the JAX package's.
   package's device mask truncates ids to int32 and passes wrong rows; below
   2^31 it equals the JAX package's ``device_row_mask``.  Masks are int8 and
   compared exactly.
+* An IDMap wrapper's ``LabelMapSelector`` gives the same device mask as the
+  host mask through its label table, ids of 2^31 and above included.
 * Filtered IVF searches build their layout and spill masks on the device
-  (host path, device-resident index) with results equal to the host masks.
+  (plain IVF and IDMap,IVF, host path, device-resident index), with no
+  label tested on the host, and give results equal to the host masks'.
 * ``build_bitmap`` through the native library is byte-equal to the numpy
   plain version and to the JAX package's bitmap, for sequential, shuffled
   and sparse ids.
@@ -148,51 +151,100 @@ def test_uploads_cached_per_selector_and_device():
     assert sel._device_copies[torch.device("cpu")] is first
 
 
-def test_other_selectors_take_the_host_mask():
+def test_other_selectors_are_refused():
     class Odd(psel.Selector):
         def contains(self, labels):
             return np.asarray(labels) % 2 == 1
 
     rp = _row_pos(50)
-    assert psel.device_row_mask(Odd(), torch.from_numpy(rp), None) is None
+    with pytest.raises(TypeError, match="BitmapSelector or a SetSelector"):
+        psel.device_row_mask(Odd(), torch.from_numpy(rp), None)
+    mapped = psel.LabelMapSelector(Odd(), np.arange(50), lambda dev: None)
+    with pytest.raises(TypeError, match="not Odd"):
+        psel.device_row_mask(mapped, torch.from_numpy(rp), None)
+
+
+@pytest.mark.parametrize("kind", ["bitmap", "set"])
+@pytest.mark.parametrize("inner_labels", ["identity", "custom"])
+def test_label_map_mask_equals_host(kind, inner_labels):
+    """A selector over IDMap labels of 2^31 and above, seen from positions
+    through the label table (and, for custom inner labels, from the inner
+    index's own ids first): the device mask equals the host mask."""
+    rng = np.random.default_rng(21 + 2 * ["bitmap", "set"].index(kind)
+                                + ["identity", "custom"].index(inner_labels))
+    n = 700
+    rp = _row_pos(n, seed=5)
+    table = (2**31 + rng.permutation(n * 6)[:n]).astype(np.int64)
+    inner = (np.arange(n, dtype=np.int64) if inner_labels == "identity"
+             else rng.permutation(n).astype(np.int64))
+    base, _ = _selectors(kind, table, rng)
+    uploads = []
+
+    def device_table(dev):
+        uploads.append(dev)
+        return psel.labels_for_device_mask(table, dev)
+
+    sel = psel.LabelMapSelector(base, table, device_table)
+    got = _device_mask(sel, rp, inner)
+    want = psel.host_row_mask(sel, inner, rp)
+    np.testing.assert_array_equal(got, want)
+    assert 0 < got.sum() < n and uploads == [torch.device("cpu")]
+    # the host version of the map: base membership of the mapped labels
+    np.testing.assert_array_equal(sel.contains(inner),
+                                  base.contains(table[inner]))
 
 
 # --- the IVF layouts' masks --------------------------------------------------
 
-def _host_masks(monkeypatch):
-    """Build every layout mask through the plain host version."""
+def _host_masks(monkeypatch, ix):
+    """Build every layout mask of ``ix`` through the plain host version."""
     from duckdb_faiss_ext_tpu_torch.models import ivf_layout
 
-    monkeypatch.setattr(ivf_layout, "device_row_mask",
-                        lambda *a: None)
+    def host(sel, rp, labels):
+        return torch.from_numpy(psel.host_row_mask(
+            sel, ix._ids, rp.cpu().numpy())).to(rp.device)
+
+    monkeypatch.setattr(ivf_layout, "device_row_mask", host)
 
 
-def _counting(monkeypatch):
+def _counting(monkeypatch, sel):
+    """Record the masks device_row_mask builds, and fail any host
+    membership test of ``sel`` meanwhile."""
     from duckdb_faiss_ext_tpu_torch.models import ivf_layout
 
     calls = []
     real = ivf_layout.device_row_mask
 
     def counted(*a):
-        calls.append(a[1].shape)
-        return real(*a)
+        mask = real(*a)
+        calls.append((type(a[0]).__name__, mask.shape))
+        return mask
+
+    def on_host(labels):
+        raise AssertionError("selector tested on the host")
 
     monkeypatch.setattr(ivf_layout, "device_row_mask", counted)
+    monkeypatch.setattr(sel, "contains", on_host)
     return calls
 
 
 @pytest.mark.parametrize("kind", ["bitmap", "set"])
 @pytest.mark.parametrize("spill", [False, True])
-def test_ivf_filtered_search_masks_on_device(monkeypatch, kind, spill):
+@pytest.mark.parametrize("wrap", ["IDMap,", ""])
+def test_ivf_filtered_search_masks_on_device(monkeypatch, kind, spill, wrap):
     """The padded layout's (and, capped, the spill's) mask is built by
-    device_row_mask; results equal the host masks'."""
+    device_row_mask, for ids of 2^31 and above held by an IDMap wrapper or
+    by the IVF index itself, with no label tested on the host; results
+    equal the host masks'."""
     rng = np.random.default_rng(11)
     n, d = 3000, 16
     xb = rng.standard_normal((n, d)).astype(np.float32)
     ids = (rng.permutation(n * 4)[:n] + 2**31).astype(np.int64)
     cat = dt.Catalog()
-    dt.faiss_create("m", d, "IDMap,IVF8,Flat", metric_type="L2", catalog=cat)
-    ix = cat.get("m").index.inner
+    dt.faiss_create("m", d, f"{wrap}IVF8,Flat", metric_type="L2",
+                    catalog=cat)
+    ix = cat.get("m").index
+    ix = getattr(ix, "inner", ix)
     if spill:
         ix.LAYOUT_BUDGET_BYTES = 8 * 256 * d * 4   # lists capped at 256
         ix.SPILL_FRACTION_MAX = 0.5
@@ -201,14 +253,15 @@ def test_ivf_filtered_search_masks_on_device(monkeypatch, kind, spill):
     sel = (psel.SetSelector(keep) if kind == "set"
            else build_bitmap(np.ones(keep.size, np.uint8), keep))
     xq = xb[:10] + 0.01
-    calls = _counting(monkeypatch)
+    calls = _counting(monkeypatch, sel)
     got = dt.faiss_search("m", 6, xq, {"nprobe": "4"}, catalog=cat,
                           selector=sel)
     assert (ix._spill is not None) == spill
-    assert len(calls) == (2 if spill else 1)
+    passed = "LabelMapSelector" if wrap else type(sel).__name__
+    assert [c[0] for c in calls] == [passed] * (2 if spill else 1)
     monkeypatch.undo()
     ix._invalidate()
-    _host_masks(monkeypatch)
+    _host_masks(monkeypatch, ix)
     want = dt.faiss_search("m", 6, xq, {"nprobe": "4"}, catalog=cat,
                            selector=sel)
     np.testing.assert_array_equal(got["label"], want["label"])
@@ -229,13 +282,13 @@ def test_device_resident_spill_mask_on_device(monkeypatch):
     ix = cat.get("dr").index
     keep = np.arange(0, n, 2)
     sel = psel.SetSelector(keep)
-    calls = _counting(monkeypatch)
+    calls = _counting(monkeypatch, sel)
     got = dt.faiss_search("dr", 5, xb[:8].numpy(), {"nprobe": "2"},
                           catalog=cat, selector=sel)
     assert ix._spill is not None and len(calls) == 2
     monkeypatch.undo()
     ix._mask_cache.clear()
-    _host_masks(monkeypatch)
+    _host_masks(monkeypatch, ix)
     want = dt.faiss_search("dr", 5, xb[:8].numpy(), {"nprobe": "2"},
                            catalog=cat, selector=sel)
     np.testing.assert_array_equal(got["label"], want["label"])

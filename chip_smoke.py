@@ -395,12 +395,12 @@ SQ_SPILL_KERNEL = {
 #: lmax 1024 (4096 x 1024 x 1536 B), so the longest lists spill
 SQ_N, SQ_D, SQ_NLIST, SQ_NPROBE = 2_097_152, 1536, 4096, 16
 SQ_CHUNK, SQ_LMAX_CAP = 262_144, 1024
-#: the corpus: unit vectors around 4096 unit centres (noise of norm 0.8),
-#: lognormal cluster weights (sigma 0.7) in the training chunk, drifted by a
-#: lognormal factor (sigma 0.5) in the later chunks, so that lists differ in
-#: length and the longest outgrow the cap (11.5% of the rows spill; the
-#: JAX deployment spilled 12% at SQ8, ops/pallas_spill.py:6)
-SQ_SIGMA, SQ_DRIFT, SQ_NOISE = 0.7, 0.5, 0.8
+#: the corpus (duckdb_faiss_ext_tpu_torch/tools/marco_corpus.py): unit
+#: vectors around 4096 unit centres (noise of norm 0.8), lognormal cluster
+#: weights (sigma 0.7) in the training chunk, drifted by a lognormal factor
+#: (sigma 0.5) in the later chunks, so that lists differ in length and the
+#: longest outgrow the cap (11.5% of the rows spill; the JAX deployment
+#: spilled 12% at SQ8, ops/pallas_spill.py:6)
 PQ_KERNEL = {
     "name": "ivf_pq_scan",
     "route": "cuda",
@@ -436,6 +436,8 @@ SQ_MEGA_SWEEP_LMAX = (256, 1024, 2560)
 #: capped assignment over each row's 4 nearest lists, lmax capacity-filled
 #: as tools/marco_device.py:288-299 sizes it: ceil(1.15·n / (nlist·512))·512
 MARCO_N, MARCO_TOPK = 8_841_823, 4
+#: phase 16's TREC run: k of the reference's create_trec flow
+MARCO_TREC_K = 1000
 MARCO_LMAX = 512 * -(-int(1.15 * MARCO_N) // (SQ_NLIST * 512))
 #: the forced margin cases of phases 3, 6 and 11: each of FORCED_NQ
 #: queries sits on a cluster of FORCED_CLUSTER rows far from the origin
@@ -2143,34 +2145,15 @@ def phase_sq_mega_sweep():
     return err
 
 
-class MarcoCorpus:
-    """The SQ main path's corpus, made on the card chunk by chunk from
-    seeded generators, so any chunk can be made again for exact search."""
+def marco_corpus(seed=11):
+    """The SQ main paths' corpus (duckdb_faiss_ext_tpu_torch/tools/
+    marco_corpus.py, the tools' generator), made on the card chunk by chunk
+    at SQ_D with SQ_NLIST centres in SQ_CHUNK-row chunks, so any chunk can
+    be made again for exact search."""
+    from duckdb_faiss_ext_tpu_torch.tools.marco_corpus import MarcoCorpus
 
-    def __init__(self, seed=11):
-        g = torch.Generator(device=DEVICE).manual_seed(seed)
-        self.seed = seed
-        self.centers = torch.nn.functional.normalize(
-            torch.randn(SQ_NLIST, SQ_D, device=DEVICE, generator=g), dim=1)
-        logw = torch.randn(SQ_NLIST, device=DEVICE, generator=g) * SQ_SIGMA
-        drift = torch.randn(SQ_NLIST, device=DEVICE, generator=g) * SQ_DRIFT
-        self.w_train = torch.softmax(logw, 0)
-        self.w_rest = torch.softmax(logw + drift, 0)
-
-    def _draw(self, n, weights, stream):
-        g = torch.Generator(device=DEVICE).manual_seed(
-            self.seed * 1000 + stream)
-        c = torch.multinomial(weights, n, replacement=True, generator=g)
-        x = self.centers[c] + torch.randn(
-            n, SQ_D, device=DEVICE, generator=g) * (SQ_NOISE / SQ_D ** 0.5)
-        return torch.nn.functional.normalize(x, dim=1)
-
-    def chunk(self, i, n=SQ_CHUNK):
-        """Rows [i·SQ_CHUNK, i·SQ_CHUNK + n) on the card."""
-        return self._draw(n, self.w_train if i == 0 else self.w_rest, i + 1)
-
-    def queries(self, n):
-        return self._draw(n, self.w_rest, 999).cpu().numpy()
+    return MarcoCorpus(seed, device=DEVICE, d=SQ_D, centers=SQ_NLIST,
+                       chunk_rows=SQ_CHUNK)
 
 
 @contextlib.contextmanager
@@ -2254,21 +2237,7 @@ def time_k2(tag, lay, xq, probe, vmin, scale, k_scan, metric, codec, smi):
 def exact_ip_labels(corpus, xq, k, n_rows=SQ_N):
     """Exact fp32 inner-product top-k over the corpus's first ``n_rows``,
     made again on the card chunk by chunk."""
-    from duckdb_faiss_ext_tpu_torch.ops.flat_search import (exact_topk,
-                                                            topk_ordered)
-    from duckdb_faiss_ext_tpu_torch.utils.config import full_fp32
-
-    q = torch.from_numpy(xq).to(DEVICE)
-    best_s = torch.full((q.shape[0], k), float("-inf"), device=DEVICE)
-    best_p = torch.full((q.shape[0], k), -1, dtype=torch.int64,
-                        device=DEVICE)
-    for i, n in corpus_chunks(n_rows):
-        with full_fp32():
-            s, p = exact_topk(q @ corpus.chunk(i, n).T, k)
-        best_s, best_p = topk_ordered(torch.cat([best_s, s], 1),
-                                      torch.cat([best_p, i * SQ_CHUNK + p],
-                                                1), k)
-    return best_p.cpu().numpy()
+    return corpus.exact_ip_labels(xq, k, n_rows)
 
 
 def corpus_chunks(n_rows):
@@ -2391,7 +2360,7 @@ def phase_sq_main(smi):
     from duckdb_faiss_ext_tpu_torch.utils.config import pad_rows
 
     metric, codec = "INNER_PRODUCT", "sq8"
-    corpus = MarcoCorpus()
+    corpus = marco_corpus()
     xq_all = corpus.queries(BATCH * N_BATCHES + BIG_BATCH)
     data = {"b48": xq_all[:BATCH], "b1024": xq_all[-BIG_BATCH:],
             "batched": xq_all[:BATCH * N_BATCHES]}
@@ -2640,7 +2609,7 @@ def phase_marco_device(smi):
     from duckdb_faiss_ext_tpu_torch.utils.config import pad_rows
 
     metric, codec = "INNER_PRODUCT", "sq8"
-    corpus = MarcoCorpus()
+    corpus = marco_corpus()
     xq_all = corpus.queries(BATCH * N_BATCHES + BIG_BATCH)
     data = {"b48": xq_all[:BATCH], "b1024": xq_all[-BIG_BATCH:],
             "batched": xq_all[:BATCH * N_BATCHES]}
@@ -2832,10 +2801,76 @@ def phase_marco_device(smi):
             f"{walls[f'{name} {impl}']:.3f} ms (median of 10); device stages "
             f"(median CUDA events): {'; '.join(parts)} [{smi}]")
     marco_masks(smi, cat, index, data, params, db)
+    trec = marco_trec(smi, cat, data, exact)
     dt.set_precision("parity")
     return {"launches": launches[2], "err": max(max_err, raw9),
             "timing": (ms9, plain_ms, b9), "k5": k5_timing,
-            "k2": (launches[0], err2, k2_timing)}
+            "k2": (launches[0], err2, k2_timing), "trec": trec,
+            "queries": {name: data[name] for name in ("b48", "b1024")},
+            "exact": exact}
+
+
+def marco_trec(smi, cat, data, exact):
+    """Phase 16's k = 1000 TREC run (tools/marco_trec.py's flow through
+    harness.trec): the b48 and b1024 queries each in one search call at
+    nprobe 16, k_scan 4000, so past the fused kernels' 1024: the raw K2
+    launch at b48, K3 at b1024.  The spill takes the plain spill scan, as
+    in the JAX package (its spill kernel serves k <= 128,
+    duckdb_faiss_ext_tpu/models/ivf_serve.py:324), so K5 is not launched.
+    Qrels graded from the exact top-10 (3 x grade 3, 7 x grade 2);
+    MRR@10, nDCG@10 and recall@1000 printed.  Returns the (K2 raw, K3)
+    launches."""
+    import tempfile
+
+    from duckdb_faiss_ext_tpu_torch.harness.trec import (score_trec_run,
+                                                         write_trec_run)
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_pairs as k3
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
+    from duckdb_faiss_ext_tpu_torch.ops import sq_spill as k5
+
+    def counts():
+        return (k2.LAUNCHES, k2.TOPK_LAUNCHES, k3.LAUNCHES, k5.LAUNCHES,
+                k5.RESCORE_LAUNCHES)
+
+    params = {"nprobe": str(SQ_NPROBE)}
+    total = np.zeros(5, np.int64)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("b48", "b1024"):
+            xq = data[name]
+            qids = [f"{name}-{i}" for i in range(xq.shape[0])]
+            qrels = {qid: {str(int(doc)): 3 if r < 3 else 2
+                           for r, doc in enumerate(row[:10])}
+                     for qid, row in zip(qids, exact[name])}
+            path = os.path.join(tmp, f"{name}.run")
+            before = np.array(counts())
+            t0 = time.perf_counter()
+            write_trec_run(path, "marco", qids, xq, k=MARCO_TREC_K,
+                           run_name="dfx-sq8", params=params, catalog=cat,
+                           batch=xq.shape[0])
+            sec = time.perf_counter() - t0
+            got = tuple(int(v) for v in np.array(counts()) - before)
+            total += got
+            with open(path) as f:
+                lines = f.read().splitlines()
+            check(len(lines) == xq.shape[0] * MARCO_TREC_K,
+                  f"TREC {name}: {len(lines)} run lines, not "
+                  f"{xq.shape[0] * MARCO_TREC_K}")
+            want = (int(name == "b48"), 0, int(name == "b1024"), 0, 0)
+            check(got == want, f"TREC {name} launched (K2 raw, K2 "
+                  f"fused, K3, K5 windows, K5 rescore) {got} times, "
+                  f"not {want}")
+            sc = score_trec_run(path, qrels, recall_k=MARCO_TREC_K)
+            check(sc["nq"] == xq.shape[0] and sc["mrr@10"] > 0.5,
+                  f"TREC {name}: scores {sc}")
+            log(f"marco TREC run k={MARCO_TREC_K} {name} ({xq.shape[0]} "
+                f"queries, one search call, nprobe {SQ_NPROBE}, k_scan "
+                f"{cat.get('marco').index._sq_kscan(MARCO_TREC_K, 1 << 30)}"
+                f"): written in {sec:.2f} s; (K2 raw, K2 fused, K3, K5 "
+                f"windows, K5 rescore) launches {got}; TREC scores "
+                f"mrr@10={sc['mrr@10']:.4f} ndcg@10={sc['ndcg@10']:.4f} "
+                f"recall@{MARCO_TREC_K}={sc[f'recall@{MARCO_TREC_K}']:.4f} "
+                f"[{smi}]")
+    return int(total[0]), int(total[2])
 
 
 def k8_plain(args, kw, k):
@@ -3105,7 +3140,7 @@ def time_k8(tag, index, lay, xq, nq_pad, search, smi):
     device stages (coarse top-k, table, partial, merge; CUDA events, and
     the three launches' device time from torch.profiler) and the fetch.
     Returns ((ms, plain_ms, bound, library_ms), max abs error)."""
-    from duckdb_faiss_ext_tpu_torch.models.base import fetch_results
+    from duckdb_faiss_ext_tpu_torch.utils.transfer import fetch_results
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pq_scan as k8
     from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
 
@@ -3526,7 +3561,7 @@ def phase_sq_standalone(smi, data):
         del cat
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    corpus = MarcoCorpus()
+    corpus = marco_corpus()
     xq = corpus.queries(BATCH + BIG_BATCH)
     cat = dt.Catalog()
     t0 = time.perf_counter()
@@ -3881,7 +3916,7 @@ def phase_marco_refine(smi, sq):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    corpus = MarcoCorpus()
+    corpus = marco_corpus()
     xq_all = corpus.queries(BATCH * N_BATCHES + BIG_BATCH)
     queries = {"b48": xq_all[:BATCH], "b1024": xq_all[-BIG_BATCH:]}
     cat = dt.Catalog()
@@ -5072,7 +5107,7 @@ def phase_placement_sq(smi):
     from duckdb_faiss_ext_tpu_torch.parallel.sharded import make_mesh
 
     t_phase = time.perf_counter()
-    corpus = MarcoCorpus()
+    corpus = marco_corpus()
     xq_all = corpus.queries(BATCH + BIG_BATCH)
     queries = {"b48": xq_all[:BATCH], "b1024": xq_all[BATCH:]}
     cat = dt.Catalog()
@@ -5227,7 +5262,141 @@ def marco_masks(smi, cat, index, data, params, db):
         f"results equal with either mask [{smi}]")
 
 
+#: phase 27: the coded graph at the JAX package's round-0 marco settings
+#: (logs/r5_chain7.log:4-20: sq4 build, deg 64, inter 64, lmax-factor 3.0,
+#: no descent round, sq6 serving, width 4)
+GRAPH27_ARGS = ["--deg", "64", "--inter", "64", "--lmax-factor", "3.0",
+                "--half-k", "181", "--refine-rounds", "0", "--serve-codec",
+                "sq6", "--width", "4", "--edge-sample", "1024"]
+GRAPH27_POOLS = (64, 128)
+#: rows of the walk held against the same walk over decoded fp32 rows
+GRAPH27_PLAIN_N = 262_144
+
+
+def phase_coded_graph(smi, marco):
+    """Phase 27: the SQ-coded graph (ops/graph.py's coded paths through
+    tools/marco_graph.py) over phase 16's 8,841,823 x 1536 corpus: the
+    sq4 build's phases in seconds, the card's memory peak, membership
+    coverage and the k-NN graph's edge recall, then the sq6 walk at b48
+    and b1024, efSearch 64 / 128, recall@10 against phase 16's exact fp32
+    labels, walls; every returned distance against fp64 from the codes;
+    the coded walk over the first GRAPH27_PLAIN_N rows against the same
+    walk over their decoded fp32 rows (labels equal, distances within
+    1e-5 of the batch's largest)."""
+    from duckdb_faiss_ext_tpu_torch.ops import graph as graph_ops
+    from duckdb_faiss_ext_tpu_torch.ops.flat_search import finalize_scores
+    from duckdb_faiss_ext_tpu_torch.ops.sq import sq_decode, sq_unpack
+    from duckdb_faiss_ext_tpu_torch.tools import marco_graph as mg
+
+    dev = torch.device(DEVICE)
+    args = mg.parse_args(GRAPH27_ARGS)
+    corpus = marco_corpus()
+    n = MARCO_N
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    built = mg.build(corpus, n, args, dev)
+    knn = built.pop("knn")
+    t0 = time.perf_counter()
+    edge = mg.edge_recall(corpus, n, knn, args.edge_sample)
+    t_edge = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = graph_ops.augment_graph(knn, args.deg)
+    torch.cuda.synchronize()
+    t_aug = time.perf_counter() - t0
+    del knn, built["codes4"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    codes, vmin, scale = mg.serve_buffer(corpus, n, args.serve_codec, dev)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    secs = "; ".join(f"{k} {v:.1f} s" for k, v in built["seconds"].items())
+    check(built["cells"] == args.half_k ** 2 and built["coverage"] > 0,
+          f"coded graph: {built['cells']} cells, coverage "
+          f"{built['coverage']}")
+    log(f"coded graph {n}x{SQ_D} IP (sq4 build, deg {args.deg}, inter "
+        f"{args.inter}, lmax-factor {args.lmax_factor}, "
+        f"{args.refine_rounds} descent rounds): {secs}; augment_graph "
+        f"{t_aug:.1f} s; sq6 encode {t_serve:.1f} s ({codes.numel() / 1e9:.2f}"
+        f" GB); {built['cells']} cells, lmax {built['lmax']}, membership "
+        f"coverage {built['coverage']:.4f} of the 2n entries, "
+        f"{built['edgeless']} rows without a k-NN edge; edge recall "
+        f"{edge:.4f} ({args.edge_sample} rows against their exact "
+        f"{args.inter} nearest by K1, {t_edge:.1f} s); card memory peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+
+    batches = {BATCH: marco["queries"]["b48"],
+               BIG_BATCH: marco["queries"]["b1024"]}
+    exact = {BATCH: marco["exact"]["b48"], BIG_BATCH: marco["exact"]["b1024"]}
+    sweep = mg.sweep(codes, graph, n, batches, exact, GRAPH27_POOLS,
+                     args.width, args.serve_codec, vmin, scale, k=K)
+    s64, v64 = scale.double(), vmin.double()
+    max_err = 0.0
+    for (b, pool), (ms, rec) in sweep.items():
+        dist, lab = mg.walk(codes, graph, batches[b], n, K, pool, args.width,
+                            args.serve_codec, vmin, scale)
+        check(lab.shape == (b, K) and bool((lab >= 0).all())
+              and bool(torch.isfinite(dist).all()),
+              f"coded walk b{b} ef={pool}: missing results")
+        check(all(len(set(r)) == K for r in lab.cpu().numpy().tolist()),
+              f"coded walk b{b} ef={pool}: a label repeats")
+        rows = sq_unpack(codes[lab.reshape(-1).long()], args.serve_codec)
+        rows = rows[:, :SQ_D].double() * s64 + v64
+        q = torch.from_numpy(batches[b]).to(dev).double()
+        ref = (rows.reshape(b, K, SQ_D) * q[:, None, :]).sum(-1)
+        err = float((dist.double() - ref).abs().max())
+        tol = REL_TOL * float(ref.abs().max())
+        check(err <= tol, f"coded walk b{b} ef={pool}: distance error "
+              f"{err} against fp64 from the codes, above {tol}")
+        max_err = max(max_err, err)
+        log(f"time coded walk b{b} ef={pool} width {args.width} (iterations "
+            f"{graph_ops.default_iters(pool, args.width, args.deg)}): wall "
+            f"{ms:.1f} ms (best of 3), recall@10 {rec:.4f} against exact "
+            f"fp32 search over the {n} rows; distances within {err:.3g} "
+            f"of fp64 from the codes [{smi}]")
+
+    # The walk over the first GRAPH27_PLAIN_N rows: coded against decoded.
+    m = GRAPH27_PLAIN_N
+    sub = graph[:m].clone()
+    sub[sub >= m] = -1
+    dec = sq_decode(codes[:m], vmin, scale, args.serve_codec)
+    for b, xq_np in batches.items():
+        xq = torch.from_numpy(xq_np).to(dev)
+        kw = dict(pool=max(GRAPH27_POOLS), width=args.width)
+
+        def coded():
+            return graph_ops.graph_search(
+                codes[:m], sub, xq, m, K, "INNER_PRODUCT", codec=
+                args.serve_codec, vmin=vmin, scale=scale, **kw)
+
+        def plain():
+            return graph_ops.graph_search(dec, sub, xq, m, K,
+                                          "INNER_PRODUCT", rerank=True, **kw)
+
+        cd, cl = finalize_scores(*coded(), "INNER_PRODUCT")
+        pd, pl = finalize_scores(*plain(), "INNER_PRODUCT")
+        check(torch.equal(cl, pl), f"coded walk b{b} over {m} rows: labels "
+              f"differ from the walk over the decoded rows")
+        err = float((cd - pd).abs().max())
+        tol = REL_TOL * float(pd.abs().max())
+        check(err <= tol, f"coded walk b{b} over {m} rows: distance error "
+              f"{err} above {tol}")
+        max_err = max(max_err, err)
+        ms_c = statistics.median(cuda_ms(coded) for _ in range(3))
+        ms_p = statistics.median(cuda_ms(plain) for _ in range(3))
+        log(f"coded walk b{b} ef={kw['pool']} over the first {m} rows: "
+            f"labels equal to the walk over the decoded fp32 rows, "
+            f"distances within {err:.3g}; coded {ms_c:.1f} ms, decoded fp32 "
+            f"{ms_p:.1f} ms (median CUDA events) [{smi}]")
+    del dec, sub, graph, codes
+    torch.cuda.empty_cache()
+    log(f"phase 27: {time.perf_counter() - t_all:.1f} s; card memory peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return sweep, max_err
+
+
 def main():
+    t_script = time.perf_counter()
     smi = phase_environment()
     phase_build()
     sweep_err = phase_sweep()
@@ -5272,6 +5441,9 @@ def main():
     sq_place, sq_place_err = phase_placement_sq(smi)
     torch.cuda.empty_cache()
     marco = phase_marco_device(smi)
+    torch.cuda.empty_cache()
+    phase_coded_graph(smi, marco)
+    log(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s in all")
     log(smi)
     # Flat, K6 and the SQ kernels at the shapes timed above; no single
     # PyTorch call computes what K2-K7, K9 and K10 compute (a distance, a
@@ -5296,7 +5468,8 @@ def main():
                      pairs_launches + graph_launches["k7"] + place["k7"],
                      max(err7, ivf_err7, pairs_err), *pairs_timing,
                      before_ms=pairs_before),
-        kernel_entry(SQ_LIST_KERNEL, sq["launches"][0] + sq_place[0],
+        kernel_entry(SQ_LIST_KERNEL,
+                     sq["launches"][0] + sq_place[0] + marco["trec"][0],
                      max(sq_errs[0], sq["err"][0], marco["k2"][1],
                          sq_place_err), k2_ms,
                      k2_plain, k2_bound, before_ms=k2_before_ms),
@@ -5304,7 +5477,7 @@ def main():
         kernel_entry(kernel, sq["launches"][i] + extra,
                      max(sq_errs[i], sq["err"][i]), *sq["timings"][key])
         for i, (kernel, key), extra in (
-            (1, (SQ_PAIRS_KERNEL, "k3"), sq_place[1]),
+            (1, (SQ_PAIRS_KERNEL, "k3"), sq_place[1] + marco["trec"][1]),
             (2, (SQ_SPILL_KERNEL, "k5"), 0))
     ] + [
         kernel_entry(PQ_KERNEL, pq["launches"] + place["k8"],

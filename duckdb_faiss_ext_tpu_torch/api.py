@@ -35,11 +35,12 @@ from . import errors
 from .catalog import GLOBAL_CATALOG, Catalog, IndexEntry
 from .factory import build_index
 from .metrics import DEFAULT_METRIC, resolve_metric
-from .models.base import SearchResult, as_matrix, fetch_results
+from .models.base import SearchResult, as_matrix
 from .ops.flat_search import SIMILARITY_METRICS
 from .ops.selectors import BitmapSelector, Selector, SetSelector
 from .params import as_params
 from .utils.profiling import timed
+from .utils.transfer import fetch_results
 
 
 def _timed_op(op: str):

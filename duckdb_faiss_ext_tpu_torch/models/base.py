@@ -17,6 +17,7 @@ import torch
 from .. import errors
 from ..metrics import Metric
 from ..params import EMPTY, ParamMap
+from ..utils.transfer import fetch_results
 
 if TYPE_CHECKING:
     from ..ops.selectors import Selector
@@ -231,13 +232,3 @@ def placement_capacity(cap: int, placement) -> int:
     """A capacity bucket rounded up to a multiple of the placement's device
     count (row blocks of equal rows)."""
     return cap if placement is None else placement.capacity(cap)
-
-
-def fetch_results(dist: torch.Tensor, pos: torch.Tensor):
-    """(nq, k) f32 distances + (nq, k) i32 positions → numpy with a single
-    device→host copy: the distance bits ride in the int32 buffer."""
-    k = dist.shape[1]
-    packed = torch.cat([dist.contiguous().view(torch.int32),
-                        pos.to(torch.int32)], 1).cpu().numpy()
-    return (np.ascontiguousarray(packed[:, :k]).view(np.float32),
-            packed[:, k:].copy())

@@ -34,6 +34,7 @@ from ..ops.selectors import Selector
 from ..parallel.sharded import sharded_flat_search, sharded_rows_search
 from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
                             resolve_device)
+from ..utils.transfer import upload_queries
 from .base import Index, SearchResult, as_matrix, placement_capacity
 
 
@@ -147,7 +148,7 @@ class FlatIndex(Index):
         cap = self._capacity()
         k_eff = min(k, cap)
         nq_pad = max(config.min_query_bucket, next_pow2(nq))
-        xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(self.device)
+        xq_pad = upload_queries(pad_rows(xq, nq_pad), self.device)
         mask = self._selector_mask(selector) if selector is not None else None
         if self.storage == "pm1_i8":
             # Queries are sign codes too; the int8 dot is exact, so no

@@ -46,6 +46,7 @@ from ..ops.flat_search import SIMILARITY_METRICS, finalize_scores
 from ..params import EMPTY, ParamMap
 from ..utils.config import config, next_pow2, pad_rows
 from ..utils.profiling import timed
+from ..utils.transfer import upload_queries
 from .base import SearchResult, as_matrix
 from .flat import FlatIndex
 
@@ -201,7 +202,7 @@ class HNSWIndex(FlatIndex):
         if nq == 0 or k <= 0 or indexed == 0:
             return None
         nq_pad = max(config.min_query_bucket, next_pow2(nq))
-        xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(self.device)
+        xq_pad = upload_queries(pad_rows(xq, nq_pad), self.device)
         xb = self.device_vectors()
         gdev = self._graph_device(xb.shape[0], gstate)
         pool, width, iters = self._walk_knobs(k, params, selector)
@@ -264,7 +265,7 @@ class HNSWIndex(FlatIndex):
         if nq == 0 or k <= 0 or indexed == 0:
             return None
         nq_pad = max(config.min_query_bucket, next_pow2(nq))
-        xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(self.device)
+        xq_pad = upload_queries(pad_rows(xq, nq_pad), self.device)
         pool, width, iters = self._walk_knobs(k, params, None)
         k_eff = min(k, indexed)
         scores, pos = sharded_graph_search(

@@ -85,6 +85,7 @@ from ..ops.sq_spill import CODECS as SPILL_KERNEL_CODECS
 from ..ops.sq_spill import sq_spill_search
 from ..params import EMPTY
 from ..utils.config import config, next_pow2, pad_rows, sq_int8_active
+from ..utils.transfer import upload_queries
 from .base import SearchResult, as_matrix, dedup_by_key
 
 
@@ -202,7 +203,7 @@ class IVFServe:
         params.scoped("quantiser.")
         nprobe_eff = max(1, min(int(nprobe), self.nlist))
         nq_pad = max(config.min_query_bucket, next_pow2(nq))
-        xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(self.device)
+        xq_pad = upload_queries(pad_rows(xq, nq_pad), self.device)
         metric = self.metric.name
 
         if self._shard_mesh is not None:
@@ -291,7 +292,7 @@ class IVFServe:
         metric = self.metric.name
         sl = self._build_device()
         offs, cnts = self._sorted_list_meta()
-        xq_dev = torch.from_numpy(xq).to(self.device)
+        xq_dev = upload_queries(xq, self.device)
         probe_ids = coarse_topk(xq_dev, sl.centroids, nprobe_eff, metric,
                                 self.metric_arg)
         labels_sorted = self._sorted_ids(sl.order)

@@ -36,6 +36,7 @@ from ..params import EMPTY
 from ..parallel.sharded import sharded_rows_search
 from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
                             resolve_device)
+from ..utils.transfer import upload_queries
 from .base import (Index, SearchResult, as_matrix, placement_capacity,
                    row_placement)
 
@@ -196,7 +197,7 @@ class PQIndex(Index):
         cap = codes_dev.shape[0]
         k_eff = min(k, cap)
         nq_pad = max(config.min_query_bucket, next_pow2(nq))
-        xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(self.device)
+        xq_pad = upload_queries(pad_rows(xq, nq_pad), self.device)
         mask = None
         if selector is not None:
             key = (selector.cache_key(), self._version)

@@ -27,7 +27,8 @@ from ..ops.distance import elementwise_scores
 from ..ops.flat_search import SIMILARITY_METRICS, exact_topk
 from ..params import EMPTY
 from ..utils.config import config, next_pow2, pad_rows
-from .base import Index, SearchResult, as_matrix, fetch_results
+from ..utils.transfer import fetch_results, upload_queries
+from .base import Index, SearchResult, as_matrix
 from .flat import FlatIndex
 
 
@@ -115,7 +116,7 @@ class RefineFlatIndex(Index):
         nq_pad = max(config.min_query_bucket, next_pow2(nq))
         labels = torch.from_numpy(
             pad_rows(base.labels.astype(np.int64), nq_pad, fill=-1)).to(dev)
-        xq_dev = torch.from_numpy(pad_rows(xq, nq_pad)).to(dev)
+        xq_dev = upload_queries(pad_rows(xq, nq_pad), dev)
         dist, pos = rerank(self.refine.device_vectors(), labels, xq_dev,
                            min(k, k_base), self.metric.name, self.metric_arg)
         dist, pos = fetch_results(dist[:nq], pos[:nq])

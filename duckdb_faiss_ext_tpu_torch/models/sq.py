@@ -42,6 +42,7 @@ from ..params import EMPTY
 from ..parallel.sharded import sharded_rows_search
 from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
                             resolve_device, sq_int8_active)
+from ..utils.transfer import upload_queries
 from .base import (Index, SearchResult, as_matrix, placement_capacity,
                    row_placement)
 from .pq import not_trained
@@ -217,7 +218,7 @@ class SQIndex(Index):
         cap = codes.shape[0]
         k_eff = min(k, cap)
         nq_pad = max(config.min_query_bucket, next_pow2(nq))
-        xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(self.device)
+        xq_pad = upload_queries(pad_rows(xq, nq_pad), self.device)
         mask = None
         if selector is not None:
             key = (selector.cache_key(), self._version)

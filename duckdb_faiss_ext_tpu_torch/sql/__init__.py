@@ -10,4 +10,14 @@ operators).
 
 from .engine import Database, default_database, register_table
 
-__all__ = ["Database", "default_database", "register_table"]
+
+def register_duckdb(con) -> None:
+    """Register the faiss_* UDF surface on a duckdb connection (lazy import
+    — duckdb is an optional client dependency; see sql/duckdb_bridge.py)."""
+    from .duckdb_bridge import register
+
+    register(con)
+
+
+__all__ = ["Database", "default_database", "register_table",
+           "register_duckdb"]

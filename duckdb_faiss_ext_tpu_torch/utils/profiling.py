@@ -1,5 +1,8 @@
-"""Timing and engine statistics.
+"""Tracing, timing and engine statistics.
 
+* ``trace(path)`` — context manager around ``torch.profiler`` writing a
+  Chrome trace (chrome://tracing, Perfetto) of everything inside: the
+  host's torch operators and, on a CUDA device, the card's kernels;
 * ``timed(op)`` — lightweight per-op wall-clock accumulation into the
   process-global ``STATS`` registry (search/add/train counts and latencies);
 * ``stats()`` / ``reset_stats()`` — snapshot/clear, exposed through
@@ -12,6 +15,8 @@ import contextlib
 import threading
 import time
 from collections import defaultdict
+
+import torch
 
 
 class _OpStats:
@@ -60,3 +65,22 @@ def stats() -> dict:
 def reset_stats() -> None:
     with _lock:
         _stats.clear()
+
+
+@contextlib.contextmanager
+def trace(path: str):
+    """Profile the enclosed block with ``torch.profiler`` (the CPU and,
+    where a card is present, the CUDA activity) and write a Chrome trace
+    to ``path``; its directory is made if missing."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(path)

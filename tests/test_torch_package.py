@@ -55,6 +55,13 @@ def test_imports_and_searches_without_jax():
         dt.faiss_add_device(xb, "s", expected_total=50)
         res = dt.faiss_search("s", 3, xb[:2], {"nprobe": "2"})
         assert res["label"][:, 0].tolist() == [0, 1], res
+        import importlib, pkgutil
+        import duckdb_faiss_ext_tpu_torch.examples as ex
+        import duckdb_faiss_ext_tpu_torch.tools as tools
+        for pkg in (tools, ex):
+            for m in pkgutil.iter_modules(pkg.__path__):
+                importlib.import_module(pkg.__name__ + "." + m.name)
+        importlib.import_module("duckdb_faiss_ext_tpu_torch.sql.duckdb_bridge")
         assert not [m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "duckdb_faiss_ext_tpu")]
         print("ok")
@@ -65,6 +72,23 @@ def test_imports_and_searches_without_jax():
                          text=True, env=env, cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_sources_name_no_jax():
+    """No source file of the port, its tools and examples included, nor
+    chip_smoke.py, imports JAX or the JAX package."""
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|duckdb_faiss_ext_tpu)"
+                     r"(\.|\s|$)", re.M)
+    root = os.path.join(REPO, "duckdb_faiss_ext_tpu_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for base, _, names in os.walk(root):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    assert any("/tools/" in f for f in files)
+    assert any("/examples/" in f for f in files)
+    bad = [f for f in files if pat.search(open(f).read())]
+    assert not bad, bad
 
 
 def test_cuda_without_a_card_raises():

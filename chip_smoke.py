@@ -64,8 +64,8 @@ Phases (any failure raises and the script exits non-zero):
    and b1024, faiss_search_batched 16 x b48, faiss_search_filter.  Every
    result is held against the plain list scan on the same layout (labels
    equal where distances are separated), the kernel launch counts must
-   match the calls (the fused K6 on every call below the pairs rule, the
-   fused K7 on every call the rule sends to the pair tiles, the raw
+   match the calls (the fused K6 on every call the pairs gate keeps per
+   query, the fused K7 on every call it sends to the pair tiles, the raw
    launches on none), and recall@10 against exact Flat is printed; at
    b48 and b1024 the fused K6 is held against its plain version, timed in
    turns against the raw launch with exact_topk and the resolve (the
@@ -75,7 +75,7 @@ Phases (any failure raises and the script exits non-zero):
    fused K7 is timed against the fused K6, and the top-k of the raw
    score block alone;
 8. pair-tile path: IVF1024,Flat inner product over 262,144 x 1536
-   (seed 7) at nprobe 16: b1024 goes through the fused K7 by the static
+   (seed 7) at nprobe 16: b1024 goes through the fused K7 by the pairs
    gate, and through the fused K10 under pairs_impl "mega" with equal
    results, b48 through the fused K6, all held against the plain path;
    the launch counts must show the fused K6, K7 and K10 once each and the
@@ -120,7 +120,7 @@ Phases (any failure raises and the script exits non-zero):
    the card in 262,144-row chunks, faiss_manual_train on the first chunk,
    faiss_add of every chunk, the padded layout capped at lmax 1024 so the
    longest lists spill; in fast mode at nprobe 16, k=10: faiss_search at
-   b48 (the fused K2 + K5) and b1024 (K3 by the static rule + K5),
+   b48 (the fused K2 + K5) and b1024 (K3 by the pairs gate + K5),
    faiss_search_batched 16 x b48 and faiss_search_filter('id%2==0').  The
    launch counts must match the calls (K2's raw launch none); every result
    is held against the same path with the plain versions of K2, K3 and K5
@@ -234,7 +234,7 @@ Phases (any failure raises and the script exits non-zero):
    IVF4096,Flat with soar_lambda 1.0 on phase 7's centroids (2M storage
    rows, lists capped where more than a tenth of the rows would overflow)
    at nprobe 16 and 64, b48 and b1024: the fused K6 / K7 launch counts as
-   the static rule and query blocks predict, results held against the
+   the pairs gate and query blocks predict, results held against the
    plain K6 / K7 path one wider, no label twice in a query, the layout's
    lmax, padded bytes and spill printed, recall@10 beside phase 7's;
 23. LSH: LSHrt (128 bits) and ITQ64,LSH over phase 7's corpus, b48 and
@@ -267,7 +267,7 @@ Phases (any failure raises and the script exits non-zero):
    the walk over the card's adjacency equal on both.  Then
    IVF2048_HNSW128,Flat L2 (the reference's other benchmark config:
    nprobe 15, quantiser.efSearch 64) trained on the first 262,144 rows:
-   K6 / K7 launch counts as the static rule predicts, results held
+   K6 / K7 launch counts as the pairs gate predicts, results held
    against the plain path one wider, recall@10.  Then NSG32 inner product
    over phase 8's 262,144 x 1536 corpus (search_L 64; its build on K1)
    and HNSW32 with accel=ivf on it (an internal IVF512, K6 launched), at
@@ -293,7 +293,41 @@ Phases (any failure raises and the script exits non-zero):
    equal wherever the distances agree); and in phase 16 the MS MARCO
    device index filtered by id%2==0 with its layout and spill masks built
    on the card and on the host (both timed, first call and again; results
-   equal).
+   equal);
+27. the SQ-coded graph over phase 16's corpus (see ``phase_coded_graph``);
+28. marco filtered (after phase 16, on its index;
+   duckdb_faiss_ext_tpu_torch/tools/marco_filtered.py::run_sweep): the
+   reference's benchmark suite at its own scale, the 8,841,823-row id
+   table with id%100 < t at pass rates 1 / 10 / 50 / 99%, b48, nprobe 16,
+   fast mode: post-filter at the binomial k' (1874 / 183 / 33 / 11), the
+   bitmap and id-set selectors, the CPU column; the bitmap and id-set
+   results equal, every label passing, every distance the row's
+   unfiltered score recomputed in fp64 from its codes, each search's
+   launches as its k says (K2's raw launch at k_scan past 1024, K5 on
+   the spill only at k <= 128), the table, each path and the predicate's
+   seconds printed; then ``--config4`` (BASELINE config 4: 1M x 128
+   IVF4096,Flat host ingest, id%2==0) as a subprocess;
+29. marco refine (on phase 16's index and exact labels;
+   tools/marco_refine.py::refine_sweep): the fp16 raw store (25.3 GiB)
+   drawn again on the card, nprobe 16 / 64 x k_factor 4 / 8 / 16 at b48,
+   queries/s at b1024 with the rerank: recall@10 after the rerank at least
+   the base's at every row, every reranked distance within REL_TOL of
+   fp64 from the fp16 rows, the memory peak printed; then the tool at its
+   defaults (SQ6, 256 queries) as a subprocess, after phase 16's index is
+   freed;
+30. batch amortization (after phase 7, on phase 5's IDMap,Flat and phase
+   7's IVF4096; tools/batch_amortization.py::amortization_table): b1 /
+   b48 / b256 / b1024 best of 7 and 16 x b48 pipelined, fast mode, the
+   ratio to b1 printed, the b1 result equal to row 0 of b48's, K6's launch
+   plan at b1 (8 rows) and b48 (64) printed;
+31. pairs gate (ops/pairs_gate.py): at the 14 measured points its decision
+   beside the static rule's; the table's lowest and highest rows and the
+   MS MARCO layout at b1024 timed again by tools/pairs_crossover.py, each
+   ratio on the same side of 1.05 as the gate's estimate; the path phases
+   7, 8, 10 and 16 took at b48 and b1024, with the estimate, the distance
+   to the measured hull and the static rule's choice.
+
+Phases 28-30 add their launches to the kernels line.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -1439,6 +1473,7 @@ def phase_ivf_main(smi, data, exact):
     calls = [(64, 1), (BIG_BATCH, 1), (64, N_BATCHES), (64, 1)]
     expected = (sum(n for nq, n in calls if not index.pairs_wanted(nq, lmax)),
                 sum(n for nq, n in calls if index.pairs_wanted(nq, lmax)))
+    gate_seen(f"phase 7 IDMap,IVF4096,Flat {N}x{D}", index, lmax)
     check(launches == expected and k6.LAUNCHES == k7.LAUNCHES == 0,
           f"ivf main path launched (K6 fused, K7 fused) {launches} times, not "
           f"{expected}, and the raw launches (K6, K7) {k6.LAUNCHES}, "
@@ -1570,7 +1605,7 @@ def clustered_f32(n, d, nq, ncl, seed):
 
 def phase_ivf_pairs(smi):
     """IVF1024,Flat IP over 262,144 x 1536 at nprobe 16: b1024 takes the
-    pair tiles (K7) by the static gate, and K10 under pairs_impl "mega",
+    pair tiles (K7) by the pairs gate, and K10 under pairs_impl "mega",
     b48 the per-query scan (K6); then the same trained index filled on the
     card by faiss_add_device, layout and results equal to faiss_add's."""
     import duckdb_faiss_ext_tpu_torch as dt
@@ -1616,9 +1651,14 @@ def phase_ivf_pairs(smi):
     out = run_all("marco")
     launches = (k6.TOPK_LAUNCHES, k7.TOPK_LAUNCHES, k10.TOPK_LAUNCHES)
     raw_launches = (k6.LAUNCHES, k7.LAUNCHES, k10.LAUNCHES)
-    check(launches == (1, 1, 1) and raw_launches == (0, 0, 0), f"pairs path "
-          f"launched (K6, K7, K10 fused) {launches}, the raw launches (K6, "
-          f"K7, K10) {raw_launches}")
+    # b1024 under "grid" and "mega", b48 (64 rows) under "grid"
+    p64, p1024 = (index.pairs_wanted(nq, lmax) for nq in (64, BIG_BATCH))
+    gate_seen(f"phase 8 IVF{PAIRS_NLIST},Flat {PAIRS_N}x{PAIRS_D}", index,
+              lmax)
+    want = ((not p64) + 2 * (not p1024), p64 + p1024, p1024)
+    check(launches == want and raw_launches == (0, 0, 0), f"pairs path "
+          f"launched (K6, K7, K10 fused) {launches}, not {want}, the raw "
+          f"launches (K6, K7, K10) {raw_launches}")
     check(index._last_scan_path == "pairs-mega-flat", "mega not taken")
     for key in ("label", "distance"):
         check(np.array_equal(out["b1024-mega"][key], out["b1024"][key]),
@@ -2425,6 +2465,7 @@ def phase_sq_main(smi):
     expected = (sum(n for nq, n in calls if not index.pairs_wanted(nq, lmax)),
                 sum(n for nq, n in calls if index.pairs_wanted(nq, lmax)),
                 sum(n for _, n in calls))
+    gate_seen(f"phase 10 IVF{SQ_NLIST},SQ8 {SQ_N}x{SQ_D}", index, lmax)
     check(launches == expected and k2.LAUNCHES == 0, f"sq main path "
           f"launched (K2 fused, K3, K5) {launches} times, not {expected}, "
           f"and K2's raw launch {k2.LAUNCHES} times")
@@ -2678,7 +2719,13 @@ def phase_marco_device(smi):
     launches = (k2.TOPK_LAUNCHES, k3.LAUNCHES, k9.LAUNCHES, k5.LAUNCHES)
     check(k5.RESCORE_LAUNCHES == k5.LAUNCHES, "a spill search missed the "
           "rescore kernel")
-    expected = (N_BATCHES + 2, 1, 1, (N_BATCHES + 4) if n_spill else 0)
+    # b48, the batched b48s and the filter (64 rows each) under "grid" and
+    # "mega", b1024 once under each: K3 or K9 where pairs_wanted says so
+    p64, p1024 = (index.pairs_wanted(nq, lmax) for nq in (64, BIG_BATCH))
+    gate_seen(f"phase 16 IVF{SQ_NLIST},SQ8 {MARCO_N}x{SQ_D}", index, lmax)
+    expected = ((N_BATCHES + 2) * (not p64) + 2 * (not p1024),
+                (N_BATCHES + 1) * p64 + p1024, p64 + p1024,
+                (N_BATCHES + 4) if n_spill else 0)
     check(launches == expected and k2.LAUNCHES == 0, f"marco device path "
           f"launched (K2 fused, K3, K9, K5) {launches} times, not "
           f"{expected}, and K2's raw launch {k2.LAUNCHES} times")
@@ -2807,7 +2854,8 @@ def phase_marco_device(smi):
             "timing": (ms9, plain_ms, b9), "k5": k5_timing,
             "k2": (launches[0], err2, k2_timing), "trec": trec,
             "queries": {name: data[name] for name in ("b48", "b1024")},
-            "exact": exact}
+            "exact": exact, "cat": cat, "index": index, "corpus": corpus,
+            "db": db}
 
 
 def marco_trec(smi, cat, data, exact):
@@ -3685,18 +3733,23 @@ def phase_sql_harness(smi, data, ivf):
     lmax = index._build_device_layout().payload.shape[1]
 
     def blocks(nprobe):
-        return 64 // index.query_block(64, min(nprobe, index.nlist), lmax)
+        """(K6, K7) fused launches of one b48 search: one a query block,
+        through the scan pairs_wanted picks at the block's rows."""
+        blk = index.query_block(64, min(nprobe, index.nlist), lmax)
+        return ((0, 64 // blk) if index.pairs_wanted(blk, lmax)
+                else (64 // blk, 0))
 
     searches = 1 + len(tune.points) * (1 + repeat)
-    expected = blocks(index.nlist) + sum(
-        (1 + repeat) * blocks(int(p.params["nprobe"])) for p in tune.points)
-    check((k6.TOPK_LAUNCHES, k6.LAUNCHES, k7.TOPK_LAUNCHES, k7.LAUNCHES)
-          == (expected, 0, 0, 0), f"autotune launched the fused K6 "
-          f"{k6.TOPK_LAUNCHES} times, not {expected}")
+    expected = tuple(map(sum, zip(blocks(index.nlist), *(
+        tuple((1 + repeat) * n for n in blocks(int(p.params["nprobe"])))
+        for p in tune.points))))
+    check((k6.TOPK_LAUNCHES, k7.TOPK_LAUNCHES, k6.LAUNCHES, k7.LAUNCHES)
+          == (*expected, 0, 0), f"autotune launched the fused (K6, K7) "
+          f"{k6.TOPK_LAUNCHES}, {k7.TOPK_LAUNCHES} times, not {expected}")
     check(tune.points[-1].recall == 1.0 and tune.best is not None,
           "autotune: exhaustive point")
     log(f"autotune IVF4096 {N}x{D} b{BATCH} ({searches} searches, "
-        f"{expected} fused K6 launches) [{smi}]:\n{tune}")
+        f"{expected} fused (K6, K7) launches) [{smi}]:\n{tune}")
 
 
 def phase_port_bench(ivf_recall):
@@ -3801,7 +3854,7 @@ def peak_gib():
 
 def expected_list_launches(index, nq, nprobe, lmax):
     """(per-query launches, pair-tile launches) of one search of nq queries:
-    one a query block, each block sent to K6 or K7 by the static rule."""
+    one a query block, each block sent to K6 or K7 by the pairs gate."""
     from duckdb_faiss_ext_tpu_torch.utils.config import config, next_pow2
 
     nq_pad = max(config.min_query_bucket, next_pow2(nq))
@@ -3963,8 +4016,9 @@ def phase_marco_refine(smi, sq):
             + int(base.pairs_wanted(BIG_BATCH, lmax)), 2)
     check(launches == want and k2.LAUNCHES == 0, f"marco refine launched "
           f"(K2 fused, K3, K5) {launches} times, not {want}")
-    check(paths == {"b48": "per-query", "b1024": "pairs-sq8"},
-          f"marco refine base paths {paths}")
+    want = {b: "pairs-sq8" if base.pairs_wanted(nq, lmax) else "per-query"
+            for b, nq in (("b48", 64), ("b1024", BIG_BATCH))}
+    check(paths == want, f"marco refine base paths {paths}, not {want}")
     with plain_sq_kernels():
         ref = {b: dt.faiss_search("mrf", K + 1, xq,
                                   wider(params, MARCO_REFINE_KF), catalog=cat)
@@ -3994,7 +4048,7 @@ def phase_marco_refine(smi, sq):
 def list_path_check(tag, dt, cat, name, index, queries, params, exact,
                     similarity=False):
     """The IVF,Flat searches of ``queries`` through the public API: K6 / K7
-    launch counts as the static rule and the query blocks predict, results
+    launch counts as the pairs gate and the query blocks predict, results
     held against the plain K6 / K7 path one wider (``compare_results``; with
     SOAR the plain path fetches 2(k + 1) candidates, whose first k distinct
     rows are the kernel path's 2k candidates' when they are apart), no
@@ -5105,6 +5159,7 @@ def phase_placement_sq(smi):
     from duckdb_faiss_ext_tpu_torch.ops import ivf_sq_scan as k2
     from duckdb_faiss_ext_tpu_torch.ops.sq import sq_decode
     from duckdb_faiss_ext_tpu_torch.parallel.sharded import make_mesh
+    from duckdb_faiss_ext_tpu_torch.utils.config import next_pow2
 
     t_phase = time.perf_counter()
     corpus = marco_corpus()
@@ -5138,10 +5193,16 @@ def phase_placement_sq(smi):
         out[b] = dt.faiss_search("sqp", K, xq, params, catalog=cat)
         paths[b] = index._last_scan_path
     n = (k2.TOPK_LAUNCHES, k3.LAUNCHES)
-    check(n == (PLACE_SHARDS, PLACE_SHARDS) and k2.LAUNCHES == 0,
-          f"sq placed: (K2 fused, K3) launched {n} times")
-    check(paths == {"b48": "per-query", "b1024": "pairs-sq8"},
-          f"sq placed paths {paths}")
+    # every shard scans the whole padded batch over the shards' common lmax
+    shard_lmax = index._build_sharded()[2]
+    pairs = {b: index.pairs_wanted(next_pow2(xq.shape[0]), shard_lmax)
+             for b, xq in queries.items()}
+    want = (PLACE_SHARDS * sum(not p for p in pairs.values()),
+            PLACE_SHARDS * sum(pairs.values()))
+    check(n == want and k2.LAUNCHES == 0,
+          f"sq placed: (K2 fused, K3) launched {n} times, not {want}")
+    check(paths == {b: "pairs-sq8" if p else "per-query"
+                    for b, p in pairs.items()}, f"sq placed paths {paths}")
     check(np.array_equal(index._ids, np.arange(SQ_PLACE_N)),
           "sq placed: labels are not the storage rows")
     vmin, scale = index._sq_ranges(DEVICE)
@@ -5395,6 +5456,295 @@ def phase_coded_graph(smi, marco):
     return sweep, max_err
 
 
+#: phases 28-31: the reference's benchmark tools on the main paths' indexes
+#: (duckdb_faiss_ext_tpu_torch/tools/marco_filtered.py, marco_refine.py,
+#: batch_amortization.py) and the pairs gate (ops/pairs_gate.py)
+MARCO_PASSRATES = (0.01, 0.10, 0.50, 0.99)
+REFINE_NPROBES, REFINE_KFACTORS = (16, 64), (4, 8, 16)
+TOOL_TIMEOUT = 300
+#: (lmax, d, nq) re-timed by phase 31: the table's lowest and highest
+#: ratios, and the MS MARCO device layout at b1024
+GATE_RETIME = ((512, 128, 256), (2048, 1536, 1024), (MARCO_LMAX, SQ_D,
+                                                     BIG_BATCH))
+#: (d, lmax, pairs at b48, pairs at b1024) of the IVF indexes of phases 7,
+#: 8, 10 and 16, as their pairs_wanted decided
+GATE_SEEN = {}
+
+
+def zero_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    import importlib
+
+    from duckdb_faiss_ext_tpu_torch.tools._cli import COUNTERS
+
+    for _, mod, attr in COUNTERS:
+        setattr(importlib.import_module(
+            f"duckdb_faiss_ext_tpu_torch.ops.{mod}"), attr, 0)
+
+
+def gate_seen(tag, index, lmax):
+    GATE_SEEN[tag] = (index.d, lmax, index.pairs_wanted(64, lmax),
+                      index.pairs_wanted(BIG_BATCH, lmax))
+
+
+def run_tool(args, tag, complete):
+    """A port tool as a subprocess under TOOL_TIMEOUT: its output logged,
+    exit 0 and its COMPLETE line required.  Returns (seconds, stdout)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          f"duckdb_faiss_ext_tpu_torch.tools.{args[0]}",
+                          *args[1:]], capture_output=True, text=True,
+                         cwd=HERE, timeout=TOOL_TIMEOUT)
+    sec = time.perf_counter() - t0
+    for line in out.stdout.strip().splitlines():
+        log(f"{tag}: {line}")
+    for line in out.stderr.strip().splitlines()[-8:]:
+        log(f"{tag} (stderr): {line}")
+    check(out.returncode == 0 and out.stdout.rstrip().endswith(complete),
+          f"{tag} exited {out.returncode} without {complete}")
+    log(f"{tag}: {sec:.1f} s")
+    return sec, out.stdout
+
+
+def marco_row_scores(index, labels, xq):
+    """fp64 inner products of each query with its labelled rows of phase
+    16's device-resident index, decoded from their codes (a slot of the
+    padded layout or a spill row); labels -1 give NaN."""
+    from duckdb_faiss_ext_tpu_torch.ops.sq import sq_decode
+
+    dr = index._dr
+    flat = np.maximum(labels, 0).reshape(-1)
+    slot = dr.slot[flat]
+    codes = dr.payload.new_empty((flat.size, dr.payload.shape[2]))
+    kept = slot >= 0
+    at = torch.from_numpy(index._assign[flat].astype(np.int64) * dr.lmax
+                          + slot).to(DEVICE)
+    pick = torch.from_numpy(kept).to(DEVICE)
+    codes[pick] = dr.payload.view(-1, codes.shape[1])[at[pick]]
+    if not kept.all():
+        codes[~pick] = dr.spill_payload[torch.from_numpy(
+            -slot[~kept] - 1).to(DEVICE)]
+    vmin, scale = index._sq_ranges(DEVICE)
+    x = sq_decode(codes, vmin, scale, index.sq_type).double().reshape(
+        *labels.shape, -1)
+    q = torch.from_numpy(xq).to(DEVICE).double()[:, None, :]
+    return np.where(labels >= 0, (x * q).sum(-1).cpu().numpy(), np.nan)
+
+
+def phase_marco_filtered(smi, marco):
+    """Phase 28: tools/marco_filtered.py's sweep over phase 16's 8,841,823
+    x 1536 IVF4096,SQ8 index at b48, nprobe 16, pass rates 1 / 10 / 50 /
+    99% (post at the binomial k', bitmap and id-set selectors, the CPU
+    column), fast mode: the bitmap and id-set labels equal, every label
+    passing id%100 < t, every distance the query's unfiltered score of its
+    row recomputed in fp64 from its codes (within REL_TOL of the batch's
+    largest), each strategy's path as its k says (K2's raw launch past
+    k_scan 1024, the plain spill scan past k 128); then BASELINE config 4
+    through the tool's command line.  Returns the launches by kernel."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_sq_scan import MAX_K
+    from duckdb_faiss_ext_tpu_torch.tools import marco_filtered as mf
+    from duckdb_faiss_ext_tpu_torch.tools._cli import launch_counts
+
+    cat, index = marco["cat"], marco["index"]
+    xq = marco["queries"]["b48"]
+    lmax = index._build_device_layout().payload.shape[1]
+    dt.set_precision("fast")
+    t0 = time.perf_counter()
+    try:
+        zero_counts()
+        rows = mf.run_sweep("marco", xq, MARCO_N, SQ_NPROBE, MARCO_PASSRATES,
+                            want=K, iters=3, catalog=cat,
+                            database=marco["db"], log=log)
+        launched = {k: v for k, v in launch_counts().items() if v}
+    finally:
+        dt.set_precision("parity")
+    sweep_s = time.perf_counter() - t0
+    err = 0.0
+    for r in rows:
+        res = r["result"]
+        t = max(1, int(round(res.passrate * 100)))
+        for key in ("label", "distance"):
+            check(np.array_equal(r["sel"][key], r["set"][key]),
+                  f"marco filtered {t}%: bitmap and id-set {key}s differ")
+        for key in ("post", "sel"):
+            k = res.required_k if key == "post" else K
+            check(r[key]["label"].shape == (BATCH, k), f"{key} {t}%: shape")
+            labels, dist = r[key]["label"], r[key]["distance"]
+            live = labels >= 0
+            check(np.isfinite(dist[live]).all(), f"{key} {t}%: non-finite")
+            if key == "sel":
+                check((labels[live] % 100 < t).all() and live.any(),
+                      f"marco filtered {t}%: a label fails id%100<{t}")
+            s = marco_row_scores(index, labels, xq)
+            e = float(np.abs(np.where(live, dist - s, 0)).max())
+            check(e <= REL_TOL * float(np.abs(dist[live]).max()),
+                  f"marco filtered {t}% {key}: distance error {e:.3g}")
+            err = max(err, e)
+            k_scan = index._sq_kscan(k, SQ_NPROBE * lmax)
+            got = r[f"{key}_launches"]
+            want = {"K2 raw" if k_scan > MAX_K else "K2": 1}
+            spill = ("none" if index._spill is None
+                     else "K5" if k <= 128 and index._spill.n else "plain")
+            if spill == "K5":
+                want.update({"K5": 1, "K5 rescore": 1})
+            check(got == want, f"marco filtered {t}% {key} (k {k}, k_scan "
+                  f"{k_scan}) launched {got}, not {want}")
+            check(r[f"{key}_path"].endswith(f"spill {spill}"),
+                  f"{key} {t}%: path {r[f'{key}_path']}, not spill {spill}")
+        check(r["set_launches"] == r["sel_launches"],
+              f"{t}%: the id set launched {r['set_launches']}")
+    log(f"phase 28 marco filtered ({sweep_s:.1f} s, {len(rows)} pass rates, "
+        f"3 strategies, iters 3): bitmap and id-set results equal, every "
+        f"label passes, distances within {err:.3g} of fp64 from the codes; "
+        f"launches {launched} [{smi}]")
+    run_tool(["marco_filtered", "--config4"], "phase 28 config4",
+             "MARCO-FILTERED COMPLETE")
+    return launched
+
+
+def phase_marco_refine_full(smi, marco):
+    """Phase 29: tools/marco_refine.py's refine tier over phase 16's
+    8,841,823 x 1536 IVF4096,SQ8 index and its exact labels: the fp16 raw
+    store drawn again on the card (25.3 GiB), nprobe 16 / 64 x k_factor 4 /
+    8 / 16 at b48 (queries/s at b1024 with the rerank), fast mode: recall@10
+    after the rerank at least the base's at every row, every reranked
+    distance within REL_TOL of the batch's largest of fp64 from the fp16
+    rows; the card's memory peak.  Returns the launches by kernel."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.tools import marco_refine as mr
+    from duckdb_faiss_ext_tpu_torch.tools._cli import launch_counts
+
+    cat, corpus = marco["cat"], marco["corpus"]
+    xq, gt = marco["queries"]["b48"], marco["exact"]["b48"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    store = mr.fp16_store(corpus, MARCO_N)
+    torch.cuda.synchronize()
+    t_store = time.perf_counter() - t0
+    log(f"phase 29 fp16 store {MARCO_N}x{SQ_D} drawn again on the card in "
+        f"{t_store:.1f} s ({store.numel() * 2 / 2**30:.2f} GiB)")
+    dt.set_precision("fast")
+    t0 = time.perf_counter()
+    try:
+        zero_counts()
+        rows = mr.refine_sweep(cat, corpus, xq, gt, REFINE_NPROBES,
+                               REFINE_KFACTORS, store=store, log=log)
+        launched = {k: v for k, v in launch_counts().items() if v}
+    finally:
+        dt.set_precision("parity")
+    sweep_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    q = torch.from_numpy(xq).to(DEVICE).double()
+    err = 0.0
+    for r in rows:
+        tag = f"refine nprobe {r['nprobe']} k_factor {r['k_factor']}"
+        check(r["recall"] >= r["base_recall"], f"{tag}: recall@10 "
+              f"{r['recall']:.4f} below the base's {r['base_recall']:.4f}")
+        labels, dist = r["labels"], r["distances"]
+        check(labels.shape == (BATCH, K) and (labels >= 0).all(),
+              f"{tag}: labels")
+        x = store[torch.from_numpy(labels).to(DEVICE)].double()
+        s = (x * q[:, None, :]).sum(-1).cpu().numpy()
+        e = float(np.abs(dist - s).max())
+        check(e <= REL_TOL * float(np.abs(dist).max()),
+              f"{tag}: distance error {e:.3g} against fp64")
+        err = max(err, e)
+    del store
+    torch.cuda.empty_cache()
+    log(f"phase 29 marco refine ({sweep_s:.1f} s): recall@10 after the "
+        f"rerank >= the base's at all {len(rows)} rows, distances within "
+        f"{err:.3g} of fp64 from the fp16 rows; card memory peak {peak:.2f} "
+        f"GiB (index, exact labels and the fp16 store); launches {launched} "
+        f"[{smi}]")
+    return launched
+
+
+def phase_amortization(smi, data, ivf):
+    """Phase 30: tools/batch_amortization.py's table over phase 5's
+    IDMap,Flat and phase 7's IDMap,IVF4096,Flat (nprobe 64) at b1 / b48 /
+    b256 / b1024 and 16 x b48, fast mode: the b1 result equal to row 0 of
+    b48's (labels and distances), K6's launch plan at b1 (one real query
+    in the 8 rows the batch is padded to) beside b48's.  Returns the
+    launches by kernel."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+    from duckdb_faiss_ext_tpu_torch.tools import batch_amortization as ba
+    from duckdb_faiss_ext_tpu_torch.tools._cli import launch_counts
+
+    cats = {"sift": data["flat_cat"], "ivf": ivf["cat"]}
+    index = ivf["cat"].get("ivf").index.inner
+    lay = index._build_device_layout()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for nq in (8, 64):
+        log(f"phase 30 K6 plan at {nq} rows (IVF4096 lmax "
+            f"{lay.payload.shape[1]}, nprobe {IVF_NPROBE}): "
+            f"{k6.plan(nq, IVF_NPROBE, index.nlist, lay.payload.shape[1], D, K, n_sm)}")
+    rows = []
+    dt.set_precision("fast")
+    t0 = time.perf_counter()
+    try:
+        zero_counts()
+        for name, params in (("sift", None),
+                             ("ivf", {"nprobe": str(IVF_NPROBE)})):
+            rows += ba.amortization_table(cats[name], (name,), data["b1024"],
+                                          (params,), log=log)
+        launched = {k: v for k, v in launch_counts().items() if v}
+    finally:
+        dt.set_precision("parity")
+    for name in cats:
+        by = {r["batch"]: r for r in rows if r["index"] == name}
+        for key in ("label", "distance"):
+            check(np.array_equal(by[1]["result"][key][0],
+                                 by[48]["result"][key][0]),
+                  f"amortization {name}: b1 {key}s differ from b48's row 0")
+        log(f"phase 30 {name}: b48 / b1 latency {by[48]['ratio']:.3f}, b1024 "
+            f"/ b1 {by[1024]['ratio']:.3f}; b1 equals b48's row 0")
+    log(f"phase 30 batch amortization ({time.perf_counter() - t0:.1f} s): "
+        f"launches {launched} [{smi}]")
+    return launched
+
+
+def phase_pairs_gate(smi):
+    """Phase 31: the measured pairs gate (ops/pairs_gate.py): its decision
+    beside the static rule's at the table's 14 points, the rows of
+    GATE_RETIME timed again by tools/pairs_crossover.py (each ratio on the
+    same side of 1.05 as the gate's estimate there), and the path phases 7,
+    8, 10 and 16 took at b48 and b1024."""
+    from duckdb_faiss_ext_tpu_torch.ops import pairs_gate as gate
+    from duckdb_faiss_ext_tpu_torch.tools import pairs_crossover as pc
+
+    for work, nq, d, ratio in gate.MEASURED:
+        static = work >= (1 << 19) and nq >= 256
+        log(f"phase 31 gate at lmax*d {work} (d {d}) nq {nq}: measured "
+            f"{ratio:.2f}, pairs {gate.pairs_preferred(work, nq, d)}, static "
+            f"rule {static}")
+    t0 = time.perf_counter()
+    for lmax, d, nq in GATE_RETIME:
+        (row,) = pc.measure(((lmax, d),), (nq,), dev=torch.device(DEVICE),
+                            log=log)
+        est, dist = gate.pairs_speedup_estimate(lmax * d, nq, d)
+        check((row[3] >= 1.05) == (est >= 1.05), f"gate at lmax {lmax} d {d} "
+              f"nq {nq}: measured {row[3]:.2f} against the estimate "
+              f"{est:.2f}")
+        log(f"phase 31 re-timed lmax {lmax} d {d} nq {nq}: {row[3]:.2f} "
+            f"against the gate's estimate {est:.3f} (hull distance "
+            f"{dist:.3f}): same side of 1.05")
+        torch.cuda.empty_cache()
+    for tag, (d, lmax, p64, p1024) in GATE_SEEN.items():
+        parts = []
+        for b, nq, pairs in (("b48 (64 rows)", 64, p64),
+                             (f"b{BIG_BATCH}", BIG_BATCH, p1024)):
+            est, dist = gate.pairs_speedup_estimate(lmax * d, nq, d)
+            static = nq >= 256 and lmax * d >= (1 << 19)
+            parts.append(f"{b} {'pair tiles' if pairs else 'per-query'} "
+                         f"(estimate {est:.3f}, hull distance {dist:.3f}, "
+                         f"static rule {'pair tiles' if static else 'per-query'})")
+        log(f"phase 31 {tag} (d {d}, lmax {lmax}): {'; '.join(parts)}")
+    log(f"phase 31 pairs gate: {time.perf_counter() - t0:.1f} s [{smi}]")
+
+
 def main():
     t_script = time.perf_counter()
     smi = phase_environment()
@@ -5408,6 +5758,7 @@ def main():
     err10 = phase_ivf_mega_sweep()
     ivf_err, ivf_err7, ivf_launches, ivf_timings, ivf = phase_ivf_main(
         smi, data, exact)
+    amort = phase_amortization(smi, data, ivf)
     phase_sql_harness(smi, data, ivf)
     torch.cuda.empty_cache()
     phase_port_bench(ivf["recall"])
@@ -5442,7 +5793,16 @@ def main():
     torch.cuda.empty_cache()
     marco = phase_marco_device(smi)
     torch.cuda.empty_cache()
+    filtered = phase_marco_filtered(smi, marco)
+    refine = phase_marco_refine_full(smi, marco)
+    for key in ("cat", "index", "corpus", "db"):
+        del marco[key]
+    torch.cuda.empty_cache()
+    run_tool(["marco_refine"], "phase 29 marco_refine (SQ6)",
+             "MARCO-REFINE COMPLETE")
     phase_coded_graph(smi, marco)
+    torch.cuda.empty_cache()
+    phase_pairs_gate(smi)
     log(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s in all")
     log(smi)
     # Flat, K6 and the SQ kernels at the shapes timed above; no single
@@ -5454,22 +5814,32 @@ def main():
     # or rerank, or the pair epilogue), timed in turns with it.
     k6_ms, k6_plain, k6_bound, k6_before_ms = ivf_timings["b1024"]
     k2_ms, k2_plain, k2_bound, k2_before_ms = sq["timings"]["k2"]
+
+    def tools(*keys):
+        """Launches of phases 28-30 (the tools' paths) by kernel."""
+        return sum(d.get(k, 0) for d in (filtered, refine, amort)
+                   for k in keys)
+
     # Phase 26's placed paths add their launches: K1, K6 / K7, K8 (1M x
     # 128) and K2 / K3 (IVF1024,SQ8 at d = 1536).
     print(json.dumps({"kernels": [
-        kernel_entry(KERNEL, launches + graph_launches["k1"] + place["k1"],
+        kernel_entry(KERNEL, launches + graph_launches["k1"] + place["k1"]
+                     + tools("K1"),
                      max(sweep_err, golden_err, main_err, place_err),
                      *timings["b1024"]),
         kernel_entry(IVF_LIST_KERNEL,
-                     ivf_launches + graph_launches["k6"] + place["k6"],
+                     ivf_launches + graph_launches["k6"] + place["k6"]
+                     + tools("K6", "K6 raw"),
                      max(err6, ivf_err), k6_ms, k6_plain, k6_bound,
                      before_ms=k6_before_ms),
         kernel_entry(IVF_PAIRS_KERNEL,
-                     pairs_launches + graph_launches["k7"] + place["k7"],
+                     pairs_launches + graph_launches["k7"] + place["k7"]
+                     + tools("K7", "K7 raw"),
                      max(err7, ivf_err7, pairs_err), *pairs_timing,
                      before_ms=pairs_before),
         kernel_entry(SQ_LIST_KERNEL,
-                     sq["launches"][0] + sq_place[0] + marco["trec"][0],
+                     sq["launches"][0] + sq_place[0] + marco["trec"][0]
+                     + tools("K2", "K2 raw"),
                      max(sq_errs[0], sq["err"][0], marco["k2"][1],
                          sq_place_err), k2_ms,
                      k2_plain, k2_bound, before_ms=k2_before_ms),
@@ -5477,15 +5847,17 @@ def main():
         kernel_entry(kernel, sq["launches"][i] + extra,
                      max(sq_errs[i], sq["err"][i]), *sq["timings"][key])
         for i, (kernel, key), extra in (
-            (1, (SQ_PAIRS_KERNEL, "k3"), sq_place[1] + marco["trec"][1]),
-            (2, (SQ_SPILL_KERNEL, "k5"), 0))
+            (1, (SQ_PAIRS_KERNEL, "k3"), sq_place[1] + marco["trec"][1]
+             + tools("K3")),
+            (2, (SQ_SPILL_KERNEL, "k5"), tools("K5")))
     ] + [
-        kernel_entry(PQ_KERNEL, pq["launches"] + place["k8"],
+        kernel_entry(PQ_KERNEL, pq["launches"] + place["k8"] + tools("K8"),
                      max(pq_sweep_err, pq["err"], pq_spill_err, rq_err),
                      pq_ms, pq_plain_ms, pq_bound, pq_lib_ms),
-        kernel_entry(SQ_MEGA_KERNEL, marco["launches"],
+        kernel_entry(SQ_MEGA_KERNEL, marco["launches"] + tools("K9"),
                      max(err9, marco["err"]), *marco["timing"]),
-        kernel_entry(FLAT_MEGA_KERNEL, mega_launches, max(err10, mega_err),
+        kernel_entry(FLAT_MEGA_KERNEL, mega_launches + tools("K10", "K10 raw"),
+                     max(err10, mega_err),
                      *mega_timing, before_ms=mega_before),
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,9 @@ and path selection.
 * With a layout plan (L2 / inner product whose padded layout fits,
   models/ivf_layout.py; for SQ only while the int8 path is active):
   coarse top-nprobe, then the per-query list scan or, for large batches
-  over long lists, the pair-tile scan, chosen by the JAX package's static
-  rule (``pairs_wanted``): K6 / K7 (ops/ivf_list_scan.py,
+  over long lists, the pair-tile scan, chosen by the gate measured on the
+  card (``pairs_wanted``, ops/pairs_gate.py; the JAX package's static rule
+  outside its measured hull): K6 / K7 (ops/ivf_list_scan.py,
   ops/ivf_pairs.py; each a fused search that ends in its top-k, K7's
   rescoring its k_scan pool in fp32) for Flat, K2 / K3 (ops/ivf_sq_scan.py,
   ops/ivf_sq_pairs.py) for SQ, whose top ``_sq_kscan`` int8 candidates are
@@ -80,6 +81,7 @@ from ..ops.ivf_scan import (choose_q_chunk, coarse_topk, ivf_pq_search,
                             ivf_sq_search, merge_topk)
 from ..ops.ivf_sq_pairs import ivf_sq_pairs_search
 from ..ops.ivf_sq_scan import ivf_sq_list_search
+from ..ops.pairs_gate import pairs_preferred
 from ..ops.sq import SQ_LEVELS
 from ..ops.sq_spill import CODECS as SPILL_KERNEL_CODECS
 from ..ops.sq_spill import sq_spill_search
@@ -100,11 +102,12 @@ def _labels_through(table: np.ndarray):
 class IVFServe:
     """Search methods of ``models.ivf.IVFIndex``."""
 
-    #: batch size from which the pair-tile scan may take over
+    #: batch size from which the static rule lets the pair-tile scan take
+    #: over (outside the gate's measured hull); above 2**20 the per-query
+    #: search serves every batch
     PAIRS_MIN_BATCH = 256
-    #: minimum lmax*d for the pair-tile scan (the JAX package's static
-    #: rule); 0 forces the pair tiles for every batch of PAIRS_MIN_BATCH
-    #: or more (tests at tiny shapes)
+    #: minimum lmax*d of the static rule; 0 forces the pair tiles for every
+    #: batch of PAIRS_MIN_BATCH or more (tests at tiny shapes)
     PAIRS_MIN_WORK = 1 << 19
     #: device bytes a query block of the list scans may take, counted as
     #: nprobe x (lmax + d) fp32 per query: the raw routes' temporaries (K6's
@@ -125,12 +128,20 @@ class IVFServe:
 
     def pairs_wanted(self, nq: int, lmax: int) -> bool:
         """Whether a (padded) batch of nq queries over lists padded to lmax
-        takes the pair tiles (K7) rather than the per-query scan (K6): the
-        JAX package's static rule, which its gate falls back to away from
-        measured rows (ops/pairs_gate.py there; none are measured on this
-        card yet)."""
-        return (nq >= self.PAIRS_MIN_BATCH
-                and lmax * self.d >= self.PAIRS_MIN_WORK)
+        takes the pair tiles (K3 / K9, K7 / K10) rather than the per-query
+        search (K2, K6): the measured gate (ops/pairs_gate.py), with the
+        static rule deciding outside its measured hull, as in the JAX
+        package.  A huge PAIRS_MIN_BATCH forces the per-query search;
+        PAIRS_MIN_WORK == 0 forces the pair tiles from PAIRS_MIN_BATCH
+        queries."""
+        if self.PAIRS_MIN_BATCH > (1 << 20):
+            return False
+        if self.PAIRS_MIN_WORK == 0:
+            return nq >= self.PAIRS_MIN_BATCH
+        work = lmax * self.d
+        return pairs_preferred(
+            work, nq, self.d, static_ok=(nq >= self.PAIRS_MIN_BATCH
+                                         and work >= self.PAIRS_MIN_WORK))
 
     def _sq_kscan(self, k: int, cap: int) -> int:
         """Rerank-pool width of the int8 SQ scans: true neighbours missed
@@ -191,6 +202,7 @@ class IVFServe:
 
     def _dispatch_inner(self, xq, k, params=EMPTY, selector=None):
         self._require_trained()
+        self._last_spill_path = None
         xq = as_matrix(xq, self.d)
         nq = xq.shape[0]
         k = int(k)
@@ -371,9 +383,11 @@ class IVFServe:
         """The spill region's best rows for the probes: K5 for sq8 / sq4 at
         d ≥ 16 and k ≤ 128 on the int8 path, else the plain spill scan (SQ
         rows decoded or int8-scored, PQ / RQ codes decoded with their
-        list's centroid).  Returns max-oriented (scores, positions)."""
+        list's centroid), named in ``_last_spill_path``.  Returns
+        max-oriented (scores, positions)."""
         metric, codec = self.metric.name, self.sq_type
         sp = self._spill
+        self._last_spill_path = "plain"
         if codec is None:
             extra = dict(codec=self.pq_codec, codebooks=lay.codebooks,
                          centroids=lay.centroids) if self.pq_m else {}
@@ -386,6 +400,7 @@ class IVFServe:
         k_sp = min(k_eff, sp.payload.shape[0])
         if (codec in SPILL_KERNEL_CODECS and int8 and self.d >= 16
                 and k_eff <= 128 and sp.n > 0):
+            self._last_spill_path = "K5"
             return sq_spill_search(
                 sp.payload, sp.assign, sp.pos, sp.rs, sp.rn, sp.n, probe_ids,
                 xq, sp_mask, vmin, scale, k=k_sp, metric=metric, codec=codec,

@@ -16,6 +16,11 @@ tools of the same names:
 * ``marco_device`` / ``marco_trec`` — IVF4096,SQ8 over the 8,841,823 x
   1536 MS MARCO stand-in built on the card, and its k = 1000 TREC run;
 * ``marco_graph`` — the SQ-coded graph build and walk at that scale;
+* ``marco_filtered`` / ``marco_refine`` / ``batch_amortization`` — the
+  reference's benchmark questions: the three filtered strategies at pass
+  rates 1-99% over that index, its exact-rerank tier from an fp16 store on
+  the card, and b1 against b48 / b1024 over 1M x 128 Flat and IVF4096;
+* ``pairs_crossover`` — the sweep that measures ops/pairs_gate.py's rows;
 * ``marco_corpus`` — the stand-in corpus those tools and chip_smoke.py
   draw.
 """

@@ -102,7 +102,9 @@ def build(args, log=print):
     sync(dev)
     t_add = time.perf_counter() - t0
     index = cat.get(NAME).index
-    spill = index._spill.n if index._spill is not None else 0
+    # the device state's count: the layout's Spill is built at the first
+    # search
+    spill = index._dr.spill_n
     log(f"device ingest: {t_add:.1f}s ({args.n / t_add:.0f} vectors/s); "
         f"spill {spill} rows ({100 * spill / args.n:.2f}%)")
     return cat, corpus, {"train": t_train, "add": t_add}

@@ -38,6 +38,7 @@ from duckdb_faiss_ext_tpu_torch.models.ivf_layout import choose_lmax
 from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
 from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
 from duckdb_faiss_ext_tpu_torch.ops import ivf_scan
+from duckdb_faiss_ext_tpu_torch.ops import pairs_gate as port_gate
 from duckdb_faiss_ext_tpu_torch.utils.config import config
 
 NLIST, LMAX, D = 8, 128, 24
@@ -288,14 +289,15 @@ def test_choose_lmax_equals_jax(counts_max):
 @pytest.mark.parametrize("work,nq", [(1 << 19, 256), (1 << 19, 255),
                                      (1 << 18, 1024), (1 << 22, 64)])
 def test_pairs_gate_static_rule(monkeypatch, work, nq):
-    """With no measured rows on this card, the port's gate is the static
-    rule, as the JAX gate is when given an empty table."""
+    """The port's dispatch decides as the JAX gate does over the rows
+    measured on the card, with the static rule passed as its fallback
+    outside the measured hull."""
     static = work >= (1 << 19) and nq >= 256
     monkeypatch.setattr(config, "device", "cpu")
     index = build_index(128, "IVF4,Flat", resolve_metric("L2"))
     assert index.pairs_wanted(nq, work // 128) \
-        == jax_gate.pairs_preferred(work, nq, 128, table=[],
-                                    static_ok=static) == static
+        == jax_gate.pairs_preferred(work, nq, 128, table=port_gate.MEASURED,
+                                    static_ok=static)
 
 
 # --- wrappers: CPU tensors take the plain version, nothing else falls back ----

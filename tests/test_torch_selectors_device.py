@@ -318,6 +318,94 @@ def test_ivf_filtered_matches_jax():
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("factory,ingest", [
+    ("IDMap,IVF8,Flat", "host"), ("IDMap,IVF8,SQ8", "host"),
+    ("IVF8,SQ8", "device")])
+def test_filter_after_add_sees_new_rows_ivf(factory, ingest):
+    """A filtered IVF search, then an add of rows with new labels that pass
+    the filter, then the same filtered search: the second search sees the
+    new rows (no stale layout or spill mask: ``_invalidate`` drops the
+    mask caches and an IDMap's ``LabelMapSelector`` keys on its label
+    count) and equals the JAX package's on the same carried state.  The
+    SQ8 cases run the int8 path (the padded layout and its masks); an IDMap
+    wrapper has no device ingest, so that case adds labelled rows to a
+    device-resident IVF,SQ8 through faiss_add_device."""
+    import jax.numpy as jnp
+
+    from duckdb_faiss_ext_tpu.utils.config import config as jax_config
+    from duckdb_faiss_ext_tpu_torch.io.convert import from_reference
+
+    rng = np.random.default_rng(21)
+    n, m, d = 2400, 1600, 16
+    centers = rng.standard_normal((8, d)).astype(np.float32) * 4
+    xb = (centers[rng.integers(0, 8, n)]
+          + rng.standard_normal((n, d)).astype(np.float32) * 0.5)
+    ids = np.arange(n, dtype=np.int64) * 3 + 7
+    jcat, pcat = dfx.Catalog(), dt.Catalog()
+    jdb, pdb = dfx.Database(), dt.Database()
+    for db in (jdb, pdb):
+        db.register("t", {"id": ids})
+    if ingest == "host":
+        dfx.faiss_create("j", d, factory, metric_type="L2", catalog=jcat)
+        dfx.faiss_add((ids[:m], xb[:m]), "j", catalog=jcat)
+        pcat.put("j", from_reference(jcat.get("j")))
+    else:
+        dfx.faiss_create("j", d, factory, metric_type="L2", catalog=jcat)
+        dfx.faiss_train_device(jnp.asarray(xb[:m]), "j", catalog=jcat)
+        pcat.put("j", from_reference(jcat.get("j")))
+        dfx.faiss_add_device(jnp.asarray(xb[:m]), "j", ids[:m],
+                             expected_total=n, catalog=jcat)
+        dt.faiss_add_device(torch.from_numpy(xb[:m]), "j", ids[:m],
+                            expected_total=n, catalog=pcat)
+    sq = "SQ8" in factory
+    # new rows whose labels pass id%2==0, each queried near itself
+    new = m + np.nonzero(ids[m:] % 2 == 0)[0][:10]
+    xq = xb[new] + 0.01
+    params = {"nprobe": "8"}
+
+    def search(pkg, cat, db):
+        return pkg.faiss_search_filter("j", 5, xq, "id%2==0", "id", "t",
+                                       params, catalog=cat, database=db)
+
+    def jax_search():
+        if not sq:
+            return search(dfx, jcat, jdb)
+        dfx.set_sq_dot("int8")
+        dfx.set_kernel_mode("pallas")
+        jax_config.spill_impl = "pallas"
+        try:
+            return search(dfx, jcat, jdb)
+        finally:
+            dfx.set_kernel_mode("auto")
+            dfx.set_sq_dot("auto")
+            jax_config.spill_impl = "auto"
+
+    if sq:
+        dt.set_sq_dot("int8")
+    first = search(dt, pcat, pdb)
+    assert not np.isin(first["label"], ids[m:]).any()
+    jax_search()
+    if ingest == "host":
+        dfx.faiss_add((ids[m:], xb[m:]), "j", catalog=jcat)
+        dt.faiss_add((ids[m:], xb[m:]), "j", catalog=pcat)
+    else:
+        dfx.faiss_add_device(jnp.asarray(xb[m:]), "j", ids[m:],
+                             catalog=jcat)
+        dt.faiss_add_device(torch.from_numpy(xb[m:]), "j", ids[m:],
+                            catalog=pcat)
+    inner = pcat.get("j").index
+    inner = getattr(inner, "inner", inner)
+    assert inner._layout_plan() is not None
+    got = search(dt, pcat, pdb)
+    assert (got["label"][got["label"] >= 0] % 2 == 0).all()
+    np.testing.assert_array_equal(got["label"][:, 0], ids[new])
+    want = jax_search()
+    np.testing.assert_array_equal(got["label"], want["label"])
+    np.testing.assert_allclose(got["distance"], want["distance"], rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want["distance"])
+                                                 .max()))
+
+
 # --- the native bitmap -------------------------------------------------------
 
 def _ids(kind, n, rng):

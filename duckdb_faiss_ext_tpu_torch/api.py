@@ -39,7 +39,7 @@ from .models.base import SearchResult, as_matrix
 from .ops.flat_search import SIMILARITY_METRICS
 from .ops.selectors import BitmapSelector, Selector, SetSelector
 from .params import as_params
-from .utils.profiling import timed
+from .utils.profiling import spanned, timed
 from .utils.transfer import fetch_results
 
 
@@ -280,6 +280,7 @@ def faiss_add_device(data, name: str, ids=None, *,
 # Search
 # --------------------------------------------------------------------------
 
+@spanned("api.format")
 def _format_results(res: SearchResult, k: int) -> np.ndarray:
     nq = res.labels.shape[0]
     out = np.empty((nq, k), dtype=RESULT_DTYPE)
@@ -287,6 +288,12 @@ def _format_results(res: SearchResult, k: int) -> np.ndarray:
     out["label"] = res.labels
     out["distance"] = res.distances
     return out
+
+
+@spanned("api.args")
+def _search_args(parameters, queries, d: int):
+    """The search parameters and the (nq, d) fp32 queries, checked."""
+    return as_params(parameters), as_matrix(queries, d)
 
 
 @_timed_op("faiss_search")
@@ -298,9 +305,8 @@ def faiss_search(name: str, k: int, queries,
     (SearchFunction → searchIntoVector, src/faiss_extension.cpp:903-925,
     619-666)."""
     entry = _cat(catalog).get(name)
-    params = as_params(parameters)
-    res = entry.index.search(as_matrix(queries, entry.index.d), int(k),
-                             params, selector)
+    params, queries = _search_args(parameters, queries, entry.index.d)
+    res = entry.index.search(queries, int(k), params, selector)
     return _format_results(res, int(k))
 
 
@@ -452,8 +458,9 @@ def faiss_to_device(name: str, devices=None,
 def faiss_stats(name: str | None = None,
                 catalog: Catalog | None = None) -> dict:
     """Engine statistics: per-index metadata (or all indexes when name is
-    None) plus accumulated per-op timings (utils/profiling)."""
-    from .utils.profiling import stats as op_stats
+    None), accumulated per-op timings (``"ops"``) and the process's cache
+    builds (``"counters"``), both from utils/profiling."""
+    from .utils.profiling import counters, stats as op_stats
 
     cat = _cat(catalog)
     names = [name] if name is not None else cat.names()
@@ -483,7 +490,8 @@ def faiss_stats(name: str | None = None,
         "precision": config.precision_mode,
         "device": config.device,
     }
-    return {"indexes": indexes, "ops": op_stats(), "runtime": runtime}
+    return {"indexes": indexes, "ops": op_stats(), "counters": counters(),
+            "runtime": runtime}
 
 
 def faiss_search_batched(name: str, k: int, queries,
@@ -528,10 +536,8 @@ def faiss_search_batched(name: str, k: int, queries,
     parts, row = [], 0
     for disp in disps:
         nqb = disp[2]
-        dist, labels, k_eff = index._map_dispatch(
-            disp, big_d[row:row + nqb], big_p[row:row + nqb].astype(np.int64))
-        parts.append(index._pad_result(dist, labels, nqb, k, k_eff,
-                                       sentinel))
+        parts.append(index._labelled(disp, big_d[row:row + nqb],
+                                     big_p[row:row + nqb], k, sentinel))
         row += nqb
     return _format_results(SearchResult(
         np.concatenate([p.distances for p in parts]),

@@ -17,6 +17,7 @@ import torch
 from .. import errors
 from ..metrics import Metric
 from ..params import EMPTY, ParamMap
+from ..utils.profiling import spanned
 from ..utils.transfer import fetch_results
 
 if TYPE_CHECKING:
@@ -120,6 +121,11 @@ class Index(abc.ABC):
                 [labels, np.full((nq, k - k_eff), -1, np.int64)], 1)
         return SearchResult(dist, labels)
 
+    @spanned("models.dispatch")
+    def _dispatch(self, xq, k, params, selector):
+        """``search_dispatch`` inside the dispatch span."""
+        return self.search_dispatch(xq, k, params, selector)
+
     def _finish_dispatch(self, disp, xq, k: int) -> "SearchResult":
         """Shared search epilogue over a ``search_dispatch`` tuple: one
         device→host fetch, position→label mapping, sentinel padding to k.
@@ -138,9 +144,14 @@ class Index(abc.ABC):
                 np.full((nq, max(k, 0)), -1, np.int64))
         nq = disp[2]
         dist, pos = fetch_results(disp[0][:nq], disp[1][:nq])
+        return self._labelled(disp, dist, pos, k, sentinel)
+
+    @spanned("models.labels")
+    def _labelled(self, disp, dist, pos, k: int, sentinel: float):
+        """A fetched dispatch's positions as labels, padded to k."""
         dist, labels, k_eff = self._map_dispatch(disp, dist,
                                                  pos.astype(np.int64))
-        return self._pad_result(dist, labels, nq, k, k_eff, sentinel)
+        return self._pad_result(dist, labels, disp[2], k, k_eff, sentinel)
 
     def _map_dispatch(self, disp, dist: np.ndarray, pos: np.ndarray):
         """Host side of one dispatch after the fetch: positions → labels

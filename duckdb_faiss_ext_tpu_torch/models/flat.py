@@ -34,6 +34,7 @@ from ..ops.selectors import Selector
 from ..parallel.sharded import sharded_flat_search, sharded_rows_search
 from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
                             resolve_device)
+from ..utils.profiling import build_span
 from ..utils.transfer import upload_queries
 from .base import Index, SearchResult, as_matrix, placement_capacity
 
@@ -96,7 +97,9 @@ class FlatIndex(Index):
         under a placement; uploaded only when the capacity bucket grew or
         the data was reloaded."""
         cap = self._capacity()
-        if self._device_xb is None or self._device_xb.shape[0] < cap:
+        if self._device_xb is not None and self._device_xb.shape[0] >= cap:
+            return self._device_xb
+        with build_span("models.rows_upload"):
             if self._placement is not None:
                 self._device_xb = self._placement.place(
                     pad_rows(self._xb, cap), self.device)
@@ -121,19 +124,20 @@ class FlatIndex(Index):
         hit = self._mask_cache.get(key)
         if hit is not None:
             return hit
-        rows = selector.contains(self.row_labels())
-        # Pad to the live buffer's capacity (it may exceed _capacity()
-        # after in-place adds into a previously grown buffer).
-        cap = self.device_vectors().shape[0]
-        mask = torch.from_numpy(pad_rows(rows, cap, fill=False)).to(
-            self.device)
+        with build_span("models.mask_build"):
+            rows = selector.contains(self.row_labels())
+            # Pad to the live buffer's capacity (it may exceed _capacity()
+            # after in-place adds into a previously grown buffer).
+            cap = self.device_vectors().shape[0]
+            mask = torch.from_numpy(pad_rows(rows, cap, fill=False)).to(
+                self.device)
         self._mask_cache = {key: mask}  # keep only the latest
         return mask
 
     # --- search ----------------------------------------------------------
     def search(self, xq, k, params=None, selector=None) -> SearchResult:
         return self._finish_dispatch(
-            self.search_dispatch(xq, k, params, selector), xq, k)
+            self._dispatch(xq, k, params, selector), xq, k)
 
     def search_dispatch(self, xq, k, params=None, selector=None):
         """Device dispatch without the host fetch: (dist (nq_pad, k_eff),

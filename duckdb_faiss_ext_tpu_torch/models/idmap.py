@@ -80,7 +80,7 @@ class IDMapIndex(Index):
         return self._labels_dev[device]
 
     def search(self, xq, k, params=EMPTY, selector=None) -> SearchResult:
-        disp = self.search_dispatch(xq, k, params, selector)
+        disp = self._dispatch(xq, k, params, selector)
         if disp is not None:
             return self._finish_dispatch(disp, xq, k)
         # No device dispatch (RefineFlat, an HNSW index with a tail to

@@ -58,6 +58,7 @@ from ..ops.sq import FLOAT_CODECS, sq_row_norms, sq_row_sums
 from ..ops.sq_spill import spill_offsets
 from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
                             sq_int8_active)
+from ..utils.profiling import build_span
 
 def choose_lmax(counts_max: int) -> int:
     """Pad list length: ≥ 128 slots, powers of two up to 512, then the
@@ -228,6 +229,11 @@ class IVFLayout:
         per mutation."""
         if self._layout is not None:
             return self._layout
+        with build_span("models.layout_build"):
+            return self._upload_layout()
+
+    def _upload_layout(self) -> ListLayout:
+        """Build the padded layout and put it on the device."""
         if self._dr is not None:
             self._layout, self._spill = self._device_layout()
             return self._layout
@@ -288,6 +294,11 @@ class IVFLayout:
         """The sorted+gather layout on the device."""
         if self._sorted is not None:
             return self._sorted
+        with build_span("models.layout_build"):
+            return self._upload_sorted()
+
+    def _upload_sorted(self) -> SortedLayout:
+        """Build the sorted+gather layout and put it on the device."""
         n = self._nstored
         order = np.argsort(self._assign, kind="stable").astype(np.int64)
         counts = self._counts()
@@ -343,7 +354,8 @@ class IVFLayout:
         if hit is None:
             if len(self._mask_cache) >= 4:
                 self._mask_cache.clear()
-            hit = self._mask_cache[key] = build()
+            with build_span("models.mask_build"):
+                hit = self._mask_cache[key] = build()
         return hit
 
     def _mask_labels(self, device) -> torch.Tensor | None:

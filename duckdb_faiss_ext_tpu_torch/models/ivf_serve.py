@@ -87,6 +87,7 @@ from ..ops.sq_spill import CODECS as SPILL_KERNEL_CODECS
 from ..ops.sq_spill import sq_spill_search
 from ..params import EMPTY
 from ..utils.config import config, next_pow2, pad_rows, sq_int8_active
+from ..utils.profiling import span, spanned
 from ..utils.transfer import upload_queries
 from .base import SearchResult, as_matrix, dedup_by_key
 
@@ -124,8 +125,9 @@ class IVFServe:
 
     def search(self, xq, k, params=EMPTY, selector=None) -> SearchResult:
         return self._finish_dispatch(
-            self.search_dispatch(xq, k, params, selector), xq, k)
+            self._dispatch(xq, k, params, selector), xq, k)
 
+    @spanned("models.route")
     def pairs_wanted(self, nq: int, lmax: int) -> bool:
         """Whether a (padded) batch of nq queries over lists padded to lmax
         takes the pair tiles (K3 / K9, K7 / K10) rather than the per-query
@@ -150,6 +152,7 @@ class IVFServe:
         f, add = (8, 96) if self.sq_type == "sq4" else (4, 32)
         return min(cap, max(f * k, k + add))
 
+    @spanned("models.route")
     def query_block(self, nq_pad: int, nprobe: int, lmax: int) -> int:
         """Rows of the padded batch that one list scan takes: nq_pad, or
         the largest power of two below it whose temporaries fit
@@ -332,8 +335,9 @@ class IVFServe:
         """One query block through the padded layout: coarse top-nprobe,
         the list search (``_list_search``), and the spill region merged in.
         Returns max-oriented (scores, positions) (nq, k_eff)."""
-        probe_ids = coarse_topk(xq, lay.centroids, nprobe, self.metric.name,
-                                self.metric_arg)
+        with span("models.coarse"):
+            probe_ids = coarse_topk(xq, lay.centroids, nprobe,
+                                    self.metric.name, self.metric_arg)
         scores, pos = self._list_search(lay, xq, probe_ids, k_kernel, mask)
         if self._spill is None:
             return scores, pos

@@ -27,6 +27,7 @@ import torch
 
 from ..utils.config import next_pow2
 from ..utils.kernels import DeviceCounter
+from ..utils.profiling import spanned
 from .flat_search import finalize_scores, search_scan
 
 #: launches of the CUDA kernel since import (or since a caller reset it)
@@ -147,6 +148,7 @@ def _check(xb, nvalid, xq, k, metric, mask):
                          "tensor on the corpus device")
 
 
+@spanned("kernels.flat_topk")
 def flat_topk(xb: torch.Tensor, nvalid: int, xq: torch.Tensor, k: int,
               metric: str, mask: torch.Tensor | None = None):
     """Top-k of every query over rows [0, nvalid) of ``xb`` (and, with a

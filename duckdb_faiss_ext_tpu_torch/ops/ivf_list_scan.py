@@ -49,6 +49,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.config import next_pow2
+from ..utils.profiling import spanned
 from . import list_topk as lt
 from .flat_search import exact_topk
 
@@ -121,6 +122,7 @@ def ivf_list_scan_reference(lists, counts, probe_ids, xq, mask, metric):
     return out
 
 
+@spanned("kernels.ivf_list_scan")
 def ivf_list_scan(lists: torch.Tensor, counts: torch.Tensor,
                   probe_ids: torch.Tensor, xq: torch.Tensor,
                   mask: torch.Tensor | None, metric: str) -> torch.Tensor:
@@ -282,6 +284,7 @@ def ivf_list_search_raw(lists, counts, row_pos, probe_ids, xq, mask, *, k,
     return best, lt.resolve(sel, best, probe_ids, row_pos, lists.shape[1])
 
 
+@spanned("kernels.ivf_list_scan")
 def ivf_list_search(lists, counts, row_pos, probe_ids, xq, mask, *, k,
                     metric):
     """``pallas_ivf_search``'s contract: (scores (nq, k) max-oriented with

@@ -59,6 +59,7 @@ import torch
 
 from ..utils.config import next_pow2
 from ..utils.kernels import DeviceCounter
+from ..utils.profiling import span, spanned
 from .flat_search import exact_topk, topk_ordered
 from .ivf_list_scan import check_lists, expect
 
@@ -179,6 +180,7 @@ def ivf_pairs_scan_reference(lists, counts, xq_t, qs_t, meta, mask, metric):
     return out
 
 
+@spanned("kernels.ivf_pairs")
 def ivf_pairs_scan(lists: torch.Tensor, counts: torch.Tensor,
                    xq_t: torch.Tensor, qs_t: torch.Tensor, meta: torch.Tensor,
                    mask: torch.Tensor | None, metric: str) -> torch.Tensor:
@@ -603,21 +605,22 @@ def ivf_pairs_search(lists, counts, row_pos, probe_ids, xq, mask, *, k,
     there (the plain version of the whole, as
     ``ivf_pairs_search_reference`` computes it on any device)."""
     global TOPK_LAUNCHES
-    on_cpu = all(t.device.type == "cpu" for t in (lists, counts, row_pos,
-                                                  probe_ids, xq))
-    pool = min(k_scan, probe_ids.shape[1] * lists.shape[1])
-    if on_cpu or not 1 <= k <= pool <= MAX_K_SCAN:
-        return ivf_pairs_search_raw(lists, counts, row_pos, probe_ids, xq,
-                                    mask, k=k, k_scan=k_scan, metric=metric,
-                                    mega=mega)
-    launch = TopKLaunch(lists, counts, row_pos, probe_ids, xq, mask, k=k,
-                        k_scan=k_scan, metric=metric, mega=mega)
-    if probe_ids.shape[0] > 0:
-        launch.run()
-        if mega:
-            from . import ivf_pairs_mega as k10
+    with span("kernels.ivf_pairs_mega" if mega else "kernels.ivf_pairs"):
+        on_cpu = all(t.device.type == "cpu" for t in (lists, counts, row_pos,
+                                                      probe_ids, xq))
+        pool = min(k_scan, probe_ids.shape[1] * lists.shape[1])
+        if on_cpu or not 1 <= k <= pool <= MAX_K_SCAN:
+            return ivf_pairs_search_raw(lists, counts, row_pos, probe_ids,
+                                        xq, mask, k=k, k_scan=k_scan,
+                                        metric=metric, mega=mega)
+        launch = TopKLaunch(lists, counts, row_pos, probe_ids, xq, mask, k=k,
+                            k_scan=k_scan, metric=metric, mega=mega)
+        if probe_ids.shape[0] > 0:
+            launch.run()
+            if mega:
+                from . import ivf_pairs_mega as k10
 
-            k10.TOPK_LAUNCHES += 1
-        else:
-            TOPK_LAUNCHES += 1
-    return launch.scores, launch.positions
+                k10.TOPK_LAUNCHES += 1
+            else:
+                TOPK_LAUNCHES += 1
+        return launch.scores, launch.positions

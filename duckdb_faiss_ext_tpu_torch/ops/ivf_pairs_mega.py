@@ -41,6 +41,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import spanned
 from .ivf_pairs import QG, check_pairs, ivf_pairs_scan_reference
 
 #: launches of the raw CUDA kernel since import (or since a caller reset it)
@@ -53,6 +54,7 @@ TOPK_LAUNCHES = 0
 last_plan = (0, 0, False)
 
 
+@spanned("kernels.ivf_pairs_mega")
 def ivf_pairs_mega_scan(lists: torch.Tensor, counts: torch.Tensor,
                         xq_t: torch.Tensor, qs_t: torch.Tensor,
                         meta: torch.Tensor, mask: torch.Tensor | None,

@@ -59,6 +59,7 @@ import torch
 
 from ..utils.config import full_fp32, next_pow2
 from ..utils.kernels import DeviceCounter
+from ..utils.profiling import spanned
 from .flat_search import exact_topk, topk_ordered
 from .flat_topk import margin
 from .ivf_list_scan import METRICS, expect
@@ -448,6 +449,7 @@ class Launch:
                                f"with error {err}")
 
 
+@spanned("kernels.ivf_pq_scan")
 def ivf_pq_list_search(lists, counts, row_pos, codebooks, centroids,
                        probe_ids, xq, mask, *, k, metric, codec,
                        row_terms=None):

@@ -40,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import spanned
 from .flat_search import exact_topk
 from .ivf_list_scan import expect
 from .ivf_pairs import QG, pair_tiles
@@ -176,6 +177,7 @@ def ivf_sq_pairs_scan_reference(codes, rn, rs, counts, digits_t, scalars_t,
     return out
 
 
+@spanned("kernels.ivf_sq_pairs")
 def ivf_sq_pairs_scan(codes: torch.Tensor, rn: torch.Tensor,
                       rs: torch.Tensor, counts: torch.Tensor,
                       digits_t: torch.Tensor, scalars_t: torch.Tensor,

@@ -39,6 +39,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import spanned
 from .ivf_list_scan import expect
 from .ivf_pairs import QG
 from .ivf_sq_pairs import (check_pair_layout, digit_vec_ok,
@@ -79,6 +80,7 @@ def tma_ok(codes: torch.Tensor, digits_t: torch.Tensor, codec: str) -> bool:
             and codes.data_ptr() % 16 == 0 and digit_vec_ok(digits_t))
 
 
+@spanned("kernels.ivf_sq_pairs_mega")
 def ivf_sq_pairs_mega_scan(codes: torch.Tensor, rn: torch.Tensor,
                            rs: torch.Tensor, counts: torch.Tensor,
                            digits_t: torch.Tensor, scalars_t: torch.Tensor,

@@ -49,6 +49,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.config import full_fp32
+from ..utils.profiling import spanned
 from . import list_topk as lt
 from .flat_search import exact_topk
 from .ivf_list_scan import expect
@@ -139,6 +140,7 @@ def ivf_sq_scan_reference(codes, rn, rs, counts, probe_ids, digits, scalars,
     return out
 
 
+@spanned("kernels.ivf_sq_scan")
 def ivf_sq_scan(codes: torch.Tensor, rn: torch.Tensor, rs: torch.Tensor,
                 counts: torch.Tensor, probe_ids: torch.Tensor,
                 digits: torch.Tensor, scalars: torch.Tensor,
@@ -376,6 +378,7 @@ def ivf_sq_list_search_raw(codes, rn, rs, counts, row_pos, probe_ids, xq,
                        codec=codec)
 
 
+@spanned("kernels.ivf_sq_scan")
 def ivf_sq_list_search(codes, rn, rs, counts, row_pos, probe_ids, xq, mask,
                        vmin, scale, *, k, k_scan, metric, codec):
     """``pallas_ivf_sq_search``'s contract: (scores (nq, k) max-oriented

@@ -51,6 +51,7 @@ from .sq import sq_decode
 from .sq_digits import (CODEC_ID, KERNEL_SHIFT, METRICS, int8_scores,
                         query_digits, unpack_f64)
 from ..utils.config import full_fp32
+from ..utils.profiling import spanned
 
 #: launches of the window kernel, and of the rescore kernel, since import
 #: (or since a caller reset them)
@@ -122,6 +123,7 @@ def sq_spill_windows_reference(codes, assign, pos, rs, rn, mask, probe_ids,
     return wmax, warg
 
 
+@spanned("kernels.sq_spill")
 def sq_spill_windows(codes: torch.Tensor, assign: torch.Tensor,
                      pos: torch.Tensor, rs: torch.Tensor, rn: torch.Tensor,
                      mask: torch.Tensor | None, probe_ids: torch.Tensor,
@@ -255,6 +257,7 @@ def spill_rescore_reference(codes, assign, pos, mask, n_rows, probe_ids, xq,
     return torch.cat(parts_s, 1)
 
 
+@spanned("kernels.sq_spill")
 def spill_rescore(codes, assign, pos, mask, n_rows, probe_ids, xq, vmin,
                   scale, bestw, wsel, warg, kw, metric, codec):
     """``spill_rescore_reference``'s contract; the kernel tests each row's

@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from .profiling import build_span
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -270,11 +272,12 @@ def load_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            sources, headers = _kernel_files()
-            so = _library_path(sources + headers)
-            if not so.exists():
-                _build(so, sources)
-            lib = ctypes.CDLL(str(so))
-            _bind(lib)
-            _lib = lib
+            with build_span("kernels.library_build"):
+                sources, headers = _kernel_files()
+                so = _library_path(sources + headers)
+                if not so.exists():
+                    _build(so, sources)
+                lib = ctypes.CDLL(str(so))
+                _bind(lib)
+                _lib = lib
         return _lib

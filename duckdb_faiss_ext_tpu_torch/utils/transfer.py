@@ -18,7 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .profiling import spanned
 
+
+@spanned("api.fetch")
 def fetch_results(dist: torch.Tensor, pos: torch.Tensor):
     """(nq, k) f32 distances + (nq, k) i32 positions → numpy with a single
     device→host copy: the distance bits ride in the int32 buffer."""
@@ -29,6 +32,7 @@ def fetch_results(dist: torch.Tensor, pos: torch.Tensor):
             packed[:, k:].copy())
 
 
+@spanned("api.upload")
 def upload_queries(xq, device) -> torch.Tensor:
     """Host (nq, d) queries → an fp32 tensor on ``device``.  On a CUDA
     device the rows go through pinned host memory and the copy is issued

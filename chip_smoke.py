@@ -66,8 +66,9 @@ Phases (any failure raises and the script exits non-zero):
    equal where distances are separated), the kernel launch counts must
    match the calls (the fused K6 on every call the pairs gate keeps per
    query, the fused K7 on every call it sends to the pair tiles, the raw
-   launches on none), and recall@10 against exact Flat is printed; at
-   b48 and b1024 the fused K6 is held against its plain version, timed in
+   launches on none; K1 and ``models.coarse_kernel`` once for each
+   coarse stage, one a list search), and recall@10 against exact Flat is
+   printed; at b48 and b1024 the fused K6 is held against its plain version, timed in
    turns against the raw launch with exact_topk and the resolve (the
    design it replaced), beside its plain version, with its device time a
    launch from torch.profiler and faiss_search's wall time; K6's raw and
@@ -325,9 +326,23 @@ Phases (any failure raises and the script exits non-zero):
    MS MARCO layout at b1024 timed again by tools/pairs_crossover.py, each
    ratio on the same side of 1.05 as the gate's estimate; the path phases
    7, 8, 10 and 16 took at b48 and b1024, with the estimate, the distance
-   to the measured hull and the static rule's choice.
+   to the measured hull and the static rule's choice;
+32. coarse stage (after phase 7, on its centroid table and the main
+   path's queries; ``phase_coarse``): ``ops/ivf_scan.py::coarse_topk``
+   must route through K1, one ``flat_topk`` launch and one
+   ``models.coarse_kernel`` count a call, at nprobe 64 for L2 and inner
+   product at b48 (64 rows, padded as the index pads it) and for L2 at
+   b1024, and with exact ties (a
+   duplicated centroid, once at the top and once at the nprobe-th place),
+   which must resolve to the lower list id; its probes are held against
+   the plain chain's (``coarse_topk_plain``): equal, or both allowed by
+   float64 scores within the rounding bound of
+   benchmark/reference/ivf_flat.py; K1 counts no margin-unproven query;
+   then both are timed in turns, with the device time and device
+   operations a call (torch.profiler) and K1's bound at each shape.
 
-Phases 28-30 add their launches to the kernels line.
+Phases 7 (K1's coarse stages), 28-30 and 32 (its checked cases) add
+their launches to the kernels line.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -1350,13 +1365,14 @@ def phase_ivf_mega_sweep():
 
 def plain_ivf_search(index, xq, k, nprobe, mask=None):
     """The IVF,Flat search of ``index`` (no IDMap) through the plain list
-    scan on the same device layout: the coarse top-nprobe on the batch
-    padded as the index pads it, K6's plain version, top-k, positions.
+    scan on the same device layout: the plain coarse top-nprobe on the
+    batch padded as the index pads it, K6's plain version, top-k,
+    positions.
     Returns (distances, storage ids) as numpy."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
     from duckdb_faiss_ext_tpu_torch.ops.flat_search import (exact_topk,
                                                             finalize_scores)
-    from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk_plain
     from duckdb_faiss_ext_tpu_torch.utils.config import (config, next_pow2,
                                                           pad_rows)
 
@@ -1365,7 +1381,7 @@ def plain_ivf_search(index, xq, k, nprobe, mask=None):
     nq_pad = max(config.min_query_bucket, next_pow2(nq))
     xq_pad = torch.from_numpy(pad_rows(xq, nq_pad)).to(DEVICE)
     metric = index.metric.name
-    probe = coarse_topk(xq_pad, lay.centroids, nprobe, metric)[:nq]
+    probe = coarse_topk_plain(xq_pad, lay.centroids, nprobe, metric)[:nq]
     raw = k6.ivf_list_scan_reference(lay.payload, lay.counts,
                                      probe.contiguous(), xq_pad[:nq], mask,
                                      metric)
@@ -1429,11 +1445,14 @@ def phase_ivf_main(smi, data, exact):
     """IDMap,IVF4096,Flat L2 over the 1M x 128 corpus at nprobe 64, through
     the public API; every result held against the plain path."""
     import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
     from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
     from duckdb_faiss_ext_tpu_torch.ops import ivf_pairs as k7
     from duckdb_faiss_ext_tpu_torch.ops.flat_search import exact_topk
-    from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
+    from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import (COARSE_KERNEL,
+                                                         coarse_topk)
     from duckdb_faiss_ext_tpu_torch.utils.config import pad_rows
+    from duckdb_faiss_ext_tpu_torch.utils.profiling import counters
 
     xb, ids = data["xb"], data["ids"]
     db = dt.Database()
@@ -1459,6 +1478,8 @@ def phase_ivf_main(smi, data, exact):
         f"{int(lay.counts.max())}")
 
     k6.LAUNCHES = k6.TOPK_LAUNCHES = k7.LAUNCHES = k7.TOPK_LAUNCHES = 0
+    ft.LAUNCHES = 0
+    coarse0 = counters()[COARSE_KERNEL]
     out = {
         "b48": dt.faiss_search("ivf", K, data["b48"], params, catalog=cat),
         "b1024": dt.faiss_search("ivf", K, data["b1024"], params,
@@ -1470,7 +1491,13 @@ def phase_ivf_main(smi, data, exact):
                                          database=db),
     }
     launches = (k6.TOPK_LAUNCHES, k7.TOPK_LAUNCHES)
+    k1_launches, coarse = ft.LAUNCHES, counters()[COARSE_KERNEL] - coarse0
     calls = [(64, 1), (BIG_BATCH, 1), (64, N_BATCHES), (64, 1)]
+    # one coarse stage, through K1, a list search
+    stages = sum(n for _, n in calls)
+    check(k1_launches == coarse == stages, f"ivf main path: {k1_launches} K1 "
+          f"launches and {coarse} models.coarse_kernel counts for {stages} "
+          f"coarse stages")
     expected = (sum(n for nq, n in calls if not index.pairs_wanted(nq, lmax)),
                 sum(n for nq, n in calls if index.pairs_wanted(nq, lmax)))
     gate_seen(f"phase 7 IDMap,IVF4096,Flat {N}x{D}", index, lmax)
@@ -1479,7 +1506,9 @@ def phase_ivf_main(smi, data, exact):
           f"{expected}, and the raw launches (K6, K7) {k6.LAUNCHES}, "
           f"{k7.LAUNCHES} times")
     check(index.device.type == DEVICE, "index not on the card")
-    log(f"ivf main path: (K6 fused, K7 fused) launches {launches}")
+    log(f"ivf main path: (K6 fused, K7 fused) launches {launches}; K1 "
+        f"launches {k1_launches} = models.coarse_kernel {coarse} = coarse "
+        f"stages {stages}")
 
     even = ((lay.row_pos >= 0) & (lay.row_pos % 2 == 0)).to(torch.int8)
     max_err = 0.0
@@ -1588,8 +1617,129 @@ def phase_ivf_main(smi, data, exact):
                 f"{k7_ms:.3f} vs the fused K6 {k6_ms:.3f} ms, raw scores "
                 f"only K7 {raw7_ms:.3f} vs K6's raw launch {raw6_ms:.3f} ms "
                 f"(median CUDA events) [{smi}]")
-    return (max(max_err, raw_err6), raw_err7, launches[0], timings,
-            {"cat": cat, "recall": recalls["b48"]})
+    return (max(max_err, raw_err6), raw_err7, launches[0], k1_launches,
+            timings, {"cat": cat, "recall": recalls["b48"]})
+
+
+def probes_allowed(ids, xq, cents, metric):
+    """Rows of ``ids`` (nq, nprobe) that float64 scores allow, each fp32
+    score within the rounding bound of benchmark/reference/ivf_flat.py's
+    ``coarse``: every listed score can reach every unlisted one and each
+    listed one the next, best first."""
+    from benchmark.reference.ivf_flat import coarse
+
+    s, tol = coarse(xq, cents, metric == "L2")
+    sel = ids.long()
+    up = (s + tol).gather(1, sel)
+    low = (s - tol).scatter(1, sel, float("-inf"))
+    order = (up[:, :-1] >= (s - tol).gather(1, sel)[:, 1:]).all(1)
+    return (up.min(1).values >= low.max(1).values) & order
+
+
+def coarse_case(tag, xq, cents, metric):
+    """One coarse stage through ``coarse_topk`` against the plain chain:
+    the kernel route taken once, the probes equal or both allowed.
+    Returns (probes, rows that differ)."""
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_scan
+    from duckdb_faiss_ext_tpu_torch.utils.profiling import counters
+
+    before = (ft.LAUNCHES, counters()[ivf_scan.COARSE_KERNEL])
+    ids = ivf_scan.coarse_topk(xq, cents, IVF_NPROBE, metric)
+    after = (ft.LAUNCHES, counters()[ivf_scan.COARSE_KERNEL])
+    check(after == (before[0] + 1, before[1] + 1), f"coarse {tag}: (K1 "
+          f"launches, models.coarse_kernel) went {before} -> {after}")
+    plain = ivf_scan.coarse_topk_plain(xq, cents, IVF_NPROBE, metric)
+    check(ids.dtype == torch.int32 and ids.shape == plain.shape,
+          f"coarse {tag}: {ids.dtype} {tuple(ids.shape)}")
+    differ = (ids != plain).any(1)
+    for name, got in (("K1", ids), ("plain", plain)):
+        bad = differ & ~probes_allowed(got, xq, cents, metric)
+        check(not bool(bad.any()), f"coarse {tag}: {name} probes of "
+              f"{int(bad.sum())} rows outside the rounding bound")
+    return ids, int(differ.sum())
+
+
+def device_ops(fn, reps=10):
+    """(device ms, device operations) a call of ``fn`` (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_time_total > 0]
+    return (sum(e.device_time_total for e in ev) / (1e3 * reps),
+            sum(e.count for e in ev) / reps)
+
+
+def phase_coarse(smi, data, ivf):
+    """Phase 32: the IVF coarse stage through K1 on phase 7's centroid
+    table (see the module docstring).  Returns the K1 launches of its
+    checked cases."""
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_scan
+
+    cents = ivf["cat"].get("ivf").index.inner._build_device_layout().centroids
+    nlist = cents.shape[0]
+    # b48 as the index pads it: 64 rows, the last query repeated
+    b48 = np.pad(data["b48"], ((0, 64 - BATCH), (0, 0)), mode="edge")
+    xq = {"b48": torch.from_numpy(b48).to(DEVICE),
+          "b1024": torch.from_numpy(data["b1024"]).to(DEVICE)}
+    ft.reset_unproven(DEVICE)
+    n0 = ft.LAUNCHES
+    parts = []
+    for tag, q, metric in (("L2 b48", xq["b48"], "L2"),
+                           ("L2 b1024", xq["b1024"], "L2"),
+                           ("IP b48", xq["b48"], "INNER_PRODUCT")):
+        _, n = coarse_case(tag, q, cents, metric)
+        parts.append(f"{tag} {n} of {q.shape[0]} rows differ")
+
+    # Exact ties: query 0 sits on centroid a, copied over a list b outside
+    # query 1's probes; query 1's nprobe-th list c is copied over its worst
+    # list w.
+    q = xq["b48"].clone()
+    plain = ivf_scan.coarse_topk_plain(q, cents, IVF_NPROBE, "L2")
+    a, c = int(plain[0, 0]), int(plain[1, -1])
+    w = int(ivf_scan.coarse_topk_plain(q[1:2], cents, nlist, "L2")[0, -1])
+    b = next(j for j in range(nlist)
+             if j not in set(plain[1].tolist()) | {a, w})
+    tied = cents.clone()
+    tied[b] = tied[a]
+    tied[w] = tied[c]
+    q[0] = tied[a]
+    ids, n = coarse_case("L2 ties", q, tied, "L2")
+    check(ids[0, :2].tolist() == sorted([a, b]), f"coarse tie at the top: "
+          f"{ids[0, :2].tolist()}, not {sorted([a, b])}")
+    lo, hi = min(c, w), max(c, w)
+    check(int(ids[1, -1]) == lo and hi not in ids[1].tolist(),
+          f"coarse tie at the nprobe-th place: {int(ids[1, -1])}, not {lo}")
+    parts.append(f"ties {n} rows differ, both resolved to the lower id")
+    unproven = ft.unproven(DEVICE)
+    check(unproven == 0, f"coarse: {unproven} margin-unproven queries")
+    launches = ft.LAUNCHES - n0
+    log(f"phase 32 coarse K1 {nlist}x{D} nprobe {IVF_NPROBE}: "
+        f"{'; '.join(parts)}; {launches} K1 launches, 0 margin-unproven "
+        f"queries")
+
+    for name, q in xq.items():
+        def kernel():
+            ivf_scan.coarse_topk(q, cents, IVF_NPROBE, "L2")
+
+        def plain():
+            ivf_scan.coarse_topk_plain(q, cents, IVF_NPROBE, "L2")
+
+        ms, plain_ms = time_pair(kernel, plain, reps=20)
+        (dev, ops), (pdev, pops) = device_ops(kernel), device_ops(plain)
+        b, b_fma = k1_bounds(nlist, D, q.shape[0], IVF_NPROBE)
+        log(f"time coarse {nlist}x{D} L2 nprobe {IVF_NPROBE} {name} "
+            f"({q.shape[0]} rows): K1 {ms:.4f} ms vs plain chain "
+            f"{plain_ms:.4f} ms (in turns, median CUDA events); device "
+            f"{dev:.4f} vs {pdev:.4f} ms a call in {ops:g} vs {pops:g} "
+            f"operations (torch.profiler); bound {b[0]:.4f} ms ({b[1]}, "
+            f"3xTF32), {b_fma[0]:.4f} ms ({b_fma[1]}, fp32 FMA) [{smi}]")
+    return launches
 
 
 def clustered_f32(n, d, nq, ncl, seed):
@@ -5538,8 +5688,9 @@ def phase_marco_filtered(smi, marco):
     column), fast mode: the bitmap and id-set labels equal, every label
     passing id%100 < t, every distance the query's unfiltered score of its
     row recomputed in fp64 from its codes (within REL_TOL of the batch's
-    largest), each strategy's path as its k says (K2's raw launch past
-    k_scan 1024, the plain spill scan past k 128); then BASELINE config 4
+    largest), each strategy's path as its k says (K1 for the coarse
+    stage, K2's raw launch past k_scan 1024, the plain spill scan past k
+    128); then BASELINE config 4
     through the tool's command line.  Returns the launches by kernel."""
     import duckdb_faiss_ext_tpu_torch as dt
     from duckdb_faiss_ext_tpu_torch.ops.ivf_sq_scan import MAX_K
@@ -5583,7 +5734,8 @@ def phase_marco_filtered(smi, marco):
             err = max(err, e)
             k_scan = index._sq_kscan(k, SQ_NPROBE * lmax)
             got = r[f"{key}_launches"]
-            want = {"K2 raw" if k_scan > MAX_K else "K2": 1}
+            # K1: the coarse top-nprobe
+            want = {"K1": 1, "K2 raw" if k_scan > MAX_K else "K2": 1}
             spill = ("none" if index._spill is None
                      else "K5" if k <= 128 and index._spill.n else "plain")
             if spill == "K5":
@@ -5756,8 +5908,9 @@ def main():
     phase_time_1536(smi)
     err6, err7 = phase_ivf_sweep()
     err10 = phase_ivf_mega_sweep()
-    ivf_err, ivf_err7, ivf_launches, ivf_timings, ivf = phase_ivf_main(
-        smi, data, exact)
+    (ivf_err, ivf_err7, ivf_launches, ivf_k1, ivf_timings,
+     ivf) = phase_ivf_main(smi, data, exact)
+    coarse_launches = phase_coarse(smi, data, ivf)
     amort = phase_amortization(smi, data, ivf)
     phase_sql_harness(smi, data, ivf)
     torch.cuda.empty_cache()
@@ -5824,7 +5977,7 @@ def main():
     # 128) and K2 / K3 (IVF1024,SQ8 at d = 1536).
     print(json.dumps({"kernels": [
         kernel_entry(KERNEL, launches + graph_launches["k1"] + place["k1"]
-                     + tools("K1"),
+                     + ivf_k1 + coarse_launches + tools("K1"),
                      max(sweep_err, golden_err, main_err, place_err),
                      *timings["b1024"]),
         kernel_entry(IVF_LIST_KERNEL,

@@ -9,7 +9,8 @@ and path selection.
 
 * With a layout plan (L2 / inner product whose padded layout fits,
   models/ivf_layout.py; for SQ only while the int8 path is active):
-  coarse top-nprobe, then the per-query list scan or, for large batches
+  coarse top-nprobe (``coarse_topk``: K1 over the centroid table on the
+  card, ops/ivf_scan.py), then the per-query list scan or, for large batches
   over long lists, the pair-tile scan, chosen by the gate measured on the
   card (``pairs_wanted``, ops/pairs_gate.py; the JAX package's static rule
   outside its measured hull): K6 / K7 (ops/ivf_list_scan.py,
@@ -86,7 +87,7 @@ from ..ops.sq import SQ_LEVELS
 from ..ops.sq_spill import CODECS as SPILL_KERNEL_CODECS
 from ..ops.sq_spill import sq_spill_search
 from ..params import EMPTY
-from ..utils.config import config, next_pow2, pad_rows, sq_int8_active
+from ..utils.config import config, next_pow2, sq_int8_active
 from ..utils.profiling import span, spanned
 from ..utils.transfer import upload_queries
 from .base import SearchResult, as_matrix, dedup_by_key
@@ -218,7 +219,11 @@ class IVFServe:
         params.scoped("quantiser.")
         nprobe_eff = max(1, min(int(nprobe), self.nlist))
         nq_pad = max(config.min_query_bucket, next_pow2(nq))
-        xq_pad = upload_queries(pad_rows(xq, nq_pad), self.device)
+        # The padding rows repeat the last query: a row of zeros ties every
+        # list under inner product, and K1 would count it unproven in the
+        # coarse stage.  Their answers are dropped either way.
+        xq_pad = upload_queries(
+            np.pad(xq, ((0, nq_pad - nq), (0, 0)), mode="edge"), self.device)
         metric = self.metric.name
 
         if self._shard_mesh is not None:

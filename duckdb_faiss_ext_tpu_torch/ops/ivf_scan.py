@@ -30,6 +30,15 @@ product over the gathered candidates are elementwise products summed (no
 TF32 matmul), and the spill tile runs with TF32 off.  So the JAX package's
 fast-mode in-chunk rerank has nothing to repair here and is not ported.
 
+``coarse_topk``, the top-nprobe lists of every IVF search on a centroid
+table (the padded layout's, the sorted+gather path's, range search's, a
+placement's), is an exact Flat search over the (nlist, d) table: on CUDA
+tensors with L2 / inner product and nprobe ≤ 1024 it is K1
+(ops/flat_topk.py), two launches and a fill, counted in
+``faiss_stats()["counters"]["models.coarse_kernel"]``; every other input
+(CPU tensors, the elementwise metrics, nprobe above K1's k) takes the
+plain distance tile and top-k, as the JAX package's ``_coarse_topk``.
+
 Exactness: the candidates are exactly the members of the probed lists, so
 results match FAISS given the same centroids and assignments.
 """
@@ -39,6 +48,8 @@ from __future__ import annotations
 import torch
 
 from ..utils.config import full_fp32
+from ..utils.profiling import count
+from . import flat_topk as k1
 from .distance import elementwise_scores, pairwise_tile
 from .flat_search import SIMILARITY_METRICS, exact_topk, topk_ordered
 from .ivf_sq_scan import exact_rows_scores
@@ -48,12 +59,31 @@ from .sq_digits import digit_dots, int8_scores, query_digits
 from .sq_spill import spill_rerank_scores
 
 _NEG_INF = float("-inf")
+#: coarse stages that K1 served
+COARSE_KERNEL = "models.coarse_kernel"
+count(COARSE_KERNEL, 0)
 
 
 def coarse_topk(xq: torch.Tensor, centroids: torch.Tensor, nprobe: int,
                 metric: str, metric_arg: float = 0.0) -> torch.Tensor:
     """Top-``nprobe`` list ids per query, (nq, nprobe) int32, best first;
-    equal scores resolve to the lower list id (as ``lax.top_k`` does)."""
+    equal scores resolve to the lower list id (as ``lax.top_k`` does).
+    K1 for CUDA queries in its domain (``flat_topk.supports``; it raises on
+    a table elsewhere than the queries, or not contiguous fp32), else
+    ``coarse_topk_plain``."""
+    if xq.device.type == "cuda" and k1.supports(metric, nprobe, xq.shape[1]):
+        _, ids = k1.flat_topk(centroids, centroids.shape[0], xq, nprobe,
+                              metric)
+        count(COARSE_KERNEL)
+        return ids
+    return coarse_topk_plain(xq, centroids, nprobe, metric, metric_arg)
+
+
+def coarse_topk_plain(xq: torch.Tensor, centroids: torch.Tensor,
+                      nprobe: int, metric: str,
+                      metric_arg: float = 0.0) -> torch.Tensor:
+    """``coarse_topk``'s plain chain on any device: the (nq, nlist) distance
+    tile, then ``exact_topk``."""
     cdist = pairwise_tile(xq, centroids, metric, metric_arg)
     cscore = cdist if metric in SIMILARITY_METRICS else -cdist
     _, ids = exact_topk(cscore, nprobe)

@@ -11,6 +11,7 @@
   ``spanned(name)`` puts a span around a whole function;
 * ``build_span(name)`` — the span of a cache that builds (``name`` ends in
   ``_build`` or ``_upload``), counted in ``counters()`` as ``name + "s"``;
+* ``count(name)`` — one more of an event in ``counters()``;
 * ``trace(path)`` — context manager around ``torch.profiler`` writing a
   Chrome trace (chrome://tracing, Perfetto) of everything inside: the
   host's torch operators, the port's spans and, on a CUDA device, the
@@ -117,7 +118,7 @@ class _OpStats:
 
 _lock = threading.Lock()
 _stats: dict[str, _OpStats] = defaultdict(_OpStats)
-#: cache builds by kind (``build_span``)
+#: cache builds by kind (``build_span``) and events (``count``)
 _counters: dict[str, int] = defaultdict(int)
 
 
@@ -137,10 +138,16 @@ def timed(op: str):
             _stats[op].add(dt)
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``; ``count(name, 0)`` makes it
+    present at 0."""
+    with _lock:
+        _counters[name] += n
+
+
 def build_span(name: str):
     """``span(name)`` around a cache's build, counted as ``name + "s"``."""
-    with _lock:
-        _counters[name + "s"] += 1
+    count(name + "s")
     return span(name)
 
 
@@ -150,20 +157,23 @@ def stats() -> dict:
 
 
 def counters() -> dict:
-    """Cache builds since the process started (or ``reset_stats``):
-    ``kernels.library_builds`` (the kernel library loaded, and compiled
-    where no build of its sources was on disk), ``models.layout_builds``
-    (an IVF index's device layout), ``models.rows_uploads`` (a Flat
-    index's corpus buffer) and ``models.mask_builds`` (a selector's mask
-    on the device), each present once it has happened."""
+    """Cache builds and events since the process started (or
+    ``reset_stats``): ``kernels.library_builds`` (the kernel library
+    loaded, and compiled where no build of its sources was on disk),
+    ``models.layout_builds`` (an IVF index's device layout),
+    ``models.rows_uploads`` (a Flat index's corpus buffer) and
+    ``models.mask_builds`` (a selector's mask on the device), each present
+    once it has happened; ``models.coarse_kernel`` (IVF coarse stages that
+    K1 served, ops/ivf_scan.py), present from import."""
     with _lock:
         return dict(sorted(_counters.items()))
 
 
 def reset_stats() -> None:
+    """Clear the operation statistics and zero every counter."""
     with _lock:
         _stats.clear()
-        _counters.clear()
+        _counters.update(dict.fromkeys(_counters, 0))
 
 
 @contextlib.contextmanager

@@ -14,7 +14,9 @@ whose scores differ by less than the summation noise may swap ranks.
 Integer ops (tile tables, probe ids) are held to exact equality.  The CUDA
 kernels themselves are held against these plain versions on the card
 (chip_smoke.py, and the ``gpu``-marked cases in
-tests/test_torch_package.py).
+tests/test_torch_package.py).  The coarse stage's routing (K1 for CUDA
+queries, the plain chain for every other input) and its counter are
+checked here on CPU tensors, with K1's wrapper stubbed or forced.
 """
 
 import jax.numpy as jnp
@@ -224,6 +226,155 @@ def test_coarse_topk_equals_jax(metric):
     want = jax_coarse(jnp.asarray(xq), jnp.asarray(cents), jnp.float32(0.0),
                       nprobe=6, metric=metric, precision=None)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("device_type,metric,nprobe,kernel", [
+    ("cuda", "L2", 1, True),
+    ("cuda", "INNER_PRODUCT", 1024, True),
+    ("cuda", "L2", 1025, False),
+    ("cuda", "L2", 0, False),
+    ("cuda", "L1", 64, False),
+    ("cpu", "L2", 64, False)])
+def test_coarse_routing_rule(monkeypatch, device_type, metric, nprobe,
+                             kernel):
+    """K1 takes the coarse stage for CUDA queries, L2 / inner product and
+    1 ≤ nprobe ≤ 1024; everything else keeps the plain chain.  The route
+    is read from the queries' device type alone, so a stand-in carrying a
+    device and a shape drives ``coarse_topk`` with both branches stubbed."""
+    from types import SimpleNamespace
+    taken = []
+    monkeypatch.setattr(ivf_scan.k1, "flat_topk",
+                        lambda *a: taken.append("K1") or (None, "ids"))
+    monkeypatch.setattr(ivf_scan, "coarse_topk_plain",
+                        lambda *a: taken.append("plain") or "ids")
+    xq = SimpleNamespace(device=torch.device(device_type), shape=(6, 8))
+    cents = SimpleNamespace(shape=(2048, 8))
+    assert ivf_scan.coarse_topk(xq, cents, nprobe, metric) == "ids"
+    assert taken == ["K1" if kernel else "plain"]
+
+
+def _coarse_inputs(nlist, seed=5):
+    rng = np.random.default_rng(seed)
+    cents = rng.standard_normal((nlist, 8)).astype(np.float32)
+    cents[7] = cents[3]                          # an exact tie
+    xq = rng.standard_normal((6, 8)).astype(np.float32)
+    xq[0] = cents[3]
+    return torch.from_numpy(xq), torch.from_numpy(cents)
+
+
+def _kernel_forbidden(*_a, **_k):
+    raise AssertionError("the coarse stage called K1")
+
+
+def _coarse_count():
+    from duckdb_faiss_ext_tpu_torch.api import faiss_stats
+    return faiss_stats()["counters"][ivf_scan.COARSE_KERNEL]
+
+
+@pytest.mark.parametrize("metric,nlist,nprobe", [
+    ("L2", 32, 6), ("INNER_PRODUCT", 32, 6), ("L1", 32, 6),
+    ("Linf", 32, 6), ("L2", 1100, 1025), ("INNER_PRODUCT", 1100, 1100)])
+def test_coarse_plain_chain_outside_the_kernel(monkeypatch, metric, nlist,
+                                               nprobe):
+    """CPU tensors, the elementwise metrics and nprobe above 1024 run the
+    plain chain, bit for bit, without calling K1 or counting."""
+    monkeypatch.setattr(ivf_scan.k1, "flat_topk", _kernel_forbidden)
+    xq, cents = _coarse_inputs(nlist)
+    before = _coarse_count()
+    got = ivf_scan.coarse_topk(xq, cents, nprobe, metric)
+    assert got.dtype == torch.int32 and got.shape == (6, nprobe)
+    assert torch.equal(got, ivf_scan.coarse_topk_plain(xq, cents, nprobe,
+                                                       metric))
+    assert _coarse_count() == before
+
+
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+def test_coarse_kernel_route_returns_k1_positions(monkeypatch, metric):
+    """The kernel branch, driven by a stand-in on a CUDA device whose K1
+    call runs K1's wrapper on its CPU tensors (the wrapper's plain
+    version): K1's int32 positions over the whole table, the tie to the
+    lower id, one count a call."""
+    from types import SimpleNamespace
+
+    from duckdb_faiss_ext_tpu_torch.utils import profiling
+    monkeypatch.setitem(profiling._counters, ivf_scan.COARSE_KERNEL, 0)
+    xq, cents = _coarse_inputs(32)
+    calls = []
+    real = ivf_scan.k1.flat_topk
+
+    def k1_on_cpu(xb, nvalid, q, k, m):
+        calls.append((xb.shape[0], nvalid, k, m))
+        return real(xb, nvalid, q.rows, k, m)
+
+    monkeypatch.setattr(ivf_scan.k1, "flat_topk", k1_on_cpu)
+    on_card = SimpleNamespace(device=torch.device("cuda"), shape=xq.shape,
+                              rows=xq)
+    got = ivf_scan.coarse_topk(on_card, cents, 6, metric)
+    assert calls == [(32, 32, 6, metric)]
+    assert _coarse_count() == 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ivf_scan.coarse_topk_plain(xq, cents, 6, metric))
+    if metric == "L2":
+        assert got[0, :2].tolist() == [3, 7]
+
+
+def test_coarse_kernel_counter_present_and_unchanged_on_cpu():
+    """``models.coarse_kernel`` is in ``faiss_stats()["counters"]`` from
+    import, and CPU IVF searches leave it where it was."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    before = _coarse_count()
+    cat = dt.Catalog()
+    xb = np.random.default_rng(0).standard_normal((400, 8)).astype(
+        np.float32)
+    prev = dt.config.device
+    dt.set_device("cpu")
+    try:
+        dt.faiss_create("c", 8, "IVF8,Flat", metric_type="L2", catalog=cat)
+        dt.faiss_add(xb, "c", catalog=cat)
+        dt.faiss_search("c", 5, xb[:4], {"nprobe": "3"}, catalog=cat)
+    finally:
+        dt.config.device = prev
+    assert _coarse_count() == before
+
+
+@pytest.mark.parametrize("spec", ["IVF8,Flat", "IVF8,SQ8"])
+def test_padding_rows_repeat_the_last_query(monkeypatch, spec):
+    """The padded query block an IVF search hands the coarse stage repeats
+    its last query (a zero row ties every list under inner product, which
+    K1 counts unproven); the answers are those of the queries alone."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    from duckdb_faiss_ext_tpu_torch.models import ivf_serve
+    seen = []
+    real = ivf_serve.coarse_topk
+
+    def spy(xq, *a):
+        seen.append(xq.clone())
+        return real(xq, *a)
+
+    cat = dt.Catalog()
+    rng = np.random.default_rng(3)
+    xb = rng.standard_normal((400, 8)).astype(np.float32)
+    xq = rng.standard_normal((5, 8)).astype(np.float32)
+    prev = dt.config.device
+    dt.set_device("cpu")
+    try:
+        dt.faiss_create("c", 8, spec, metric_type="INNER_PRODUCT",
+                        catalog=cat)
+        dt.faiss_add(xb, "c", catalog=cat)
+        alone = [dt.faiss_search("c", 5, xq[i:i + 1], {"nprobe": "3"},
+                                 catalog=cat) for i in range(5)]
+        # (the padded layout's path, and the sorted+gather path's)
+        monkeypatch.setattr(ivf_serve, "coarse_topk", spy)
+        monkeypatch.setattr(ivf_scan, "coarse_topk", spy)
+        got = dt.faiss_search("c", 5, xq, {"nprobe": "3"}, catalog=cat)
+    finally:
+        dt.config.device = prev
+    block = torch.cat(seen)
+    assert block.shape[0] > 5
+    assert torch.equal(block[:5], torch.from_numpy(xq))
+    assert (block[5:] == torch.from_numpy(xq[4])).all()
+    for i, one in enumerate(alone):
+        np.testing.assert_array_equal(got["label"][i], one["label"][0])
 
 
 @pytest.mark.parametrize("metric", ["L2", "L1"])

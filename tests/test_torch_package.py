@@ -10,7 +10,8 @@
   int8 IVF,SQ list scan, pair tiles and spill windows,
   the IVF-PQ / IVF-RQ list search, the pipelined pair tiles K9 / K10, and
   the fused pair-tile IVF,Flat searches K7 / K10) match their plain
-  versions, and the IVF-PQ list search raises on inputs it does not take;
+  versions, the IVF coarse stage runs K1, and the IVF-PQ list search
+  raises on inputs it does not take;
   the standalone SQ index's int8 scan (plain torch, its integer dots by
   ``torch._int_mm``) gives on card tensors what it gives on CPU tensors.
 """
@@ -835,6 +836,47 @@ def test_flat_kernel_proves_its_margin_on_card(card, metric):
     tol = 1e-5 * float(rs.abs().max())
     np.testing.assert_allclose(s.cpu().numpy(), rs.cpu().numpy(), rtol=0,
                                atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric,nq,tie", [("L2", 64, False),
+                                           ("L2", 1024, False),
+                                           ("INNER_PRODUCT", 64, False),
+                                           ("L2", 64, True)])
+def test_coarse_stage_takes_k1_on_card(card, metric, nq, tie):
+    """The IVF coarse stage at the benchmark's shape (4096 x 128 centroids
+    of a clustered stand-in, nprobe 64) through K1: one launch and one
+    ``models.coarse_kernel`` count a call, no margin-unproven query, the
+    probes equal to the plain chain's or both within the rounding bound;
+    a duplicated centroid resolves to the lower list id."""
+    from chip_smoke import probes_allowed
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_scan
+    g = torch.Generator(device=card).manual_seed(20)
+    centres = torch.randn(1024, 128, device=card, generator=g) * 4
+    cents = (centres.repeat(4, 1)
+             + 0.5 * torch.randn(4096, 128, device=card, generator=g))
+    xq = (centres[torch.randint(0, 1024, (nq,), device=card, generator=g)]
+          + torch.randn(nq, 128, device=card, generator=g))
+    if tie:
+        cents[3000] = cents[17]
+        xq[0] = cents[17]
+    def launched():
+        return (ft.LAUNCHES,
+                dt.faiss_stats()["counters"]["models.coarse_kernel"])
+
+    ft.reset_unproven(card)
+    before = launched()
+    ids = ivf_scan.coarse_topk(xq, cents, 64, metric)
+    torch.cuda.synchronize()
+    assert launched() == (before[0] + 1, before[1] + 1)
+    assert ft.unproven(card) == 0
+    plain = ivf_scan.coarse_topk_plain(xq, cents, 64, metric)
+    assert ids.dtype == torch.int32 and ids.shape == (nq, 64)
+    differ = (ids != plain).any(1)
+    assert probes_allowed(ids, xq, cents, metric)[differ].all()
+    assert probes_allowed(plain, xq, cents, metric)[differ].all()
+    if tie:
+        assert ids[0, :2].tolist() == [17, 3000]
 
 
 def _clustered_rows(seed, n, d):

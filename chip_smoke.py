@@ -339,10 +339,26 @@ Phases (any failure raises and the script exits non-zero):
    float64 scores within the rounding bound of
    benchmark/reference/ivf_flat.py; K1 counts no margin-unproven query;
    then both are timed in turns, with the device time and device
-   operations a call (torch.profiler) and K1's bound at each shape.
+   operations a call (torch.profiler) and K1's bound at each shape;
+33. unpadded K6 at the marco cell's shapes (``phase_unpadded``; the
+   configuration benchmark/configs/marco-ivf2048-hnsw128-flat.json):
+   8,841,823 x 1536 fp32 rows drawn on the card (54.3 GB, past 2^31
+   payload bytes many times over) in storage order, 2048 lists of uneven
+   length through ``row_pos`` / ``offsets`` (the longest 26,015 rows,
+   probed by a quarter of the queries; each list's rows a random draw of
+   storage rows), the mask of the rows i with i % 100 < 10, 64 query rows
+   (b48 as the index pads it), nprobe 15: ``ivf_list_search(...,
+   offsets=, lmax=)`` at k 10 (inner product masked and unmasked, L2
+   masked) and at k 1025 (its raw launch), and the raw scores, each held
+   against the plain version on the same card tensors (``compare``,
+   ``compare_raw``), no returned row failing the mask; ``TOPK_LAUNCHES``
+   and ``LAUNCHES`` zeroed before and read after; then the fused search
+   and its plain version timed in turns at k 10, masked, with the device
+   time a launch (torch.profiler), the bound (the passing rows of the
+   distinct probed lists read once) and the memory peak.
 
 Phases 7 (K1's coarse stages), 28-30 and 32 (its checked cases) add
-their launches to the kernels line.
+their launches to the kernels line, and phase 33 its K6 launches.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -1023,13 +1039,16 @@ def compare_raw(got, want, qn):
     return err
 
 
-def k6_raw_error(lists, counts, probe, xq, mask, metric):
+def k6_raw_error(lists, counts, probe, xq, mask, metric, **unpadded):
     """K6's raw (nq, nprobe, lmax) scores against its plain version on the
-    same card tensors."""
+    same card tensors; ``unpadded``: the unpadded layout's ``offsets``,
+    ``row_pos`` and ``lmax``."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
 
-    raw = k6.ivf_list_scan(lists, counts, probe, xq, mask, metric)
-    ref = k6.ivf_list_scan_reference(lists, counts, probe, xq, mask, metric)
+    raw = k6.ivf_list_scan(lists, counts, probe, xq, mask, metric,
+                           **unpadded)
+    ref = k6.ivf_list_scan_reference(lists, counts, probe, xq, mask, metric,
+                                     **unpadded)
     nq, nprobe, lmax = raw.shape
     qn = (xq * xq).sum(1)[:, None].expand(nq, nprobe)
     return compare_raw(raw.reshape(-1, lmax), ref.reshape(-1, lmax),
@@ -1045,17 +1064,21 @@ def live_row_pos(counts, lmax):
         lmax, device=DEVICE)[None, :], -1).to(torch.int32)
 
 
-def k6_topk_error(lists, counts, row_pos, probe, xq, mask, metric, k):
+def k6_topk_error(lists, counts, row_pos, probe, xq, mask, metric, k,
+                  **unpadded):
     """The fused K6 search (ivf_list_search on the card) against its plain
     version (``compare``: scores within REL_TOL of each query's scale,
-    positions equal where the scores are apart)."""
+    positions equal where the scores are apart); ``unpadded``: the
+    unpadded layout's ``offsets`` and ``lmax``."""
     from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
     from duckdb_faiss_ext_tpu_torch.ops.list_topk import pad_to
 
     args = (lists, counts, row_pos, probe, xq, mask)
-    s, p = pad_to(*k6.ivf_list_search(*args, k=k, metric=metric), k)
+    s, p = pad_to(*k6.ivf_list_search(*args, k=k, metric=metric,
+                                      **unpadded), k)
     ref = pad_to(*k6.ivf_list_search_reference(*args, k=k + 1,
-                                               metric=metric), k + 1)
+                                               metric=metric, **unpadded),
+                 k + 1)
     return compare(s, p, *ref, xq), (s, p)
 
 
@@ -4305,6 +4328,7 @@ def phase_imi_soar(smi, data, exact, ivf):
     counts = soar._counts()
     cap = soar_lmax_cap(counts, soar._nstored)
     soar.LAYOUT_BUDGET_BYTES = soar.nlist * cap * D * 4
+    soar.UNPADDED_FLAT = False     # the capped layout and its spill
     t0 = time.perf_counter()
     lay = soar._build_device_layout()
     t_layout = time.perf_counter() - t0
@@ -5897,6 +5921,108 @@ def phase_pairs_gate(smi):
     log(f"phase 31 pairs gate: {time.perf_counter() - t0:.1f} s [{smi}]")
 
 
+#: phase 33: the marco cell's rows, lists and batch
+#: (benchmark/configs/marco-ivf2048-hnsw128-flat.json; the longest list as
+#: the cell's corpus gives it)
+UNPADDED_ROWS, UNPADDED_D, UNPADDED_NLIST = 8_841_823, 1536, 2048
+UNPADDED_LMAX, UNPADDED_NPROBE = 26_015, 15
+UNPADDED_NQ, UNPADDED_PASS = 64, 10
+
+
+def uneven_lists(g, n, nlist, lmax):
+    """(counts, offsets, row_pos) of ``nlist`` uneven lists over ``n``
+    storage rows: list 0 holds ``lmax`` rows, the others share the rest by
+    log-normal weights (σ 0.5: each well below ``lmax``); the assignment is
+    shuffled, so each list's rows are a random draw of storage rows, in
+    storage order (``list_index``)."""
+    from duckdb_faiss_ext_tpu_torch.models.ivf_layout import list_index
+
+    w = torch.empty(nlist - 1, dtype=torch.float64,
+                    device=DEVICE).log_normal_(0.0, 0.5, generator=g)
+    counts = torch.cat([torch.tensor([lmax], device=DEVICE),
+                        (w / w.sum() * (n - lmax)).long()])
+    counts[1] += n - int(counts.sum())
+    check(int(counts.max()) == lmax and int(counts[1:].max()) < lmax,
+          "the longest list is list 0")
+    assign = torch.repeat_interleave(
+        torch.arange(nlist, device=DEVICE), counts)[
+        torch.randperm(n, device=DEVICE, generator=g)]
+    return list_index(assign.to(torch.int32), nlist)
+
+
+def phase_unpadded(smi):
+    """Phase 33 (see the top of this file).  Returns (max abs error,
+    K6 launches)."""
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+
+    t0 = time.perf_counter()
+    n, d = UNPADDED_ROWS, UNPADDED_D
+    nlist, lmax = UNPADDED_NLIST, UNPADDED_LMAX
+    nq, nprobe = UNPADDED_NQ, UNPADDED_NPROBE
+    g = torch.Generator(device=DEVICE).manual_seed(33)
+    torch.cuda.reset_peak_memory_stats()
+    lists = torch.empty((n, d), device=DEVICE)
+    for r0 in range(0, n, 1 << 20):
+        lists[r0:r0 + (1 << 20)].normal_(generator=g)
+    counts, offsets, row_pos = uneven_lists(g, n, nlist, lmax)
+    mask = (row_pos % 100 < UNPADDED_PASS).to(torch.int8)
+    xq = torch.randn((nq, d), device=DEVICE, generator=g)
+    pick = torch.rand((nq, nlist), device=DEVICE, generator=g)
+    pick[::4, 0] = 2.0                 # the longest list, a quarter of them
+    probe = pick.topk(nprobe, 1).indices.to(torch.int32).contiguous()
+    layout = dict(offsets=offsets, lmax=lmax)
+    log(f"phase 33 unpadded layout: {n} x {d} fp32 "
+        f"({lists.numel() * 4 / 1e9:.1f} GB), {nlist} lists of "
+        f"{int(counts.min())}-{lmax} rows (mean {n / nlist:.0f}), drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    k6.TOPK_LAUNCHES = k6.LAUNCHES = 0
+    errs = []
+    for metric, m, k in (("INNER_PRODUCT", mask, K),
+                         ("INNER_PRODUCT", None, K),
+                         ("L2", mask, K),
+                         ("INNER_PRODUCT", mask, k6.MAX_K + 1)):
+        err, (_, pos) = k6_topk_error(lists, counts, row_pos, probe, xq, m,
+                                      metric, k, **layout)
+        if m is not None:
+            got = pos[pos >= 0]
+            check(bool((got % 100 < UNPADDED_PASS).all()),
+                  "a returned row fails the mask")
+        errs.append(err)
+        log(f"phase 33 {metric} k {k} {'masked' if m is not None else 'all'}"
+            f": max abs err {err:.3g}")
+    raw_err = k6_raw_error(lists, counts, probe, xq, mask, "INNER_PRODUCT",
+                           row_pos=row_pos, **layout)
+    errs.append(raw_err)
+    check((k6.TOPK_LAUNCHES, k6.LAUNCHES) == (3, 2),
+          f"fused / raw launches {k6.TOPK_LAUNCHES} / {k6.LAUNCHES}, "
+          f"expected 3 / 2")
+    args = (lists, counts, row_pos, probe, xq, mask)
+    search = dict(k=K, metric="INNER_PRODUCT", **layout)
+    ms, plain_ms = time_pair(
+        lambda: k6.ivf_list_search(*args, **search),
+        lambda: k6.ivf_list_search_reference(*args, **search), reps=6)
+    dev = device_ms(lambda: k6.ivf_list_search(*args, **search), reps=6)
+    launches = k6.TOPK_LAUNCHES + k6.LAUNCHES
+    distinct = torch.unique(probe.long())
+    slots = torch.cat([torch.arange(int(offsets[i]), int(offsets[i + 1]),
+                                    device=DEVICE) for i in distinct.tolist()])
+    passing = int((mask[slots] != 0).sum())
+    pairs = sum(int((mask[int(offsets[i]):int(offsets[i + 1])] != 0).sum())
+                for i in probe.reshape(-1).tolist())
+    read = int(counts[probe.long()].sum())
+    b = bound(passing * 4 * d + xq.numel() * 4 + probe.numel() * 4
+              + nq * K * 8, 2 * d * pairs)
+    log(f"phase 33 unpadded K6 IP k {K} masked b48 ({nq} rows), nprobe "
+        f"{nprobe}: {ms:.3f} ms vs plain {plain_ms:.3f} ms (median CUDA "
+        f"events, in turns); device {dev}; bound {b[0]:.3f} ms ({b[1]}: "
+        f"{passing} passing rows of {int(distinct.numel())} distinct lists); "
+        f"{read} rows read a call ({read * 4 * d / 1e9:.2f} GB); max abs "
+        f"err {max(errs):.3g} (raw {raw_err:.3g}); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    return max(errs), launches
+
+
 def main():
     t_script = time.perf_counter()
     smi = phase_environment()
@@ -5956,6 +6082,8 @@ def main():
     phase_coded_graph(smi, marco)
     torch.cuda.empty_cache()
     phase_pairs_gate(smi)
+    torch.cuda.empty_cache()
+    unpadded_err, unpadded_launches = phase_unpadded(smi)
     log(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s in all")
     log(smi)
     # Flat, K6 and the SQ kernels at the shapes timed above; no single
@@ -5982,8 +6110,9 @@ def main():
                      *timings["b1024"]),
         kernel_entry(IVF_LIST_KERNEL,
                      ivf_launches + graph_launches["k6"] + place["k6"]
-                     + tools("K6", "K6 raw"),
-                     max(err6, ivf_err), k6_ms, k6_plain, k6_bound,
+                     + tools("K6", "K6 raw") + unpadded_launches,
+                     max(err6, ivf_err, unpadded_err), k6_ms, k6_plain,
+                     k6_bound,
                      before_ms=k6_before_ms),
         kernel_entry(IVF_PAIRS_KERNEL,
                      pairs_launches + graph_launches["k7"] + place["k7"]

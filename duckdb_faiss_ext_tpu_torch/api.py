@@ -39,7 +39,7 @@ from .models.base import SearchResult, as_matrix
 from .ops.flat_search import SIMILARITY_METRICS
 from .ops.selectors import BitmapSelector, Selector, SetSelector
 from .params import as_params
-from .utils.profiling import spanned, timed
+from .utils.profiling import count, span, spanned, timed
 from .utils.transfer import fetch_results
 
 
@@ -253,11 +253,13 @@ def faiss_add_device(data, name: str, ids=None, *,
                      spill_capacity: int | None = None,
                      catalog: Catalog | None = None) -> None:
     """Ingest rows already on the card (no reference analogue): assignment,
-    SQ encoding and the scatter into the padded list layout run on the
-    device; only integer bookkeeping reaches the host.  ``data`` is a torch
-    tensor (never copied to the host), or an array moved to the index's
-    device.  The index must be trained.  See models/ivf_device.py for the
-    sizing (``expected_total`` / ``lmax``, ``spill_capacity``)."""
+    SQ encoding and the scatter into the padded list layout (or, for Flat
+    storage, the append to the unpadded one) run on the device; only
+    integer bookkeeping reaches the host.  ``data`` is a torch tensor
+    (never copied to the host), or an array moved to the index's device.
+    The index must be trained.  See models/ivf_device.py for the choice of
+    layout and its sizing (``expected_total`` / ``lmax``,
+    ``spill_capacity``)."""
     entry = _cat(catalog).get(name)
     with entry.lock:
         if not entry.is_mutable:
@@ -331,6 +333,9 @@ def create_mask(flags, ids) -> BitmapSelector:
 _SELECTOR_CACHE: "dict[tuple, object]" = {}
 _SELECTOR_CACHE_MAX = 16
 _SELECTOR_LOCK = threading.Lock()
+#: selectors built from a filter over a table (the span ``api.filter_eval``)
+SELECTOR_BUILDS = "api.selector_builds"
+count(SELECTOR_BUILDS, 0)
 
 
 def _cached_selector(db, tablename, filter_expr, idselector, kind: str):
@@ -340,12 +345,15 @@ def _cached_selector(db, tablename, filter_expr, idselector, kind: str):
         sel = _SELECTOR_CACHE.get(key)
     if sel is not None:
         return sel
-    if kind == "bitmap":
-        flags, ids = db.eval_filter_pair(tablename, filter_expr, idselector)
-        sel = create_mask(flags, ids)
-    else:
-        sel = SetSelector(db.eval_filter_ids(tablename, filter_expr,
-                                             idselector))
+    count(SELECTOR_BUILDS)
+    with span("api.filter_eval"):
+        if kind == "bitmap":
+            flags, ids = db.eval_filter_pair(tablename, filter_expr,
+                                             idselector)
+            sel = create_mask(flags, ids)
+        else:
+            sel = SetSelector(db.eval_filter_ids(tablename, filter_expr,
+                                                 idselector))
     with _SELECTOR_LOCK:
         while len(_SELECTOR_CACHE) >= _SELECTOR_CACHE_MAX:
             _SELECTOR_CACHE.pop(next(iter(_SELECTOR_CACHE)))

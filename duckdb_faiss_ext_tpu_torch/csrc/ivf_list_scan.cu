@@ -41,6 +41,13 @@
 //   "before" the fused search is timed against.
 // Offsets into the payload are 64-bit: lid * lmax * d passes 2^31 at
 // realistic sizes (4096 lists x lmax 1024 x d 1536).
+// Both designs also read the unpadded layout (list_topk.cuh): lists
+// (n_rows, d) in storage order, offsets (nlist + 1,), row_pos (n,) the
+// storage row of each slot list by list, mask (n,) aligned with row_pos,
+// lmax the longest list; list l's slot j is lists[row_pos[offsets[l] + j]].
+// It holds an index whose lists are too uneven to pad (the reference's
+// IVF2048 over 8.8M x 1536: lists of up to 26,015 rows, 54 GB of rows
+// that a padded layout would take 328 GB to hold).
 //
 // What bounds it on the H100: the bytes of the probed lists, each read once
 // (at IVF4096 1M x 128, nprobe 64, b1024: ~512 MB, 0.15 ms at 3.35 TB/s).
@@ -62,11 +69,14 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <bool VEC4, bool L2>
+// UNPADDED: the unpadded layout (offsets, row_pos); the padded instances
+// ignore both.
+template <bool VEC4, bool L2, bool UNPADDED>
 __global__ void __launch_bounds__(kThreads)
 ivf_list_scan_kernel(const float* __restrict__ lists, const int* __restrict__ counts,
                      const int* __restrict__ probe_ids, const float* __restrict__ xq,
-                     const int8_t* __restrict__ mask, int nprobe, int nlist, int lmax,
+                     const int8_t* __restrict__ mask, const int* __restrict__ offsets,
+                     const int* __restrict__ row_pos, int nprobe, int nlist, int lmax,
                      int d, float* __restrict__ out) {
   extern __shared__ float4 q_s4[];
   float* q_s = reinterpret_cast<float*>(q_s4);
@@ -83,14 +93,19 @@ ivf_list_scan_kernel(const float* __restrict__ lists, const int* __restrict__ co
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const float* base = lists + static_cast<int64_t>(lid) * lmax * d;
-  const int8_t* mrow = mask ? mask + static_cast<int64_t>(lid) * lmax : nullptr;
+  // Slot r of list lid: mask byte slot0 + r; payload row at[r] (unpadded)
+  // or r of the list's block (padded).
+  const int64_t slot0 = UNPADDED ? static_cast<int64_t>(offsets[lid])
+                                 : static_cast<int64_t>(lid) * lmax;
+  const float* base = UNPADDED ? lists : lists + slot0 * d;
+  const int* at = UNPADDED ? row_pos + slot0 : nullptr;
+  const int8_t* mrow = mask ? mask + slot0 : nullptr;
   for (int r = warp; r < cnt; r += kWarps) {
     if (mrow && mrow[r] == 0) {  // warp-uniform: the warp owns row r
       if (lane == 0) o[r] = -INFINITY;
       continue;
     }
-    const float* x = base + static_cast<int64_t>(r) * d;
+    const float* x = base + static_cast<int64_t>(UNPADDED ? at[r] : r) * d;
     float acc = 0.f;
     if (VEC4) {
       const float4* x4 = reinterpret_cast<const float4*>(x);
@@ -129,18 +144,20 @@ ivf_list_scan_kernel(const float* __restrict__ lists, const int* __restrict__ co
 
 template <bool VEC4, bool L2>
 cudaError_t launch(const float* lists, const int* counts, const int* probe_ids,
-                   const float* xq, const int8_t* mask, int nq, int nprobe, int nlist,
-                   int lmax, int d, float* out, cudaStream_t stream) {
+                   const float* xq, const int8_t* mask, const int* offsets,
+                   const int* row_pos, int nq, int nprobe, int nlist, int lmax, int d,
+                   float* out, cudaStream_t stream) {
+  const auto kernel = offsets ? ivf_list_scan_kernel<VEC4, L2, true>
+                              : ivf_list_scan_kernel<VEC4, L2, false>;
   const size_t smem = sizeof(float4) * static_cast<size_t>((d + 3) / 4);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ivf_list_scan_kernel<VEC4, L2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const unsigned blocks = static_cast<unsigned>(static_cast<int64_t>(nq) * nprobe);
-  ivf_list_scan_kernel<VEC4, L2><<<blocks, kThreads, smem, stream>>>(
-      lists, counts, probe_ids, xq, mask, nprobe, nlist, lmax, d, out);
+  kernel<<<blocks, kThreads, smem, stream>>>(lists, counts, probe_ids, xq, mask, offsets,
+                                             row_pos, nprobe, nlist, lmax, d, out);
   return cudaGetLastError();
 }
 
@@ -148,25 +165,25 @@ cudaError_t launch(const float* lists, const int* counts, const int* probe_ids,
 
 // Returns the CUDA error of the launch (0 on success).  The caller sizes out
 // as (nq, nprobe, lmax) and keeps nq * nprobe below 2^31; vec4 needs d % 4 == 0
-// and 16-byte aligned lists and xq.
+// and 16-byte aligned lists and xq.  offsets: nullptr for the padded layout,
+// else the unpadded layout's (nlist + 1,), with row_pos and mask (n,) and
+// lists (n_rows, d) (see the top of this file); row_pos is not read padded.
 extern "C" int dfx_ivf_list_scan(const float* lists, const int* counts,
                                  const int* probe_ids, const float* xq,
-                                 const int8_t* mask, int nq, int nprobe, int nlist,
+                                 const int8_t* mask, const int* offsets,
+                                 const int* row_pos, int nq, int nprobe, int nlist,
                                  int lmax, int d, int l2, int vec4, float* out,
                                  void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+#define DFX_SCAN(V, L2)                                                                  \
+  launch<V, L2>(lists, counts, probe_ids, xq, mask, offsets, row_pos, nq, nprobe, nlist, \
+                lmax, d, out, stream)
   cudaError_t err;
-  if (vec4) {
-    err = l2 ? launch<true, true>(lists, counts, probe_ids, xq, mask, nq, nprobe, nlist,
-                                  lmax, d, out, stream)
-             : launch<true, false>(lists, counts, probe_ids, xq, mask, nq, nprobe, nlist,
-                                   lmax, d, out, stream);
-  } else {
-    err = l2 ? launch<false, true>(lists, counts, probe_ids, xq, mask, nq, nprobe, nlist,
-                                   lmax, d, out, stream)
-             : launch<false, false>(lists, counts, probe_ids, xq, mask, nq, nprobe, nlist,
-                                    lmax, d, out, stream);
-  }
+  if (vec4)
+    err = l2 ? DFX_SCAN(true, true) : DFX_SCAN(true, false);
+  else
+    err = l2 ? DFX_SCAN(false, true) : DFX_SCAN(false, false);
+#undef DFX_SCAN
   return static_cast<int>(err);
 }
 
@@ -249,25 +266,29 @@ struct FlatScore {
 
 constexpr int kMaxWarps = 8;  // consumer warps a partial block at most
 
-template <bool VEC4, bool L2, int L>
+// UNPADDED: the unpadded layout (offsets, row_pos); the padded instances
+// ignore both.
+template <bool VEC4, bool L2, int L, bool UNPADDED>
 __global__ void __launch_bounds__(32 * (kMaxWarps + 1))
 ivf_list_topk_partial(const ltk::Plan p, const float* __restrict__ lists,
                       const int* __restrict__ counts, const int* __restrict__ probe_ids,
                       const float* __restrict__ xq, const int8_t* __restrict__ mask, int d,
-                      float* __restrict__ part_s, int* __restrict__ part_p) {
+                      float* __restrict__ part_s, int* __restrict__ part_p,
+                      const int* __restrict__ offsets, const int* __restrict__ row_pos) {
   extern __shared__ __align__(128) unsigned char smem_topk[];
   float* q_s = reinterpret_cast<float*>(smem_topk + ((ltk::partial_head_bytes(p) + 15) & ~15));
   const int64_t q = blockIdx.x;
   for (int i = threadIdx.x; i < d; i += blockDim.x) q_s[i] = xq[q * d + i];
   __syncthreads();
   const FlatScore<VEC4, L2, L> score(q_s, d, threadIdx.x & 31);
-  ltk::partial(score, smem_topk, p, reinterpret_cast<const uint8_t*>(lists), counts, probe_ids,
-               mask, part_s, part_p);
+  ltk::partial<UNPADDED>(score, smem_topk, p, reinterpret_cast<const uint8_t*>(lists), counts,
+                         probe_ids, mask, part_s, part_p, offsets, row_pos);
 }
 
 // A warp a query: its splits' lists merged, the best k resolved.
 __global__ void __launch_bounds__(32)
 ivf_list_topk_merge(const ltk::Plan p, const int* __restrict__ row_pos,
+                    const int* __restrict__ offsets,
                     const int* __restrict__ probe_ids, const float* __restrict__ part_s,
                     const int* __restrict__ part_p, float* __restrict__ out_s,
                     int* __restrict__ out_p) {
@@ -279,7 +300,7 @@ ivf_list_topk_merge(const ltk::Plan p, const int* __restrict__ row_pos,
   ltk::merge_splits(top, s, pos, p, part_s, part_p, q, lane);
   for (int t = lane; t < p.k; t += 32) {
     const float sc = t < p.k2 ? s[t] : -INFINITY;
-    const int row = sc == -INFINITY ? -1 : ltk::resolve(pos[t], p, probe_ids, row_pos, q);
+    const int row = sc == -INFINITY ? -1 : ltk::resolve(pos[t], p, probe_ids, row_pos, q, offsets);
     out_s[static_cast<int64_t>(q) * p.k + t] = row < 0 ? -INFINITY : sc;
     out_p[static_cast<int64_t>(q) * p.k + t] = row;
   }
@@ -288,12 +309,14 @@ ivf_list_topk_merge(const ltk::Plan p, const int* __restrict__ row_pos,
 template <bool VEC4, bool L2, int L>
 cudaError_t launch_partial(const ltk::Plan& p, const float* lists, const int* counts,
                            const int* probe_ids, const float* xq, const int8_t* mask, int d,
-                           float* part_s, int* part_p, cudaStream_t stream) {
-  const auto kernel = ivf_list_topk_partial<VEC4, L2, L>;
+                           float* part_s, int* part_p, const int* offsets, const int* row_pos,
+                           cudaStream_t stream) {
+  const auto kernel = offsets ? ivf_list_topk_partial<VEC4, L2, L, true>
+                              : ivf_list_topk_partial<VEC4, L2, L, false>;
   const cudaError_t err = ltk::set_smem(reinterpret_cast<const void*>(kernel), p.smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(p.nq, p.splits), 32 * (p.warps + 1), p.smem, stream>>>(
-      p, lists, counts, probe_ids, xq, mask, d, part_s, part_p);
+      p, lists, counts, probe_ids, xq, mask, d, part_s, part_p, offsets, row_pos);
   return cudaGetLastError();
 }
 
@@ -301,9 +324,10 @@ template <bool VEC4, bool L2>
 cudaError_t launch_partial_lanes(int lanes, const ltk::Plan& p, const float* lists,
                                  const int* counts, const int* probe_ids, const float* xq,
                                  const int8_t* mask, int d, float* part_s, int* part_p,
-                                 cudaStream_t stream) {
-#define DFX_PARTIAL(L) \
-  launch_partial<VEC4, L2, L>(p, lists, counts, probe_ids, xq, mask, d, part_s, part_p, stream)
+                                 const int* offsets, const int* row_pos, cudaStream_t stream) {
+#define DFX_PARTIAL(L)                                                                          \
+  launch_partial<VEC4, L2, L>(p, lists, counts, probe_ids, xq, mask, d, part_s, part_p, offsets, \
+                              row_pos, stream)
   switch (lanes) {
     case 1: return DFX_PARTIAL(1);
     case 2: return DFX_PARTIAL(2);
@@ -326,9 +350,12 @@ cudaError_t launch_partial_lanes(int lanes, const ltk::Plan& p, const float* lis
 // (partial) and merge_slots (score, position) pairs (merge); lanes a power
 // of two up to 32 (ops/ivf_list_scan.py::_shape); vec4 = 1 only with d % 4 == 0 and
 // 16-byte aligned lists and xq; tma = 1 only with lists' first and last
-// byte on 16-byte boundaries.  part_s / part_p (nq, splits, k), out_s /
-// out_p (nq, k).
+// byte on 16-byte boundaries (unpadded: every row's).  part_s / part_p (nq,
+// splits, k), out_s / out_p (nq, k).  offsets: nullptr for the padded
+// layout, else the unpadded layout's (nlist + 1,), with row_pos and mask
+// (n,) and lists (n_rows, d) (see the top of this file).
 extern "C" int dfx_ivf_list_topk(const float* lists, const int* counts, const int* row_pos,
+                                 const int* offsets,
                                  const int* probe_ids, const float* xq, const int8_t* mask,
                                  const int* plan, int d, int l2, int vec4, int lanes,
                                  float* part_s, int* part_p, float* out_s, int* out_p,
@@ -341,7 +368,8 @@ extern "C" int dfx_ivf_list_topk(const float* lists, const int* counts, const in
   cudaError_t err = cudaSuccess;
   if (stages & 1) {
 #define DFX_LANES(V, L2) \
-  launch_partial_lanes<V, L2>(lanes, p, lists, counts, probe_ids, xq, mask, d, part_s, part_p, stream)
+  launch_partial_lanes<V, L2>(lanes, p, lists, counts, probe_ids, xq, mask, d, part_s, part_p, \
+                              offsets, row_pos, stream)
     if (vec4)
       err = l2 ? DFX_LANES(true, true) : DFX_LANES(true, false);
     else
@@ -352,8 +380,8 @@ extern "C" int dfx_ivf_list_topk(const float* lists, const int* counts, const in
   if (stages & 2) {
     err = ltk::set_smem(reinterpret_cast<const void*>(ivf_list_topk_merge), p.merge_smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ivf_list_topk_merge<<<p.nq, 32, p.merge_smem, stream>>>(p, row_pos, probe_ids, part_s,
-                                                             part_p, out_s, out_p);
+    ivf_list_topk_merge<<<p.nq, 32, p.merge_smem, stream>>>(p, row_pos, offsets, probe_ids,
+                                                             part_s, part_p, out_s, out_p);
     err = cudaGetLastError();
   }
   return static_cast<int>(err);

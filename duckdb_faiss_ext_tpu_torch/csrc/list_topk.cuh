@@ -30,6 +30,15 @@
 //       k2) candidates.
 //   (b) merge: one block a query merges its splits' lists (merge_splits),
 //       then the kernel finishes: K6 resolves positions, K2 rescores.
+// Two layouts of the payload.  Padded: list l's slot j is payload row
+// l * lmax + j, and a chunk is one contiguous run of rows.  Unpadded (given
+// `offsets`, (nlist + 1,), and `rows_at`, (n,)): the payload holds the rows
+// in storage order, list l's slot j is payload row rows_at[offsets[l] + j], and
+// lmax is only the longest list; the producer copies each row of a chunk
+// into its place in the stage (one bulk copy a row, from as many lanes, or
+// 4-byte cp.async copies where rows are not 16-byte aligned), and the mask
+// and the resolve index slots at offsets[l] + j.  Nothing is padded or
+// moved, and a row is still one contiguous read.
 // Ties go to the lower flat index in both launches, as exact_topk orders
 // them; each row's score comes from one fixed lane arrangement (the
 // functor's), so no plan changes a result.
@@ -142,6 +151,12 @@ __device__ __forceinline__ void copy16(void* dst, const void* src, int src_bytes
                : "memory");
 }
 
+// 4 bytes; dst and src 4-byte aligned.
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
 // `bar` tracks the completion of this thread's earlier cp.async copies (the
 // pending count is raised now and lowered when they land).
 __device__ __forceinline__ void copies_arrive(uint64_t* bar) {
@@ -244,11 +259,27 @@ __device__ __forceinline__ Slot slot_at(const Plan& p, const int* __restrict__ p
   return Slot{live ? lid : 0, cnt, (cnt + p.chunk_rows - 1) / p.chunk_rows};
 }
 
+// The slot of row r0 of list lid: the index of its mask byte (and, padded,
+// of its payload row).  The layout is a template parameter of the partial
+// launch, so that the padded instances carry no branch on it.
+template <bool UNPADDED>
+__device__ __forceinline__ int64_t slot_of(const Plan& p, const int* __restrict__ offsets,
+                                           int lid, int r0) {
+  if constexpr (UNPADDED)
+    return static_cast<int64_t>(offsets[lid]) + r0;
+  else
+    return static_cast<int64_t>(lid) * p.lmax + r0;
+}
+
 // The producer warp (all 32 lanes, converged): chunks [c0, c1) of query q's
 // chunks (its probe slots' in order), then one end item a consumer warp.
 // Split `split` takes c0 = split * ceil(T / splits) of the T chunks.
+// UNPADDED: the payload is unpadded (`offsets`, `rows_at`; see the top of
+// this file), and p.tma means that every row is 16-byte aligned.
+template <bool UNPADDED>
 __device__ inline void produce(const Ring& r, const Plan& p, const uint8_t* payload,
                                const int* __restrict__ counts, const int* __restrict__ probe_ids,
+                               const int* __restrict__ offsets, const int* __restrict__ rows_at,
                                int64_t q, int split, int lane) {
   const uintptr_t start = reinterpret_cast<uintptr_t>(payload);
   const uintptr_t end =
@@ -301,6 +332,28 @@ __device__ inline void produce(const Ring& r, const Plan& p, const uint8_t* payl
     }
     const int lid = sl.lid;
     const int rows = min(p.chunk_rows, sl.cnt - r0);
+    if constexpr (UNPADDED) {  // each row from its own place, packed in the stage
+      uint8_t* dst = r.stages + static_cast<size_t>(s) * p.stage_bytes;
+      const int* at = rows_at + slot_of<true>(p, offsets, lid, r0);
+      if (lane == 0) r.items[s] = Item{slot, lid, r0, rows, 0, {0, 0, 0}};
+      if (p.tma) {
+        if (lane == 0) bar_expect(full, static_cast<uint32_t>(rows) * p.row_bytes);
+        __syncwarp();
+        if (lane < rows)
+          bulk_copy(dst + lane * p.row_bytes,
+                    payload + static_cast<int64_t>(at[lane]) * p.row_bytes, p.row_bytes, full);
+      } else {
+        const int words = p.row_bytes / 4;
+        for (int t = 0; t < rows; ++t) {
+          const uint8_t* src = payload + static_cast<int64_t>(at[t]) * p.row_bytes;
+          for (int w = lane; w < words; w += 32) copy4(dst + t * p.row_bytes + 4 * w, src + 4 * w);
+        }
+        copies_arrive(full);
+        bar_arrive(full);
+      }
+      r0 += p.chunk_rows;
+      continue;
+    }
     const uintptr_t a = start + (static_cast<uintptr_t>(lid) * p.lmax + r0) *
                                     static_cast<uintptr_t>(p.row_bytes);
     const uintptr_t a16 = a & ~static_cast<uintptr_t>(15);
@@ -331,12 +384,15 @@ __device__ inline void produce(const Ring& r, const Plan& p, const uint8_t* payl
 // The partial launch's body; the kernel stages the functor's query data in
 // shared memory first (before the barrier below).  The block takes split
 // blockIdx.y of query blockIdx.x's chunks; thread block = one producer warp
-// and p.warps consumer warps.
-template <class Score>
+// and p.warps consumer warps.  UNPADDED: `offsets` / `rows_at` are the
+// unpadded layout's.
+template <bool UNPADDED = false, class Score>
 __device__ inline void partial(const Score& score, uint8_t* smem, const Plan& p,
                                const uint8_t* __restrict__ payload, const int* __restrict__ counts,
                                const int* __restrict__ probe_ids, const int8_t* __restrict__ mask,
-                               float* __restrict__ part_s, int* __restrict__ part_p) {
+                               float* __restrict__ part_s, int* __restrict__ part_p,
+                               const int* __restrict__ offsets = nullptr,
+                               const int* __restrict__ rows_at = nullptr) {
   const Ring r = carve(smem, p);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q = blockIdx.x, split = blockIdx.y;
@@ -352,7 +408,7 @@ __device__ inline void partial(const Score& score, uint8_t* smem, const Plan& p,
   const int cw = warp - 1;  // consumer warp, -1 for the producer
   TopK top;
   if (cw < 0) {
-    produce(r, p, payload, counts, probe_ids, q, split, lane);
+    produce<UNPADDED>(r, p, payload, counts, probe_ids, offsets, rows_at, q, split, lane);
   } else {
     float* top_s = r.lists_s + 2 * static_cast<size_t>(cw) * p.slots;
     top.init(top_s, reinterpret_cast<int*>(top_s + p.slots), p.k2, p.slots, lane);
@@ -361,7 +417,7 @@ __device__ inline void partial(const Score& score, uint8_t* smem, const Plan& p,
       bar_wait(&r.full[s], round_of(i, p) & 1);
       const Item it = r.items[s];
       if (it.slot < 0) break;  // warp-uniform
-      const int64_t slot0 = static_cast<int64_t>(it.lid) * p.lmax + it.r0;
+      const int64_t slot0 = slot_of<UNPADDED>(p, offsets, it.lid, it.r0);
       int row;
       const float sc = score.score_chunk(
           r.stages + static_cast<size_t>(s) * p.stage_bytes + it.off, it.rows, slot0, lane, row);
@@ -398,14 +454,17 @@ __device__ inline void merge_splits(TopK& top, float* s, int* p, const Plan& pl,
   if (top.cnt > 0) top.flush(lane);
 }
 
-// Storage row of a flat index of query q (-1 where none).
+// Storage row of a flat index of query q (-1 where none); `offsets`: the
+// unpadded layout's, whose row_pos is (n,) (nullptr: padded, (nlist, lmax)).
 __device__ __forceinline__ int resolve(int flat, const Plan& pl, const int* __restrict__ probe_ids,
-                                       const int* __restrict__ row_pos, int q) {
+                                       const int* __restrict__ row_pos, int q,
+                                       const int* __restrict__ offsets = nullptr) {
   if (flat == kNoPos) return -1;
   const int slot = flat / pl.lmax;
   const int lid = probe_ids[static_cast<int64_t>(q) * pl.nprobe + slot];
   if (lid < 0 || lid >= pl.nlist) return -1;
-  return row_pos[static_cast<int64_t>(lid) * pl.lmax + flat - slot * pl.lmax];
+  const int r = flat - slot * pl.lmax;
+  return row_pos[offsets ? slot_of<true>(pl, offsets, lid, r) : slot_of<false>(pl, offsets, lid, r)];
 }
 
 __host__ inline cudaError_t set_smem(const void* kernel, int smem) {

@@ -37,6 +37,7 @@ class IMIIndex(IVFIndex):
     MAX_TABLE_BYTES = 1 << 30
     _mirror_quantizer = False
     _supports_device_ingest = False
+    UNPADDED_FLAT = False
 
     def __init__(self, d: int, metric: Metric, metric_arg: float,
                  nbits: int, quantizer: Index, encoding: str = "Flat"):

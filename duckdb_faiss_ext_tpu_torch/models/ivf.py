@@ -181,6 +181,16 @@ class IVFIndex(IVFLayout, IVFServe, IVFDevice, IVFSharded, Index):
         return self._ids.shape[0]
 
     @property
+    def centroids(self) -> np.ndarray | None:
+        """The coarse centroid table (nlist, d) fp32, read-only; None until
+        trained."""
+        if self._centroids is None:
+            return None
+        view = self._centroids.view()
+        view.flags.writeable = False
+        return view
+
+    @property
     def is_trained(self) -> bool:
         if self.sq_type in SQ_LEVELS and self._sq_vmin is None:
             return False

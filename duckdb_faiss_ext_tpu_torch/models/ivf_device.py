@@ -33,7 +33,19 @@ codes) without the host path's adds and layout build.
   no cached ``Spill`` / ``ListLayout`` holds it (the JAX package deleted a
   buffer a cached tuple still held).
 
-A device-resident index serves through the padded layout only, in both
+Flat storage may instead be held unpadded (``UnpaddedState``): the rows
+appended in storage order to one buffer of ``expected_total`` rows on the
+card, nothing permuted, padded or spilled, and the lists an index over
+them (a stable sort of the assignments on the card) built with the layout
+(models/ivf_layout.py::UnpaddedLayout).  A Flat index takes it at its first
+add where the padded payload sized from ``expected_total`` would pass
+``LAYOUT_BUDGET_BYTES`` (and no ``lmax`` or ``spill_capacity`` sizes a
+padded one); the buffer is checked against the card's memory first, and
+grows (a copy) only if more rows come than were expected.
+Assignment is ``assign_topk`` 0, FAISS's nearest list, whatever the index
+was created with: no list has a capacity.
+
+A device-resident index serves through its layout only, in both
 precision modes (models/ivf_layout.py).  ``state_dict`` gathers the codes
 back in insertion order, so a checkpoint has the shared format and loads
 as an ordinary host-path index.  Not ported: the JAX package's XLA
@@ -59,6 +71,33 @@ from .ivf_layout import ListLayout, Spill, choose_lmax
 _CHUNK = 1 << 18
 
 
+class UnpaddedState:
+    """The card buffer of a device-resident unpadded Flat index: rows
+    [0, n) of ``payload`` in storage order."""
+
+    __slots__ = ("payload", "n")
+    #: the index's layout plan (models/ivf_layout.py)
+    plan = ("unpadded", None)
+
+    def __init__(self, capacity: int, d: int, device: torch.device):
+        self.payload = torch.empty((max(int(capacity), 1), d),
+                                   dtype=torch.float32, device=device)
+        self.n = 0
+
+    def append(self, x: torch.Tensor) -> None:
+        """Rows x after the stored ones; a full buffer grows by half (a
+        copy) first."""
+        need = self.n + x.shape[0]
+        cap = self.payload.shape[0]
+        if need > cap:
+            grown = self.payload.new_empty((max(need, cap + cap // 2),
+                                            self.payload.shape[1]))
+            grown[:self.n] = self.payload[:self.n]
+            self.payload = grown
+        self.payload[self.n:need] = x
+        self.n = need
+
+
 class DeviceResidentState:
     """Card tensors and host bookkeeping of a device-resident layout."""
 
@@ -82,6 +121,11 @@ class DeviceResidentState:
         self.spill_assign = np.empty((0,), np.int32)
         self.spill_pos = np.empty((0,), np.int32)
         self.spill_n = 0
+
+    @property
+    def plan(self):
+        """The index's layout plan (models/ivf_layout.py)."""
+        return ("device", self.lmax)
 
     def grow_spill(self, need: int) -> None:
         """Spill capacity for ``need`` rows: a power of two of at least 128
@@ -200,10 +244,11 @@ class IVFDevice:
                    lmax: int | None = None,
                    spill_capacity: int | None = None) -> None:
         """``add`` / ``add_with_ids`` for rows on the card.  The first call
-        fixes the padded list length: ``lmax`` (rounded up by
-        ``choose_lmax``), or ``choose_lmax`` of twice the balanced list
-        length for ``expected_total`` rows.  ``spill_capacity`` sizes the
-        spill buffer up front."""
+        fixes the layout (the module docstring) and its size: the padded
+        list length ``lmax`` (rounded up by ``choose_lmax``), or
+        ``choose_lmax`` of twice the balanced list length for
+        ``expected_total`` rows, with ``spill_capacity`` sizing the spill
+        buffer up front; the unpadded buffer's ``expected_total`` rows."""
         self._require_trained()
         codec = self._device_ingest_codec()
         x = self._device_rows(x, "vectors")
@@ -223,6 +268,14 @@ class IVFDevice:
                                               spill_capacity)
         dr = self._dr
         self._invalidate()      # no cached layout holds the payload now
+        if isinstance(dr, UnpaddedState):
+            self._check_unpadded_fits(dr.n + m)
+            assign = self._assign_lists(x)
+            dr.append(x)
+            self._ids = np.concatenate([self._ids, ids])
+            self._assign = np.concatenate([self._assign, assign])
+            self._invalidate()
+            return
 
         t = min(int(self.assign_topk or 0), self.nlist)
         if t > 1:
@@ -266,12 +319,16 @@ class IVFDevice:
         self._assign = np.concatenate([self._assign, assign])
         self._invalidate()
 
-    def _new_device_state(self, codec, expected_total, lmax,
-                          spill_capacity) -> DeviceResidentState:
+    def _new_device_state(self, codec, expected_total, lmax, spill_capacity):
         if self._nstored:
             raise errors.InvalidInputError(
                 "device-resident ingest cannot be mixed with host-path adds "
                 "on the same index")
+        if (codec is None and self.UNPADDED_FLAT and lmax is None
+                and not spill_capacity and expected_total is not None
+                and self._padded_over_budget(expected_total)):
+            self._check_unpadded_fits(int(expected_total))
+            return UnpaddedState(int(expected_total), self.d, self.device)
         if lmax is None:
             if expected_total is None:
                 raise errors.InvalidInputError(
@@ -287,6 +344,13 @@ class IVFDevice:
         if spill_capacity:
             dr.grow_spill(int(spill_capacity))
         return dr
+
+    def _padded_over_budget(self, expected_total: int) -> bool:
+        """Whether a Flat padded payload sized from ``expected_total``, as
+        the first add sizes it, would pass ``LAYOUT_BUDGET_BYTES``."""
+        padded = choose_lmax(max(128, int(2 * expected_total
+                                          / max(self.nlist, 1))))
+        return self.nlist * padded * self.d * 4 > self.LAYOUT_BUDGET_BYTES
 
     def _scatter_chunk(self, xc, codec, keep, flat, spill_at) -> None:
         """Encode rows on the card and write them in place: kept rows into
@@ -383,6 +447,8 @@ class IVFDevice:
         """The stored row of storage position ``key``, fetched from its slot
         or spill row on the card and decoded."""
         dr = self._dr
+        if isinstance(dr, UnpaddedState):
+            return dr.payload[key].cpu().numpy()
         rec = int(dr.slot[key])
         row = (dr.payload[int(self._assign[key]), rec] if rec >= 0
                else dr.spill_payload[-rec - 1]).cpu()
@@ -396,6 +462,8 @@ class IVFDevice:
         """The stored rows (codes or fp32) in insertion order, gathered on
         the card and fetched once (O(corpus bytes): for checkpoints)."""
         dr = self._dr
+        if isinstance(dr, UnpaddedState):
+            return dr.payload[:dr.n].cpu().numpy()
         w = dr.payload.shape[2]
         out = dr.payload.new_empty((self._nstored, w))
         kept = dr.slot >= 0

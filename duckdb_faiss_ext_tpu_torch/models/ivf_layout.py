@@ -24,6 +24,19 @@ the selector masks aligned with each.
   precision modes.  sq6 stays in packed rows: the JAX
   package's plane-major (nlist, 3·lmax, ceil(d/4)) fold was a Mosaic tiling
   workaround.
+* The unpadded layout (Flat storage, the plan ``("unpadded", None)``):
+  the fp32 rows stay in storage order, on the card once, and the lists are
+  an index over them: ``row_pos`` (n,) int32 holds each list's storage
+  rows in list order (a stable sort of the assignments on the device),
+  ``offsets`` (nlist + 1,) where each list starts; no padding, no spill.
+  The fused K6 reads it in place (ops/ivf_list_scan.py).  A Flat index
+  takes it where the padded layout would pass ``LAYOUT_BUDGET_BYTES`` (and
+  so be capped and spill): lists are uneven by nature, and at the
+  reference's own deployment (IVF2048 over 8.8M x 1536) the longest is six
+  times the mean, so padding would take 328 GB for 54 GB of rows.  Its own
+  check is against the card's memory (``UNPADDED_MEMORY_SHARE``); an index
+  whose rows do not fit raises.  A device-resident Flat index ingests
+  straight into it (models/ivf_device.py).
 * The sorted+gather layout: rows (or codes) sorted by list in one buffer,
   for the elementwise metrics, the SQ decode path and searches without a
   layout plan; for the int8 SQ gather scan, the sorted rows' rn / rs
@@ -52,6 +65,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import errors
 from ..ops.ivf_pq_scan import pq_row_terms
 from ..ops.selectors import device_row_mask, labels_for_device_mask
 from ..ops.sq import FLOAT_CODECS, sq_row_norms, sq_row_sums
@@ -86,6 +100,11 @@ class ListLayout(NamedTuple):
     rt: torch.Tensor | None = None   # PQ / RQ under L2: (nlist, lmax) fp32
     #                                  ‖res‖² + 2⟨c, res⟩, 0 past the count
 
+    @property
+    def lmax(self) -> int:
+        """Slots a list."""
+        return self.payload.shape[1]
+
 
 class Spill(NamedTuple):
     """Overflow rows of capped lists, padded to s_pad rows."""
@@ -99,6 +118,36 @@ class Spill(NamedTuple):
     #: (nlist + 1,) int64: list l's rows are [offsets[l], offsets[l + 1])
     #: (the rows are sorted by list)
     offsets: torch.Tensor | None = None
+
+
+class UnpaddedLayout(NamedTuple):
+    """Flat rows in storage order and the lists as an index over them:
+    list l's j-th row is ``payload[row_pos[offsets[l] + j]]``."""
+    payload: torch.Tensor      # (cap, d) fp32 rows in storage order, cap ≥ n
+    counts: torch.Tensor       # (nlist,) int32 rows a list
+    offsets: torch.Tensor      # (nlist + 1,) int32 each list's first slot
+    row_pos: torch.Tensor      # (n,) int32 storage row of each slot
+    centroids: torch.Tensor    # (nlist, d) fp32
+    lmax: int                  # the longest list
+
+
+def list_index(assign: torch.Tensor, nlist: int):
+    """(counts (nlist,), offsets (nlist + 1,), row_pos (n,)) int32 of the
+    lists ``assign`` (n,) on its device: each list's rows in storage order,
+    by a stable sort of the assignments."""
+    row_pos = torch.sort(assign.long(), stable=True).indices.to(torch.int32)
+    counts = torch.bincount(assign.long(), minlength=nlist)
+    offsets = torch.zeros(nlist + 1, dtype=torch.int64, device=assign.device)
+    torch.cumsum(counts, 0, out=offsets[1:])
+    return counts.to(torch.int32), offsets.to(torch.int32), row_pos
+
+
+def device_memory_bytes(device: torch.device) -> int | None:
+    """A CUDA device's memory in bytes; None for any other device (no
+    limit is checked there)."""
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.get_device_properties(device).total_memory)
 
 
 class SortedLayout(NamedTuple):
@@ -123,12 +172,21 @@ class IVFLayout:
     #: capped layout, the dense spill scan would dominate and the
     #: sorted+gather layout is used instead.
     SPILL_FRACTION_MAX = 0.2
+    #: share of the card's memory that an unpadded layout's rows may take;
+    #: the rest holds the search's temporaries, the mask and the per-list
+    #: index (a class attribute, so a test can set it)
+    UNPADDED_MEMORY_SHARE = 0.9
+    #: whether a Flat index over budget takes the unpadded layout (IMIIndex
+    #: keeps the capped layout and its spill; a class attribute, so a test
+    #: can hold an IVF index to the capped layout)
+    UNPADDED_FLAT = True
 
     def _invalidate(self) -> None:
         self._version += 1
         self._counts_cache = None
         self._plan_cache = None
         self._layout: ListLayout | None = None
+        self._unpadded: UnpaddedLayout | None = None
         self._spill: Spill | None = None
         self._sorted: SortedLayout | None = None
         self._sorted_extras = None
@@ -153,11 +211,16 @@ class IVFLayout:
                          SPILL_FRACTION_MAX);
         ("full", None) — the padded (nlist, lmax, w) layout fits the budget;
         ("spill", L)   — lists capped at L, overflow rows in a spill
-                         region scanned densely and merged;
+                         region scanned densely and merged (SQ, PQ / RQ,
+                         IMI);
+        ("unpadded", None) — Flat rows in storage order with a per-list
+                         index (``UnpaddedLayout``), where the padded
+                         layout would pass the budget;
         ("device", L)  — device-resident lists of length L, the only
-                         serving path of such an index."""
+                         serving path of such an index (an unpadded
+                         device-resident index: ("unpadded", None))."""
         if self._dr is not None:
-            return ("device", self._dr.lmax)
+            return self._dr.plan
         if self.metric.name not in ("L2", "INNER_PRODUCT"):
             return None
         if self.sq_type is not None and (self.sq_type in FLOAT_CODECS
@@ -172,6 +235,9 @@ class IVFLayout:
         budget = self.LAYOUT_BUDGET_BYTES
         if self.nlist * full * width <= budget:
             plan = ("full", None)
+        elif self._codes is None and self.UNPADDED_FLAT:
+            self._check_unpadded_fits(self._nstored)
+            plan = ("unpadded", None)
         else:
             budget_lmax = budget // max(self.nlist * width, 1)
             lmax = 128
@@ -184,6 +250,36 @@ class IVFLayout:
                     else None)
         self._plan_cache = (plan,)
         return plan
+
+    def _check_unpadded_fits(self, rows: int) -> None:
+        """Raise unless ``rows`` fp32 rows take at most
+        ``UNPADDED_MEMORY_SHARE`` of the card's memory."""
+        total = device_memory_bytes(self.device)
+        need = rows * self.d * 4
+        if total is not None and need > self.UNPADDED_MEMORY_SHARE * total:
+            raise errors.InvalidInputError(
+                f"the index's {rows} rows of {self.d} fp32 ({need / 1e9:.1f} "
+                f"GB) do not fit the card's memory ({total / 1e9:.1f} GB, "
+                f"{self.UNPADDED_MEMORY_SHARE:.0%} of it for the rows) in any "
+                f"layout; use SQ or PQ storage, or place the index over "
+                f"several devices")
+
+    def _build_unpadded_layout(self) -> UnpaddedLayout:
+        """The unpadded layout on the device, its per-list index built
+        once per mutation."""
+        if self._unpadded is not None:
+            return self._unpadded
+        with build_span("models.layout_build"):
+            dev = self.device
+            payload = (self._dr.payload if self._dr is not None
+                       else torch.from_numpy(self._xb).to(dev))
+            counts, offsets, row_pos = list_index(
+                torch.from_numpy(self._assign).to(dev), self.nlist)
+            lmax = max(1, int(self._counts().max()) if self._nstored else 1)
+            self._unpadded = UnpaddedLayout(
+                payload, counts, offsets, row_pos,
+                torch.from_numpy(self._centroids).to(dev), lmax)
+        return self._unpadded
 
     def _build_list_layout(self, lmax_cap: int | None = None):
         """Host-side padded list layout: (payload (nlist, lmax, w) of the
@@ -224,9 +320,12 @@ class IVFLayout:
                 spill = (raw[sp], self._assign[sp], sp.astype(np.int32))
         return payload, kept.astype(np.int32), row_pos, spill
 
-    def _build_device_layout(self) -> ListLayout:
+    def _build_device_layout(self) -> ListLayout | UnpaddedLayout:
         """The padded layout (and spill region) on the device, built once
-        per mutation."""
+        per mutation; the unpadded layout where that is the plan."""
+        plan = self._layout_plan()
+        if plan is not None and plan[0] == "unpadded":
+            return self._build_unpadded_layout()
         if self._layout is not None:
             return self._layout
         with build_span("models.layout_build"):
@@ -375,7 +474,9 @@ class IVFLayout:
 
     def _layout_mask(self, selector) -> torch.Tensor:
         """(nlist, lmax) int8 mask over the padded layout (``_pallas_mask``
-        in the JAX package), built on the device from its row positions."""
+        in the JAX package), or (n,) over the unpadded layout's slots,
+        built on the device from its row positions once per selector and
+        version."""
         def build():
             lay = self._build_device_layout()
             return self._row_mask(selector, lay.row_pos)

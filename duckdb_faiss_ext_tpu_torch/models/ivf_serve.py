@@ -33,11 +33,19 @@ and path selection.
   query blocks.  On a CUDA index these are the hand-written kernels; on a
   CPU index their plain versions.
 * Without one (elementwise metrics, SQ in parity mode, the float SQ
-  codecs, or a layout over budget): the sorted+gather scan
+  codecs, or an SQ / PQ layout over budget): the sorted+gather scan
   (ops/ivf_scan.py), as in the JAX package; for SQ the fp32 decode scan,
   or for SQ8 / SQ4 / SQ6 the int8 gather scan when the int8 path is active
   and d ≥ 16; for PQ / RQ the residual decode scan.  The float codecs
   never reach the int8 kernels (K2 / K3 / K5 / K9).
+
+* With the unpadded plan (Flat storage whose padded layout would pass the
+  budget, or a device-resident index built so): the padded layout's
+  stages, with K6 over the unpadded layout at every batch size (its raw
+  launch above K6's k limit), in query blocks sized from the longest
+  list; the pair tiles K7 / K10 read padded tiles, so the pairs gate is
+  not consulted, and there is no spill.  Each such search counts
+  ``models.unpadded_searches``.
 
 The stages run one after another.  The JAX package's single-jit
 ``_fused_sq_pairs_serve`` joined the same stages into one XLA program
@@ -88,9 +96,15 @@ from ..ops.sq_spill import CODECS as SPILL_KERNEL_CODECS
 from ..ops.sq_spill import sq_spill_search
 from ..params import EMPTY
 from ..utils.config import config, next_pow2, sq_int8_active
-from ..utils.profiling import span, spanned
+from ..utils.profiling import count, span, spanned
 from ..utils.transfer import upload_queries
 from .base import SearchResult, as_matrix, dedup_by_key
+from .ivf_layout import UnpaddedLayout
+
+
+#: searches served by the unpadded layout
+UNPADDED_SEARCHES = "models.unpadded_searches"
+count(UNPADDED_SEARCHES, 0)
 
 
 def _labels_through(table: np.ndarray):
@@ -232,7 +246,9 @@ class IVFServe:
             return self._search_sharded(xq_pad, nq, k, nprobe_eff, selector)
         if self._layout_serves(k):
             lay = self._build_device_layout()
-            lmax = lay.payload.shape[1]
+            lmax = lay.lmax
+            if isinstance(lay, UnpaddedLayout):
+                count(UNPADDED_SEARCHES)
             spill = self._spill
             # Spill rows are candidates beyond the capped layout: k_eff
             # counts them, or k > nprobe·lmax would truncate to the slots.
@@ -337,8 +353,9 @@ class IVFServe:
         return res
 
     def _scan_lists(self, lay, xq, nprobe, k_kernel, k_eff, mask, sp_mask):
-        """One query block through the padded layout: coarse top-nprobe,
-        the list search (``_list_search``), and the spill region merged in.
+        """One query block through the padded (or unpadded) layout: coarse
+        top-nprobe, the list search (``_list_search``), and the spill region
+        merged in.
         Returns max-oriented (scores, positions) (nq, k_eff)."""
         with span("models.coarse"):
             probe_ids = coarse_topk(xq, lay.centroids, nprobe,
@@ -353,10 +370,10 @@ class IVFServe:
     def _list_search(self, lay, xq, probe_ids, k, mask):
         """The list kernels over a padded layout for given probes: K8 for
         PQ / RQ, K2 or K3 / K9 (by pairs_wanted) with the exact rerank for
-        SQ, K6 or K7 / K10 for Flat.  Returns max-oriented (scores,
-        storage positions) (nq, k)."""
+        SQ, K6 or K7 / K10 for Flat; over the unpadded layout K6.  Returns
+        max-oriented (scores, storage positions) (nq, k)."""
         metric = self.metric.name
-        lmax = lay.payload.shape[1]
+        lmax = lay.lmax
         if self.sq_type is not None:
             nprobe = probe_ids.shape[1]
             vmin, scale = self._sq_ranges(lay.payload.device)
@@ -377,6 +394,12 @@ class IVFServe:
                 lay.payload, lay.counts, lay.row_pos, lay.codebooks,
                 lay.centroids, probe_ids, xq, mask, k=k, metric=metric,
                 codec=self.pq_codec, row_terms=lay.rt)
+        if isinstance(lay, UnpaddedLayout):
+            # K6 reads the lists in place; the pair tiles read padded tiles.
+            self._last_scan_path = "unpadded"
+            return ivf_list_search(lay.payload, lay.counts, lay.row_pos,
+                                   probe_ids, xq, mask, k=k, metric=metric,
+                                   offsets=lay.offsets, lmax=lmax)
         if self.pairs_wanted(xq.shape[0], lmax):
             mega = config.pairs_impl == "mega"
             self._last_scan_path = "pairs-mega-flat" if mega else "pairs-flat"

@@ -194,13 +194,19 @@ def pad_to(scores: torch.Tensor, pos: torch.Tensor, k: int):
 
 
 def resolve(flat: torch.Tensor, scores: torch.Tensor, probe_ids, row_pos,
-            lmax: int):
+            lmax: int, offsets=None):
     """Storage rows of flat indices (probe slot · lmax + slot) through
-    ``probe_ids`` and ``row_pos``; -1 where the score is -inf or the index
-    is missing."""
-    nlist = row_pos.shape[0]
+    ``probe_ids`` and ``row_pos`` ((nlist, lmax); unpadded: (n,), list l's
+    slots from ``offsets[l]``); -1 where the score is -inf or the index is
+    missing."""
+    nlist = row_pos.shape[0] if offsets is None else offsets.shape[0] - 1
     f = flat.clamp(min=0).long()
     lids = probe_ids.long().gather(1, f // lmax).clamp(0, nlist - 1)
-    pos = row_pos[lids, f % lmax]
+    if offsets is None:
+        pos = row_pos[lids, f % lmax]
+    else:
+        at = (offsets[lids].long() + f % lmax).clamp(max=max(
+            row_pos.shape[0] - 1, 0))
+        pos = row_pos[at] if row_pos.shape[0] else torch.full_like(at, -1)
     missing = (flat < 0) | torch.isneginf(scores)
     return torch.where(missing, -1, pos).to(torch.int32)

@@ -157,6 +157,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dfx_ivf_list_scan.restype = ctypes.c_int
     lib.dfx_ivf_list_scan.argtypes = [
         p, p, p, p, p,      # lists, counts, probe_ids, xq, mask
+        p, p,               # offsets (or None), row_pos
         i, i, i, i, i,      # nq, nprobe, nlist, lmax, d
         i, i,               # l2, vec4
         p, p,               # out, stream
@@ -164,7 +165,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     plan = ctypes.POINTER(ctypes.c_int)
     lib.dfx_ivf_list_topk.restype = ctypes.c_int
     lib.dfx_ivf_list_topk.argtypes = [
-        p, p, p, p, p, p,   # lists, counts, row_pos, probe_ids, xq, mask
+        p, p, p, p,         # lists, counts, row_pos, offsets (or None)
+        p, p, p,            # probe_ids, xq, mask
         plan, i, i, i, i,   # plan (list_topk.cuh::Plan), d, l2, vec4, lanes
         p, p, p, p,         # part_s, part_p, out_s, out_p
         i, p,               # stages, stream

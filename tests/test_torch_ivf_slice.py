@@ -154,9 +154,12 @@ def test_elementwise_metric_takes_the_gather_path(catalog, pcat):
 
 
 def _small_budget(idx, d):
-    """Cap the padded layout at lmax 256 over 8 lists."""
+    """Cap the padded layout at lmax 256 over 8 lists (the capped layout
+    and its spill, not the unpadded layout a Flat index takes over budget
+    by default)."""
     idx.LAYOUT_BUDGET_BYTES = 8 * 256 * d * 4
     idx.SPILL_FRACTION_MAX = 1.0
+    idx.UNPADDED_FLAT = False
 
 
 def test_spill_layout_matches_jax(catalog, pcat):

@@ -6,7 +6,8 @@
 * the kernel build finds nvcc or raises, and names the library by a hash
   of the sources and the headers they include;
 * on the card (``-m gpu``), the CUDA kernels (flat top-k, IVF list scan
-  and the fused IVF,Flat and IVF,SQ list searches, IVF pair tiles, the
+  and the fused IVF,Flat (padded and unpadded layouts) and IVF,SQ list
+  searches, IVF pair tiles, the
   int8 IVF,SQ list scan, pair tiles and spill windows,
   the IVF-PQ / IVF-RQ list search, the pipelined pair tiles K9 / K10, and
   the fused pair-tile IVF,Flat searches K7 / K10) match their plain
@@ -315,6 +316,25 @@ def _live_row_pos(counts, lmax):
         lmax, device=counts.device)[None, :], -1).to(torch.int32)
 
 
+def _assert_search_close(got, want, xq):
+    """A list search's (scores, positions) against its plain version's:
+    scores within 1e-5 of each query's scale, positions equal where
+    neighbouring scores are further apart.  Returns the positions."""
+    s, p, rs, rp = (t.cpu().numpy() for t in (*got, *want))
+    finite = np.isfinite(rs)
+    np.testing.assert_array_equal(np.isfinite(s), finite)
+    tol = 1e-5 * np.maximum(np.abs(np.where(finite, rs, 0)).max(1),
+                            (xq * xq).sum(1).cpu().numpy())
+    assert (np.abs(np.where(finite, s - rs, 0)) <= tol[:, None]).all()
+    gap = np.abs(np.diff(np.where(finite, rs, -1e30), axis=1)) \
+        > 2 * tol[:, None]
+    sep = finite.copy()
+    sep[:, 1:] &= gap
+    sep[:, :-1] &= gap
+    np.testing.assert_array_equal(p[sep], rp[sep])
+    return p
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
 @pytest.mark.parametrize("d,k", [(8, 1), (128, 10), (1536, 100)])
@@ -340,23 +360,74 @@ def test_fused_list_search_matches_plain_on_card(d, k, metric):
         :, :nprobe].to(torch.int32).contiguous()
     args = (lists, counts, _live_row_pos(counts, lmax), probe, xq, mask)
     before = (k6.LAUNCHES, k6.TOPK_LAUNCHES)
-    s, p = k6.ivf_list_search(*args, k=k, metric=metric)
+    got = k6.ivf_list_search(*args, k=k, metric=metric)
     torch.cuda.synchronize()
-    rs, rp = k6.ivf_list_search_reference(*args, k=k, metric=metric)
-    s, p, rs, rp = (t.cpu().numpy() for t in (s, p, rs, rp))
-    finite = np.isfinite(rs)
-    np.testing.assert_array_equal(np.isfinite(s), finite)
-    tol = 1e-5 * np.maximum(np.abs(np.where(finite, rs, 0)).max(1),
-                            (xq * xq).sum(1).cpu().numpy())
-    assert (np.abs(np.where(finite, s - rs, 0)) <= tol[:, None]).all()
-    gap = np.abs(np.diff(np.where(finite, rs, -1e30), axis=1)) \
-        > 2 * tol[:, None]
-    sep = finite.copy()
-    sep[:, 1:] &= gap
-    sep[:, :-1] &= gap
-    np.testing.assert_array_equal(p[sep], rp[sep])
+    _assert_search_close(got, k6.ivf_list_search_reference(
+        *args, k=k, metric=metric), xq)
     k6.ivf_list_search(*args, k=k6.MAX_K + 1, metric=metric)
     assert (k6.LAUNCHES, k6.TOPK_LAUNCHES) == (before[0] + 1, before[1] + 1)
+
+
+def _unpadded(counts, n_rows, g):
+    """An unpadded layout's (offsets, row_pos) for ``counts``: each list's
+    slots a random draw of distinct storage rows, in no order."""
+    offsets = torch.zeros(counts.shape[0] + 1, dtype=torch.int64,
+                          device=counts.device)
+    offsets[1:] = torch.cumsum(counts.long(), 0)
+    n = int(offsets[-1])
+    rows = torch.randperm(n_rows, device=counts.device, generator=g)[:n]
+    return offsets.to(torch.int32), rows.to(torch.int32).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("d,k,shift", [(8, 1, 0), (30, 10, 0), (128, 10, 1),
+                                       (1536, 100, 0)])
+def test_fused_list_search_unpadded_matches_plain_on_card(d, k, shift,
+                                                          metric):
+    """The fused K6 over the unpadded layout (rows in storage order, each
+    list's slots through offsets and row_pos, the mask aligned with them)
+    against its plain version on the same card tensors, as the padded
+    case above: per-row bulk copies at d 8 / 1536, 4-byte copies where rows
+    are not 16-byte aligned (d 30, and a payload shifted by one float);
+    above its k limit the raw launch over the same layout serves, and its
+    raw scores match the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the H100)")
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    nlist, lmax, nq, nprobe = 16, 300, 64, 5
+    counts = torch.randint(1, lmax, (nlist,), device="cuda", generator=g,
+                           dtype=torch.int32)
+    counts[0], counts[1] = 0, lmax
+    n_rows = int(counts.sum()) + 500
+    store = torch.randn(n_rows * d + shift, device="cuda", generator=g)
+    lists = store[shift:].view(n_rows, d)
+    offsets, row_pos = _unpadded(counts, n_rows, g)
+    mask = (torch.rand(row_pos.shape[0], device="cuda", generator=g)
+            < 0.6).to(torch.int8)
+    xq = torch.randn(nq, d, device="cuda", generator=g)
+    probe = torch.rand(nq, nlist, device="cuda", generator=g).argsort(1)[
+        :, :nprobe].to(torch.int32).contiguous()
+    args = (lists, counts, row_pos, probe, xq, mask)
+    layout = dict(offsets=offsets, lmax=lmax)
+    before = (k6.LAUNCHES, k6.TOPK_LAUNCHES)
+    passing = set(row_pos[mask != 0].cpu().tolist())
+    for kk in (k, k6.MAX_K + 1):
+        got = k6.ivf_list_search(*args, k=kk, metric=metric, **layout)
+        torch.cuda.synchronize()
+        p = _assert_search_close(got, k6.ivf_list_search_reference(
+            *args, k=kk, metric=metric, **layout), xq)
+        assert set(p[p >= 0].tolist()) <= passing
+    assert (k6.LAUNCHES, k6.TOPK_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    raw = k6.ivf_list_scan(lists, counts, probe, xq, mask, metric,
+                           row_pos=row_pos, **layout)
+    want = k6.ivf_list_scan_reference(lists, counts, probe, xq, mask, metric,
+                                      row_pos=row_pos, **layout)
+    assert torch.equal(torch.isneginf(raw), torch.isneginf(want))
+    live = torch.isfinite(want)
+    torch.testing.assert_close(raw[live], want[live], rtol=1e-5, atol=1e-3)
 
 
 @pytest.mark.gpu

@@ -248,6 +248,7 @@ def test_ivf_filtered_search_masks_on_device(monkeypatch, kind, spill, wrap):
     if spill:
         ix.LAYOUT_BUDGET_BYTES = 8 * 256 * d * 4   # lists capped at 256
         ix.SPILL_FRACTION_MAX = 0.5
+        ix.UNPADDED_FLAT = False                  # and the rest spilled
     dt.faiss_add((ids, xb), "m", catalog=cat)
     keep = ids[::3]
     sel = (psel.SetSelector(keep) if kind == "set"

@@ -355,7 +355,10 @@ Phases (any failure raises and the script exits non-zero):
    and ``LAUNCHES`` zeroed before and read after; then the fused search
    and its plain version timed in turns at k 10, masked, with the device
    time a launch (torch.profiler), the bound (the passing rows of the
-   distinct probed lists read once) and the memory peak.
+   distinct probed lists read once) and the memory peak.  Then the same
+   search as a filtered index serves it, through the mask's pass index
+   (``pass_index_search``), held bit for bit against the masked search
+   (IP and L2 at k 10, IP at k 1025) and timed against it in turns.
 
 Phases 7 (K1's coarse stages), 28-30 and 32 (its checked cases) add
 their launches to the kernels line, and phase 33 its K6 launches.
@@ -6020,7 +6023,59 @@ def phase_unpadded(smi):
         f"err {max(errs):.3g} (raw {raw_err:.3g}); peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
         f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    launches += pass_index_search(lists, counts, offsets, row_pos, mask,
+                                  probe, xq, lmax, b[0], smi)
     return max(errs), launches
+
+
+def pass_index_search(lists, counts, offsets, row_pos, mask, probe, xq, lmax,
+                      bound_ms, smi):
+    """Phase 33's filtered search as a filtered unpadded index serves it:
+    K6 over the mask's pass index (models/ivf_layout.py::pass_index) with
+    no mask, held bit for bit against K6 over the full layout with the
+    mask (inner product and L2 at k 10, and k 1025 through the raw
+    launch), then both timed in turns with their device time a launch.
+    Returns K6's launches."""
+    from duckdb_faiss_ext_tpu_torch.models.ivf_layout import (UnpaddedLayout,
+                                                              pass_index)
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+    from duckdb_faiss_ext_tpu_torch.ops.list_topk import pad_to
+
+    t0 = time.perf_counter()
+    before = k6.TOPK_LAUNCHES + k6.LAUNCHES
+    full = UnpaddedLayout(lists, counts, offsets, row_pos, lists[:0], lmax)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter()
+    idx = pass_index(full, mask)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t_build) * 1e3
+
+    def search(lay, m, metric, k):
+        return pad_to(*k6.ivf_list_search(
+            lists, lay.counts, lay.row_pos, probe, xq, m, k=k, metric=metric,
+            offsets=lay.offsets, lmax=lay.lmax), k)
+
+    for metric, k in (("INNER_PRODUCT", K), ("L2", K),
+                      ("INNER_PRODUCT", k6.MAX_K + 1)):
+        want = search(full, mask, metric, k)
+        got = search(idx, None, metric, k)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"the pass index's {metric} k {k} answers differ from the "
+              f"masked search's")
+    new, old = (lambda: search(idx, None, "INNER_PRODUCT", K),
+                lambda: search(full, mask, "INNER_PRODUCT", K))
+    ms, masked_ms = time_pair(new, old, reps=6)
+    dev_new, dev_old = device_ms(new, reps=6), device_ms(old, reps=6)
+    read = int(idx.counts[probe.long()].sum())
+    log(f"phase 33 pass index: {int(idx.row_pos.numel())} passing slots, "
+        f"lmax {idx.lmax} (of {lmax}), built in {build_ms:.1f} ms; "
+        f"answers equal bit for bit to the masked search's (IP and L2 k {K}, "
+        f"IP k {k6.MAX_K + 1}); IP k {K}: {ms:.3f} ms vs masked "
+        f"{masked_ms:.3f} ms (median CUDA events, in turns); device "
+        f"{dev_new} vs masked {dev_old}; {read} rows read a call "
+        f"({read * 4 * lists.shape[1] / 1e9:.2f} GB); bound {bound_ms:.3f} "
+        f"ms; {time.perf_counter() - t0:.1f} s [{smi}]")
+    return k6.TOPK_LAUNCHES + k6.LAUNCHES - before
 
 
 def main():

@@ -36,7 +36,10 @@ the selector masks aligned with each.
   times the mean, so padding would take 328 GB for 54 GB of rows.  Its own
   check is against the card's memory (``UNPADDED_MEMORY_SHARE``); an index
   whose rows do not fit raises.  A device-resident Flat index ingests
-  straight into it (models/ivf_device.py).
+  straight into it (models/ivf_device.py).  A filtered search reads the
+  same kind of index over the slots the selector passes (``pass_index``,
+  built once per selector and version), so K6 reads no row the filter
+  drops.
 * The sorted+gather layout: rows (or codes) sorted by list in one buffer,
   for the elementwise metrics, the SQ decode path and searches without a
   layout plan; for the int8 SQ gather scan, the sorted rows' rn / rs
@@ -142,6 +145,25 @@ def list_index(assign: torch.Tensor, nlist: int):
     return counts.to(torch.int32), offsets.to(torch.int32), row_pos
 
 
+def pass_index(lay: UnpaddedLayout, mask: torch.Tensor) -> UnpaddedLayout:
+    """The unpadded layout restricted to the slots whose ``mask`` byte (n,)
+    is not 0: each list's passing slots in slot order (``row_pos``), their
+    ``counts`` and ``offsets``, and ``lmax`` the longest passing list (at
+    least 1); the payload and centroids are shared.  A list's j-th passing
+    row keeps its place among the list's passing rows, so K6 scores the
+    same rows in the same order as over the full layout with the mask."""
+    keep = mask != 0
+    before = torch.zeros(keep.shape[0] + 1, dtype=torch.int64,
+                         device=keep.device)
+    torch.cumsum(keep, 0, out=before[1:])
+    offsets = before[lay.offsets.long()]
+    counts = offsets.diff()
+    lmax = max(1, int(counts.max()) if counts.numel() else 1)
+    return lay._replace(counts=counts.to(torch.int32),
+                        offsets=offsets.to(torch.int32),
+                        row_pos=lay.row_pos[keep], lmax=lmax)
+
+
 def device_memory_bytes(device: torch.device) -> int | None:
     """A CUDA device's memory in bytes; None for any other device (no
     limit is checked there)."""
@@ -173,8 +195,8 @@ class IVFLayout:
     #: sorted+gather layout is used instead.
     SPILL_FRACTION_MAX = 0.2
     #: share of the card's memory that an unpadded layout's rows may take;
-    #: the rest holds the search's temporaries, the mask and the per-list
-    #: index (a class attribute, so a test can set it)
+    #: the rest holds the search's temporaries, the per-list index and a
+    #: selector's pass index (a class attribute, so a test can set it)
     UNPADDED_MEMORY_SHARE = 0.9
     #: whether a Flat index over budget takes the unpadded layout (IMIIndex
     #: keeps the capped layout and its spill; a class attribute, so a test
@@ -472,14 +494,18 @@ class IVFLayout:
         return device_row_mask(selector, row_pos,
                                self._mask_labels(row_pos.device))
 
-    def _layout_mask(self, selector) -> torch.Tensor:
-        """(nlist, lmax) int8 mask over the padded layout (``_pallas_mask``
-        in the JAX package), or (n,) over the unpadded layout's slots,
-        built on the device from its row positions once per selector and
-        version."""
+    def _layout_filter(self, selector) -> torch.Tensor | UnpaddedLayout:
+        """What the list search reads for a selector, built on the device
+        from the layout's row positions once per selector and version: the
+        (nlist, lmax) int8 mask over the padded layout (``_pallas_mask`` in
+        the JAX package), or the unpadded layout's passing slots
+        (``pass_index``; its (n,) mask is dropped once they are indexed)."""
         def build():
             lay = self._build_device_layout()
-            return self._row_mask(selector, lay.row_pos)
+            mask = self._row_mask(selector, lay.row_pos)
+            if isinstance(lay, UnpaddedLayout):
+                return pass_index(lay, mask)
+            return mask
 
         return self._cached_mask(("layout", selector.cache_key()), build)
 

@@ -45,7 +45,11 @@ and path selection.
   launch above K6's k limit), in query blocks sized from the longest
   list; the pair tiles K7 / K10 read padded tiles, so the pairs gate is
   not consulted, and there is no spill.  Each such search counts
-  ``models.unpadded_searches``.
+  ``models.unpadded_searches``.  With a selector K6 reads the selector's
+  pass index (models/ivf_layout.py::pass_index: the same form over the
+  passing slots) with no mask, and the search counts
+  ``models.pass_index_searches``; k_eff and the query blocks still follow
+  the full layout, so the answers' shapes do not change.
 
 The stages run one after another.  The JAX package's single-jit
 ``_fused_sq_pairs_serve`` joined the same stages into one XLA program
@@ -90,6 +94,7 @@ from ..ops.ivf_scan import (choose_q_chunk, coarse_topk, ivf_pq_search,
                             ivf_sq_search, merge_topk)
 from ..ops.ivf_sq_pairs import ivf_sq_pairs_search
 from ..ops.ivf_sq_scan import ivf_sq_list_search
+from ..ops.list_topk import pad_to
 from ..ops.pairs_gate import pairs_preferred
 from ..ops.sq import SQ_LEVELS
 from ..ops.sq_spill import CODECS as SPILL_KERNEL_CODECS
@@ -105,6 +110,10 @@ from .ivf_layout import UnpaddedLayout
 #: searches served by the unpadded layout
 UNPADDED_SEARCHES = "models.unpadded_searches"
 count(UNPADDED_SEARCHES, 0)
+#: filtered searches of the unpadded layout served by a selector's pass
+#: index (models/ivf_layout.py::pass_index)
+PASS_INDEX_SEARCHES = "models.pass_index_searches"
+count(PASS_INDEX_SEARCHES, 0)
 
 
 def _labels_through(table: np.ndarray):
@@ -247,18 +256,24 @@ class IVFServe:
         if self._layout_serves(k):
             lay = self._build_device_layout()
             lmax = lay.lmax
-            if isinstance(lay, UnpaddedLayout):
-                count(UNPADDED_SEARCHES)
             spill = self._spill
             # Spill rows are candidates beyond the capped layout: k_eff
             # counts them, or k > nprobe·lmax would truncate to the slots.
             k_kernel = min(k, nprobe_eff * lmax)
             k_eff = min(k, nprobe_eff * lmax + (spill.n if spill else 0))
-            masks = ((self._layout_mask(selector),
-                      self._spill_mask(selector) if spill else None)
-                     if selector is not None else (None, None))
+            scan, masks = lay, (None, None)
+            if isinstance(lay, UnpaddedLayout):
+                count(UNPADDED_SEARCHES)
+                if selector is not None:
+                    # The selector's passing slots, with no mask: K6 reads
+                    # only the rows the filter keeps.
+                    count(PASS_INDEX_SEARCHES)
+                    scan = self._layout_filter(selector)
+            elif selector is not None:
+                masks = (self._layout_filter(selector),
+                         self._spill_mask(selector) if spill else None)
             blk = self.query_block(nq_pad, nprobe_eff, lmax)
-            parts = [self._scan_lists(lay, xq_pad[q0:q0 + blk], nprobe_eff,
+            parts = [self._scan_lists(scan, xq_pad[q0:q0 + blk], nprobe_eff,
                                       k_kernel, k_eff, *masks)
                      for q0 in range(0, nq_pad, blk)]
             scores, pos = (parts[0] if len(parts) == 1 else
@@ -396,10 +411,12 @@ class IVFServe:
                 codec=self.pq_codec, row_terms=lay.rt)
         if isinstance(lay, UnpaddedLayout):
             # K6 reads the lists in place; the pair tiles read padded tiles.
+            # A pass index may hold fewer than k slots over the probes; the
+            # plain and raw routes then return fewer columns.
             self._last_scan_path = "unpadded"
-            return ivf_list_search(lay.payload, lay.counts, lay.row_pos,
-                                   probe_ids, xq, mask, k=k, metric=metric,
-                                   offsets=lay.offsets, lmax=lmax)
+            return pad_to(*ivf_list_search(
+                lay.payload, lay.counts, lay.row_pos, probe_ids, xq, mask,
+                k=k, metric=metric, offsets=lay.offsets, lmax=lmax), k)
         if self.pairs_wanted(xq.shape[0], lmax):
             mega = config.pairs_impl == "mega"
             self._last_scan_path = "pairs-mega-flat" if mega else "pairs-flat"

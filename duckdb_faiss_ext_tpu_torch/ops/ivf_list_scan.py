@@ -129,7 +129,9 @@ def ivf_list_scan_reference(lists, counts, probe_ids, xq, mask, metric, *,
         else:
             at = torch.where(valid, offsets[pids].long()[:, :, None] + lane,
                              0)
-            block = lists[row_pos[at].long()]
+            # (a layout of no slot scores nothing: row 0 stands in)
+            rows = row_pos[at] if row_pos.numel() else torch.zeros_like(at)
+            block = lists[rows.long()]
             if mask is not None:
                 valid = valid & (mask[at] != 0)
         q = xq[q0:q0 + qc][:, None, None, :]

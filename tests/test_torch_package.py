@@ -432,6 +432,53 @@ def test_fused_list_search_unpadded_matches_plain_on_card(d, k, shift,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("d,shift", [(30, 0), (128, 1), (1536, 0)])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 1.0])
+def test_pass_index_search_equals_masked_on_card(rate, d, shift, metric):
+    """K6 over a mask's pass index (models/ivf_layout.py::pass_index, no
+    mask) returns bit for bit what K6 over the full unpadded layout with
+    the mask returns: at k 10 (the fused search) and k 1025 (the raw
+    launch), pass rates 0 (an empty index), 10% and 100%, every row stored
+    twice so that equal scores must resolve to the same rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the H100)")
+    from duckdb_faiss_ext_tpu_torch.models.ivf_layout import (UnpaddedLayout,
+                                                              pass_index)
+    from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
+    from duckdb_faiss_ext_tpu_torch.ops.list_topk import pad_to
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    nlist, lmax, nq, nprobe = 16, 300, 64, 5
+    counts = torch.randint(1, lmax, (nlist,), device="cuda", generator=g,
+                           dtype=torch.int32)
+    counts[0], counts[1] = 0, lmax
+    n_rows = int(counts.sum()) + 500
+    store = torch.randn(n_rows * d + shift, device="cuda", generator=g)
+    lists = store[shift:].view(n_rows, d)
+    half = n_rows // 2
+    lists[half:2 * half] = lists[:half]
+    offsets, row_pos = _unpadded(counts, n_rows, g)
+    mask = (torch.rand(row_pos.shape[0], device="cuda", generator=g)
+            < rate).to(torch.int8)
+    xq = torch.randn(nq, d, device="cuda", generator=g)
+    probe = torch.rand(nq, nlist, device="cuda", generator=g).argsort(1)[
+        :, :nprobe].to(torch.int32).contiguous()
+    full = UnpaddedLayout(lists, counts, offsets, row_pos, xq[:0], lmax)
+    idx = pass_index(full, mask)
+    assert idx.row_pos.shape[0] == int((mask != 0).sum())
+    for k in (10, k6.MAX_K + 1):
+        want = pad_to(*k6.ivf_list_search(
+            lists, counts, row_pos, probe, xq, mask, k=k, metric=metric,
+            offsets=offsets, lmax=lmax), k)
+        got = pad_to(*k6.ivf_list_search(
+            lists, idx.counts, idx.row_pos, probe, xq, None, k=k,
+            metric=metric, offsets=idx.offsets, lmax=idx.lmax), k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
 @pytest.mark.parametrize("codec,d", [("sq8", 33), ("sq8", 1536), ("sq4", 128),
                                      ("sq6", 1536)])
 def test_fused_sq_search_matches_plain_on_card(codec, d, metric):

@@ -5,7 +5,9 @@ storage order and indexes its lists (``row_pos``, ``offsets``); K6 reads
 them in place.  Held here against a plain float64 reference on seeded
 skewed data: L2 and inner product, host-built and device-resident indexes,
 unfiltered and filtered (bitmap and set selectors): every answer is the
-exact top k of the passing rows within the probed lists.  K6's plain
+exact top k of the passing rows within the probed lists.  A filtered
+search reads the selector's pass index, held bit for bit against K6 over
+the full layout with the selector's slot mask.  K6's plain
 version on the unpadded contract against numpy; the padded layout's
 answers at a SIFT-shaped configuration; the counters and the errors.  On
 the CPU, one torch thread, small n.
@@ -20,7 +22,11 @@ from duckdb_faiss_ext_tpu_torch import errors
 from duckdb_faiss_ext_tpu_torch.models import ivf_layout
 from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
 from duckdb_faiss_ext_tpu_torch.ops.bitmap import build_bitmap
+from duckdb_faiss_ext_tpu_torch.ops.flat_search import finalize_scores
+from duckdb_faiss_ext_tpu_torch.ops.ivf_scan import coarse_topk
+from duckdb_faiss_ext_tpu_torch.params import ParamMap
 from duckdb_faiss_ext_tpu_torch.sql.engine import Database
+from duckdb_faiss_ext_tpu_torch.utils.config import config, next_pow2
 from duckdb_faiss_ext_tpu_torch.utils.profiling import counters
 
 N, D, NLIST, NPROBE, K = 3000, 16, 8, 3, 10
@@ -193,6 +199,138 @@ def test_filtered_calls_build_the_selector_and_mask_once():
     assert c1["models.unpadded_searches"] - \
         c0["models.unpadded_searches"] == 4
     assert_exact(got, xb, xq, ix.centroids, "INNER_PRODUCT", i % 100 < 10)
+
+
+def selector_of(kind, passing):
+    """A bitmap or set selector passing the labels where ``passing``."""
+    if kind == "bitmap":
+        return build_bitmap(passing.astype(np.uint8),
+                            np.arange(passing.size, dtype=np.int64))
+    return dt.SetSelector(np.flatnonzero(passing))
+
+
+def pass_rule(rate, ix, xq):
+    """(N,) bool: ``rate`` % of the rows by label; "no-list": a third of
+    the rows, none in the first query's best list."""
+    i = np.arange(N)
+    if rate == "no-list":
+        probe = coarse_topk(torch.from_numpy(xq), ix._build_unpadded_layout()
+                            .centroids, NPROBE, ix.metric.name,
+                            ix.metric_arg)
+        return (i % 3 == 0) & (ix._assign != int(probe[0, 0]))
+    return i % 100 < rate
+
+
+def mask_path(ix, xq, k, sel):
+    """K6 over the full unpadded layout with the selector's (n,) slot mask,
+    the search the pass index replaced: finalized (distances, positions)
+    of the padded batch."""
+    lay = ix._build_unpadded_layout()
+    mask = ix._row_mask(sel, lay.row_pos)
+    nq_pad = max(config.min_query_bucket, next_pow2(xq.shape[0]))
+    q = torch.from_numpy(np.pad(xq, ((0, nq_pad - xq.shape[0]), (0, 0)),
+                                mode="edge"))
+    metric = ix.metric.name
+    probe = coarse_topk(q, lay.centroids, NPROBE, metric, ix.metric_arg)
+    s, p = k6.ivf_list_search(lay.payload, lay.counts, lay.row_pos, probe, q,
+                              mask, k=min(k, NPROBE * lay.lmax),
+                              metric=metric, offsets=lay.offsets,
+                              lmax=lay.lmax)
+    return finalize_scores(s, p, metric)
+
+
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("kind", ["bitmap", "set"])
+@pytest.mark.parametrize("rate", [0, 1, 10, 100, "no-list"])
+@pytest.mark.parametrize("k", [K, k6.MAX_K + 1])
+def test_pass_index_answers_as_the_mask_path(metric, kind, rate, k):
+    """A filtered search through the pass index returns bit for bit the
+    distances and positions of K6 over the full layout with the slot mask:
+    pass rates 0-100%, a probed list with no passing row, fewer passing
+    rows than k, k above K6's limit, and every row stored twice, so that
+    equal scores must resolve to the same rows."""
+    xb = skewed(14)
+    xb[1::2] = xb[::2]
+    xq = skewed(15, n=6)
+    cat, ix = build("host", metric, xb)
+    passing = pass_rule(rate, ix, xq)
+    sel = selector_of(kind, passing)
+    want_d, want_p = mask_path(ix, xq, k, sel)
+    c0 = counters()
+    dist, pos, nq, k_eff, to_labels = ix.search_dispatch(
+        xq, k, ParamMap({"nprobe": str(NPROBE)}), sel)
+    assert counters()["models.pass_index_searches"] == \
+        c0["models.pass_index_searches"] + 1
+    assert (nq, k_eff) == (xq.shape[0], want_d.shape[1])
+    assert torch.equal(dist, want_d) and torch.equal(pos, want_p)
+    got = pos[:nq][pos[:nq] >= 0].numpy()
+    assert passing[to_labels(got)].all()
+    if rate == 0:
+        assert (pos == -1).all()
+
+
+@pytest.mark.parametrize("kind", ["bitmap", "set"])
+@pytest.mark.parametrize("rate", [0, 10])
+def test_pass_index_is_the_passing_subsequence(kind, rate):
+    """The pass index holds each list's passing slots in slot order, its
+    offsets are the exclusive sum of its counts, its longest list is at
+    least 1; it shares the payload, is built once per selector and again
+    after an add."""
+    xb = skewed(16)
+    xq = skewed(17, n=4)
+    cat, ix = build("host", "L2", xb)
+    passing = pass_rule(rate, ix, xq)
+    sel = selector_of(kind, passing)
+    lay = ix._build_unpadded_layout()
+    c0 = counters()
+    idx = ix._layout_filter(sel)
+    assert ix._layout_filter(sel) is idx
+    assert counters()["models.mask_builds"] - c0["models.mask_builds"] == 1
+    keep = passing[lay.row_pos.numpy()]
+    np.testing.assert_array_equal(idx.row_pos.numpy(),
+                                  lay.row_pos.numpy()[keep])
+    counts = np.add.reduceat(np.r_[keep, False].astype(np.int64),
+                             lay.offsets.numpy()[:-1])
+    counts[np.diff(lay.offsets.numpy()) == 0] = 0
+    np.testing.assert_array_equal(idx.counts.numpy(), counts)
+    np.testing.assert_array_equal(idx.offsets.numpy(),
+                                  np.r_[0, np.cumsum(counts)])
+    assert idx.counts.dtype == idx.offsets.dtype == torch.int32
+    assert idx.lmax == max(1, int(counts.max())) >= 1
+    assert idx.payload is lay.payload and idx.centroids is lay.centroids
+    params = {"nprobe": str(NPROBE)}
+    c1 = counters()
+    for _ in range(2):
+        dt.faiss_search("u", K, xq, params, catalog=cat, selector=sel)
+    dt.faiss_add(skewed(18, n=30), "u", catalog=cat)
+    dt.faiss_search("u", K, xq, params, catalog=cat, selector=sel)
+    c2 = counters()
+    assert c2["models.mask_builds"] - c1["models.mask_builds"] == 1
+    assert c2["models.pass_index_searches"] - \
+        c1["models.pass_index_searches"] == 3
+    assert ix._layout_filter(sel).row_pos.shape[0] >= idx.row_pos.shape[0]
+
+
+def test_pass_index_counts_only_filtered_unpadded_searches():
+    """``models.pass_index_searches`` rises by one a filtered search of the
+    unpadded layout, and not on an unfiltered one or on the padded
+    layout."""
+    xb = skewed(19)
+    xq = skewed(20, n=4)
+    sel = dt.SetSelector(np.arange(0, N, 7))
+    params = {"nprobe": str(NPROBE)}
+    for budget, filtered, rises in ((True, True, 1), (True, False, 0),
+                                    (False, True, 0)):
+        cat, ix = build("host", "L2", xb, budget=budget)
+        assert (ix._layout_plan()[0] == "unpadded") == budget
+        c0 = counters()
+        dt.faiss_search("u", K, xq, params, catalog=cat,
+                        selector=sel if filtered else None)
+        c1 = counters()
+        assert c1["models.pass_index_searches"] - \
+            c0["models.pass_index_searches"] == rises
+        assert c1["models.unpadded_searches"] - \
+            c0["models.unpadded_searches"] == int(budget)
 
 
 @pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])

@@ -29,18 +29,15 @@ import threading
 from typing import Mapping, Optional
 
 import numpy as np
-import torch
 
 from . import errors
 from .catalog import GLOBAL_CATALOG, Catalog, IndexEntry
 from .factory import build_index
 from .metrics import DEFAULT_METRIC, resolve_metric
-from .models.base import SearchResult, as_matrix
-from .ops.flat_search import SIMILARITY_METRICS
+from .models.base import SearchResult, as_matrix, finish_dispatches
 from .ops.selectors import BitmapSelector, Selector, SetSelector
 from .params import as_params
 from .utils.profiling import count, span, spanned, timed
-from .utils.transfer import fetch_results
 
 
 def _timed_op(op: str):
@@ -486,8 +483,10 @@ def faiss_stats(name: str | None = None,
             "needs_training": entry.needs_training,
             "is_mutable": entry.is_mutable,
             "custom_labels": entry.custom_labels,
-            # IVF: the list scan of the last search (per-query, pairs-flat
-            # or gather) and the list count.
+            # IVF: the list scan of the last search ("per-query",
+            # "unpadded", "pairs-flat", "pairs-mega-flat",
+            # "pairs-<codec>", "pairs-mega-<codec>", "gather" or
+            # "gather-int8") and the list count.
             "last_scan_path": getattr(inner, "_last_scan_path", None),
         }
         if hasattr(inner, "nlist"):
@@ -521,32 +520,16 @@ def faiss_search_batched(name: str, k: int, queries,
         raise errors.InvalidInputError(
             f"batch_size must be positive, got {batch_size}")
     nq = queries.shape[0]
-    if nq == 0 or k <= 0:
-        return _format_results(entry.index.search(queries, k, params,
-                                                  selector), k)
     index = entry.index
     dispatch = getattr(index, "search_dispatch", None)
-    if dispatch is None:
-        # RefineFlat has no device dispatch: the sequential path.
-        return _format_results(index.search(queries, k, params, selector),
-                               k)
-    disps = [dispatch(queries[s:s + batch_size], k, params, selector)
-             for s in range(0, nq, batch_size)]
+    disps = [None]
+    if dispatch is not None and nq > 0 and k > 0:
+        disps = [dispatch(queries[s:s + batch_size], k, params, selector)
+                 for s in range(0, nq, batch_size)]
     if any(d is None for d in disps):
-        # No device work (an empty IVF index) or an inner index without a
-        # dispatch (IDMap over RefineFlat): the sequential path pads.
+        # No queries, k ≤ 0, no device dispatch (RefineFlat, IDMap over
+        # it) or no device work (an empty IVF index): the sequential
+        # search answers, padded.
         return _format_results(index.search(queries, k, params, selector),
                                k)
-    big_d, big_p = fetch_results(torch.cat([d[0][:d[2]] for d in disps]),
-                                 torch.cat([d[1][:d[2]] for d in disps]))
-    sim = index.metric.name in SIMILARITY_METRICS
-    sentinel = float("-inf") if sim else float("inf")
-    parts, row = [], 0
-    for disp in disps:
-        nqb = disp[2]
-        parts.append(index._labelled(disp, big_d[row:row + nqb],
-                                     big_p[row:row + nqb], k, sentinel))
-        row += nqb
-    return _format_results(SearchResult(
-        np.concatenate([p.distances for p in parts]),
-        np.concatenate([p.labels for p in parts])), k)
+    return _format_results(finish_dispatches(disps, k, index.sentinel), k)

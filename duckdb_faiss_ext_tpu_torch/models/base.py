@@ -4,6 +4,13 @@ Mirrors the slice of ``faiss::Index`` the reference uses (train / add /
 add_with_ids / search / serialization — SURVEY.md §2.2): device buffers
 padded to capacity buckets, and selectors resolved to per-row boolean masks
 fused into the search kernel.
+
+A search's way in and way out are here too.  ``Index.search`` checks the
+queries once; every family's ``search_dispatch`` pads them with
+``utils.transfer.upload_query_batch`` and returns a ``Dispatch`` (the
+device answers and the tables that map their positions to labels), and
+``finish_dispatches`` is the one epilogue: fetch, map, SOAR's dedup, pad
+to k.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import torch
 
 from .. import errors
 from ..metrics import Metric
+from ..ops.flat_search import SIMILARITY_METRICS
 from ..params import EMPTY, ParamMap
 from ..utils.profiling import spanned
 from ..utils.transfer import fetch_results
@@ -33,6 +41,27 @@ class SearchResult(NamedTuple):
 
     distances: np.ndarray  # (nq, k) float32
     labels: np.ndarray     # (nq, k) int64, -1 where missing
+
+
+class Dispatch(NamedTuple):
+    """A search's answers on the device, before the host fetch: what every
+    family's ``search_dispatch`` returns and ``finish_dispatches`` takes.
+
+    Rows past ``nq`` answer the padding queries and are dropped.  The
+    positions become labels through ``tables`` in order (``map_labels``);
+    an empty tuple means the positions are the labels.  With ``dedup_k``
+    (SOAR, every row stored twice) the best-ranked entry per key is kept
+    and the answers repacked to ``dedup_k`` columns; the key of a position
+    is its entry in ``dedup_keys`` (the source row), or its label where
+    that is None."""
+
+    dist: torch.Tensor      # (nq_pad, k_eff) float32 distances
+    pos: torch.Tensor       # (nq_pad, k_eff) storage positions, -1 missing
+    nq: int
+    k_eff: int
+    tables: tuple = ()
+    dedup_k: int = 0
+    dedup_keys: "np.ndarray | None" = None
 
 
 class Index(abc.ABC):
@@ -78,7 +107,6 @@ class Index(abc.ABC):
         raise errors.add_with_ids_unsupported()
 
     # --- search ----------------------------------------------------------
-    @abc.abstractmethod
     def search(
         self,
         xq: np.ndarray,
@@ -86,7 +114,14 @@ class Index(abc.ABC):
         params: ParamMap = EMPTY,
         selector: "Selector | None" = None,
     ) -> SearchResult:
-        ...
+        """The k best (distances, labels) of each query, best first and
+        padded to k (faiss::Index::search).  The queries are checked here
+        once; the family's ``search_dispatch`` takes them checked, and
+        ``finish`` brings its answers to the host.  Indexes without a
+        device dispatch override this."""
+        xq = as_matrix(xq, self.d)
+        return self.finish(self._dispatch(xq, k, params, selector),
+                           xq.shape[0], k)
 
     def range_search(self, xq, radius: float, params: ParamMap = EMPTY,
                      selector: "Selector | None" = None):
@@ -103,70 +138,28 @@ class Index(abc.ABC):
         selector filters on (FAISS IDSelector semantics)."""
         return np.arange(self.ntotal, dtype=np.int64)
 
-    def _positions_to_labels(self, pos: np.ndarray) -> np.ndarray:
-        """Map storage positions in search output to user-visible labels.
-        Identity by default (positions ARE labels for dense storage:
-        Flat); overridden where labels indirect through a table (IDMap)."""
-        return pos
-
-    @staticmethod
-    def _pad_result(dist, labels, nq: int, k: int, k_eff: int,
-                    sentinel: float) -> "SearchResult":
-        """Pad (nq, k_eff) results out to k columns with sentinel distances
-        and label -1 (src/faiss_extension.cpp:640-662)."""
-        if k_eff < k:
-            dist = np.concatenate(
-                [dist, np.full((nq, k - k_eff), sentinel, np.float32)], 1)
-            labels = np.concatenate(
-                [labels, np.full((nq, k - k_eff), -1, np.int64)], 1)
-        return SearchResult(dist, labels)
+    @property
+    def sentinel(self) -> float:
+        """The distance of a missing result slot: -inf under a similarity
+        metric, else +inf (src/faiss_extension.cpp:640-662)."""
+        return (float("-inf") if self.metric.name in SIMILARITY_METRICS
+                else float("inf"))
 
     @spanned("models.dispatch")
     def _dispatch(self, xq, k, params, selector):
         """``search_dispatch`` inside the dispatch span."""
         return self.search_dispatch(xq, k, params, selector)
 
-    def _finish_dispatch(self, disp, xq, k: int) -> "SearchResult":
-        """Shared search epilogue over a ``search_dispatch`` tuple: one
-        device→host fetch, position→label mapping, sentinel padding to k.
-        ``disp`` is (dist_dev, pos_dev, nq, k_eff[, to_labels[, post]]) or
-        None for no device work (empty queries, k≤0, empty IVF index)."""
-        from ..ops.flat_search import SIMILARITY_METRICS
-
+    def finish(self, disp: "Dispatch | None", nq: int, k: int) -> SearchResult:
+        """A search's answers from its dispatch (``finish_dispatches``), or
+        nq rows of missing slots where no device work applied (disp None:
+        no queries, k ≤ 0, an empty IVF index)."""
         k = int(k)
-        sentinel = (float("-inf")
-                    if self.metric.name in SIMILARITY_METRICS
-                    else float("inf"))
         if disp is None:
-            nq = as_matrix(xq, self.d).shape[0]
             return SearchResult(
-                np.full((nq, max(k, 0)), sentinel, np.float32),
+                np.full((nq, max(k, 0)), self.sentinel, np.float32),
                 np.full((nq, max(k, 0)), -1, np.int64))
-        nq = disp[2]
-        dist, pos = fetch_results(disp[0][:nq], disp[1][:nq])
-        return self._labelled(disp, dist, pos, k, sentinel)
-
-    @spanned("models.labels")
-    def _labelled(self, disp, dist, pos, k: int, sentinel: float):
-        """A fetched dispatch's positions as labels, padded to k."""
-        dist, labels, k_eff = self._map_dispatch(disp, dist,
-                                                 pos.astype(np.int64))
-        return self._pad_result(dist, labels, disp[2], k, k_eff, sentinel)
-
-    def _map_dispatch(self, disp, dist: np.ndarray, pos: np.ndarray):
-        """Host side of one dispatch after the fetch: positions → labels
-        through the dispatch's own mapper (5th element; IVF maps layout
-        positions through its ids) or ``_positions_to_labels``, then the
-        optional host post-process (6th element, ``post(dist, labels,
-        pos) -> (dist, labels)``, which may change the width).  Returns
-        (dist, labels, k_eff)."""
-        to_labels = disp[4] if len(disp) > 4 else self._positions_to_labels
-        labels = to_labels(pos)
-        k_eff = disp[3]
-        if len(disp) > 5:
-            dist, labels = disp[5](dist, labels, pos)
-            k_eff = dist.shape[1]
-        return dist, labels, k_eff
+        return finish_dispatches([disp], k, self.sentinel)
 
     # --- create-time parameters (setIndexParameters recursion,
     #     src/faiss_extension.cpp:123-144) --------------------------------
@@ -203,12 +196,62 @@ def as_matrix(x, d: int, *, name: str = "vectors") -> np.ndarray:
     return np.ascontiguousarray(arr)
 
 
+def map_labels(pos: np.ndarray, tables) -> np.ndarray:
+    """Positions → labels through each table in turn: entry ``pos`` of the
+    table, -1 where ``pos`` is -1; an empty table passes positions on."""
+    for table in tables:
+        pos = np.where(pos >= 0, table[np.clip(pos, 0, None)]
+                       if table.size else pos, -1)
+    return pos
+
+
+def finish_dispatches(disps, k: int, sentinel: float) -> SearchResult:
+    """The search epilogue over the dispatches of one search's query
+    batches, in order: one device→host fetch of all their answer rows,
+    then each batch's positions mapped to labels, SOAR's duplicates
+    dropped and the answers padded to k (``_labelled``)."""
+    if len(disps) == 1:     # (torch.cat would add a copy on the device)
+        d = disps[0]
+        return _labelled(d, *fetch_results(d.dist[:d.nq], d.pos[:d.nq]), k,
+                         sentinel)
+    dist, pos = fetch_results(torch.cat([d.dist[:d.nq] for d in disps]),
+                              torch.cat([d.pos[:d.nq] for d in disps]))
+    parts, row = [], 0
+    for d in disps:
+        parts.append(_labelled(d, dist[row:row + d.nq], pos[row:row + d.nq],
+                               k, sentinel))
+        row += d.nq
+    return SearchResult(np.concatenate([p.distances for p in parts]),
+                        np.concatenate([p.labels for p in parts]))
+
+
+@spanned("models.labels")
+def _labelled(disp: Dispatch, dist: np.ndarray, pos: np.ndarray, k: int,
+              sentinel: float) -> SearchResult:
+    """One fetched dispatch's positions as labels, deduplicated under SOAR,
+    padded to k columns with (sentinel, -1)."""
+    pos = pos.astype(np.int64)
+    labels = map_labels(pos, disp.tables)
+    if disp.dedup_k:
+        keys = (labels if disp.dedup_keys is None
+                else map_labels(pos, (disp.dedup_keys,)))
+        dist, labels = dedup_by_key(dist, labels, keys, disp.dedup_k,
+                                    sentinel)
+    nq, width = labels.shape
+    if width < k:
+        dist = np.concatenate(
+            [dist, np.full((nq, k - width), sentinel, np.float32)], 1)
+        labels = np.concatenate(
+            [labels, np.full((nq, k - width), -1, np.int64)], 1)
+    return SearchResult(dist, labels)
+
+
 def dedup_by_key(dist, labels, keys, k: int, sentinel: float):
     """Keep the best-ranked entry per key and repack to width k.
 
     SOAR stores every datapoint in two inverted lists, so a 2k-candidate
     fetch can hold a source row twice.  ``keys`` identifies duplicates (the
-    logical source row where the mapper provides one, else the label).
+    logical source row where the dispatch carries one, else the label).
     Rows arrive best-first; the first occurrence stays, the rest become
     (sentinel, -1), and the survivors are stably compacted left (the JAX
     package's ``dedup_by_key``, host numpy)."""

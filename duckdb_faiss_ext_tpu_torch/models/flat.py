@@ -32,11 +32,10 @@ from ..ops import flat_topk
 from ..ops.flat_search import finalize_scores, flat_search, pm1_search
 from ..ops.selectors import Selector
 from ..parallel.sharded import sharded_flat_search, sharded_rows_search
-from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
-                            resolve_device)
+from ..utils.config import config, next_capacity, pad_rows, resolve_device
 from ..utils.profiling import build_span
-from ..utils.transfer import upload_queries
-from .base import Index, SearchResult, as_matrix, placement_capacity
+from ..utils.transfer import upload_query_batch
+from .base import Dispatch, Index, as_matrix, placement_capacity
 
 
 class FlatIndex(Index):
@@ -135,24 +134,19 @@ class FlatIndex(Index):
         return mask
 
     # --- search ----------------------------------------------------------
-    def search(self, xq, k, params=None, selector=None) -> SearchResult:
-        return self._finish_dispatch(
-            self._dispatch(xq, k, params, selector), xq, k)
-
     def search_dispatch(self, xq, k, params=None, selector=None):
-        """Device dispatch without the host fetch: (dist (nq_pad, k_eff),
-        pos, nq, k_eff) on the device, or None when no device work applies
-        (empty queries, k≤0).  api.faiss_search_batched concatenates many
-        dispatches and fetches once."""
-        xq = as_matrix(xq, self.d)
+        """Device dispatch of checked (nq, d) fp32 queries without the host
+        fetch: a ``Dispatch`` whose positions are the labels, or None when
+        no device work applies (empty queries, k≤0).
+        api.faiss_search_batched concatenates many dispatches and fetches
+        once."""
         nq = xq.shape[0]
         k = int(k)
         if nq == 0 or k <= 0:
             return None
         cap = self._capacity()
         k_eff = min(k, cap)
-        nq_pad = max(config.min_query_bucket, next_pow2(nq))
-        xq_pad = upload_queries(pad_rows(xq, nq_pad), self.device)
+        xq_pad = upload_query_batch(xq, self.device)
         mask = self._selector_mask(selector) if selector is not None else None
         if self.storage == "pm1_i8":
             # Queries are sign codes too; the int8 dot is exact, so no
@@ -167,7 +161,7 @@ class FlatIndex(Index):
             else:
                 scores, pos = pm1_search(xb, self.ntotal, xq_i8, k_eff, mask)
             dist, pos = finalize_scores(scores, pos, self.metric.name)
-            return dist, pos, nq, k_eff
+            return Dispatch(dist, pos, nq, k_eff)
         # Opt-in exact rerank for fast mode ({"rerank": "true"}): scan a
         # wider top-k, then re-score those rows in fp32.  Queries go up as
         # fp32, so the rescore is exact.
@@ -184,7 +178,7 @@ class FlatIndex(Index):
 
             dist, pos = exact_rerank(self.device_vectors(), pos, xq_pad,
                                      k_eff, self.metric.name)
-        return dist, pos, nq, k_eff
+        return Dispatch(dist, pos, nq, k_eff)
 
     def _dispatch_search(self, xq_pad, k_eff, mask):
         """L2 / inner product with k ≤ 1024 go to the fused kernel (on a CPU

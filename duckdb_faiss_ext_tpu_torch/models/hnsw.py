@@ -44,10 +44,10 @@ from ..metrics import Metric
 from ..ops import graph as graph_ops
 from ..ops.flat_search import SIMILARITY_METRICS, finalize_scores
 from ..params import EMPTY, ParamMap
-from ..utils.config import config, next_pow2, pad_rows
+from ..utils.config import config, next_pow2
 from ..utils.profiling import timed
-from ..utils.transfer import upload_queries
-from .base import SearchResult, as_matrix
+from ..utils.transfer import upload_query_batch
+from .base import Dispatch, SearchResult, as_matrix
 from .flat import FlatIndex
 
 
@@ -193,16 +193,14 @@ class HNSWIndex(FlatIndex):
         return pool, width, params.get_int("graph_iters")
 
     def _graph_dispatch(self, xq, k, params, selector, gstate):
-        """The walk as a search_dispatch tuple (dist, pos, nq, k_eff) on the
-        device, or None with no work.  Everything derives from ``gstate``,
-        so a concurrent rebuild cannot pair it with another graph."""
+        """The walk as a ``Dispatch`` on the device, or None with no work.
+        Everything derives from ``gstate``, so a concurrent rebuild cannot
+        pair it with another graph."""
         _, indexed = gstate
-        xq = as_matrix(xq, self.d)
         nq = xq.shape[0]
         if nq == 0 or k <= 0 or indexed == 0:
             return None
-        nq_pad = max(config.min_query_bucket, next_pow2(nq))
-        xq_pad = upload_queries(pad_rows(xq, nq_pad), self.device)
+        xq_pad = upload_query_batch(xq, self.device)
         xb = self.device_vectors()
         gdev = self._graph_device(xb.shape[0], gstate)
         pool, width, iters = self._walk_knobs(k, params, selector)
@@ -213,7 +211,7 @@ class HNSWIndex(FlatIndex):
             width=width, iters=iters, mask=mask,
             rerank=config.precision_mode != "parity")
         dist, pos = finalize_scores(scores, pos, self.metric.name)
-        return dist, pos, nq, k_eff
+        return Dispatch(dist, pos, nq, k_eff)
 
     # --- sharded graph regime ---------------------------------------------
     def _graph_ready_sharded(self):
@@ -256,16 +254,14 @@ class HNSWIndex(FlatIndex):
             return self._graph_sharded
 
     def _sharded_graph_dispatch(self, xq, k, params, gstate):
-        """The per-shard walks and their merge as a dispatch tuple."""
+        """The per-shard walks and their merge as a ``Dispatch``."""
         from ..parallel.sharded import sharded_graph_search
 
         _, graphs, nvalid, indexed = gstate
-        xq = as_matrix(xq, self.d)
         nq = xq.shape[0]
         if nq == 0 or k <= 0 or indexed == 0:
             return None
-        nq_pad = max(config.min_query_bucket, next_pow2(nq))
-        xq_pad = upload_queries(pad_rows(xq, nq_pad), self.device)
+        xq_pad = upload_query_batch(xq, self.device)
         pool, width, iters = self._walk_knobs(k, params, None)
         k_eff = min(k, indexed)
         scores, pos = sharded_graph_search(
@@ -273,7 +269,7 @@ class HNSWIndex(FlatIndex):
             self.metric.name, pool=max(pool, k_eff), width=width,
             iters=iters, rerank=config.precision_mode != "parity")
         dist, pos = finalize_scores(scores, pos, self.metric.name)
-        return dist, pos, nq, k_eff
+        return Dispatch(dist, pos, nq, k_eff)
 
     # --- ivf regime ---------------------------------------------------------
     def _accel_ready(self):
@@ -308,10 +304,12 @@ class HNSWIndex(FlatIndex):
             self.ef_search = ef
 
     def _exact_search(self, xq, k, params, selector) -> SearchResult:
-        return self._finish_dispatch(
-            FlatIndex.search_dispatch(self, xq, k, params, selector), xq, k)
+        return self.finish(
+            FlatIndex.search_dispatch(self, xq, k, params, selector),
+            xq.shape[0], k)
 
     def search(self, xq, k, params=EMPTY, selector=None) -> SearchResult:
+        xq = as_matrix(xq, self.d)
         params = params if params is not None else EMPTY
         self._latch(params)
         mode = self._effective_mode()
@@ -322,13 +320,15 @@ class HNSWIndex(FlatIndex):
             return self._exact_search(xq, k, params, selector)
         if mode == "graph_sharded":
             gstate = self._graph_ready_sharded()
-            res = self._finish_dispatch(
-                self._sharded_graph_dispatch(xq, k, params, gstate), xq, k)
+            res = self.finish(
+                self._sharded_graph_dispatch(xq, k, params, gstate),
+                xq.shape[0], k)
             indexed = gstate[3]
         elif mode == "graph":
             gstate = self._graph_ready()
-            res = self._finish_dispatch(
-                self._graph_dispatch(xq, k, params, selector, gstate), xq, k)
+            res = self.finish(
+                self._graph_dispatch(xq, k, params, selector, gstate),
+                xq.shape[0], k)
             indexed = gstate[1]
         else:
             accel, indexed = self._accel_ready()
@@ -354,7 +354,7 @@ class HNSWIndex(FlatIndex):
         tail = self._tail_cache[1]
         sel = _ShiftedSelector(selector, start) if selector is not None \
             else None
-        res = tail.search(as_matrix(xq, self.d), k, EMPTY, sel)
+        res = tail.search(xq, k, EMPTY, sel)
         return SearchResult(res.distances,
                             np.where(res.labels >= 0, res.labels + start, -1))
 

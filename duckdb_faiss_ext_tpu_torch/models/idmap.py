@@ -20,7 +20,7 @@ import numpy as np
 from .. import errors
 from ..ops.selectors import LabelMapSelector, labels_for_device_mask
 from ..params import EMPTY
-from .base import Index, SearchResult, as_matrix
+from .base import Index, SearchResult, as_matrix, map_labels
 
 
 class IDMapIndex(Index):
@@ -80,41 +80,32 @@ class IDMapIndex(Index):
         return self._labels_dev[device]
 
     def search(self, xq, k, params=EMPTY, selector=None) -> SearchResult:
+        xq = as_matrix(xq, self.d)
         disp = self._dispatch(xq, k, params, selector)
         if disp is not None:
-            return self._finish_dispatch(disp, xq, k)
+            return self.finish(disp, xq.shape[0], k)
         # No device dispatch (RefineFlat, an HNSW index with a tail to
         # merge or in its IVF regime, no queries): the inner index's own
         # search, positions mapped to labels after it.
         if selector is not None:
             selector = self._position_selector(selector)
         dist, pos = self.inner.search(xq, k, params, selector)
-        return SearchResult(dist, self._positions_to_labels(pos))
+        return SearchResult(dist, map_labels(pos, (self._labels,)))
 
     def search_dispatch(self, xq, k, params=EMPTY, selector=None):
         """The inner index's device dispatch with the selector translated to
-        position space; positions map back to labels in
-        ``_positions_to_labels`` after the fetch.  None where the inner
-        index has no dispatch (the batched search then searches)."""
+        position space, and the label table after the inner index's own
+        tables (its labels are our storage positions).  None where the
+        inner index has no dispatch (the batched search then searches)."""
         inner = getattr(self.inner, "search_dispatch", None)
         if inner is None:
             return None
         if selector is not None:
             selector = self._position_selector(selector)
         disp = inner(xq, k, params, selector)
-        if disp is None or len(disp) <= 4:
-            return disp
-        # The inner dispatch carries its own positions → ids mapper (IVF);
-        # its ids are our storage positions, so compose with the label
-        # table and keep any host post-process.
-        inner_labels = disp[4]
-        return disp[:4] + (
-            lambda pos: self._positions_to_labels(inner_labels(pos)),
-        ) + tuple(disp[5:])
-
-    def _positions_to_labels(self, pos: np.ndarray) -> np.ndarray:
-        return np.where(pos >= 0, self._labels[np.clip(pos, 0, None)]
-                        if self._labels.size else pos, -1)
+        if disp is None:
+            return None
+        return disp._replace(tables=disp.tables + (self._labels,))
 
     def reconstruct(self, label: int) -> np.ndarray:
         """The stored vector of a custom label (faiss IndexIDMap2; plain

@@ -461,7 +461,7 @@ class IVFLayout:
 
     def _sorted_ids(self, order) -> np.ndarray:
         """ids in sorted-layout order, cached per layout build (a batched
-        search holds one dispatch tuple per batch)."""
+        search holds one Dispatch per batch)."""
         if self._ids_sorted is None or self._ids_sorted[0] is not order:
             self._ids_sorted = (order, self._ids[order])
         return self._ids_sorted[1]

@@ -58,9 +58,10 @@ path's); its spill gates ``spill_chunk_ok`` (a Mosaic block rule) and
 ``spill_pallas_min`` (a crossover measured on the TPU) are not ported.
 
 With SOAR (``soar_lambda`` > 0) every row is stored twice, so
-``search_dispatch`` fetches 2k candidates and a host post-process drops
-same-source duplicates (``models.base.dedup_by_key`` keyed on the source
-row, so genuinely repeated user labels stay) before padding back to k.
+``search_dispatch`` asks for 2k candidates and its ``Dispatch`` carries
+the source rows as the duplicates' key: the epilogue drops same-source
+duplicates (``models.base.dedup_by_key``, so genuinely repeated user
+labels stay) and repacks to k.
 
 ``range_search`` scans the probed lists of the sorted+gather layout on the
 device (ops/range.py::ivf_range_scan; faiss::IndexIVF::range_search's
@@ -80,7 +81,6 @@ merge.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .. import errors
@@ -100,10 +100,10 @@ from ..ops.sq import SQ_LEVELS
 from ..ops.sq_spill import CODECS as SPILL_KERNEL_CODECS
 from ..ops.sq_spill import sq_spill_search
 from ..params import EMPTY
-from ..utils.config import config, next_pow2, sq_int8_active
+from ..utils.config import config, sq_int8_active
 from ..utils.profiling import count, span, spanned
-from ..utils.transfer import upload_queries
-from .base import SearchResult, as_matrix, dedup_by_key
+from ..utils.transfer import upload_queries, upload_query_batch
+from .base import Dispatch, as_matrix
 from .ivf_layout import UnpaddedLayout
 
 
@@ -114,14 +114,6 @@ count(UNPADDED_SEARCHES, 0)
 #: index (models/ivf_layout.py::pass_index)
 PASS_INDEX_SEARCHES = "models.pass_index_searches"
 count(PASS_INDEX_SEARCHES, 0)
-
-
-def _labels_through(table: np.ndarray):
-    """Positions → entries of ``table`` (-1 stays -1)."""
-    def to_labels(pos: np.ndarray) -> np.ndarray:
-        return np.where(pos >= 0, table[np.clip(pos, 0, None)]
-                        if table.size else pos, -1)
-    return to_labels
 
 
 class IVFServe:
@@ -146,10 +138,6 @@ class IVFServe:
     #: lmax 3584, k_scan 42).  A larger batch is split into power-of-two
     #: query blocks.
     SCAN_BLOCK_BYTES = 1 << 30
-
-    def search(self, xq, k, params=EMPTY, selector=None) -> SearchResult:
-        return self._finish_dispatch(
-            self._dispatch(xq, k, params, selector), xq, k)
 
     @spanned("models.route")
     def pairs_wanted(self, nq: int, lmax: int) -> bool:
@@ -194,43 +182,31 @@ class IVFServe:
         return (self._layout_plan() is not None
                 and (self.pq_m is None or k <= PQ_MAX_K))
 
-    def _mapper(self, order=None):
-        """Positions → labels through the ids (storage order, or the sorted
-        layout's ``order``); with SOAR it carries ``src_of``, positions →
-        logical source rows, the duplicates' key."""
-        to_labels = _labels_through(
-            self._ids if order is None else self._sorted_ids(order))
-        if self._srcrow is not None:
-            to_labels.src_of = _labels_through(
-                self._srcrow if order is None else self._srcrow[order])
-        return to_labels
+    def _as_dispatch(self, dist, pos, nq: int, k_eff: int,
+                     order=None) -> Dispatch:
+        """Scan results as a ``Dispatch``: positions map to labels through
+        the ids (storage order, or the sorted layout's ``order``); with
+        SOAR's source rows, those are the duplicates' key."""
+        ids = self._ids if order is None else self._sorted_ids(order)
+        src = self._srcrow
+        if src is not None and order is not None:
+            src = src[order]
+        return Dispatch(dist, pos, nq, k_eff, (ids,), dedup_keys=src)
 
     def search_dispatch(self, xq, k, params=EMPTY, selector=None):
-        """Device dispatch without the host fetch: (dist, pos, nq, k_eff,
-        positions→labels[, post]) or None when no device work applies
-        (empty queries, k ≤ 0, empty index).  With SOAR: 2k candidates and
-        the duplicate-dropping ``post``."""
+        """Device dispatch of checked (nq, d) fp32 queries without the host
+        fetch: a ``Dispatch``, or None when no device work applies (empty
+        queries, k ≤ 0, empty index).  With SOAR: 2k candidates, cut back
+        to k without same-source duplicates after the fetch."""
         k = int(k)
         if self.soar_lambda <= 0.0 or k <= 0:
             return self._dispatch_inner(xq, k, params, selector)
         disp = self._dispatch_inner(xq, 2 * k, params, selector)
-        if disp is None:
-            return None
-        dist, pos, nq, _, to_labels = disp
-        sentinel = (float("-inf") if self.metric.name in SIMILARITY_METRICS
-                    else float("inf"))
-        src_of = getattr(to_labels, "src_of", None)
-
-        def post(d, labels, pos_host):
-            keys = src_of(pos_host) if src_of is not None else labels
-            return dedup_by_key(d, labels, keys, k, sentinel)
-
-        return dist, pos, nq, k, to_labels, post
+        return None if disp is None else disp._replace(dedup_k=k)
 
     def _dispatch_inner(self, xq, k, params=EMPTY, selector=None):
         self._require_trained()
         self._last_spill_path = None
-        xq = as_matrix(xq, self.d)
         nq = xq.shape[0]
         k = int(k)
         if nq == 0 or k <= 0 or self.ntotal == 0:
@@ -241,12 +217,8 @@ class IVFServe:
         nprobe = params.get_int("nprobe", self.nprobe_default)
         params.scoped("quantiser.")
         nprobe_eff = max(1, min(int(nprobe), self.nlist))
-        nq_pad = max(config.min_query_bucket, next_pow2(nq))
-        # The padding rows repeat the last query: a row of zeros ties every
-        # list under inner product, and K1 would count it unproven in the
-        # coarse stage.  Their answers are dropped either way.
-        xq_pad = upload_queries(
-            np.pad(xq, ((0, nq_pad - nq), (0, 0)), mode="edge"), self.device)
+        xq_pad = upload_query_batch(xq, self.device)
+        nq_pad = xq_pad.shape[0]
         metric = self.metric.name
 
         if self._shard_mesh is not None:
@@ -279,7 +251,7 @@ class IVFServe:
             scores, pos = (parts[0] if len(parts) == 1 else
                            (torch.cat(t) for t in zip(*parts)))
             dist, pos = finalize_scores(scores, pos, metric)
-            return dist, pos, nq, k_eff, self._mapper()
+            return self._as_dispatch(dist, pos, nq, k_eff)
 
         self._last_scan_path = "gather"
         sl = self._build_device()
@@ -316,7 +288,7 @@ class IVFServe:
                 self.metric_arg, k=k_eff, nprobe=nprobe_eff, metric=metric,
                 q_chunk=q_chunk, lmax=sl.lmax)
         dist, pos = finalize_scores(scores, pos, metric)
-        return dist, pos, nq, k_eff, self._mapper(sl.order)
+        return self._as_dispatch(dist, pos, nq, k_eff, sl.order)
 
     def range_search(self, xq, radius, params=EMPTY, selector=None):
         """All rows within ``radius`` in the probed lists (nprobe as in

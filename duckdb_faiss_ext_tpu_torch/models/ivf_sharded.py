@@ -116,8 +116,7 @@ class IVFSharded:
         return self.pq_m is None or k <= PQ_MAX_K
 
     def _search_sharded(self, xq_pad, nq, k, nprobe, selector):
-        """The sharded search as a dispatch tuple (dist, pos, nq, k_eff,
-        positions → labels)."""
+        """The sharded search as a ``Dispatch``."""
         from ..parallel.sharded import sharded_ivf_search
 
         cents, layouts, lmax = self._build_sharded()
@@ -137,7 +136,7 @@ class IVFSharded:
             self._shard_mesh, cents, xq_pad, nprobe=nprobe, k=k_eff,
             metric=self.metric.name, metric_arg=self.metric_arg, scan=scan)
         dist, pos = finalize_scores(scores, pos, self.metric.name)
-        return dist, pos, nq, k_eff, self._mapper()
+        return self._as_dispatch(dist, pos, nq, k_eff)
 
     def _shard_decode_scan(self, lay, xq, probe, k, mask):
         """The plain decode scan (``ops.ivf_scan``) over a shard's padded

@@ -27,7 +27,7 @@ import numpy as np
 from .. import errors
 from ..metrics import Metric, resolve_metric
 from ..params import EMPTY
-from .base import Index, SearchResult, as_matrix, row_placement
+from .base import Index, as_matrix, row_placement
 from .flat import FlatIndex
 
 #: seed of the random rotation (deterministic per (d, nbits), so factory
@@ -117,23 +117,18 @@ class LSHIndex(Index):
         self._codes.add(self.encode(x))
 
     # --- search ----------------------------------------------------------
-    def search(self, xq, k, params=EMPTY, selector=None) -> SearchResult:
-        return self._finish_dispatch(
-            self.search_dispatch(xq, k, params, selector), xq, k)
-
     def search_dispatch(self, xq, k, params=EMPTY, selector=None):
-        """The code store's dispatch on the encoded queries, its dots mapped
-        to Hamming distances on the device; the inner padding sentinel
-        (-inf) maps to +inf, the L2 / Hamming missing-slot sentinel."""
+        """The code store's dispatch on the encoded (checked) queries, its
+        dots mapped to Hamming distances on the device; the inner padding
+        sentinel (-inf) maps to +inf, the L2 / Hamming missing-slot
+        sentinel."""
         if not self.is_trained:
             raise _not_trained()
-        xq = as_matrix(xq, self.d)
         disp = self._codes.search_dispatch(self.encode(xq), k, params,
                                            selector)
         if disp is None:
             return None
-        dist, pos, nq, k_eff = disp[:4]
-        return ((float(self.nbits) - dist) * 0.5, pos, nq, k_eff)
+        return disp._replace(dist=(float(self.nbits) - disp.dist) * 0.5)
 
     # --- serialization ----------------------------------------------------
     def state_dict(self) -> dict:

@@ -36,8 +36,8 @@ from ..params import EMPTY
 from ..parallel.sharded import sharded_rows_search
 from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
                             resolve_device)
-from ..utils.transfer import upload_queries
-from .base import (Index, SearchResult, as_matrix, placement_capacity,
+from ..utils.transfer import upload_query_batch
+from .base import (Dispatch, Index, as_matrix, placement_capacity,
                    row_placement)
 
 #: rows a chunk of the device-side encoding takes
@@ -179,16 +179,12 @@ class PQIndex(Index):
             self._device_state()
 
     # --- search --------------------------------------------------------------
-    def search(self, xq, k, params=EMPTY, selector=None) -> SearchResult:
-        return self._finish_dispatch(
-            self.search_dispatch(xq, k, params, selector), xq, k)
-
     def search_dispatch(self, xq, k, params=EMPTY, selector=None):
-        """Device dispatch without the host fetch: (dist, pos, nq, k_eff) or
-        None when no device work applies (empty queries, k ≤ 0)."""
+        """Device dispatch of checked (nq, d) fp32 queries without the host
+        fetch: a ``Dispatch`` whose positions are the labels, or None when
+        no device work applies (empty queries, k ≤ 0)."""
         if not self.is_trained:
             raise not_trained()
-        xq = as_matrix(xq, self.d)
         nq = xq.shape[0]
         k = int(k)
         if nq == 0 or k <= 0:
@@ -196,8 +192,7 @@ class PQIndex(Index):
         codes_dev, cb_dev = self._device_state()
         cap = codes_dev.shape[0]
         k_eff = min(k, cap)
-        nq_pad = max(config.min_query_bucket, next_pow2(nq))
-        xq_pad = upload_queries(pad_rows(xq, nq_pad), self.device)
+        xq_pad = upload_query_batch(xq, self.device)
         mask = None
         if selector is not None:
             key = (selector.cache_key(), self._version)
@@ -209,7 +204,8 @@ class PQIndex(Index):
                 self._mask_cache = {key: mask}
         # The (nq, chunk) score tile and the (chunk, d) decoded rows stay
         # under 2^26 values; results do not depend on the chunk.
-        chunk = next_pow2(max(1024, (1 << 26) // max(nq_pad, self.d)))
+        chunk = next_pow2(max(1024, (1 << 26) // max(xq_pad.shape[0],
+                                                      self.d)))
 
         def search(codes, n, xq, k, mask, cb):
             return pq_search(codes, n, cb, xq, mask, self.metric_arg, k=k,
@@ -227,7 +223,7 @@ class PQIndex(Index):
             scores, pos = search(codes_dev, self.ntotal, xq_pad, k_eff, mask,
                                  cb_dev)
         dist, pos = finalize_scores(scores, pos, self.metric.name)
-        return dist, pos, nq, k_eff
+        return Dispatch(dist, pos, nq, k_eff)
 
     def range_search(self, xq, radius, params=None, selector=None):
         """Dense tiles of decoded code chunks, thresholded on the device

@@ -92,7 +92,6 @@ class PreTransformIndex(Index):
         """The inner index's device dispatch on the transformed queries, or
         None where it has none (RefineFlat) or there are no queries."""
         inner = getattr(self.inner, "search_dispatch", None)
-        xq = as_matrix(xq, self.d)
         if inner is None or xq.shape[0] == 0:
             return None
         return inner(self.apply_chain(xq), k, params, selector)

@@ -26,9 +26,9 @@ from .. import errors
 from ..ops.distance import elementwise_scores
 from ..ops.flat_search import SIMILARITY_METRICS, exact_topk
 from ..params import EMPTY
-from ..utils.config import config, next_pow2, pad_rows
-from ..utils.transfer import fetch_results, upload_queries
-from .base import Index, SearchResult, as_matrix
+from ..utils.config import pad_rows
+from ..utils.transfer import upload_query_batch
+from .base import Dispatch, Index, SearchResult, as_matrix
 from .flat import FlatIndex
 
 
@@ -50,12 +50,9 @@ def rerank(xb, labels, xq, k: int, metric: str, metric_arg: float = 0.0):
         s = d if metric in SIMILARITY_METRICS else -d
     s = torch.where(labels >= 0, s, float("-inf"))
     best, sel = exact_topk(s, k)
-    missing = torch.isneginf(best)
-    pos = torch.where(missing, -1, labels.gather(1, sel))
-    sim = metric in SIMILARITY_METRICS
-    dist = torch.where(missing, float("-inf") if sim else float("inf"),
-                       best if sim else -best)
-    return dist, pos
+    pos = torch.where(torch.isneginf(best), -1, labels.gather(1, sel))
+    # A missing slot's -inf score is already the sentinel of either sign.
+    return (best if metric in SIMILARITY_METRICS else -best), pos
 
 
 class RefineFlatIndex(Index):
@@ -113,17 +110,13 @@ class RefineFlatIndex(Index):
         # contract of faiss::IndexRefine, which indexes its store by them.
         base = self.base.search(xq, k_base, params, selector)
         dev = self.refine.device
-        nq_pad = max(config.min_query_bucket, next_pow2(nq))
-        labels = torch.from_numpy(
-            pad_rows(base.labels.astype(np.int64), nq_pad, fill=-1)).to(dev)
-        xq_dev = upload_queries(pad_rows(xq, nq_pad), dev)
+        xq_dev = upload_query_batch(xq, dev)
+        labels = torch.from_numpy(pad_rows(base.labels.astype(np.int64),
+                                           xq_dev.shape[0], fill=-1)).to(dev)
+        k_eff = min(k, k_base)
         dist, pos = rerank(self.refine.device_vectors(), labels, xq_dev,
-                           min(k, k_base), self.metric.name, self.metric_arg)
-        dist, pos = fetch_results(dist[:nq], pos[:nq])
-        sentinel = (float("-inf") if self.metric.name in SIMILARITY_METRICS
-                    else float("inf"))
-        return self._pad_result(dist, pos.astype(np.int64), nq, k,
-                                dist.shape[1], sentinel)
+                           k_eff, self.metric.name, self.metric_arg)
+        return self.finish(Dispatch(dist, pos, nq, k_eff), nq, k)
 
     def range_search(self, xq, radius, params=EMPTY, selector=None):
         # Exact by construction: the raw store answers directly.

@@ -40,10 +40,10 @@ from ..ops.sq import (FLOAT_CODECS, SQ_LEVELS, float_encode, sq_code_width,
                       sq_train)
 from ..params import EMPTY
 from ..parallel.sharded import sharded_rows_search
-from ..utils.config import (config, next_capacity, next_pow2, pad_rows,
-                            resolve_device, sq_int8_active)
-from ..utils.transfer import upload_queries
-from .base import (Index, SearchResult, as_matrix, placement_capacity,
+from ..utils.config import (config, next_capacity, pad_rows, resolve_device,
+                            sq_int8_active)
+from ..utils.transfer import upload_query_batch
+from .base import (Dispatch, Index, as_matrix, placement_capacity,
                    row_placement)
 from .pq import not_trained
 
@@ -200,16 +200,12 @@ class SQIndex(Index):
                 and self.d >= 16 and sq_int8_active())
 
     # --- search --------------------------------------------------------------
-    def search(self, xq, k, params=EMPTY, selector=None) -> SearchResult:
-        return self._finish_dispatch(
-            self.search_dispatch(xq, k, params, selector), xq, k)
-
     def search_dispatch(self, xq, k, params=EMPTY, selector=None):
-        """Device dispatch without the host fetch: (dist, pos, nq, k_eff) or
-        None when no device work applies (empty queries, k ≤ 0)."""
+        """Device dispatch of checked (nq, d) fp32 queries without the host
+        fetch: a ``Dispatch`` whose positions are the labels, or None when
+        no device work applies (empty queries, k ≤ 0)."""
         if not self.is_trained:
             raise not_trained()
-        xq = as_matrix(xq, self.d)
         nq = xq.shape[0]
         k = int(k)
         if nq == 0 or k <= 0:
@@ -217,8 +213,7 @@ class SQIndex(Index):
         codes, vmin, scale = self._device_state()
         cap = codes.shape[0]
         k_eff = min(k, cap)
-        nq_pad = max(config.min_query_bucket, next_pow2(nq))
-        xq_pad = upload_queries(pad_rows(xq, nq_pad), self.device)
+        xq_pad = upload_query_batch(xq, self.device)
         mask = None
         if selector is not None:
             key = (selector.cache_key(), self._version)
@@ -253,7 +248,7 @@ class SQIndex(Index):
             scores, pos = search(codes, rn, rs, self.ntotal, xq_pad, k_eff,
                                  mask, vmin, scale)
         dist, pos = finalize_scores(scores, pos, self.metric.name)
-        return dist, pos, nq, k_eff
+        return Dispatch(dist, pos, nq, k_eff)
 
     # --- serialization -------------------------------------------------------
     def state_dict(self) -> dict:

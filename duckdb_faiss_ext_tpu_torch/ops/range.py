@@ -121,7 +121,7 @@ def dense_range_search(index, xq, radius: float, selector, buf, rows):
     scored by the plain pairwise tile; the selector filters
     ``index.row_labels()``.  Labels are storage positions."""
     from ..models.base import as_matrix
-    from ..utils.config import config, next_pow2, pad_rows
+    from ..utils.transfer import upload_query_batch
 
     xq = as_matrix(xq, index.d)
     nq = xq.shape[0]
@@ -129,8 +129,7 @@ def dense_range_search(index, xq, radius: float, selector, buf, rows):
         return empty_range_result(nq)
     cap = buf.shape[0]
     chunk = choose_range_chunk(cap)
-    nq_pad = max(config.min_query_bucket, next_pow2(nq))
-    xq_dev = torch.from_numpy(pad_rows(xq, nq_pad)).to(buf.device)
+    xq_dev = upload_query_batch(xq, buf.device)
     metric = index.metric.name
 
     def get_tile(i):

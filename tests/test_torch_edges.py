@@ -101,8 +101,9 @@ def test_upload_queries_cuda_without_a_card_raises():
 
 
 def test_models_upload_through_transfer(monkeypatch):
-    """A Flat search's queries go through upload_queries."""
-    from duckdb_faiss_ext_tpu_torch.models import flat
+    """A Flat search's queries go through upload_queries (called by the
+    query-batch rule, ``upload_query_batch``)."""
+    from duckdb_faiss_ext_tpu_torch.utils import transfer
 
     seen = []
 
@@ -110,7 +111,7 @@ def test_models_upload_through_transfer(monkeypatch):
         seen.append((xq.shape, torch.device(device).type))
         return upload_queries(xq, device)
 
-    monkeypatch.setattr(flat, "upload_queries", spy)
+    monkeypatch.setattr(transfer, "upload_queries", spy)
     cat = dt.Catalog()
     xb = np.random.default_rng(1).standard_normal((50, 4)).astype(np.float32)
     dt.faiss_create("u", 4, "Flat", metric_type="L2", catalog=cat)

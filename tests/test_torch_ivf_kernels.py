@@ -337,19 +337,34 @@ def test_coarse_kernel_counter_present_and_unchanged_on_cpu():
     assert _coarse_count() == before
 
 
-@pytest.mark.parametrize("spec", ["IVF8,Flat", "IVF8,SQ8"])
-def test_padding_rows_repeat_the_last_query(monkeypatch, spec):
-    """The padded query block an IVF search hands the coarse stage repeats
-    its last query (a zero row ties every list under inner product, which
-    K1 counts unproven); the answers are those of the queries alone."""
-    import duckdb_faiss_ext_tpu_torch as dt
-    from duckdb_faiss_ext_tpu_torch.models import ivf_serve
-    seen = []
-    real = ivf_serve.coarse_topk
+def _padding_spies():
+    """Per factory string, where its search hands on the padded query
+    block: (module, function name, position of the queries)."""
+    from duckdb_faiss_ext_tpu_torch.models import ivf_serve, pq, sq
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk
+    # (the IVF padded layout's path, and the sorted+gather path's)
+    coarse = [(ivf_serve, "coarse_topk", 0), (ivf_scan, "coarse_topk", 0)]
+    return {"IVF8,Flat": coarse, "IVF8,SQ8": coarse,
+            "Flat": [(flat_topk, "kernel_flat_search", 2)],
+            "SQ8": [(sq, "sq_search", 4)],
+            "PQ4": [(pq, "pq_search", 3)]}
 
-    def spy(xq, *a):
-        seen.append(xq.clone())
-        return real(xq, *a)
+
+@pytest.mark.parametrize("spec", ["IVF8,Flat", "IVF8,SQ8", "Flat", "SQ8",
+                                  "PQ4"])
+def test_padding_rows_repeat_the_last_query(monkeypatch, spec):
+    """The padded query block a search hands its first stage (the IVF
+    coarse stage, K1, the SQ and PQ scans) repeats its last query (a zero
+    row ties every list or row under inner product, which K1 counts
+    unproven); the answers are those of the queries alone."""
+    import duckdb_faiss_ext_tpu_torch as dt
+    seen = []
+
+    def spy(real, at):
+        def call(*a, **kw):
+            seen.append(a[at].clone())
+            return real(*a, **kw)
+        return call
 
     cat = dt.Catalog()
     rng = np.random.default_rng(3)
@@ -363,9 +378,8 @@ def test_padding_rows_repeat_the_last_query(monkeypatch, spec):
         dt.faiss_add(xb, "c", catalog=cat)
         alone = [dt.faiss_search("c", 5, xq[i:i + 1], {"nprobe": "3"},
                                  catalog=cat) for i in range(5)]
-        # (the padded layout's path, and the sorted+gather path's)
-        monkeypatch.setattr(ivf_serve, "coarse_topk", spy)
-        monkeypatch.setattr(ivf_scan, "coarse_topk", spy)
+        for module, name, at in _padding_spies()[spec]:
+            monkeypatch.setattr(module, name, spy(getattr(module, name), at))
         got = dt.faiss_search("c", 5, xq, {"nprobe": "3"}, catalog=cat)
     finally:
         dt.config.device = prev

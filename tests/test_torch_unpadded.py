@@ -20,6 +20,7 @@ import torch
 import duckdb_faiss_ext_tpu_torch as dt
 from duckdb_faiss_ext_tpu_torch import errors
 from duckdb_faiss_ext_tpu_torch.models import ivf_layout
+from duckdb_faiss_ext_tpu_torch.models.base import map_labels
 from duckdb_faiss_ext_tpu_torch.ops import ivf_list_scan as k6
 from duckdb_faiss_ext_tpu_torch.ops.bitmap import build_bitmap
 from duckdb_faiss_ext_tpu_torch.ops.flat_search import finalize_scores
@@ -257,14 +258,14 @@ def test_pass_index_answers_as_the_mask_path(metric, kind, rate, k):
     sel = selector_of(kind, passing)
     want_d, want_p = mask_path(ix, xq, k, sel)
     c0 = counters()
-    dist, pos, nq, k_eff, to_labels = ix.search_dispatch(
-        xq, k, ParamMap({"nprobe": str(NPROBE)}), sel)
+    disp = ix.search_dispatch(xq, k, ParamMap({"nprobe": str(NPROBE)}), sel)
     assert counters()["models.pass_index_searches"] == \
         c0["models.pass_index_searches"] + 1
-    assert (nq, k_eff) == (xq.shape[0], want_d.shape[1])
-    assert torch.equal(dist, want_d) and torch.equal(pos, want_p)
+    nq, pos = disp.nq, disp.pos
+    assert (nq, disp.k_eff) == (xq.shape[0], want_d.shape[1])
+    assert torch.equal(disp.dist, want_d) and torch.equal(pos, want_p)
     got = pos[:nq][pos[:nq] >= 0].numpy()
-    assert passing[to_labels(got)].all()
+    assert passing[map_labels(got, disp.tables)].all()
     if rate == 0:
         assert (pos == -1).all()
 

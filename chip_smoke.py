@@ -360,7 +360,24 @@ Phases (any failure raises and the script exits non-zero):
    (``pass_index_search``), held bit for bit against the masked search
    (IP and L2 at k 10, IP at k 1025) and timed against it in turns.
 
-Phases 7 (K1's coarse stages), 28-30 and 32 (its checked cases) add
+34. K1's two regimes (``phase_k1_regimes``): at the IVF coarse shapes
+   (2048 x 1536 IP k 15 and 4096 x 128 L2 k 64, 64 query rows; 4096 x 128
+   at 1024), at 2048 to 32,768 rows of 128 dims (64 and 1024 queries,
+   k 64), and at the kNN-graph builds of 2048 and 4096 rows (a query a
+   row, k 129; d 128, and d 1536 at 2048), the dense regime and the split
+   regime, each forced through ``ft.plan``, return the same bits and
+   unproven count (these checked launches, one a regime and shape, are
+   the ones it adds to the kernels line); then they are
+   timed in turns (CUDA events over ten calls, and the device time and
+   operations a call from torch.profiler, with each kernel's share),
+   beside K1's bound and the regime ``plan`` picks (past
+   ``DENSE_MAX_ROWS``: 65,536 rows, and the Flat cells' 1M x 128 L2 k 10
+   at 64 and 8 rows, the split alone); at the coarse shapes also the
+   plan-only alternative (the split with the smallest query tile that
+   fills the card, 128-row splits, one merge warp a block), whose answers
+   must equal too where no query is margin-unproven.
+
+Phases 7 (K1's coarse stages), 28-30, 32 (its checked cases) and 34 add
 their launches to the kernels line, and phase 33 its K6 launches.
 
 Each kernel's bound is the larger of the bytes it must move (each input
@@ -5953,6 +5970,122 @@ def uneven_lists(g, n, nlist, lmax):
     return list_index(assign.to(torch.int32), nlist)
 
 
+@contextlib.contextmanager
+def k1_plan(regime):
+    """``ft.plan`` replaced inside the block: "split" today's split plan,
+    "dense" the dense regime at any shape, "narrow" the split plan with the
+    smallest query tile (8 or 16) whose grid fills the card, a 128-row
+    tile a split and one merge warp a block (the plan-only alternative)."""
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+
+    plan = ft.plan
+
+    def forced(nq, d, k, n_scan, n_sm):
+        p = plan(nq, d, k, n_scan, n_sm)
+        if regime == "dense":
+            p["dense"] = p["dense"] or ft.dense_plan(nq, d, p["k2"], n_scan,
+                                                     p["qt"], n_sm)
+            return p
+        p["dense"] = None
+        if regime == "narrow":
+            tiles = -(-n_scan // 128)
+            qt = 16 if -(-nq // 16) * tiles >= n_sm else 8
+            p.update(qt=qt, splits=tiles, rows_per_split=128, merge_warps=1)
+        return p
+
+    ft.plan = forced
+    try:
+        yield
+    finally:
+        ft.plan = plan
+
+
+#: phase 34's shapes: (tag, nq, n_scan, d, k, metric); the graph builds
+#: are ``ops/graph.py::build_knn_graph`` over a whole small table at HNSW32's
+#: intermediate degree (k 129)
+K1_REGIME_SHAPES = (
+    ("marco coarse", 64, 2048, 1536, 15, "INNER_PRODUCT"),
+    ("IVF4096 coarse b48", 64, 4096, 128, 64, "L2"),
+    ("IVF4096 coarse b1024", 1024, 4096, 128, 64, "L2"),
+    ("b48", 64, 2048, 128, 64, "L2"),
+    ("b48", 64, 16384, 128, 64, "L2"),
+    ("b48", 64, 32768, 128, 64, "L2"),
+    ("b48", 64, 65536, 128, 64, "L2"),
+    ("b1024", 1024, 2048, 128, 64, "L2"),
+    ("b1024", 1024, 8192, 128, 64, "L2"),
+    ("b1024", 1024, 16384, 128, 64, "L2"),
+    ("graph build", 2048, 2048, 128, 129, "L2"),
+    ("graph build", 4096, 4096, 128, 129, "L2"),
+    ("graph build", 2048, 2048, 1536, 129, "INNER_PRODUCT"),
+    ("Flat b48", 64, 1_000_000, 128, 10, "L2"),
+    ("Flat b1", 8, 1_000_000, 128, 10, "L2"),
+)
+
+
+def phase_k1_regimes(smi, reps=6):
+    """Phase 34: K1's dense and split regimes (and at the coarse shapes the
+    plan-only alternative) checked and timed in turns (see the module
+    docstring).  Returns the launches of its checks of the two regimes:
+    one a regime and shape."""
+    from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    checked = expected = 0
+    g = torch.Generator(device=DEVICE).manual_seed(34)
+    for tag, nq, n, d, k, metric in K1_REGIME_SHAPES:
+        xb = torch.randn(n, d, device=DEVICE, generator=g)
+        xq = torch.randn(nq, d, device=DEVICE, generator=g)
+        if metric == "INNER_PRODUCT":
+            xb /= xb.norm(dim=1, keepdim=True)
+            xq /= xq.norm(dim=1, keepdim=True)
+        regimes = (("split",) + (("dense",) if n <= ft.DENSE_MAX_ROWS else ())
+                   + (("narrow",) if "coarse" in tag else ()))
+        fns, out = {}, {}
+        for r in regimes:
+            def call(r=r):
+                with k1_plan(r):
+                    return ft.flat_topk(xb, n, xq, k, metric)
+            ft.reset_unproven(DEVICE)
+            n0 = ft.LAUNCHES
+            s, p = call()
+            out[r] = (s, p, ft.unproven(DEVICE))
+            fns[r] = call
+            if r != "narrow":
+                checked += ft.LAUNCHES - n0
+                expected += 1
+        ss, sp, su = out["split"]
+        ds, dp, du = out.get("dense", out["split"])
+        check(torch.equal(sp, dp) and su == du and torch.equal(
+            ss.view(torch.int32), ds.view(torch.int32)),
+            f"phase 34 {tag} {n}x{d}: the dense regime's answers differ from "
+            f"the split's (unproven {du} vs {su})")
+        if "narrow" in out and su == 0 and out["narrow"][2] == 0:
+            check(torch.equal(out["narrow"][1], sp),
+                  f"phase 34 {tag}: the plan-only alternative's answers differ")
+
+        ms = {r: [] for r in regimes}
+        for rep in range(reps):
+            for r in (regimes if rep % 2 == 0 else regimes[::-1]):
+                ms[r].append(cuda_ms(lambda: [fns[r]() for _ in range(10)]) / 10)
+        parts = []
+        for r in regimes:
+            dev, ops = device_ops(fns[r])
+            parts.append(f"{r} {statistics.median(ms[r]):.4f} ms, device "
+                         f"{dev:.4f} ms in {ops:g} operations ({device_ms(fns[r])})")
+        chosen = "dense" if ft.plan(nq, d, k, n, n_sm)["dense"] else "split"
+        same = ("answers equal bit for bit" if "dense" in out
+                else "the split alone")
+        (b, by), _ = k1_bounds(n, d, nq, k)
+        log(f"phase 34 K1 {tag} {nq}x{n}x{d} {metric} k {k}: plan picks "
+            f"{chosen}; {same}, unproven {su}; in turns: "
+            f"{'; '.join(parts)}; bound {b:.4f} ms ({by}, 3xTF32) [{smi}]")
+        del xb, xq
+    torch.cuda.empty_cache()
+    check(checked == expected,
+          f"phase 34: {checked} K1 launches checked, {expected} expected")
+    return checked
+
+
 def phase_unpadded(smi):
     """Phase 33 (see the top of this file).  Returns (max abs error,
     K6 launches)."""
@@ -6139,6 +6272,7 @@ def main():
     phase_pairs_gate(smi)
     torch.cuda.empty_cache()
     unpadded_err, unpadded_launches = phase_unpadded(smi)
+    regime_launches = phase_k1_regimes(smi)
     log(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s in all")
     log(smi)
     # Flat, K6 and the SQ kernels at the shapes timed above; no single
@@ -6160,7 +6294,8 @@ def main():
     # 128) and K2 / K3 (IVF1024,SQ8 at d = 1536).
     print(json.dumps({"kernels": [
         kernel_entry(KERNEL, launches + graph_launches["k1"] + place["k1"]
-                     + ivf_k1 + coarse_launches + tools("K1"),
+                     + ivf_k1 + coarse_launches + regime_launches
+                     + tools("K1"),
                      max(sweep_err, golden_err, main_err, place_err),
                      *timings["b1024"]),
         kernel_entry(IVF_LIST_KERNEL,

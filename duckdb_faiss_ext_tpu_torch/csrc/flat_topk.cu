@@ -48,6 +48,27 @@
 //       at 0; IP q·x), sorts them by that score then position, and writes
 //       k.
 //
+// The dense regime, for a small corpus (the IVF coarse stage over a
+// centroid table: 2048 x 1536 gave the split 8 blocks on 132 SMs, each
+// sorting its one tile's candidates through the bitonic warm-up, and a
+// merge whose lanes read 6 KB rows apart).  ops/flat_topk.py::plan picks
+// it from the shape (at most 32,768 rows, a score tile of at most 64 MB):
+//   (c) flat_topk_dense: grid = query tiles x row tiles of 64 x 128,
+//       32 x 32 or 16 x 32 (4 warps), the largest that still gives a wave
+//       of blocks; the partial's staging, products and |x|^2 (its threads
+//       a row, from the split plan's query tile) unchanged, so every
+//       3xTF32 score is the split's bit for bit.  The epilogue writes the
+//       (nq, n_scan) score tile (in L2: 0.5 MB at 64 x 2048) and each row
+//       tile's largest valid |x|^2; no threshold, no candidate list.
+//   (d) flat_topk_select: a block per query takes the best K2 of its
+//       valid scores by (score descending, position ascending) with a
+//       radix select over the scores' order keys (8 bits a pass, histograms
+//       in shared memory; exact ties at the K2-th key resolved by
+//       position), which is the set (a) and (b) keep; rescores them as (b)
+//       does, each sum in dimension order, over rows staged through shared
+//       memory in coalesced chunks; and ends as (b) ends.  So both regimes
+//       return the same bits.
+//
 // Choice of m.  With u = 2^-24 and a the query, b a row:
 //   hi = tf32 truncation of a: |a - hi| < 2^-10 |a|; lo = a - hi (exact),
 //   read as TF32 by truncation: |lo - tf32(lo)| < 2^-10 |lo| < 2^-20 |a|;
@@ -131,22 +152,34 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Tile shape of a query tile of QT: NT corpus rows a tile (256 beside 32 or
-// 64 queries, 128 beside fewer); WN warps along the queries, WM along the
-// rows; each warp holds MT x NQ fragments of 16 rows x 8 queries.
-template <int QT>
-struct Layout {
-  static constexpr int NT = QT >= 32 ? 256 : 128;
-  static constexpr int WN = QT >= 16 ? 2 : 1;
+__host__ __device__ constexpr int tile_rows(int qt) { return qt >= 32 ? 256 : 128; }
+
+// A block's tile: QT queries x NT corpus rows, kWarps warps; WN warps
+// along the queries, WM along the rows; each warp holds MT x NQ fragments of 16
+// rows x 8 queries.  Every tile starts at a multiple of 16 rows and 8
+// queries, so a (row, query) pair sits at the same fragment place in every
+// tile shape.
+template <int QT_, int NT_, int WN_>
+struct Tile {
+  static constexpr int QT = QT_, NT = NT_, WN = WN_;
   static constexpr int WM = kWarps / WN;
   static constexpr int MW = NT / WM;      // rows a warp
   static constexpr int QW = QT / WN;      // queries a warp
   static constexpr int MT = MW / 16;
   static constexpr int NQ = QW / 8;
-  static constexpr int TPR = kThreads / NT;  // threads summing a row's |x|^2
+  static constexpr int RS = kThreads / 8;  // rows one round of 16-byte copies covers
+  static_assert(MW % 16 == 0 && QW % 8 == 0 && NT % RS == 0, "tile shape");
 };
 
-__host__ __device__ constexpr int tile_rows(int qt) { return qt >= 32 ? 256 : 128; }
+// The partial's tile of a query tile of QT: 256 corpus rows beside 32 or 64
+// queries, 128 beside fewer.
+template <int QT>
+using Layout = Tile<QT, tile_rows(QT), QT >= 16 ? 2 : 1>;
+
+// The dense regime's score tiles, largest first (ops/flat_topk.py's
+// _DENSE_TILES names them by index).
+using DenseWide = Tile<64, 128, 2>;
+using DenseSquare = Tile<32, 32, 4>;
 
 // Shared-memory bytes of flat_topk_partial<QT> with `slots` a query.
 __host__ __device__ constexpr size_t partial_smem(int qt, int slots) {
@@ -154,6 +187,133 @@ __host__ __device__ constexpr size_t partial_smem(int qt, int slots) {
          + sizeof(float) * kThreads + tile_rows(qt)           // |x|^2 parts, row validity
          + 16 * static_cast<size_t>(qt)                       // qn, ts, tp, cnt
          + 8 * static_cast<size_t>(qt) * slots;               // candidate lists
+}
+
+// |q|^2 of one query row by a warp: lane-strided fp32 FMA sums, then a
+// butterfly; every lane returns it.
+__device__ __forceinline__ float query_norm(const float* qrow, int d, int lane) {
+  float acc = 0.f;
+#pragma unroll 8
+  for (int c = lane; c < d; c += 32) acc = fmaf(qrow[c], qrow[c], acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
+  return acc;
+}
+
+// Into one stage of the ring: corpus rows [t0, t0 + NT) below r_end and
+// queries [q0, q0 + QT) below nq, dims [c0, c0 + kDK); the rest zero-filled.
+template <class L, bool VEC4>
+__device__ __forceinline__ void stage_chunk(float* st, const float* __restrict__ xb,
+                                            const float* __restrict__ xq, int64_t t0,
+                                            int64_t r_end, int q0, int nq, int d, int c0,
+                                            int tid) {
+  constexpr int NT = L::NT, QT = L::QT;
+  if (VEC4) {
+    // A thread copies 16 bytes (dims c4 .. c4 + 3) of rows r0, r0 + RS,
+    // ...: corpus rows, then query rows past NT.
+    const int r0 = tid >> 3, c4 = (tid & 7) * 4;
+    const bool dims = c0 + c4 < d;
+    const float* rows = xb + (t0 + r0) * d + c0 + c4;
+#pragma unroll
+    for (int j = 0; j < (NT + QT + L::RS - 1) / L::RS; ++j) {
+      const int rr = r0 + L::RS * j;
+      const float* src = xb;
+      int bytes = 0;
+      if (L::RS * j < NT) {
+        if (t0 + rr < r_end && dims) { src = rows + static_cast<int64_t>(L::RS * j) * d; bytes = 16; }
+      } else {
+        if (rr >= NT + QT) continue;
+        if (q0 + rr - NT < nq && dims) {
+          src = xq + static_cast<int64_t>(q0 + rr - NT) * d + c0 + c4;
+          bytes = 16;
+        }
+      }
+      cpa::copy16(st + rr * kLD + c4, src, bytes);
+    }
+  } else {
+    for (int i = tid; i < (NT + QT) * kDK; i += kThreads) {
+      const int rr = i / kDK, cc = i % kDK;
+      const float* src = xb;
+      int bytes = 0;
+      if (rr < NT) {
+        if (t0 + rr < r_end && c0 + cc < d) { src = xb + (t0 + rr) * d + c0 + cc; bytes = 4; }
+      } else if (q0 + rr - NT < nq && c0 + cc < d) {
+        src = xq + static_cast<int64_t>(q0 + rr - NT) * d + c0 + cc;
+        bytes = 4;
+      }
+      cpa::copy4(st + rr * kLD + cc, src, bytes);
+    }
+  }
+}
+
+// The 3xTF32 products of one staged chunk (rows xs, queries qsm) into a
+// warp's accumulators.
+template <class L>
+__device__ __forceinline__ void mma_chunk(float (&acc)[L::MT][L::NQ][4], const float* xs,
+                                          const float* qsm, int wm, int wn, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kDK; kk += 8) {
+    uint32_t ah[L::MT][4], al[L::MT][4], bh[L::NQ][2], bl[L::NQ][2];
+    const int lm = lane >> 3, lr = lane & 7;  // the matrix and row this lane names
+#pragma unroll
+    for (int mt = 0; mt < L::MT; ++mt) {
+      // matrices: rows +0 / +8 (bit 0) x dims +0 / +4 (bit 1) = a0..a3
+      uint32_t v[4];
+      ldsm_x4(v, xs + (wm * L::MW + mt * 16 + lr + 8 * (lm & 1)) * kLD + kk + 4 * (lm >> 1));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) split(v[j], ah[mt][j], al[mt][j]);
+    }
+    if constexpr (L::NQ % 2 == 0) {
+#pragma unroll
+      for (int nt = 0; nt < L::NQ; nt += 2) {
+        // matrices: dims +0 / +4 (bit 0) x query tiles nt / nt + 1 (bit 1)
+        uint32_t v[4];
+        ldsm_x4(v, qsm + (wn * L::QW + (nt + (lm >> 1)) * 8 + lr) * kLD + kk + 4 * (lm & 1));
+        split(v[0], bh[nt][0], bl[nt][0]);
+        split(v[1], bh[nt][1], bl[nt][1]);
+        split(v[2], bh[nt + 1][0], bl[nt + 1][0]);
+        split(v[3], bh[nt + 1][1], bl[nt + 1][1]);
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < L::NQ; ++nt) {
+        uint32_t v[2];
+        ldsm_x2(v, qsm + (wn * L::QW + nt * 8 + lr) * kLD + kk + 4 * (lm & 1));
+        split(v[0], bh[nt][0], bl[nt][0]);
+        split(v[1], bh[nt][1], bl[nt][1]);
+      }
+    }
+    // Product-major order: the three products of one accumulator are
+    // MT·NQ independent mma apart, so none waits on the one before.
+#pragma unroll
+    for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < L::NQ; ++nt) mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
+#pragma unroll
+    for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < L::NQ; ++nt) mma_tf32(acc[mt][nt], al[mt], bh[nt]);
+#pragma unroll
+    for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < L::NQ; ++nt) mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
+  }
+}
+
+// A thread's share of one staged row's |x|^2 over a chunk: dims
+// [dpt · sub, dpt · (sub + 1)) in order, added to acc.
+__device__ __forceinline__ float row_norm_part(const float* xs, int row, int sub, int dpt,
+                                               float acc) {
+  const float4* xr = reinterpret_cast<const float4*>(xs + row * kLD + dpt * sub);
+#pragma unroll 8
+  for (int j = 0; j < dpt / 4; ++j) {
+    const float4 v = xr[j];
+    acc = fmaf(v.x, v.x, acc);
+    acc = fmaf(v.y, v.y, acc);
+    acc = fmaf(v.z, v.z, acc);
+    acc = fmaf(v.w, v.w, acc);
+  }
+  return acc;
 }
 
 template <int QT, bool VEC4>
@@ -187,15 +347,10 @@ flat_topk_partial(const float* __restrict__ xb, const float* __restrict__ xq,
   const int buf = slots - k2;
 
   for (int qq = warp; qq < QT; qq += kWarps) {
-    float acc = 0.f;
-    if (l2 && q0 + qq < nq) {
-      const float* qrow = xq + static_cast<int64_t>(q0 + qq) * d;
-      for (int c = lane; c < d; c += 32) acc = fmaf(qrow[c], qrow[c], acc);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
+    const float qn =
+        l2 && q0 + qq < nq ? query_norm(xq + static_cast<int64_t>(q0 + qq) * d, d, lane) : 0.f;
     if (lane == 0) {
-      qn_s[qq] = acc;
+      qn_s[qq] = qn;
       ts_s[qq] = -INFINITY;
       tp_s[qq] = kNoPos;
       cnt_s[qq] = 0;
@@ -211,54 +366,14 @@ flat_topk_partial(const float* __restrict__ xb, const float* __restrict__ xq,
   const int64_t n_tiles = r_end > r_begin ? (r_end - r_begin + NT - 1) / NT : 0;
   const int64_t total = n_tiles * nc;
 
-  // Into stage `stage`: rows [t0, t0 + NT) and all QT queries, dims
-  // [c0, c0 + kDK).
-  auto load = [&](int stage, int64_t t0, int c0) {
-    float* st = ring + stage * (NT + QT) * kLD;
-    if (VEC4) {
-      // A thread copies 16 bytes (dims c4 .. c4 + 3) of rows r0, r0 + 32,
-      // ...: corpus rows, then query rows past NT.
-      const int r0 = tid >> 3, c4 = (tid & 7) * 4;
-      const bool dims = c0 + c4 < d;
-      const float* rows = xb + (t0 + r0) * d + c0 + c4;
-#pragma unroll
-      for (int j = 0; j < (NT + QT + 31) / 32; ++j) {
-        const int rr = r0 + 32 * j;
-        const float* src = xb;
-        int bytes = 0;
-        if (32 * j < NT) {
-          if (t0 + rr < r_end && dims) { src = rows + static_cast<int64_t>(32 * j) * d; bytes = 16; }
-        } else {
-          if (rr >= NT + QT) continue;
-          if (q0 + rr - NT < nq && dims) {
-            src = xq + static_cast<int64_t>(q0 + rr - NT) * d + c0 + c4;
-            bytes = 16;
-          }
-        }
-        cpa::copy16(st + rr * kLD + c4, src, bytes);
-      }
-    } else {
-      for (int i = tid; i < (NT + QT) * kDK; i += kThreads) {
-        const int rr = i / kDK, cc = i % kDK;
-        const float* src = xb;
-        int bytes = 0;
-        if (rr < NT) {
-          if (t0 + rr < r_end && c0 + cc < d) { src = xb + (t0 + rr) * d + c0 + cc; bytes = 4; }
-        } else if (q0 + rr - NT < nq && c0 + cc < d) {
-          src = xq + static_cast<int64_t>(q0 + rr - NT) * d + c0 + cc;
-          bytes = 4;
-        }
-        cpa::copy4(st + rr * kLD + cc, src, bytes);
-      }
-    }
-  };
-
   // The copy position runs kStages - 1 chunks ahead of the compute one;
   // both advance without a division.
   int64_t ld_it = 0, ld_t0 = r_begin;
   int ld_c = 0, ld_stage = 0;
   auto load_next = [&]() {
-    if (ld_it < total) load(ld_stage, ld_t0, ld_c * kDK);
+    if (ld_it < total)
+      stage_chunk<L, VEC4>(ring + ld_stage * (NT + QT) * kLD, xb, xq, ld_t0, r_end, q0, nq, d,
+                           ld_c * kDK, tid);
     cpa::commit();
     ++ld_it;
     if (++ld_c == nc) { ld_c = 0; ld_t0 += NT; }
@@ -268,8 +383,8 @@ flat_topk_partial(const float* __restrict__ xb, const float* __restrict__ xq,
 
   float acc[L::MT][L::NQ][4];
   float bn_part = 0.f, bn_hi = 0.f;  // this thread's share of a row; the block's max
+  constexpr int TPR = kThreads / NT;   // threads summing a row's |x|^2
   const int bn_row = tid % NT, bn_sub = tid / NT;
-  constexpr int kDPT = kDK / L::TPR;   // dims a thread sums, a chunk
 
   int64_t t0 = r_begin;
   int c = 0, stage = 0;
@@ -291,65 +406,8 @@ flat_topk_partial(const float* __restrict__ xb, const float* __restrict__ xq,
       }
     }
     const float* xs = ring + stage * (NT + QT) * kLD;
-    const float* qsm = xs + NT * kLD;
-#pragma unroll
-    for (int kk = 0; kk < kDK; kk += 8) {
-      uint32_t ah[L::MT][4], al[L::MT][4], bh[L::NQ][2], bl[L::NQ][2];
-      const int lm = lane >> 3, lr = lane & 7;  // the matrix and row this lane names
-#pragma unroll
-      for (int mt = 0; mt < L::MT; ++mt) {
-        // matrices: rows +0 / +8 (bit 0) x dims +0 / +4 (bit 1) = a0..a3
-        uint32_t v[4];
-        ldsm_x4(v, xs + (wm * L::MW + mt * 16 + lr + 8 * (lm & 1)) * kLD + kk + 4 * (lm >> 1));
-#pragma unroll
-        for (int j = 0; j < 4; ++j) split(v[j], ah[mt][j], al[mt][j]);
-      }
-      if constexpr (L::NQ % 2 == 0) {
-#pragma unroll
-        for (int nt = 0; nt < L::NQ; nt += 2) {
-          // matrices: dims +0 / +4 (bit 0) x query tiles nt / nt + 1 (bit 1)
-          uint32_t v[4];
-          ldsm_x4(v, qsm + (wn * L::QW + (nt + (lm >> 1)) * 8 + lr) * kLD + kk + 4 * (lm & 1));
-          split(v[0], bh[nt][0], bl[nt][0]);
-          split(v[1], bh[nt][1], bl[nt][1]);
-          split(v[2], bh[nt + 1][0], bl[nt + 1][0]);
-          split(v[3], bh[nt + 1][1], bl[nt + 1][1]);
-        }
-      } else {
-#pragma unroll
-        for (int nt = 0; nt < L::NQ; ++nt) {
-          uint32_t v[2];
-          ldsm_x2(v, qsm + (wn * L::QW + nt * 8 + lr) * kLD + kk + 4 * (lm & 1));
-          split(v[0], bh[nt][0], bl[nt][0]);
-          split(v[1], bh[nt][1], bl[nt][1]);
-        }
-      }
-      // Product-major order: the three products of one accumulator are
-      // MT·NQ independent mma apart, so none waits on the one before.
-#pragma unroll
-      for (int mt = 0; mt < L::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < L::NQ; ++nt) mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
-#pragma unroll
-      for (int mt = 0; mt < L::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < L::NQ; ++nt) mma_tf32(acc[mt][nt], al[mt], bh[nt]);
-#pragma unroll
-      for (int mt = 0; mt < L::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < L::NQ; ++nt) mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
-    }
-    {  // |x|^2: this thread's kDPT dims of its row, a chunk
-      const float4* xr = reinterpret_cast<const float4*>(xs + bn_row * kLD + kDPT * bn_sub);
-#pragma unroll
-      for (int j = 0; j < kDPT / 4; ++j) {
-        const float4 v = xr[j];
-        bn_part = fmaf(v.x, v.x, bn_part);
-        bn_part = fmaf(v.y, v.y, bn_part);
-        bn_part = fmaf(v.z, v.z, bn_part);
-        bn_part = fmaf(v.w, v.w, bn_part);
-      }
-    }
+    mma_chunk<L>(acc, xs, xs + NT * kLD, wm, wn, lane);
+    bn_part = row_norm_part(xs, bn_row, bn_sub, kDK / TPR, bn_part);
     if (++stage == kStages) stage = 0;
     if (++c < nc) continue;
     c = 0;
@@ -369,7 +427,7 @@ flat_topk_partial(const float* __restrict__ xb, const float* __restrict__ xq,
         const int rl = wm * L::MW + mt * 16 + g + 8 * h;
         float bn = 0.f;
 #pragma unroll
-        for (int s = 0; s < L::TPR; ++s) bn += bnh_s[s * NT + rl];
+        for (int s = 0; s < TPR; ++s) bn += bnh_s[s * NT + rl];
         bn_r[mt][h] = bn;
         if (!valid_s[rl]) continue;
 #pragma unroll
@@ -382,7 +440,7 @@ flat_topk_partial(const float* __restrict__ xb, const float* __restrict__ xq,
     if (tid < NT && valid_s[tid]) {
       float bn = 0.f;
 #pragma unroll
-      for (int s = 0; s < L::TPR; ++s) bn += bnh_s[s * NT + tid];
+      for (int s = 0; s < TPR; ++s) bn += bnh_s[s * NT + tid];
       bn_hi = fmaxf(bn_hi, bn);
     }
     while (true) {
@@ -467,6 +525,28 @@ __device__ __forceinline__ float error_bound(float qn, float bn_hi, int d, int l
   return l2 ? 2.f * s * eps + (2.f * d + 4.f) * u * (qn + bn_hi) + 8.f * u * s : s * eps;
 }
 
+// The merge's last steps, shared with the dense regime's select: sort the
+// K2 rescored candidates (s, p: a power of two >= k2 slots) by exact score
+// then position, write the best k, and count the query unproven when its
+// K2-th 3xTF32 score a_last comes within 2E of the k-th exact score.  One
+// warp.
+__device__ __forceinline__ void finish_query(float* s, int* p, int k, int k2, bool full,
+                                             float a_last, float qn, float bn_hi, int d, int l2,
+                                             float* __restrict__ out_s, int* __restrict__ out_p,
+                                             int* __restrict__ unproven, int64_t q, int lane) {
+  sort_used(s, p, k2, lane);
+  for (int t = lane; t < k; t += 32) {
+    const float sc = s[t];
+    const int pos = p[t];
+    const bool missing = pos == kNoPos || sc == -INFINITY;
+    out_s[q * k + t] = missing ? -INFINITY : sc;
+    out_p[q * k + t] = missing ? -1 : pos;
+  }
+  const float e_k = s[k - 1];
+  if (lane == 0 && full && e_k > -INFINITY && a_last >= e_k - 2.f * error_bound(qn, bn_hi, d, l2))
+    atomicAdd(unproven, 1);
+}
+
 __global__ void __launch_bounds__(kThreads)
 flat_topk_merge(const float* __restrict__ xb, const float* __restrict__ xq,
                 const float* __restrict__ part_s, const int* __restrict__ part_p,
@@ -493,10 +573,7 @@ flat_topk_merge(const float* __restrict__ xb, const float* __restrict__ xq,
 
   // Exact fp32 rescore of the K2 candidates.
   const float* qrow = xq + static_cast<int64_t>(q) * d;
-  float qn = 0.f;
-  for (int c = lane; c < d; c += 32) qn = fmaf(qrow[c], qrow[c], qn);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) qn += __shfl_xor_sync(kFull, qn, off);
+  const float qn = query_norm(qrow, d, lane);
   // A lane a candidate, each sum taken in dimension order (as a cuBLAS
   // SGEMM thread accumulates along k): the plain version's rounding.
   __syncwarp();
@@ -513,18 +590,331 @@ flat_topk_merge(const float* __restrict__ xb, const float* __restrict__ xq,
     s[i] = l2 ? -fmaxf(qn - 2.f * dot + bn, 0.f) : dot;
   }
   __syncwarp();
-  sort_used(s, p, k2, lane);
-  for (int t = lane; t < k; t += 32) {
-    const float sc = s[t];
-    const int pos = p[t];
-    const bool missing = pos == kNoPos || sc == -INFINITY;
-    out_s[static_cast<int64_t>(q) * k + t] = missing ? -INFINITY : sc;
-    out_p[static_cast<int64_t>(q) * k + t] = missing ? -1 : pos;
+  finish_query(s, p, k, k2, full, a_last, qn, *bn_max, d, l2, out_s, out_p, unproven, q, lane);
+}
+
+// ---- The dense regime: (c) flat_topk_dense, (d) flat_topk_select ----
+
+template <class L, int STAGES>
+__host__ __device__ constexpr size_t dense_smem() {
+  return sizeof(float) * (STAGES * (L::NT + L::QT) * kLD + kThreads + L::QT);
+}
+
+// Every 3xTF32 score of a query tile x row tile, written to the (nq, n_scan)
+// score tile, and the tile's largest valid |x|^2 (from the first query
+// tile's block) to bn_tile.  The partial's staging, products, norms and
+// epilogue arithmetic; bn_parts threads sum a row's |x|^2, as in the
+// partial the split plan would launch for this nq.  STAGES chunks in the
+// ring: a small tile needs more in flight to cover the copies' latency.
+template <class L, int STAGES, bool VEC4>
+__global__ void __launch_bounds__(kThreads)
+flat_topk_dense(const float* __restrict__ xb, const float* __restrict__ xq,
+                const int8_t* __restrict__ mask, int nq, int d, int n_scan, int bn_parts,
+                int l2, float* __restrict__ scores, float* __restrict__ bn_tile) {
+  constexpr int NT = L::NT, QT = L::QT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);        // [stage][NT + QT][kLD]
+  float* bnh_s = ring + STAGES * (NT + QT) * kLD;       // [bn_parts][NT]
+  float* qn_s = bnh_s + kThreads;                     // [QT]
+  __shared__ int bn_hi_s;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp % L::WM, wn = warp / L::WM;
+  const int q0 = blockIdx.x * QT;
+  const int t0 = blockIdx.y * NT;
+  const int r_end = min(t0 + NT, n_scan);
+
+  if (tid == 0) bn_hi_s = 0;
+  for (int qq = warp; qq < QT; qq += kWarps) {
+    const float qn =
+        l2 && q0 + qq < nq ? query_norm(xq + static_cast<int64_t>(q0 + qq) * d, d, lane) : 0.f;
+    if (lane == 0) qn_s[qq] = qn;
   }
-  const float e_k = s[k - 1];
-  if (lane == 0 && full && e_k > -INFINITY &&
-      a_last >= e_k - 2.f * error_bound(qn, *bn_max, d, l2))
-    atomicAdd(unproven, 1);
+
+  const int nc = (d + kDK - 1) / kDK;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nc)
+      stage_chunk<L, VEC4>(ring + s * (NT + QT) * kLD, xb, xq, t0, r_end, q0, nq, d, s * kDK,
+                           tid);
+    cpa::commit();
+  }
+  float acc[L::MT][L::NQ][4];
+#pragma unroll
+  for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < L::NQ; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  float bn_part = 0.f;
+  const int bn_row = tid % NT, bn_sub = tid / NT, dpt = kDK / bn_parts;
+  for (int c = 0; c < nc; ++c) {
+    cpa::wait_pending(STAGES - 2);
+    __syncthreads();
+    const int ahead = c + STAGES - 1;
+    if (ahead < nc)
+      stage_chunk<L, VEC4>(ring + (ahead % STAGES) * (NT + QT) * kLD, xb, xq, t0, r_end, q0,
+                           nq, d, ahead * kDK, tid);
+    cpa::commit();
+    const float* xs = ring + (c % STAGES) * (NT + QT) * kLD;
+    mma_chunk<L>(acc, xs, xs + NT * kLD, wm, wn, lane);
+    if (bn_sub < bn_parts) bn_part = row_norm_part(xs, bn_row, bn_sub, dpt, bn_part);
+  }
+  cpa::wait_pending(0);
+  if (bn_sub < bn_parts) bnh_s[bn_sub * NT + bn_row] = bn_part;
+  __syncthreads();
+
+#pragma unroll
+  for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = wm * L::MW + mt * 16 + g + 8 * h;
+      float bn = 0.f;
+      for (int s = 0; s < bn_parts; ++s) bn += bnh_s[s * NT + rl];
+      if (t0 + rl >= n_scan) continue;
+#pragma unroll
+      for (int nt = 0; nt < L::NQ; ++nt)
+#pragma unroll
+        for (int hq = 0; hq < 2; ++hq) {
+          const int ql = wn * L::QW + nt * 8 + 2 * t4 + hq;
+          if (q0 + ql >= nq) continue;
+          const float dot = acc[mt][nt][2 * h + hq];
+          scores[static_cast<int64_t>(q0 + ql) * n_scan + t0 + rl] =
+              l2 ? -fmaxf(qn_s[ql] - 2.f * dot + bn, 0.f) : dot;
+        }
+    }
+  if (blockIdx.x != 0) return;  // block-uniform
+  if (tid < NT && t0 + tid < r_end && (mask == nullptr || mask[t0 + tid] != 0)) {
+    float bn = 0.f;
+    for (int s = 0; s < bn_parts; ++s) bn += bnh_s[s * NT + tid];
+    atomicMax(&bn_hi_s, __float_as_int(bn));  // non-negative: int order
+  }
+  __syncthreads();
+  if (tid == 0) bn_tile[blockIdx.y] = __int_as_float(bn_hi_s);
+}
+
+constexpr int kSelThreads = 256;
+constexpr int kSelWarps = kSelThreads / 32;
+
+// Shared-memory bytes of flat_topk_select: the histogram, the candidates'
+// ks slots, and `buffer` floats that hold the query's order keys, then the
+// rescore's staged rows (ops/flat_topk.py::dense_plan sizes it).
+__host__ __device__ constexpr size_t select_smem(int ks, int buffer) {
+  return sizeof(int) * 256 + 8 * static_cast<size_t>(ks) + sizeof(float) * buffer;
+}
+
+// An unsigned key in the order of better()'s scores: larger is better; -0
+// keys as +0, which better() ties with it.  No score keys as 0 (the key of
+// a negative NaN's bits), which marks a row that cannot be a candidate.
+__device__ __forceinline__ uint32_t order_key(float s) {
+  const uint32_t b = __float_as_uint(s == 0.f ? 0.f : s);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_score(uint32_t key) {
+  return __uint_as_float((key & 0x80000000u) ? key ^ 0x80000000u : ~key);
+}
+
+// One block a query: the best K2 of its valid scores by (3xTF32 score
+// descending, position ascending), which is the set the split's partial
+// and merge keep; their exact fp32 rescore, each sum in dimension order
+// over rows staged through shared memory; then the merge's sort, output and
+// unproven count.
+__global__ void __launch_bounds__(kSelThreads)
+flat_topk_select(const float* __restrict__ xb, const float* __restrict__ xq,
+                 const int8_t* __restrict__ mask, const float* __restrict__ scores,
+                 const float* __restrict__ bn_tile, int n_tiles, int d, int n_scan, int k,
+                 int k2, int ks, int buffer, int l2, float* __restrict__ out_s,
+                 int* __restrict__ out_p, int* __restrict__ unproven) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* hist = reinterpret_cast<int*>(smem);                  // [256]
+  float* cs = reinterpret_cast<float*>(hist + 256);          // [ks]
+  int* cp = reinterpret_cast<int*>(cs + ks);                 // [ks]
+  uint32_t* keys = reinterpret_cast<uint32_t*>(cp + ks);     // [buffer]: keys, then
+  float* stage = reinterpret_cast<float*>(keys);             // the staged rows
+  __shared__ uint32_t prefix_s;
+  __shared__ int need_s, total_s, exact_s, cnt_s;
+  __shared__ float qn_s, bn_s;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t q = blockIdx.x;
+  const float* srow = scores + q * n_scan;
+  const float* qrow = xq + q * d;
+
+  if (warp == 0) {
+    const float qn = query_norm(qrow, d, lane);
+    if (lane == 0) {
+      qn_s = qn;
+      cnt_s = 0;
+    }
+  } else if (warp == 1) {
+    float m = 0.f;
+    for (int i = lane; i < n_tiles; i += 32) m = fmaxf(m, bn_tile[i]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+    if (lane == 0) bn_s = m;
+  }
+#pragma unroll 4
+  for (int i = tid; i < n_scan; i += kSelThreads) {
+    const float s = srow[i];  // NaN never passes better()
+    keys[i] = s == s && (mask == nullptr || mask[i] != 0) ? order_key(s) : 0u;
+  }
+
+  // Radix select, 8 bits a pass from the top: the K2-th best key lies in
+  // the bucket `prefix` of the bits under `pmask`, `need` of it to take.
+  // A pass stops early where the whole bucket is needed (exact).
+  uint32_t prefix = 0, pmask = 0;
+  int need = 0, total = 0;
+  bool exact = false;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = tid; i < 256; i += kSelThreads) hist[i] = 0;
+    __syncthreads();
+    for (int i0 = 0; i0 < n_scan; i0 += kSelThreads) {
+      const int i = i0 + tid;
+      int bin = 256;
+      if (i < n_scan) {
+        const uint32_t key = keys[i];
+        if (key != 0 && (key & pmask) == prefix) bin = (key >> shift) & 255;
+      }
+      const unsigned peers = __match_any_sync(kFull, bin);
+      if (bin < 256 && lane == __ffs(peers) - 1) atomicAdd(hist + bin, __popc(peers));
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // Lane l holds buckets 255 - 8l down to 248 - 8l.
+      int c[8], sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sum += c[j] = hist[255 - 8 * lane - j];
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += v;
+      }
+      const int tot = __shfl_sync(kFull, incl, 31);
+      const int want = shift == 24 ? min(k2, tot) : need;
+      const unsigned hit = __ballot_sync(kFull, want > 0 && incl >= want && incl - sum < want);
+      const int src = hit ? __ffs(hit) - 1 : 0;
+      int digit = 0, above = incl - sum, cnt = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (cnt == 0 && above + c[j] >= want) {
+          digit = 255 - 8 * lane - j;
+          cnt = c[j];
+        } else if (cnt == 0) {
+          above += c[j];
+        }
+      }
+      digit = __shfl_sync(kFull, digit, src);
+      above = __shfl_sync(kFull, above, src);
+      cnt = __shfl_sync(kFull, cnt, src);
+      if (lane == 0) {
+        if (shift == 24) total_s = tot;
+        prefix_s = prefix | static_cast<uint32_t>(digit) << shift;
+        need_s = hit ? want - above : 0;
+        exact_s = !hit || cnt == want - above;
+      }
+    }
+    __syncthreads();
+    prefix = prefix_s;
+    pmask |= 0xffu << shift;
+    need = need_s;
+    exact = exact_s;
+    total = total_s;
+    if (exact) break;  // block-uniform
+  }
+
+  // Collect every key above the bucket, and the bucket's keys: all when
+  // exact, else (exact ties at the K2-th key) the `need` first by position.
+  const int cnt = min(k2, total);
+  for (int i = tid; i < n_scan; i += kSelThreads) {
+    const uint32_t key = keys[i];
+    const uint32_t m = key & pmask;
+    if (key != 0 && (m > prefix || (exact && m == prefix))) {
+      const int at = atomicAdd(&cnt_s, 1);
+      cs[at] = key_score(key);
+      cp[at] = i;
+    }
+  }
+  for (int i = cnt + tid; i < ks; i += kSelThreads) {
+    cs[i] = -INFINITY;
+    cp[i] = kNoPos;
+  }
+  __syncthreads();
+  if (!exact && warp == 0) {
+    const int base = cnt_s;
+    int taken = 0;
+    for (int i0 = 0; i0 < n_scan && taken < need; i0 += 32) {
+      const int i = i0 + lane;
+      const bool eq = i < n_scan && keys[i] != 0 && keys[i] == prefix;
+      const unsigned b = __ballot_sync(kFull, eq);
+      const int rank = taken + __popc(b & ((1u << lane) - 1u));
+      if (eq && rank < need) {
+        cs[base + rank] = key_score(prefix);
+        cp[base + rank] = i;
+      }
+      taken += __popc(b);
+    }
+  }
+  float a_last = INFINITY;  // the K2-th 3xTF32 score (warp 0)
+  if (warp == 0) {
+    __syncwarp();
+    for (int i = lane; i < cnt; i += 32) a_last = fminf(a_last, cs[i]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) a_last = fminf(a_last, __shfl_xor_sync(kFull, a_last, off));
+  }
+
+  // Exact fp32 rescore: a thread a candidate; the rows staged with cp.async
+  // in chunks of ch dims (row stride ch + 1: conflict-free reads), as few
+  // and as even as the buffer allows.
+  const float qn = qn_s;
+  for (int g0 = 0; g0 < cnt; g0 += kSelThreads) {
+    const int rows = min(kSelThreads, cnt - g0);
+    const int room = (buffer - rows) / (rows + 1);
+    const int ch = (d + (d + room - 1) / room - 1) / ((d + room - 1) / room);
+    float* qs = stage + rows * (ch + 1);
+    float dot = 0.f, bn = 0.f;
+    for (int c0 = 0; c0 < d; c0 += ch) {
+      const int w = min(ch, d - c0);
+      __syncthreads();  // the buffer's readers are done: the keys, the last chunk
+      for (int r = warp; r < rows; r += kSelWarps) {
+        const float* src = xb + static_cast<int64_t>(cp[g0 + r]) * d + c0;
+        float* dst = stage + r * (ch + 1);
+        for (int c = lane; c < w; c += 32) cpa::copy4(dst + c, src + c);
+      }
+      for (int c = tid; c < w; c += kSelThreads) cpa::copy4(qs + c, qrow + c0 + c);
+      cpa::commit();
+      cpa::wait_pending(0);
+      __syncthreads();
+      if (tid < rows) {
+        const float* xr = stage + tid * (ch + 1);
+        int c = 0;
+        for (; c + 8 <= w; c += 8) {  // eight loads in flight, the sums in order
+          float x[8], y[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            x[j] = xr[c + j];
+            y[j] = qs[c + j];
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            dot = fmaf(y[j], x[j], dot);
+            bn = fmaf(x[j], x[j], bn);
+          }
+        }
+        for (; c < w; ++c) {
+          const float x = xr[c];
+          dot = fmaf(qs[c], x, dot);
+          bn = fmaf(x, x, bn);
+        }
+      }
+    }
+    if (tid < rows) cs[g0 + tid] = l2 ? -fmaxf(qn - 2.f * dot + bn, 0.f) : dot;
+  }
+  __syncthreads();
+  if (warp == 0)
+    finish_query(cs, cp, k, k2, total >= k2, a_last, qn, bn_s, d, l2, out_s, out_p, unproven, q,
+                 lane);
 }
 
 template <int QT, bool VEC4>
@@ -552,6 +942,24 @@ cudaError_t launch_partial_vec(bool vec4, const float* xb, const float* xq, cons
                                          k2, slots, l2, part_s, part_p, bn_max, stream)
               : launch_partial<QT, false>(xb, xq, mask, nq, d, n_scan, rows_per_split, splits,
                                           k2, slots, l2, part_s, part_p, bn_max, stream);
+}
+
+// The score launch of tile L with a ring of STAGES; n_tiles receives its
+// row tiles.
+template <class L, int STAGES>
+cudaError_t launch_dense(bool vec4, const float* xb, const float* xq, const int8_t* mask,
+                         int nq, int d, int n_scan, int bn_parts, int l2, float* scores,
+                         float* bn_tile, int* n_tiles, cudaStream_t stream) {
+  auto kernel = vec4 ? flat_topk_dense<L, STAGES, true> : flat_topk_dense<L, STAGES, false>;
+  const size_t smem = dense_smem<L, STAGES>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  *n_tiles = (n_scan + L::NT - 1) / L::NT;
+  const dim3 grid((nq + L::QT - 1) / L::QT, *n_tiles);
+  kernel<<<grid, kThreads, smem, stream>>>(xb, xq, mask, nq, d, n_scan, bn_parts, l2, scores,
+                                             bn_tile);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -593,5 +1001,42 @@ extern "C" int dfx_flat_topk(const float* xb, const float* xq, const int8_t* mas
   flat_topk_merge<<<mblocks, 32 * merge_warps, msmem, stream>>>(
       xb, xq, part_s, part_p, bn_max, nq, d, splits, k, k2, merge_slots, l2, out_s, out_p,
       unproven);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dense regime.  Returns the CUDA error of the launches (0 on
+// success).  The caller sizes scores as (nq, n_scan) and bn_tile as the
+// score launch's row tiles (n_scan over the tile's rows, rounded up),
+// out_s/out_p as (nq, k), passes unproven as for dfx_flat_topk; tile 0 or
+// 1 (DenseWide, DenseSquare), 1 <= n_scan <= 32768 (the
+// select's keys in shared memory), bn_parts 1 or 2
+// (the split plan's threads a row's |x|^2), ks the power of two >= k2,
+// buffer the select's floats beside them (at least n_scan, and room for a
+// candidate row's chunk), and vec4 as for dfx_flat_topk.
+extern "C" int dfx_flat_topk_dense(const float* xb, const float* xq, const int8_t* mask, int nq,
+                                   int d, int n_scan, int k, int k2, int l2, int tile, int vec4,
+                                   int bn_parts, int ks, int buffer, float* scores, float* bn_tile,
+                                   float* out_s, int* out_p, int* unproven, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t err;
+  int n_tiles = 0;
+#define DFX_DENSE(L, STAGES)                                                                \
+  launch_dense<L, STAGES>(vec4, xb, xq, mask, nq, d, n_scan, bn_parts, l2, scores, bn_tile,   \
+                          &n_tiles, stream)
+  switch (tile) {
+    case 0: err = DFX_DENSE(DenseWide, kStages); break;
+    case 1: err = DFX_DENSE(DenseSquare, 5); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef DFX_DENSE
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const size_t ssmem = select_smem(ks, buffer);
+  err = cudaFuncSetAttribute(flat_topk_select, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(ssmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flat_topk_select<<<nq, kSelThreads, ssmem, stream>>>(xb, xq, mask, scores, bn_tile, n_tiles, d,
+                                                       n_scan, k, k2, ks, buffer, l2, out_s,
+                                                       out_p, unproven);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,14 @@ exact fp32 in both precision modes.  ``margin`` gives m; the merge counts
 the queries whose (k + m)-th candidate lies within twice ``error_bound``
 of the k-th exact score (``unproven``), a diagnostic.
 
+A small corpus (the IVF coarse stage over a centroid table, whose split
+plan gave the card 8 to 32 blocks) takes the dense regime instead, chosen
+by ``plan`` from the shape alone: one launch writes every 3xTF32 score of the
+(nq, n_scan) tile, bit for bit the split's, and a second selects each
+query's best k + m of them, rescores and orders them as the merge does, so
+both regimes return the same bits.  ``faiss_stats()["counters"]
+["kernels.flat_topk_dense"]`` counts the calls it served.
+
 ``flat_topk`` launches the kernel for CUDA tensors and raises on anything
 the kernel does not take; it takes the plain version only for CPU tensors.
 """
@@ -27,7 +35,7 @@ import torch
 
 from ..utils.config import next_pow2
 from ..utils.kernels import DeviceCounter
-from ..utils.profiling import spanned
+from ..utils.profiling import count, spanned
 from .flat_search import finalize_scores, search_scan
 
 #: launches of the CUDA kernel since import (or since a caller reset it)
@@ -41,6 +49,24 @@ _SMEM_MAX = 227 * 1024
 _WAVES = 1                               # blocks a split plan aims at, per SM
 _MERGE_SMEM = 64 * 1024
 _U = 2.0 ** -24
+#: the dense regime's score tiles, largest first: (queries, rows); the
+#: CUDA source's DenseWide, DenseSquare
+_DENSE_TILES = ((64, 128), (32, 32))
+#: the dense regime's (nq, n_scan) fp32 score tile, at most (bytes)
+DENSE_SCRATCH = 64 << 20
+#: corpus rows the dense regime takes, at most: the select launch keeps a
+#: query's order keys in shared memory (128 KB).  Within it and
+#: ``DENSE_SCRATCH`` the dense regime ran no slower than the split at every
+#: shape measured on the H100, 1 to 4096 queries (a kNN-graph build of a
+#: whole 4096-row table the largest)
+DENSE_MAX_ROWS = 32768
+#: floats the select launch stages candidate rows in, at most (on the H100
+#: at d 1536, 53,248 saved 2-8 us a call at 8-64 queries and took twice as
+#: long at 1024: fewer blocks an SM)
+_STAGE_FLOATS = 16384
+#: K1 calls the dense regime served
+DENSE_CALLS = "kernels.flat_topk_dense"
+count(DENSE_CALLS, 0)
 
 #: per device, the count of unproven queries, added to by every launch
 #: until a caller zeroes it (``reset_unproven``)
@@ -87,7 +113,10 @@ def supports(metric: str, k: int, d: int) -> bool:
 
 def plan(nq: int, d: int, k: int, n_scan: int, n_sm: int) -> dict:
     """Launch shape: candidates a query (k2 = k + m), the query tile (qt),
-    corpus splits, and the merge launch's slots and warps per block."""
+    corpus splits, and the merge launch's slots and warps per block; and
+    under "dense" the dense regime's launch (``dense_plan``) where the
+    corpus has at most ``DENSE_MAX_ROWS`` rows and its (nq, n_scan) score
+    tile fits ``DENSE_SCRATCH``.  Else None, and the split runs."""
     k2 = k + margin(k)
     slots = _slots(k2)
     qt = next(q for q in _QTILES
@@ -100,10 +129,34 @@ def plan(nq: int, d: int, k: int, n_scan: int, n_sm: int) -> dict:
     rows_per_split = -(-tiles // splits) * nt
     splits = max(1, -(-n_scan // rows_per_split))
     merge_slots = next_pow2(k2 + max(k2, 32))
+    dense = 1 <= n_scan <= DENSE_MAX_ROWS and 4 * nq * n_scan <= DENSE_SCRATCH
     return {"k2": k2, "qt": qt, "splits": splits,
             "rows_per_split": rows_per_split, "slots": slots,
             "merge_slots": merge_slots,
-            "merge_warps": max(1, min(8, _MERGE_SMEM // (8 * merge_slots)))}
+            "merge_warps": max(1, min(8, _MERGE_SMEM // (8 * merge_slots))),
+            "dense": (dense_plan(nq, d, k2, n_scan, qt, n_sm) if dense
+                      else None)}
+
+
+def dense_plan(nq: int, d: int, k2: int, n_scan: int, qt: int,
+               n_sm: int) -> dict:
+    """The dense regime's launches.  The score launch: the largest tile of
+    ``_DENSE_TILES`` whose grid fills a wave of ``n_sm`` blocks, else the
+    smallest (at 64 x 2048 x 1536, 128 blocks of 32 x 32 ran faster than
+    256 of 16 x 32 on four warps), and the threads that sum a row's |x|^2
+    in the split plan's partial for query tile ``qt`` (``bn_parts``), which
+    keeps the scores the split's.  The select launch: its candidate slots
+    (``ks``) and the floats of its buffer, a query's order keys and then
+    the rescore's staged rows and query chunk, whole where they fit
+    (``buffer``)."""
+    for tile, (tq, tn) in enumerate(_DENSE_TILES):
+        grid = (-(-nq // tq), -(-n_scan // tn))
+        if grid[0] * grid[1] >= n_sm:
+            break
+    stage = min(_STAGE_FLOATS, min(k2, 256) * (d + 1) + d)
+    return {"tile": tile, "grid": grid,
+            "bn_parts": _THREADS // _tile_rows(qt), "ks": next_pow2(k2),
+            "buffer": max(n_scan, stage)}
 
 
 def unproven(dev) -> int:
@@ -169,29 +222,46 @@ def flat_topk(xb: torch.Tensor, nvalid: int, xq: torch.Tensor, k: int,
     dev = xb.device
     p = plan(nq, d, k, nvalid,
              torch.cuda.get_device_properties(dev).multi_processor_count)
-    k2 = p["k2"]
-    part_s = torch.empty((nq, p["splits"], k2), dtype=torch.float32,
-                         device=dev)
-    part_p = torch.empty((nq, p["splits"], k2), dtype=torch.int32,
-                         device=dev)
-    bn_max = torch.zeros(1, dtype=torch.float32, device=dev)
+    k2, dense = p["k2"], p["dense"]
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_p = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    count = _UNPROVEN.tensor(dev)
+    unproven_count = _UNPROVEN.tensor(dev)
     vec4 = (d % 4 == 0 and xb.data_ptr() % 16 == 0
             and xq.data_ptr() % 16 == 0)
+    mask_ptr = mask.data_ptr() if mask is not None else None
+    l2 = int(metric == "L2")
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.dfx_flat_topk(
-            xb.data_ptr(), xq.data_ptr(),
-            mask.data_ptr() if mask is not None else None,
-            nq, d, nvalid, k, k2, int(metric == "L2"), p["qt"], int(vec4),
-            p["splits"], p["rows_per_split"], p["slots"], p["merge_slots"],
-            p["merge_warps"], part_s.data_ptr(), part_p.data_ptr(),
-            bn_max.data_ptr(), out_s.data_ptr(), out_p.data_ptr(),
-            count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if dense is not None:
+            scores = torch.empty((nq, nvalid), dtype=torch.float32,
+                                 device=dev)
+            bn_tile = torch.empty(dense["grid"][1], dtype=torch.float32,
+                                  device=dev)
+            err = lib.dfx_flat_topk_dense(
+                xb.data_ptr(), xq.data_ptr(), mask_ptr, nq, d, nvalid, k,
+                k2, l2, dense["tile"], int(vec4), dense["bn_parts"],
+                dense["ks"], dense["buffer"], scores.data_ptr(),
+                bn_tile.data_ptr(),
+                out_s.data_ptr(), out_p.data_ptr(),
+                unproven_count.data_ptr(), stream)
+        else:
+            part_s = torch.empty((nq, p["splits"], k2), dtype=torch.float32,
+                                 device=dev)
+            part_p = torch.empty((nq, p["splits"], k2), dtype=torch.int32,
+                                 device=dev)
+            bn_max = torch.zeros(1, dtype=torch.float32, device=dev)
+            err = lib.dfx_flat_topk(
+                xb.data_ptr(), xq.data_ptr(), mask_ptr, nq, d, nvalid, k, k2,
+                l2, p["qt"], int(vec4), p["splits"], p["rows_per_split"],
+                p["slots"], p["merge_slots"], p["merge_warps"],
+                part_s.data_ptr(), part_p.data_ptr(), bn_max.data_ptr(),
+                out_s.data_ptr(), out_p.data_ptr(),
+                unproven_count.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flat_topk: CUDA launch failed with error {err}")
     LAUNCHES += 1
+    if dense is not None:
+        count(DENSE_CALLS)
     return out_s, out_p
 
 

@@ -34,7 +34,8 @@ fast-mode in-chunk rerank has nothing to repair here and is not ported.
 table (the padded layout's, the sorted+gather path's, range search's, a
 placement's), is an exact Flat search over the (nlist, d) table: on CUDA
 tensors with L2 / inner product and nprobe ≤ 1024 it is K1
-(ops/flat_topk.py), two launches and a fill, counted in
+(ops/flat_topk.py; a centroid table of up to 32,768 rows takes its dense
+regime, two launches), counted in
 ``faiss_stats()["counters"]["models.coarse_kernel"]``; every other input
 (CPU tensors, the elementwise metrics, nprobe above K1's k) takes the
 plain distance tile and top-k, as the JAX package's ``_coarse_topk``.

@@ -154,6 +154,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p,            # out_s, out_p, unproven
         p,                  # stream
     ]
+    lib.dfx_flat_topk_dense.restype = ctypes.c_int
+    lib.dfx_flat_topk_dense.argtypes = [
+        p, p, p,            # xb, xq, mask
+        i, i, i, i, i, i,   # nq, d, n_scan, k, k2, l2
+        i, i, i, i, i,      # tile, vec4, bn_parts, ks, buffer
+        p, p,               # scores, bn_tile
+        p, p, p,            # out_s, out_p, unproven
+        p,                  # stream
+    ]
     lib.dfx_ivf_list_scan.restype = ctypes.c_int
     lib.dfx_ivf_list_scan.argtypes = [
         p, p, p, p, p,      # lists, counts, probe_ids, xq, mask

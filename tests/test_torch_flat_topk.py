@@ -21,6 +21,7 @@ from duckdb_faiss_ext_tpu.ops.flat_search import flat_search as jax_flat_search
 from duckdb_faiss_ext_tpu.ops.pallas_topk import pallas_flat_search
 from duckdb_faiss_ext_tpu_torch.ops import flat_topk as ft
 from duckdb_faiss_ext_tpu_torch.ops.flat_search import exact_topk, topk_ordered
+from duckdb_faiss_ext_tpu_torch.utils.config import next_pow2
 
 D = 32
 
@@ -115,6 +116,16 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
     assert ft.LAUNCHES == before
 
 
+def test_dense_counter_present_and_unchanged_on_cpu():
+    """``kernels.flat_topk_dense`` is in ``faiss_stats()["counters"]`` from
+    import; CPU tensors take the plain version and count nothing."""
+    from duckdb_faiss_ext_tpu_torch.api import faiss_stats
+    before = faiss_stats()["counters"][ft.DENSE_CALLS]
+    xb, xq, _ = _inputs(2, 8, 256, 256, False)
+    ft.flat_topk(torch.from_numpy(xb), 256, torch.from_numpy(xq), 4, "L2")
+    assert faiss_stats()["counters"][ft.DENSE_CALLS] == before
+
+
 @pytest.mark.parametrize("xb_dev,xq_dev", [("meta", "meta"), ("cpu", "meta"),
                                            ("meta", "cpu")])
 def test_wrapper_never_falls_back_off_the_cpu(xb_dev, xq_dev):
@@ -141,7 +152,8 @@ def test_supports(metric, k, d, ok):
 
 @pytest.mark.parametrize("nq,d,k,n_scan", [
     (64, 128, 10, 1_000_000), (1024, 128, 10, 1 << 20),
-    (1, 1536, 1024, 1 << 20), (8, 8, 1, 1000), (16, 128, 100, 0)])
+    (1, 1536, 1024, 1 << 20), (8, 8, 1, 1000), (16, 128, 100, 0),
+    (64, 1536, 15, 2048), (64, 128, 64, 4096), (1024, 128, 64, 4096)])
 def test_plan_covers_corpus(nq, d, k, n_scan):
     """Splits tile [0, n_scan) in 128-row multiples; each query keeps k + m
     candidates with 64 slots of candidates beside them; the chosen query
@@ -157,6 +169,121 @@ def test_plan_covers_corpus(nq, d, k, n_scan):
     assert p["slots"] >= p["k2"] + 64
     assert p["merge_slots"] >= p["k2"] + 32
     assert 8 * p["merge_warps"] * p["merge_slots"] <= 64 * 1024
+
+
+#: today's split plan of the Flat cells' shapes, which keep it
+_SPLIT_1M = {"k2": 26, "splits": 131, "rows_per_split": 7680, "slots": 128,
+             "merge_slots": 64, "merge_warps": 8}
+
+
+@pytest.mark.parametrize("nq,n_scan,d,k,blocks", [
+    (64, 2048, 1536, 15, 128), (64, 4096, 128, 64, 256),
+    (1024, 4096, 128, 64, 512), (64, 1_000_000, 128, 10, None),
+    (8, 1_000_000, 128, 10, None)])
+def test_plan_regime(nq, n_scan, d, k, blocks):
+    """The IVF coarse shapes (the marco table, IVF4096 at b48 and b1024)
+    take the dense regime: a grid of ``blocks`` covering every (query,
+    row), a wave of the card's 132 SMs or, at the marco table, the 128 of
+    the smallest tile; its score tile within ``DENSE_SCRATCH``, |x|^2
+    summed by the split partial's threads a row.  The 1M-row Flat shapes
+    keep today's split plan exactly."""
+    p = ft.plan(nq, d, k, n_scan, n_sm=132)
+    if blocks is None:
+        assert p["dense"] is None
+        assert {key: p[key] for key in _SPLIT_1M} == _SPLIT_1M
+        assert p["qt"] == min(64, nq)
+        return
+    dn = p["dense"]
+    tq, tn = ft._DENSE_TILES[dn["tile"]]
+    assert dn["grid"][0] * dn["grid"][1] == blocks
+    assert blocks >= 132 or dn["tile"] == len(ft._DENSE_TILES) - 1
+    assert dn["grid"][0] * tq >= nq > (dn["grid"][0] - 1) * tq
+    assert dn["grid"][1] * tn >= n_scan > (dn["grid"][1] - 1) * tn
+    assert 4 * nq * n_scan <= ft.DENSE_SCRATCH
+    assert tn * dn["bn_parts"] <= ft._THREADS
+    assert dn["bn_parts"] == ft._THREADS // ft._tile_rows(p["qt"])
+    assert dn["ks"] == next_pow2(p["k2"]) and dn["buffer"] >= n_scan
+    assert 4 * 256 + 8 * dn["ks"] + 4 * dn["buffer"] <= 227 * 1024
+    # the largest tile that fills the wave: the next larger one does not
+    if dn["tile"] > 0:
+        lq, ln = ft._DENSE_TILES[dn["tile"] - 1]
+        assert -(-nq // lq) * -(-n_scan // ln) < 132
+
+
+@pytest.mark.parametrize("nq,n_scan,dense", [
+    (1, 32768, True), (1, 32769, False), (1024, 16384, True),
+    (1024, 16385, False), (64, 0, False)])
+def test_plan_dense_domain(nq, n_scan, dense):
+    """The dense regime's domain: 1 to ``DENSE_MAX_ROWS`` rows with the
+    (nq, n_scan) score tile within ``DENSE_SCRATCH``."""
+    assert (ft.plan(nq, 128, 10, n_scan, n_sm=132)["dense"] is not None
+            ) is dense
+
+
+def _order_key(s: torch.Tensor) -> torch.Tensor:
+    """The select launch's key: an unsigned order of the scores (int64
+    here), -0 keyed as +0."""
+    b = torch.where(s == 0, torch.zeros_like(s), s).view(torch.int32)
+    b = b.to(torch.int64) & 0xFFFFFFFF
+    return torch.where(b >= 1 << 31, 0xFFFFFFFF - b, b | 1 << 31)
+
+
+def _radix_select(scores: torch.Tensor, valid: torch.Tensor, k2: int):
+    """The select launch's choice for one query, in plain torch: 8-bit
+    passes from the top, each keeping the bucket that holds the K2-th key,
+    stopping where the whole bucket is needed; exact ties at the K2-th key
+    taken by position.  Returns the chosen positions, sorted."""
+    key = _order_key(scores)
+    prefix = pmask = need = 0
+    for shift in (24, 16, 8, 0):
+        inb = valid & ((key & pmask) == prefix)
+        hist = torch.bincount((key[inb] >> shift) & 255, minlength=256)
+        if shift == 24:
+            need = min(k2, int(hist.sum()))
+        if need == 0:
+            return torch.zeros(0, dtype=torch.int64)
+        above = torch.flip(torch.cumsum(torch.flip(hist, [0]), 0), [0])
+        digit = int((above >= need).nonzero().max())
+        need -= int(above[digit] - hist[digit])
+        prefix |= digit << shift
+        pmask |= 255 << shift
+        if int(hist[digit]) == need:
+            break
+    m = key & pmask
+    gt = (valid & (m > prefix)).nonzero().flatten()
+    eq = (valid & (m == prefix)).nonzero().flatten()[:need]
+    return torch.sort(torch.cat([gt, eq])).values
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "signed_zero", "inf",
+                                  "short", "masked"])
+def test_radix_select_keeps_the_split_candidates(case):
+    """The dense regime's select keeps the same K2 rows as the split's
+    partial and merge, the best by (score descending, position
+    ascending): with exact ties at the K2-th score, -0 beside +0 (which
+    ``better`` ties), -inf scores, fewer valid rows than K2, and a mask."""
+    rng = np.random.default_rng(5)
+    n, k2 = 3001, 80
+    s = torch.from_numpy(rng.standard_normal(n).astype(np.float32)) * 100
+    valid = torch.ones(n, dtype=torch.bool)
+    if case == "ties":
+        s = torch.from_numpy(rng.integers(-5, 5, n).astype(np.float32))
+    elif case == "signed_zero":
+        s = torch.from_numpy(rng.integers(-2, 1, n).astype(np.float32))
+        s[::3] = -0.0
+    elif case == "inf":
+        s[rng.random(n) < 0.99] = float("-inf")
+    elif case == "short":
+        valid[50:] = False
+    elif case == "masked":
+        valid = torch.from_numpy(rng.random(n) < 0.1)
+    got = _radix_select(s, valid, k2)
+    pos = torch.arange(n, dtype=torch.int32)
+    want_s, want_p = topk_ordered(
+        torch.where(valid, s, float("-inf"))[None],
+        pos[None], min(k2, int(valid.sum())))
+    want = torch.sort(want_p[0].long()).values
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 # --- the 3xTF32 candidates and the exact rescore, emulated in plain torch --

@@ -11,7 +11,8 @@
   int8 IVF,SQ list scan, pair tiles and spill windows,
   the IVF-PQ / IVF-RQ list search, the pipelined pair tiles K9 / K10, and
   the fused pair-tile IVF,Flat searches K7 / K10) match their plain
-  versions, the IVF coarse stage runs K1, and the IVF-PQ list search
+  versions, K1's dense and split regimes return the same bits, the IVF
+  coarse stage runs K1's dense regime, and the IVF-PQ list search
   raises on inputs it does not take;
   the standalone SQ index's int8 scan (plain torch, its integer dots by
   ``torch._int_mm``) gives on card tensors what it gives on CPU tensors.
@@ -963,8 +964,9 @@ def test_flat_kernel_proves_its_margin_on_card(card, metric):
                                            ("L2", 64, True)])
 def test_coarse_stage_takes_k1_on_card(card, metric, nq, tie):
     """The IVF coarse stage at the benchmark's shape (4096 x 128 centroids
-    of a clustered stand-in, nprobe 64) through K1: one launch and one
-    ``models.coarse_kernel`` count a call, no margin-unproven query, the
+    of a clustered stand-in, nprobe 64) through K1's dense regime: one
+    launch, one ``models.coarse_kernel`` and one ``kernels.flat_topk_dense``
+    count a call, no margin-unproven query, the
     probes equal to the plain chain's or both within the rounding bound;
     a duplicated centroid resolves to the lower list id."""
     from chip_smoke import probes_allowed
@@ -979,14 +981,15 @@ def test_coarse_stage_takes_k1_on_card(card, metric, nq, tie):
         cents[3000] = cents[17]
         xq[0] = cents[17]
     def launched():
-        return (ft.LAUNCHES,
-                dt.faiss_stats()["counters"]["models.coarse_kernel"])
+        counters = dt.faiss_stats()["counters"]
+        return (ft.LAUNCHES, counters["models.coarse_kernel"],
+                counters[ft.DENSE_CALLS])
 
     ft.reset_unproven(card)
     before = launched()
     ids = ivf_scan.coarse_topk(xq, cents, 64, metric)
     torch.cuda.synchronize()
-    assert launched() == (before[0] + 1, before[1] + 1)
+    assert launched() == (before[0] + 1, before[1] + 1, before[2] + 1)
     assert ft.unproven(card) == 0
     plain = ivf_scan.coarse_topk_plain(xq, cents, 64, metric)
     assert ids.dtype == torch.int32 and ids.shape == (nq, 64)
@@ -995,6 +998,93 @@ def test_coarse_stage_takes_k1_on_card(card, metric, nq, tie):
     assert probes_allowed(plain, xq, cents, metric)[differ].all()
     if tie:
         assert ids[0, :2].tolist() == [17, 3000]
+
+
+def _k1_inputs(card, seed, nq, cap, d, dup):
+    g = torch.Generator(device=card).manual_seed(seed)
+    xb = torch.randn(cap, d, device=card, generator=g)
+    xq = torch.randn(nq, d, device=card, generator=g)
+    if dup:
+        rows = [5, 17, 40, 41, cap // 2]
+        xb[rows] = xb[rows[0]].clone()
+        xq[0] = xb[rows[0]]
+    return xb, xq
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["L2", "INNER_PRODUCT"])
+@pytest.mark.parametrize("nq,cap,nvalid,d,k,masked,dup", [
+    (64, 2048, 2048, 1536, 15, False, False),      # the marco coarse stage
+    (64, 4096, 4096, 128, 64, False, False),       # IVF4096 at b48
+    (1024, 4096, 4096, 128, 64, False, False),     # IVF4096 at b1024
+    (1, 3001, 3001, 128, 10, False, True),         # one query, a ragged tile
+    (1023, 3001, 2999, 96, 10, True, False),       # nvalid < cap, a mask
+    (7, 300, 300, 32, 300, False, True),           # k = n_scan
+    (5, 50, 47, 30, 40, True, False),              # 4-byte copies; < k + m rows
+    (64, 20000, 19000, 128, 10, True, True),
+    (2048, 2048, 2048, 128, 129, False, True)])     # a kNN-graph build
+def test_k1_regimes_equal_on_card(card, metric, nq, cap, nvalid, d, k,
+                                  masked, dup):
+    """The dense regime against the split regime, each forced through
+    ``chip_smoke.k1_plan``: (scores, positions) equal bit for bit and the
+    same unproven count; both against the plain version (scores within
+    1e-5 of the largest, positions equal where neighbours, the k-th's
+    first neighbour past k too, are further apart); rows duplicated to tie
+    rank by position."""
+    from chip_smoke import k1_plan
+    xb, xq = _k1_inputs(card, 24, nq, cap, d, dup)
+    mask = None
+    if masked:
+        g = torch.Generator(device=card).manual_seed(25)
+        mask = torch.rand(cap, device=card, generator=g) < 0.5
+        if dup:
+            mask[[5, 17, 40, 41, cap // 2]] = True
+    got = {}
+    for regime in ("split", "dense"):
+        with k1_plan(regime):
+            ft.reset_unproven(card)
+            s, p = ft.flat_topk(xb, nvalid, xq, k, metric, mask)
+            got[regime] = (s.cpu(), p.cpu(), ft.unproven(card))
+    (ss, sp, su), (ds, dp, du) = got["split"], got["dense"]
+    assert torch.equal(sp, dp) and su == du
+    assert torch.equal(ss.view(torch.int32), ds.view(torch.int32))
+    # one reference slot past k, so the k-th is judged against the next
+    rs, rp = ft.flat_topk_reference(xb, nvalid, xq, min(k + 1, nvalid),
+                                    metric, mask)
+    s, p, rs, rp = ds.numpy(), dp.numpy(), rs.cpu().numpy(), rp.cpu().numpy()
+    finite = np.isfinite(rs)
+    tol = 1e-5 * np.abs(rs[:, :k][finite[:, :k]]).max()
+    gap = np.diff(np.where(finite, rs, -1e30), axis=1)
+    separated = finite.copy()
+    separated[:, 1:] &= np.abs(gap) > 2 * tol
+    separated[:, :-1] &= np.abs(gap) > 2 * tol
+    finite, separated, rs, rp = (a[:, :k] for a in (finite, separated, rs,
+                                                    rp))
+    np.testing.assert_array_equal(np.isfinite(s), finite)
+    np.testing.assert_allclose(s[finite], rs[finite], rtol=0, atol=tol)
+    np.testing.assert_array_equal(p[~finite], -1)
+    np.testing.assert_array_equal(
+        p[separated], rp[separated],
+        err_msg=f"columns {np.nonzero((p != rp) & separated)[1]}")
+    if dup and k >= 5:
+        np.testing.assert_array_equal(p[0, :5], [5, 17, 40, 41, cap // 2])
+
+
+@pytest.mark.gpu
+def test_dense_regime_counted_on_card(card):
+    """``kernels.flat_topk_dense`` counts one a K1 call the dense regime
+    served (the plan's choice at the marco coarse shape) and none on the
+    split path (1024 queries over 20,000 rows: the score tile, 4 x 1024 x
+    20,000 bytes, is over ``DENSE_SCRATCH``)."""
+    for nq, rows, d, dense in ((64, 2048, 1536, True),
+                               (1024, 20000, 128, False)):
+        assert (ft.plan(nq, d, 15, rows, 132)["dense"] is not None) is dense
+        xb, xq = _k1_inputs(card, 26, nq, rows, d, False)
+        before = (ft.LAUNCHES, dt.faiss_stats()["counters"][ft.DENSE_CALLS])
+        ft.flat_topk(xb, rows, xq, 15, "INNER_PRODUCT")
+        torch.cuda.synchronize()
+        after = (ft.LAUNCHES, dt.faiss_stats()["counters"][ft.DENSE_CALLS])
+        assert after == (before[0] + 1, before[1] + int(dense))
 
 
 def _clustered_rows(seed, n, d):

@@ -256,15 +256,15 @@ def faiss_add_device(data, name: str, ids=None, *,
     (never copied to the host), or an array moved to the index's device.
     The index must be trained.  See models/ivf_device.py for the choice of
     layout and its sizing (``expected_total`` / ``lmax``,
-    ``spill_capacity``)."""
+    ``spill_capacity``).  Flat storage (``Flat``, ``HNSW[M]``, ``NSG[R]``,
+    models/flat.py) appends to one device buffer of ``expected_total``
+    rows; under IDMap the labels stay on the host."""
     entry = _cat(catalog).get(name)
     with entry.lock:
         if not entry.is_mutable:
             raise errors.immutable_add()
         if not hasattr(entry.index, "add_device"):
-            raise errors.InvalidInputError(
-                f"index {name} does not support device-resident ingest "
-                f"(IVF with Flat/SQ8/SQ4 storage does)")
+            raise errors.no_device_ingest(name)
         has_labels = ids is not None
         if entry.custom_labels is None:
             entry.custom_labels = has_labels

@@ -61,6 +61,14 @@ def add_error(msg: str) -> InvalidInputError:
     return InvalidInputError(f"Unable to add data: {msg}")
 
 
+def no_device_ingest(name: str) -> InvalidInputError:
+    # faiss_add_device has no reference analogue
+    return InvalidInputError(
+        f"index {name} does not support device-resident ingest "
+        f"(IVF with Flat/SQ8/SQ4 storage, Flat, HNSW and NSG do, "
+        f"also under IDMap)")
+
+
 def immutable_add() -> InvalidInputError:
     # src/faiss_extension.cpp:486
     return InvalidInputError(

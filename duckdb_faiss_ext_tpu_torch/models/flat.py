@@ -14,6 +14,12 @@ exact int32 products (``ops.flat_search.pm1_search``: ``torch._int_mm``
 on the card, an int32 matmul on the CPU), never K1, as the JAX package
 kept int8 codes out of its Pallas kernel.
 
+``add_device`` (faiss_add_device) ingests fp32 rows already on the
+device instead: its first call sizes one buffer of ``expected_total`` rows,
+with no capacity bucket, and every chunk is copied into it in place; the
+rows never reach the host, and the buffer is then the source of truth
+(``vectors``, ``reconstruct`` and the checkpoint gather rows back from it).
+
 ``set_placement`` (faiss_to_device, parallel/placement.py) puts the buffer
 on a mesh as S row blocks (``RowBlocks``), the capacity rounded to a
 multiple of the mesh's device count; a search then runs K1 (or the int8
@@ -27,15 +33,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import errors
 from ..metrics import Metric
 from ..ops import flat_topk
 from ..ops.flat_search import finalize_scores, flat_search, pm1_search
 from ..ops.selectors import Selector
 from ..parallel.sharded import sharded_flat_search, sharded_rows_search
 from ..utils.config import config, next_capacity, pad_rows, resolve_device
-from ..utils.profiling import build_span
+from ..utils.profiling import build_span, count
 from ..utils.transfer import upload_query_batch
 from .base import Dispatch, Index, as_matrix, placement_capacity
+
+#: device-resident ingests (``FlatIndex.add_device`` calls) served
+ROWS_DEVICE_ADDS = "models.rows_device_adds"
+count(ROWS_DEVICE_ADDS, 0)
 
 
 class FlatIndex(Index):
@@ -56,15 +67,22 @@ class FlatIndex(Index):
         #: sticky row placement set by faiss_to_device (RowPlacement), or
         #: None: the buffer on ``device``
         self._placement = None
+        #: rows ingested by ``add_device`` into ``_device_xb``, or None
+        #: while the host mirror ``_xb`` holds the rows
+        self._resident_n: int | None = None
 
     # --- storage ---------------------------------------------------------
     @property
     def ntotal(self) -> int:
-        return self._xb.shape[0]
+        return (self._xb.shape[0] if self._resident_n is None
+                else self._resident_n)
 
     def add(self, x) -> None:
         x = as_matrix(x, self.d)
         if x.shape[0] == 0:
+            return
+        if self._resident_n is not None:
+            self.add_device(x)
             return
         if self.storage == "pm1_i8":
             x = np.where(x > 0, 1, -1).astype(np.int8)
@@ -86,7 +104,53 @@ class FlatIndex(Index):
             self._device_xb = None
         self._mask_cache.clear()
 
+    def add_device(self, x, ids=None, *, expected_total: int | None = None,
+                   lmax: int | None = None,
+                   spill_capacity: int | None = None) -> None:
+        """``add`` for fp32 rows on the index's device (a tensor already
+        there is used as it is; anything else is moved there), never copied
+        to the host.  The first call allocates the buffer of
+        ``expected_total`` rows (its own rows where None); later calls copy
+        into it in place, and a chunk that passes its end raises.
+        ``lmax`` and ``spill_capacity`` size an IVF list layout, which
+        Flat storage has none of: either is refused."""
+        if ids is not None:
+            raise errors.add_with_ids_unsupported()
+        if lmax is not None or spill_capacity is not None:
+            raise errors.InvalidInputError(
+                "lmax and spill_capacity size an IVF list layout; Flat "
+                "storage takes expected_total alone")
+        if (self.storage != "f32" or self._placement is not None
+                or (self._resident_n is None and self.ntotal)):
+            raise errors.InvalidInputError(
+                "device-resident ingest takes fp32 rows into an index that "
+                "holds no host rows and is not placed over a mesh")
+        if not torch.is_tensor(x):
+            x = torch.as_tensor(np.asarray(x, np.float32))
+        x = x.to(device=self.device, dtype=torch.float32)
+        if x.dim() != 2 or x.shape[1] != self.d:
+            raise errors.InvalidInputError(
+                f"vectors must be (n, {self.d}), got {tuple(x.shape)}")
+        m = x.shape[0]
+        if self._resident_n is None:
+            self._device_xb = torch.zeros(
+                (max(int(expected_total or 0), m), self.d),
+                dtype=torch.float32, device=self.device)
+            self._resident_n = 0
+        n, cap = self._resident_n, self._device_xb.shape[0]
+        if n + m > cap:
+            raise errors.InvalidInputError(
+                f"{n + m} rows pass the {cap} that the first add_device "
+                f"sized (expected_total)")
+        self._device_xb[n:n + m].copy_(x)
+        self._resident_n = n + m
+        self._version += 1
+        self._mask_cache.clear()
+        count(ROWS_DEVICE_ADDS)
+
     def _capacity(self) -> int:
+        if self._resident_n is not None:
+            return self._device_xb.shape[0]
         return placement_capacity(
             max(config.min_capacity, next_capacity(max(self.ntotal, 1))),
             self._placement)
@@ -112,7 +176,15 @@ class FlatIndex(Index):
 
     def set_placement(self, placement) -> None:
         """Place the buffer over a mesh (a ``RowPlacement``; faiss_to_gpu
-        analogue); None puts it back on ``device``."""
+        analogue); None puts it back on ``device``.  Rows ingested by
+        ``add_device`` have no host copy to place from: their buffer stays
+        on ``device`` and a placement is refused."""
+        if self._resident_n is not None:
+            if placement is None:
+                return
+            raise errors.InvalidInputError(
+                "rows ingested with faiss_add_device stay in one buffer on "
+                "their device and cannot be placed over a mesh")
         self._placement = placement
         self._device_xb = None
         self._mask_cache.clear()
@@ -196,10 +268,15 @@ class FlatIndex(Index):
                            self.metric_arg, mask=mask)
 
     def vectors(self) -> np.ndarray:
-        """Host view of the stored rows (n, d)."""
+        """Host view of the stored rows (n, d); device-resident rows are
+        gathered back."""
+        if self._resident_n is not None:
+            return self._device_xb[:self._resident_n].cpu().numpy()
         return self._xb
 
     def reconstruct(self, key: int) -> np.ndarray:
+        if self._resident_n is not None:
+            return self._device_xb[key].cpu().numpy()
         return self._xb[key]
 
     # --- range search -----------------------------------------------------
@@ -214,11 +291,14 @@ class FlatIndex(Index):
 
     # --- serialization ----------------------------------------------------
     def state_dict(self) -> dict:
-        return {"xb": self._xb}
+        """The rows (device-resident ones gathered back: the checkpoint
+        loads as an ordinary host-path index)."""
+        return {"xb": self.vectors()}
 
     def load_state(self, state: dict) -> None:
         self._xb = np.asarray(state["xb"], dtype=self._dtype).reshape(
             -1, self.d)
+        self._resident_n = None
         self._version += 1
         self._device_xb = None
         self._mask_cache.clear()

@@ -29,6 +29,11 @@ not), and the host adjacency of an earlier single-device build is kept.
 
 Rows added after a build are scanned exactly (K1) and merged until they
 pass ``tail_rebuild_fraction`` of the corpus, which triggers a rebuild.
+Rows ingested on the device (``add_device``, models/flat.py) are built
+over and walked in their buffer, which the adjacency then matches row for
+row.  A build runs in the span ``models.graph_build`` (counted in
+``models.graph_builds``; its stages' spans are ops/graph.py's), a walk in
+``models.graph_walk`` (counted in ``models.graph_walks``).
 Not ported: the pack-budget degree backoff (a v5e allocation cap).
 """
 
@@ -45,10 +50,14 @@ from ..ops import graph as graph_ops
 from ..ops.flat_search import SIMILARITY_METRICS, finalize_scores
 from ..params import EMPTY, ParamMap
 from ..utils.config import config, next_pow2
-from ..utils.profiling import timed
+from ..utils.profiling import build_span, count, span, timed
 from ..utils.transfer import upload_query_batch
 from .base import Dispatch, SearchResult, as_matrix
 from .flat import FlatIndex
+
+#: walk dispatches served (single-device and sharded)
+GRAPH_WALKS = "models.graph_walks"
+count(GRAPH_WALKS, 0)
 
 
 class HNSWIndex(FlatIndex):
@@ -155,7 +164,8 @@ class HNSWIndex(FlatIndex):
                         192)
             rounds = 2 + max(0, (self.ef_construction - 64) // 64)
             xb = self.device_vectors()
-            with timed("hnsw_graph_build"):
+            self._graph = self._graph_dev = None   # free the old adjacency
+            with timed("hnsw_graph_build"), build_span("models.graph_build"):
                 adj = graph_ops.build_graph(
                     xb, n, deg, self.metric.name, intermediate=inter,
                     exact_max=self.graph_max, refine_rounds=rounds)
@@ -163,6 +173,16 @@ class HNSWIndex(FlatIndex):
                                                             xb.shape[0]))
             self._graph = (adj.cpu().numpy(), n)
             return self._graph
+
+    @property
+    def graph(self) -> np.ndarray | None:
+        """The built adjacency (indexed rows, degree) int32, -1 padded, as a
+        read-only host array; None before the first build."""
+        if self._graph is None:
+            return None
+        adj = self._graph[0].view()
+        adj.flags.writeable = False
+        return adj
 
     def _graph_device(self, cap: int, gstate) -> torch.Tensor:
         """The adjacency of ``gstate`` padded to ``cap`` rows on the index's
@@ -192,6 +212,13 @@ class HNSWIndex(FlatIndex):
                                max(4, 512 // max(self._graph_degree(), 1)))
         return pool, width, params.get_int("graph_iters")
 
+    def _walk_seeds(self, n: int) -> int:
+        """Seed rows the walk scans over a graph of ``n`` rows: the JAX
+        package's count over the exact build, a denser sample over the
+        clustered one (``graph_ops.clustered_seeds``)."""
+        return (graph_ops.WALK_SEEDS if n <= self.graph_max
+                else graph_ops.clustered_seeds(n))
+
     def _graph_dispatch(self, xq, k, params, selector, gstate):
         """The walk as a ``Dispatch`` on the device, or None with no work.
         Everything derives from ``gstate``, so a concurrent rebuild cannot
@@ -206,10 +233,13 @@ class HNSWIndex(FlatIndex):
         pool, width, iters = self._walk_knobs(k, params, selector)
         mask = self._selector_mask(selector) if selector is not None else None
         k_eff = min(k, indexed)
-        scores, pos = graph_ops.graph_search(
-            xb, gdev, xq_pad, indexed, k_eff, self.metric.name, pool=pool,
-            width=width, iters=iters, mask=mask,
-            rerank=config.precision_mode != "parity")
+        with span("models.graph_walk"):
+            scores, pos = graph_ops.graph_search(
+                xb, gdev, xq_pad, indexed, k_eff, self.metric.name,
+                pool=pool, width=width, iters=iters, mask=mask,
+                rerank=config.precision_mode != "parity",
+                nseed=self._walk_seeds(indexed))
+        count(GRAPH_WALKS)
         dist, pos = finalize_scores(scores, pos, self.metric.name)
         return Dispatch(dist, pos, nq, k_eff)
 
@@ -237,7 +267,7 @@ class HNSWIndex(FlatIndex):
                         192)
             rounds = 2 + max(0, (self.ef_construction - 64) // 64)
             graphs, nvalid = [], []
-            with timed("hnsw_graph_build"):
+            with timed("hnsw_graph_build"), build_span("models.graph_build"):
                 for s in range(blocks.nshards):
                     n_s = blocks.nvalid(s, n)
                     devs = blocks.mesh.shard_devices(s)
@@ -264,10 +294,13 @@ class HNSWIndex(FlatIndex):
         xq_pad = upload_query_batch(xq, self.device)
         pool, width, iters = self._walk_knobs(k, params, None)
         k_eff = min(k, indexed)
-        scores, pos = sharded_graph_search(
-            self.device_vectors(), graphs, nvalid, xq_pad, k_eff,
-            self.metric.name, pool=max(pool, k_eff), width=width,
-            iters=iters, rerank=config.precision_mode != "parity")
+        with span("models.graph_walk"):
+            scores, pos = sharded_graph_search(
+                self.device_vectors(), graphs, nvalid, xq_pad, k_eff,
+                self.metric.name, pool=max(pool, k_eff), width=width,
+                iters=iters, rerank=config.precision_mode != "parity",
+                nseed=self._walk_seeds(max(nvalid)))
+        count(GRAPH_WALKS)
         dist, pos = finalize_scores(scores, pos, self.metric.name)
         return Dispatch(dist, pos, nq, k_eff)
 
@@ -292,8 +325,9 @@ class HNSWIndex(FlatIndex):
             # efConstruction scales build effort as k-means iterations.
             accel.train_niter = max(4, min(25, self.ef_construction // 8))
             accel.soar_lambda = self.soar_lambda
-            accel.train(self._xb)
-            accel.add(self._xb)   # ids = positions 0..n-1
+            rows = self.vectors()
+            accel.train(rows)
+            accel.add(rows)   # ids = positions 0..n-1
             self._accel = (accel, n)
             return self._accel
 
@@ -349,7 +383,10 @@ class HNSWIndex(FlatIndex):
         key = (start, self.ntotal)
         if self._tail_cache is None or self._tail_cache[0] != key:
             tail = FlatIndex(self.d, self.metric, self.metric_arg)
-            tail.add(self._xb[start:])
+            if self._resident_n is None:
+                tail.add(self._xb[start:])
+            else:
+                tail.add_device(self.device_vectors()[start:self.ntotal])
             self._tail_cache = (key, tail)
         tail = self._tail_cache[1]
         sel = _ShiftedSelector(selector, start) if selector is not None \
@@ -463,7 +500,10 @@ def _exact_requested(params) -> bool:
 
 
 def _pad_graph(adj: torch.Tensor, cap: int) -> torch.Tensor:
-    """(indexed, deg) adjacency → (cap, deg), rows past it -1."""
+    """(indexed, deg) adjacency → (cap, deg), rows past it -1 (the
+    adjacency itself where it has cap rows)."""
+    if adj.shape[0] == cap:
+        return adj
     out = torch.full((cap, adj.shape[1]), -1, dtype=torch.int32,
                      device=adj.device)
     out[:adj.shape[0]] = adj

@@ -54,12 +54,26 @@ class IDMapIndex(Index):
 
     def add_with_ids(self, x, ids) -> None:
         x = as_matrix(x, self.d)
-        ids = np.asarray(ids, dtype=np.int64).reshape(-1)
-        if ids.shape[0] != x.shape[0]:
-            raise errors.add_error(
-                f"number of ids ({ids.shape[0]}) does not match number of "
-                f"vectors ({x.shape[0]})")
+        ids = _checked_ids(ids, x.shape[0])
         self.inner.add(x)
+        self._labels = np.concatenate([self._labels, ids])
+        self._labels_dev = {}
+
+    def add_device(self, x, ids, **layout) -> None:
+        """``add_with_ids`` for rows on the device: the rows go to the inner
+        index's ``add_device`` (with ``layout``, its sizing keywords) and
+        only the labels are kept here, on the host.  An inner index without
+        device-resident ingest is refused as faiss_add_device refuses one
+        at the top."""
+        if not hasattr(self.inner, "add_device"):
+            raise errors.no_device_ingest(
+                f"IDMap over {type(self.inner).__name__}")
+        if ids is None:
+            raise errors.add_error(
+                "add does not support adding without ids on an IDMap "
+                "index; give faiss_add_device the ids")
+        ids = _checked_ids(ids, x.shape[0])
+        self.inner.add_device(x, None, **layout)
         self._labels = np.concatenate([self._labels, ids])
         self._labels_dev = {}
 
@@ -144,3 +158,12 @@ class IDMapIndex(Index):
         self._labels_dev = {}
         self.inner.load_state(state["inner"])
 
+
+def _checked_ids(ids, n: int) -> np.ndarray:
+    """``ids`` as int64 labels, one for each of the ``n`` rows added."""
+    ids = np.asarray(ids, dtype=np.int64).reshape(-1)
+    if ids.shape[0] != n:
+        raise errors.add_error(
+            f"number of ids ({ids.shape[0]}) does not match number of "
+            f"vectors ({n})")
+    return ids

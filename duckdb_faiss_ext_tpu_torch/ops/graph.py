@@ -13,7 +13,8 @@ position, so when a row has exact duplicates its own position may fall
 past the degree + 1 kept; the first ``degree`` of the rest are then the
 answer, as they are when it is dropped.  Past ``exact_max`` rows the build
 is clustered (each row scanned against the members of its two nearest
-k-means lists) and refined by synchronous NN-descent rounds.
+k-means lists), refined by synchronous NN-descent rounds, and pruned with
+room for reverse edges (``clustered_fkeep``).
 
 Walk (``graph_search``): a pool of ``pool`` entries a query, seeded by an
 exact scan of a strided corpus sample; each of ``iters`` iterations expands
@@ -48,6 +49,7 @@ import numpy as np
 import torch
 
 from ..utils.config import full_fp32, next_pow2
+from ..utils.profiling import span
 from . import flat_topk
 from .distance import pairwise_tile
 from .flat_search import SIMILARITY_METRICS, exact_topk
@@ -60,6 +62,8 @@ _NEG_INF = float("-inf")
 EXACT_MAX = 2_000_000
 #: queries a K1 launch of the exact build scans
 _KNN_BLOCK = 8192
+#: rows the walk's seed scan samples (the JAX package's rule)
+WALK_SEEDS = 8192
 
 
 def first_occurrence(vals: torch.Tensor) -> torch.Tensor:
@@ -126,7 +130,37 @@ def build_knn_graph(xb: torch.Tensor, nvalid: int, degree: int,
 
 
 #: rows a block of augment_graph's row-local stage
-AUGMENT_BLOCK = 1 << 20
+AUGMENT_BLOCK = 1 << 18
+
+
+def reverse_lists(knn: torch.Tensor, degree: int) -> torch.Tensor:
+    """Each row's first ``degree`` reverse edges ((n, degree) int32, -1
+    padded): the rows u whose k-NN list names it, ordered by the rank it
+    holds in u's list, then by u.  Taken a rank (a column of ``knn``) at a
+    time, in ascending order, each column's edges sorted stably by
+    destination, so the sources of one destination arrive in (rank,
+    source) order; nothing holds more than a column of edges."""
+    n, kd = knn.shape
+    dev = knn.device
+    rev = torch.full((n, degree), -1, dtype=torch.int32, device=dev)
+    filled = torch.zeros(n, dtype=torch.int64, device=dev)
+    src_all = torch.arange(n, dtype=torch.int32, device=dev)
+    for r in range(kd):
+        col = knn[:, r]
+        live = col >= 0
+        dst, order = torch.sort(col[live].long(), stable=True)
+        if dst.numel() == 0:
+            continue
+        src = src_all[live][order]
+        at = torch.arange(dst.numel(), device=dev)
+        start = torch.ones_like(dst, dtype=torch.bool)
+        start[1:] = dst[1:] != dst[:-1]
+        first = torch.cummax(torch.where(start, at, 0), 0).values
+        slot = filled[dst] + (at - first)
+        keep = slot < degree
+        rev[dst[keep], slot[keep]] = src[keep]
+        filled += torch.bincount(dst, minlength=n)
+    return rev
 
 
 def augment_graph(knn: torch.Tensor, degree: int,
@@ -137,38 +171,20 @@ def augment_graph(knn: torch.Tensor, degree: int,
     order), then the rest of its forward edges, first occurrences only and
     never itself, cut to ``degree`` and padded with -1.  The JAX package's
     host numpy function on the tensor's device; the result is byte-equal
-    to it.  The reverse lists take one sort of all edges; the rest runs in
-    blocks of AUGMENT_BLOCK rows (at 8.8M x 64 an int64 (n, 2·kd) candidate
-    table alone is 9 GB)."""
+    to it.  Everything is int32 and blocked: the reverse lists a rank at a
+    time (``reverse_lists``), the rest in blocks of AUGMENT_BLOCK rows (at
+    8,841,823 x 192 an int64 tensor over every edge is 13.6 GB)."""
     n, kd = knn.shape
     dev = knn.device
     if n == 0:
         return torch.empty((0, degree), dtype=torch.int32, device=dev)
     fkeep = max(1, min(degree, degree if fkeep is None else fkeep))
-    # Reverse lists: edges ordered by (destination, forward rank, source),
-    # each destination's first `degree` sources slotted.
-    dst = knn.reshape(-1).long()
-    keep = dst >= 0
-    src = torch.arange(n, device=dev).repeat_interleave(kd)[keep]
-    rank = torch.arange(kd, device=dev).repeat(n)[keep]
-    dst = dst[keep]
-    del keep
-    order = torch.sort(dst * kd + rank, stable=True)[1]
-    del rank
-    dst, src = dst[order], src[order]
-    del order
-    grp_start = torch.searchsorted(dst, torch.arange(n, device=dev))
-    pos = torch.arange(dst.shape[0], device=dev) - grp_start[dst]
-    slot = pos < degree
-    rev = torch.full((n, degree), -1, dtype=torch.int32, device=dev)
-    rev[dst[slot], pos[slot]] = src[slot].to(torch.int32)
-    del dst, src, pos, slot, grp_start
+    rev = reverse_lists(knn, degree)
     out = torch.empty((n, degree), dtype=torch.int32, device=dev)
     for r0 in range(0, n, AUGMENT_BLOCK):
         r1 = min(r0 + AUGMENT_BLOCK, n)
-        fwd = knn[r0:r1].long()
-        cand = torch.cat([fwd[:, :fkeep], rev[r0:r1].long(),
-                          fwd[:, fkeep:]], 1)
+        fwd = knn[r0:r1].to(torch.int32)
+        cand = torch.cat([fwd[:, :fkeep], rev[r0:r1], fwd[:, fkeep:]], 1)
         w = cand.shape[1]
         cand = cand.masked_fill(
             cand == torch.arange(r0, r1, device=dev)[:, None], -1)
@@ -178,8 +194,7 @@ def augment_graph(knn: torch.Tensor, degree: int,
         take = torch.sort(torch.where(keep_mask, col, w + 1), dim=1,
                           stable=True)[1][:, :degree]
         sel = cand.gather(1, take)
-        out[r0:r1] = torch.where(keep_mask.gather(1, take), sel, -1).to(
-            torch.int32)
+        out[r0:r1] = torch.where(keep_mask.gather(1, take), sel, -1)
     return out
 
 
@@ -317,6 +332,8 @@ def build_knn_graph_clustered(xb: torch.Tensor, nvalid: int, degree: int,
 
 #: fp32 elements of the decoded candidate rows an NN-descent block holds
 DESCENT_BLOCK_ELEMS = 1 << 28
+#: rows whose candidate lists an NN-descent step builds and compacts at once
+DESCENT_ROWS = 8192
 
 
 def nn_descent_round(x: torch.Tensor, knn: torch.Tensor, metric: str,
@@ -327,31 +344,52 @@ def nn_descent_round(x: torch.Tensor, knn: torch.Tensor, metric: str,
     """One synchronous NN-descent round: each row scores its neighbours'
     first ``sample`` neighbours and keeps the best ``deg`` of current ∪
     candidates (current entries first, so they win equal scores).  Reads
-    the input graph only.  With ``codec`` set, ``x`` holds packed codes
-    and each block decodes its own candidate rows: a block of q rows
-    writes and reads q·deg·(1 + sample)·d fp32, bounded by
-    ``DESCENT_BLOCK_ELEMS`` (1 GiB).  ``progress(done, n)`` is called
-    after each 262,144 rows."""
+    the input graph only.  A step of DESCENT_ROWS rows drops each row's
+    repeated, missing and own candidates and moves the rest to the front
+    in their order, so that only they are gathered (the order, and with it
+    every tie, is kept); the rows, taken by their count of candidates,
+    most first, fetch them (decoded in place with ``codec`` set, ``x`` then
+    packed codes) and score them in blocks of at most
+    ``DESCENT_BLOCK_ELEMS`` fp32 elements (1 GiB), each block as wide as
+    its first row's candidates.  ``progress(done, n)``
+    is called after each 262,144 rows."""
     n, deg = knn.shape
     dev = x.device
     d = x.shape[1] if codec is None else vmin.shape[0]
-    w = deg * (1 + sample)
-    q_block = max(1, min(1024, DESCENT_BLOCK_ELEMS // max(w * d, 1)))
+    head = knn[:, :sample]
     out = torch.empty_like(knn)
-    for q0 in range(0, n, q_block):
-        q1 = min(q0 + q_block, n)
+    for q0 in range(0, n, DESCENT_ROWS):
+        q1 = min(q0 + DESCENT_ROWS, n)
         cur = knn[q0:q1].long()
-        nbr2 = knn[cur.clamp(min=0)][:, :, :sample].long()
+        nbr2 = head[cur.clamp(min=0)].long()
         nbr2 = nbr2.masked_fill(cur[:, :, None] < 0, -1)
         cand = torch.cat([cur, nbr2.reshape(q1 - q0, -1)], 1)
-        rows = torch.arange(q0, q1, device=dev)[:, None]
-        cand = cand.masked_fill((cand == rows) | ~first_occurrence(cand), -1)
-        xq = fetch_rows(x, rows[:, 0], codec, vmin, scale)
-        scores = batched_scores(xq, fetch_rows(x, cand.clamp(min=0), codec,
-                                               vmin, scale), metric)
+        rows = torch.arange(q0, q1, device=dev)
+        cand = cand.masked_fill((cand == rows[:, None])
+                                | ~first_occurrence(cand), -1)
+        dead = (cand < 0).to(torch.uint8)
+        live = (1 - dead).sum(1)
+        # rows by their live count, most first, so that each scoring block
+        # gathers no wider than its first row's candidates
+        order = torch.sort(live, descending=True, stable=True)[1]
+        widths = live[order].tolist()
+        width = max(deg, widths[0])
+        cand = cand.gather(1, torch.sort(dead, dim=1, stable=True)[1][
+            :, :width])[order]
+        rows = rows[order]
+        scores = torch.full(cand.shape, _NEG_INF, device=dev)
+        s0 = 0
+        while s0 < q1 - q0 and widths[s0]:
+            w = widths[s0]
+            s1 = min(q1 - q0, s0 + max(1, DESCENT_BLOCK_ELEMS // (w * d)))
+            scores[s0:s1, :w] = batched_scores(
+                fetch_rows(x, rows[s0:s1], codec, vmin, scale),
+                fetch_rows(x, cand[s0:s1, :w].clamp(min=0), codec, vmin,
+                           scale), metric)
+            s0 = s1
         vals, sel = exact_topk(scores.masked_fill(cand < 0, _NEG_INF), deg)
-        new = cand.gather(1, sel).masked_fill(torch.isneginf(vals), -1)
-        out[q0:q1] = new.to(knn.dtype)
+        out[rows] = cand.gather(1, sel).masked_fill(
+            torch.isneginf(vals), -1).to(knn.dtype)
         if progress is not None and (q1 // 262_144 > q0 // 262_144
                                      or q1 == n):
             progress(q1, n)
@@ -365,13 +403,39 @@ def refine_knn_graph(xb: torch.Tensor, nvalid: int, knn: torch.Tensor,
                      scale: torch.Tensor | None = None) -> torch.Tensor:
     """``rounds`` NN-descent rounds over an approximate k-NN graph of rows
     [0, nvalid) of ``xb`` (the CAGRA build recipe); ``xb`` packed codes
-    with ``codec`` set."""
+    with ``codec`` set.  Each round's input graph is dropped once the
+    next has been made: where the caller keeps no reference to ``knn``,
+    no more than two graphs are held at once."""
     n, deg = knn.shape
     x = xb[:int(nvalid)]
     for _ in range(rounds if n else 0):
         knn = nn_descent_round(x, knn, metric, min(sample, deg), codec, vmin,
                                scale)
     return knn
+
+
+def clustered_fkeep(degree: int) -> int:
+    """Forward edges the clustered build's prune keeps before the reverse
+    edges (``augment_graph``'s ``fkeep``): three quarters of the degree.
+    Its approximate k-NN lists are wider than the degree, so keeping every
+    forward edge (the exact build's rule, the JAX package's) fills each
+    row and leaves no slot for a reverse edge, and a row that no forward
+    list names is reachable only as a seed: 2.06% of the rows at
+    8,841,823 x 1536, degree 128, none with a quarter (or CAGRA's half)
+    left to reverse edges."""
+    return max(1, degree - degree // 4)
+
+
+def clustered_seeds(n: int) -> int:
+    """Rows the walk's seed scan samples over a clustered build of ``n``
+    rows (``graph_search``'s ``nseed``): one in 64, and never fewer than
+    ``WALK_SEEDS``.  The clustered k-NN graph links a row within its own
+    cluster and seldom beyond, so a walk reaches a cluster only from a
+    seed inside it, and a cluster of m rows holds none about e^(−m·s/n)
+    of the time with s seeds: at 8,841,823 x 1536 over 4,096 uneven
+    clusters, 8,192 seeds left 24% of the clusters unfound and 12.7% of
+    the queries at recall 0."""
+    return max(WALK_SEEDS, int(n) // 64)
 
 
 def build_graph(xb: torch.Tensor, nvalid: int, degree: int, metric: str,
@@ -381,18 +445,29 @@ def build_graph(xb: torch.Tensor, nvalid: int, degree: int, metric: str,
     """CAGRA-style build over rows [0, nvalid) of ``xb``: a k-NN graph at
     ``intermediate`` degree (default 2 x degree), exact up to
     ``exact_max`` rows and clustered + ``refine_rounds`` NN-descent rounds
-    beyond, then ``augment_graph`` to ``degree``.  (nvalid, degree) int32
-    on xb's device."""
+    beyond, then ``augment_graph`` to ``degree``, forward edges first in
+    the exact build and ``clustered_fkeep`` of them in the clustered one.
+    Each intermediate graph is dropped once the next stage has made its
+    own; the stages run in the spans ``models.graph_knn``,
+    ``models.graph_descent`` and ``models.graph_augment``.  (nvalid,
+    degree) int32 on xb's device."""
     n = int(nvalid)
     inter = intermediate or min(max(degree * 2, degree + 1), max(1, n - 1))
     with full_fp32():
         if n <= exact_max:
-            knn = build_knn_graph(xb, n, inter, metric)
+            with span("models.graph_knn"):
+                knn = build_knn_graph(xb, n, inter, metric)
+            fkeep = None
         else:
-            knn = build_knn_graph_clustered(xb, n, inter, metric)
-            knn = refine_knn_graph(xb, n, knn, metric,
-                                   rounds=max(1, refine_rounds))
-        return augment_graph(knn, degree)
+            with span("models.graph_knn"):
+                stage = [build_knn_graph_clustered(xb, n, inter, metric)]
+            with span("models.graph_descent"):
+                # popped, so that refine_knn_graph holds the only reference
+                knn = refine_knn_graph(xb, n, stage.pop(), metric,
+                                       rounds=max(1, refine_rounds))
+            fkeep = clustered_fkeep(degree)
+        with span("models.graph_augment"):
+            return augment_graph(knn, degree, fkeep)
 
 
 # ---------------------------------------------------------------------------
@@ -411,17 +486,20 @@ def graph_search(xb: torch.Tensor, graph: torch.Tensor, xq: torch.Tensor,
                  width: int = 8, iters: int | None = None,
                  mask: torch.Tensor | None = None, rerank: bool = False,
                  codec: str | None = None, vmin: torch.Tensor | None = None,
-                 scale: torch.Tensor | None = None):
+                 scale: torch.Tensor | None = None,
+                 nseed: int = WALK_SEEDS):
     """Batched greedy walk over ``graph`` ((cap, deg) int32, -1 padded, its
     rows those of the (cap, d) fp32 buffer ``xb``) for the (B, d) queries
     ``xq``; nodes at or past ``nvalid`` are never seeded.  Returns
     max-oriented (scores (B, k), positions (B, k) int32), (-inf, -1) where
-    missing, as ``flat_search.search_scan`` does.  ``mask`` ((cap,) bool)
-    filters at extraction; ``rerank`` rescores the final pool in full fp32
-    (fast mode, where the walk's products may be TF32).  With ``codec``
-    set, ``xb`` is (cap, w) packed SQ codes: the seed sample and every
-    fetch decode in place, and the pool is always rescored in full fp32
-    against the decoded rows (scores exact against the quantized rows)."""
+    missing, as ``flat_search.search_scan`` does.  The pool is seeded from
+    an exact scan of about ``nseed`` evenly strided rows.  ``mask``
+    ((cap,) bool) filters at extraction; ``rerank`` rescores the final
+    pool in full fp32 (fast mode, where the walk's products may be TF32).
+    With ``codec`` set, ``xb`` is (cap, w) packed SQ codes: the seed
+    sample and every fetch decode in place, and the pool is always
+    rescored in full fp32 against the decoded rows (scores exact against
+    the quantized rows)."""
     pool = max(pool, k)
     deg = graph.shape[1]
     if iters is None:
@@ -439,7 +517,7 @@ def graph_search(xb: torch.Tensor, graph: torch.Tensor, xq: torch.Tensor,
 
     # Informed init: an exact scan of every stride-th node (stride from
     # the padded graph rows), its best `pool` seed the pool.
-    stride = max(1, graph.shape[0] // 8192)
+    stride = max(1, graph.shape[0] // max(int(nseed), 1))
     sids = torch.arange(0, xb.shape[0], stride, device=dev)
     seeds = xb[::stride]
     if codec is not None:
